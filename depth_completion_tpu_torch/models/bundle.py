@@ -1,0 +1,247 @@
+"""ModelBundle: the pipeline's view of (UNet, VAE, text context, schedule),
+and the port's own seeded random initialisation.
+
+Counterpart of ``depth_completion_tpu.models.bundle``. Parameter trees are
+nested dicts with the JAX package's keys; tensors use PyTorch layouts (conv
+OIHW, linear ``[out, in]``). Initialisation follows the JAX package's
+scheme (Kaiming-uniform ``±1/√fan_in`` for weights and biases, unit/zero
+norms) from a ``torch.Generator``; the numbers differ from JAX's, which is
+why the tests move weights across with ``weights.from_jax_params``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from depth_completion_tpu_torch.device import resolve_device
+from depth_completion_tpu_torch.models import registry, vae_tiny
+from depth_completion_tpu_torch.models.registry import TaesdConfig, UNetConfig
+from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
+
+
+class _Init:
+    """Seeded parameter factory (a ``meta`` device makes shapes only)."""
+
+    def __init__(self, seed: int, dtype: torch.dtype, device: torch.device):
+        self.dtype, self.device = dtype, device
+        self.gen = None
+        if device.type != "meta":
+            self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def _uniform(self, shape, fan_in):
+        if self.gen is None:
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
+        bound = 1.0 / math.sqrt(fan_in)
+        t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        return t.uniform_(-bound, bound, generator=self.gen).to(self.dtype)
+
+    def conv(self, k, cin, cout, bias=True):
+        p = {"kernel": self._uniform((cout, cin, k, k), k * k * cin)}
+        if bias:
+            p["bias"] = self._uniform((cout,), k * k * cin)
+        return p
+
+    def linear(self, cin, cout, bias=True):
+        p = {"kernel": self._uniform((cout, cin), cin)}
+        if bias:
+            p["bias"] = self._uniform((cout,), cin)
+        return p
+
+    def norm(self, c):
+        return {
+            "scale": torch.ones((c,), dtype=self.dtype, device=self.device),
+            "bias": torch.zeros((c,), dtype=self.dtype, device=self.device),
+        }
+
+
+def _resnet_init(mk: _Init, cin, cout, temb_dim):
+    p = {
+        "norm1": mk.norm(cin),
+        "conv1": mk.conv(3, cin, cout),
+        "time_emb_proj": mk.linear(temb_dim, cout),
+        "norm2": mk.norm(cout),
+        "conv2": mk.conv(3, cout, cout),
+    }
+    if cin != cout:
+        p["conv_shortcut"] = mk.conv(1, cin, cout)
+    return p
+
+
+def _transformer_init(mk: _Init, c, cfg: UNetConfig):
+    def attn(kv_dim):
+        return {
+            "to_q": mk.linear(c, c, bias=False),
+            "to_k": mk.linear(kv_dim, c, bias=False),
+            "to_v": mk.linear(kv_dim, c, bias=False),
+            "to_out": mk.linear(c, c),
+        }
+
+    return {
+        "norm": mk.norm(c),
+        "proj_in": mk.linear(c, c),
+        "blocks": [
+            {
+                "norm1": mk.norm(c),
+                "attn1": attn(c),
+                "norm2": mk.norm(c),
+                "attn2": attn(cfg.cross_attention_dim),
+                "norm3": mk.norm(c),
+                "ff": {"proj_in": mk.linear(c, c * 8), "proj_out": mk.linear(c * 4, c)},
+            }
+            for _ in range(cfg.transformer_layers)
+        ],
+        "proj_out": mk.linear(c, c),
+    }
+
+
+def init_unet(mk: _Init, cfg: UNetConfig):
+    temb_dim = cfg.time_embed_dim
+    chans = cfg.block_out_channels
+    params: dict = {
+        "conv_in": mk.conv(3, cfg.in_channels, chans[0]),
+        "time_embedding": {
+            "linear_1": mk.linear(chans[0], temb_dim),
+            "linear_2": mk.linear(temb_dim, temb_dim),
+        },
+    }
+    down, skip_channels, cin = [], [chans[0]], chans[0]
+    for i, cout in enumerate(chans):
+        stage: dict = {"resnets": [], "attentions": []}
+        for _ in range(cfg.layers_per_block):
+            stage["resnets"].append(_resnet_init(mk, cin, cout, temb_dim))
+            cin = cout
+            if cfg.attention_stages[i]:
+                stage["attentions"].append(_transformer_init(mk, cout, cfg))
+            skip_channels.append(cout)
+        if i < len(chans) - 1:
+            stage["downsampler"] = mk.conv(3, cout, cout)
+            skip_channels.append(cout)
+        down.append(stage)
+    params["down_blocks"] = down
+    c_mid = chans[-1]
+    params["mid_block"] = {
+        "resnets": [
+            _resnet_init(mk, c_mid, c_mid, temb_dim),
+            _resnet_init(mk, c_mid, c_mid, temb_dim),
+        ],
+        "attentions": [_transformer_init(mk, c_mid, cfg)],
+    }
+    up, cin = [], c_mid
+    for i in range(len(chans)):
+        stage_idx = len(chans) - 1 - i
+        cout = chans[stage_idx]
+        stage = {"resnets": [], "attentions": []}
+        for _ in range(cfg.layers_per_block + 1):
+            stage["resnets"].append(
+                _resnet_init(mk, cin + skip_channels.pop(), cout, temb_dim)
+            )
+            cin = cout
+            if cfg.attention_stages[stage_idx]:
+                stage["attentions"].append(_transformer_init(mk, cout, cfg))
+        if i < len(chans) - 1:
+            stage["upsampler"] = mk.conv(3, cout, cout)
+        up.append(stage)
+    params["up_blocks"] = up
+    params["conv_norm_out"] = mk.norm(chans[0])
+    params["conv_out"] = mk.conv(3, chans[0], cfg.out_channels)
+    return params
+
+
+def init_taesd(mk: _Init, cfg: TaesdConfig):
+    c = cfg.channels
+
+    def block():
+        return {"conv1": mk.conv(3, c, c), "conv2": mk.conv(3, c, c), "conv3": mk.conv(3, c, c)}
+
+    enc: dict = {"conv_in": mk.conv(3, 3, c), "stages": []}
+    for i, n_blocks in enumerate(cfg.encoder_blocks):
+        stage = {"blocks": [block() for _ in range(n_blocks)]}
+        if i > 0:
+            stage["down"] = mk.conv(3, c, c, bias=False)
+        enc["stages"].append(stage)
+    enc["conv_out"] = mk.conv(3, c, cfg.latent_channels)
+    dec: dict = {"conv_in": mk.conv(3, cfg.latent_channels, c), "stages": []}
+    for i, n_blocks in enumerate(cfg.decoder_blocks):
+        stage = {"blocks": [block() for _ in range(n_blocks)]}
+        if i < len(cfg.decoder_blocks) - 1:
+            stage["up_conv"] = mk.conv(3, c, c, bias=False)
+        dec["stages"].append(stage)
+    dec["conv_out"] = mk.conv(3, c, 3)
+    return {"encoder": enc, "decoder": dec}
+
+
+@dataclasses.dataclass(frozen=True)
+class VAE:
+    """VAE params + config. Only the tiny VAE ("light") is ported so far."""
+
+    kind: str  # "tiny"
+    params: Any
+    config: TaesdConfig
+
+    def __post_init__(self):
+        if self.kind != "tiny":
+            raise NotImplementedError(
+                f"VAE kind {self.kind!r} is not ported (the KL VAE is a ROADMAP item)"
+            )
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        return vae_tiny.encode(self.params, images, self.config)
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        return vae_tiny.decode(self.params, latents, self.config)
+
+    def decode_depth(self, latents: torch.Tensor, conv_fn=conv3x3_fused) -> torch.Tensor:
+        return vae_tiny.decode_depth(self.params, latents, self.config, conv_fn)
+
+    @property
+    def downsample_factor(self) -> int:
+        return 2 ** (len(self.config.encoder_blocks) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    """Everything the sampling loop needs besides the schedule."""
+
+    unet_params: Any
+    unet_config: UNetConfig
+    vae: VAE
+    # [1, S, D] cached empty-prompt context (S=2)
+    text_context: torch.Tensor
+    ddim_config: Any = None  # sched.ddim.DDIMConfig | None → sampler default
+
+    @property
+    def device(self) -> torch.device:
+        return self.text_context.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.text_context.dtype
+
+
+def make_random_bundle(
+    seed: int = 0,
+    unet_config: UNetConfig = registry.TINY_UNET_CONFIG,
+    vae_config: TaesdConfig = registry.TINY_TAESD_CONFIG,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> ModelBundle:
+    """Random-weight bundle made from ``seed`` on ``device`` (the GPU by
+    default). The text context is a seeded ``[1, 2, cross_attention_dim]``
+    tensor standing in for the empty-prompt CLIP output."""
+    dev = resolve_device(device)
+    unet_params = init_unet(_Init(seed, dtype, dev), unet_config)
+    vae_params = init_taesd(_Init(seed + 1, dtype, dev), vae_config)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    ctx = torch.randn(
+        (1, 2, unet_config.cross_attention_dim), generator=gen, device=dev
+    ).to(dtype)
+    return ModelBundle(
+        unet_params=unet_params,
+        unet_config=unet_config,
+        vae=VAE(kind="tiny", params=vae_params, config=vae_config),
+        text_context=ctx,
+    )

@@ -1,0 +1,144 @@
+"""SD2-class conditional UNet (the Marigold denoiser), PyTorch counterpart of
+``depth_completion_tpu.models.unet``.
+
+conv_in → [down stages: resnet (+transformer) ×L, downsample] → mid
+(resnet, transformer, resnet) → [up stages: skip-concat resnet
+(+transformer) ×(L+1), upsample] → GN → silu → conv_out. Transformer block:
+LN → self-attn → LN → cross-attn → LN → GEGLU MLP, linear proj in/out.
+
+Activations are NHWC throughout; convs run on their channels-last NCHW view
+(``layers.conv2d``). Self-attention goes through ``attention_fn`` — the seam
+where ``ops.flash_attention`` (the Hopper kernel) drops in.
+
+The GEGLU gate uses the tanh-approximate GELU: the JAX package calls
+``jax.nn.gelu``, whose default is ``approximate=True`` (diffusers' SD2 UNet
+uses the exact GELU; see ROADMAP.md "Faults").
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from depth_completion_tpu_torch.models.layers import (
+    attention,
+    conv2d,
+    group_norm,
+    layer_norm,
+    linear,
+    resize_nearest,
+    silu,
+    timestep_embedding,
+    upsample_nearest_2x,
+)
+from depth_completion_tpu_torch.models.registry import UNetConfig
+
+AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], torch.Tensor]
+
+
+def _resnet(p, x, temb, cfg: UNetConfig):
+    h = group_norm(p["norm1"], x, cfg.norm_groups, cfg.norm_eps)
+    h = conv2d(p["conv1"], silu(h))
+    h = h + linear(p["time_emb_proj"], silu(temb))[:, None, None, :]
+    h = group_norm(p["norm2"], h, cfg.norm_groups, cfg.norm_eps)
+    h = conv2d(p["conv2"], silu(h))
+    if "conv_shortcut" in p:
+        x = conv2d(p["conv_shortcut"], x, padding=0)
+    return x + h
+
+
+def _geglu_ff(p, x):
+    val, gate = linear(p["proj_in"], x).chunk(2, dim=-1)
+    return linear(p["proj_out"], val * F.gelu(gate, approximate="tanh"))
+
+
+def _transformer(p, x, ctx, num_heads, cfg: UNetConfig, attention_fn: AttentionFn):
+    """Spatial transformer over NHWC input with linear proj in/out."""
+    n, h, w, c = x.shape
+    hidden = group_norm(p["norm"], x, cfg.norm_groups, eps=1e-6).reshape(n, h * w, c)
+    hidden = linear(p["proj_in"], hidden)
+    for blk in p["blocks"]:
+        hn = layer_norm(blk["norm1"], hidden)
+        a = blk["attn1"]
+        attn = attention_fn(
+            linear(a["to_q"], hn), linear(a["to_k"], hn), linear(a["to_v"], hn), num_heads
+        )
+        hidden = hidden + linear(a["to_out"], attn)
+        hn = layer_norm(blk["norm2"], hidden)
+        a = blk["attn2"]
+        attn = attention_fn(
+            linear(a["to_q"], hn), linear(a["to_k"], ctx), linear(a["to_v"], ctx), num_heads
+        )
+        hidden = hidden + linear(a["to_out"], attn)
+        hidden = hidden + _geglu_ff(blk["ff"], layer_norm(blk["norm3"], hidden))
+    hidden = linear(p["proj_out"], hidden)
+    return hidden.reshape(n, h, w, c) + x
+
+
+def apply_unet(
+    params,
+    sample: torch.Tensor,
+    timestep: torch.Tensor | int,
+    encoder_hidden_states: torch.Tensor,
+    config: UNetConfig,
+    attention_fn: AttentionFn = attention,
+    remat: bool = False,
+) -> torch.Tensor:
+    """UNet forward: [N,EH,EW,Cin], scalar/[N] t, [N,S,D] context → [N,EH,EW,4]."""
+    if remat:
+        raise NotImplementedError(
+            "UNet rematerialisation is not ported (ROADMAP queue 1: remaining "
+            "modes); batch <= 2 fits an 80 GB card without it"
+        )
+    cfg = config
+    n = sample.shape[0]
+    t = torch.as_tensor(timestep, device=sample.device)
+    if t.dim() == 0:
+        t = t.expand(n)
+    temb = timestep_embedding(t, cfg.block_out_channels[0]).to(sample.dtype)
+    temb = linear(params["time_embedding"]["linear_1"], temb)
+    temb = linear(params["time_embedding"]["linear_2"], silu(temb))
+    ctx = encoder_hidden_states.to(sample.dtype)
+    n_stages = len(cfg.block_out_channels)
+
+    h = conv2d(params["conv_in"], sample)
+    skips = [h]
+    for i, stage in enumerate(params["down_blocks"]):
+        for j, res_p in enumerate(stage["resnets"]):
+            h = _resnet(res_p, h, temb, cfg)
+            if cfg.attention_stages[i]:
+                h = _transformer(
+                    stage["attentions"][j], h, ctx, cfg.num_heads[i], cfg, attention_fn
+                )
+            skips.append(h)
+        if "downsampler" in stage:
+            h = conv2d(stage["downsampler"], h, stride=2, padding=1)
+            skips.append(h)
+
+    mid = params["mid_block"]
+    h = _resnet(mid["resnets"][0], h, temb, cfg)
+    h = _transformer(mid["attentions"][0], h, ctx, cfg.num_heads[-1], cfg, attention_fn)
+    h = _resnet(mid["resnets"][1], h, temb, cfg)
+
+    for i, stage in enumerate(params["up_blocks"]):
+        stage_idx = n_stages - 1 - i
+        for j, res_p in enumerate(stage["resnets"]):
+            h = _resnet(res_p, torch.cat([h, skips.pop()], dim=-1), temb, cfg)
+            if cfg.attention_stages[stage_idx]:
+                h = _transformer(
+                    stage["attentions"][j], h, ctx, cfg.num_heads[stage_idx], cfg, attention_fn
+                )
+        if "upsampler" in stage:
+            # the next stage's skip fixes the size (odd down-path sizes, e.g.
+            # KITTI's 28→14→7→4 latent, are not plain 2x)
+            th, tw = skips[-1].shape[1:3]
+            if (th, tw) == (h.shape[1] * 2, h.shape[2] * 2):
+                h = upsample_nearest_2x(h)
+            else:
+                h = resize_nearest(h, (th, tw))
+            h = conv2d(stage["upsampler"], h)
+
+    h = group_norm(params["conv_norm_out"], h, cfg.norm_groups, cfg.norm_eps)
+    return conv2d(params["conv_out"], silu(h))

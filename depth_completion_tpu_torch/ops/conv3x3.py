@@ -1,0 +1,166 @@
+"""Fused 3x3 conv: the Hopper kernel, its plain PyTorch twin and the
+``autograd.Function`` the TAESD decoder runs through.
+
+Counterpart of ``depth_completion_tpu.ops.conv3x3``. The CUDA kernel
+(``csrc/conv3x3.cu``) replaces the TPU kernel ``_conv_kernel``
+(conv3x3.py:81): ``maybe_relu(conv3x3_same(x, W) + bias + skip)`` over NHWC
+in one pass with fp32 accumulation, optionally zeroing its operand where a
+mask is ``<= 0`` (halo rows included) and writing the masked operand out.
+
+The ``Function``'s backward mirrors ``_conv_fused_bwd`` (conv3x3.py:257):
+dx is the same kernel on flip-transposed taps with the ReLU mask ``y > 0``
+streamed onto ``dy``; when a skip needs its gradient, the kernel also emits
+the masked ``dy``. dW and db are plain PyTorch and run only when
+``ctx.needs_input_grad`` asks for them (the port's weights are frozen, so
+the sampler never does).
+
+Weights are OIHW ``[Co, Ci, 3, 3]`` (the port's storage layout); the kernel
+reads HWIO ``[3, 3, Ci, Co]``, made by a permute of the 3x3xCixCo taps.
+A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
+raises. ``LAUNCHES`` counts kernel launches (forward and dx alike).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from depth_completion_tpu_torch import _build
+
+LAUNCHES = {"conv3x3": 0}
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_lib = None
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = _build.load("conv3x3")
+        lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
+        lib.dct_conv3x3.restype = _i
+        _lib = lib
+    return _lib
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def conv3x3_plain(x, w_hwio, bias=None, skip=None, relu=False, mask=None):
+    """The kernel's function in plain PyTorch (fp32 math, output in x.dtype).
+
+    Returns ``(y, masked_x)``; ``masked_x`` is ``x`` zeroed where
+    ``mask <= 0`` (or ``x`` itself without a mask).
+    """
+    xm = x if mask is None else torch.where(mask.float() > 0, x, torch.zeros_like(x))
+    w = w_hwio.to(x.dtype).float().permute(3, 2, 0, 1)  # → OIHW
+    y = F.conv2d(xm.float().permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias.to(x.dtype).float()
+    if skip is not None:
+        y = y + skip.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype), xm
+
+
+def conv3x3_call(x, w_hwio, bias=None, skip=None, relu=False, mask=None, emit_masked=False):
+    """One conv through the kernel (CUDA) or its plain twin (CPU).
+
+    x ``[N, H, W, Ci]``, w_hwio ``[3, 3, Ci, Co]``, bias ``[Co]``, skip
+    ``[N, H, W, Co]``, mask like x. Returns y, or ``(y, masked_x)`` when
+    ``emit_masked``.
+    """
+    if emit_masked and mask is None:
+        raise ValueError("emit_masked needs a mask")
+    if x.device.type == "cpu":
+        y, xm = conv3x3_plain(x, w_hwio, bias, skip, relu, mask)
+        return (y, xm) if emit_masked else y
+    n, h, w, ci = x.shape
+    co = w_hwio.shape[3]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3 kernel takes bfloat16, got {x.dtype}")
+    if ci % 8 or co % 8:
+        raise ValueError(f"conv3x3 kernel needs channel counts divisible by 8, got {ci}->{co}")
+    if w_hwio.shape != (3, 3, ci, co):
+        raise ValueError(f"conv3x3 weights must be [3,3,{ci},{co}], got {tuple(w_hwio.shape)}")
+    x = x.contiguous()
+    w_hwio = w_hwio.to(x.dtype).contiguous()
+    bias = None if bias is None else bias.to(x.dtype).contiguous()
+    skip = None if skip is None else skip.to(x.dtype).contiguous()
+    mask = None if mask is None else mask.to(x.dtype).contiguous()
+    for t, name in ((skip, "skip"), (mask, "mask")):
+        if t is not None and t.shape[:3] != x.shape[:3]:
+            raise ValueError(f"conv3x3 {name} shape {tuple(t.shape)} does not match x")
+    y = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
+    xm = torch.empty_like(x) if emit_masked else None
+    status = _kernels().dct_conv3x3(
+        x.data_ptr(), w_hwio.data_ptr(), _ptr(bias), _ptr(skip), _ptr(mask),
+        y.data_ptr(), _ptr(xm), n, h, w, ci, co, int(relu),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "conv3x3")
+    LAUNCHES["conv3x3"] += 1
+    return (y, xm) if emit_masked else y
+
+
+def _hwio(weight_oihw):
+    return weight_oihw.permute(2, 3, 1, 0)
+
+
+def _flip_transpose_hwio(weight_oihw):
+    """Input-grad taps in HWIO: kf[dh, dw] = k[2-dh, 2-dw]ᵀ (Ci and Co swap)."""
+    return weight_oihw.flip(2, 3).permute(2, 3, 0, 1)
+
+
+class Conv3x3Fused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, skip, relu):
+        y = conv3x3_call(x, _hwio(weight), bias, skip, relu)
+        ctx.relu = relu
+        ctx.has_bias = bias is not None
+        ctx.has_skip = skip is not None
+        ctx.save_for_backward(x, weight, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, y = ctx.saved_tensors
+        need_x, need_w, need_b, need_skip, _ = ctx.needs_input_grad
+        dy = dy.contiguous()
+        kf = _flip_transpose_hwio(weight)
+        need_masked = need_w or need_b or need_skip
+        dx = dy_m = None
+        if ctx.relu:
+            if need_x:
+                out = conv3x3_call(dy, kf, mask=y, emit_masked=need_masked)
+                dx, dy_m = out if need_masked else (out, None)
+            elif need_masked:
+                dy_m = torch.where(y > 0, dy, torch.zeros_like(dy))
+        else:
+            dy_m = dy
+            if need_x:
+                dx = conv3x3_call(dy, kf)
+        dw = db = None
+        if need_w:
+            # dW[co, ci, kh, kw] = Σ dy_m[n, h, w, co] · x_pad[n, h+kh-1, w+kw-1, ci]
+            dw = torch.nn.grad.conv2d_weight(
+                x.float().permute(0, 3, 1, 2), weight.shape,
+                dy_m.float().permute(0, 3, 1, 2), padding=1,
+            ).to(weight.dtype)
+        if need_b and ctx.has_bias:
+            db = dy_m.float().sum(dim=(0, 1, 2)).to(dy.dtype)
+        dskip = dy_m if (need_skip and ctx.has_skip) else None
+        return dx, dw, db, dskip, None
+
+
+def conv3x3_fused(x, weight, bias=None, *, relu: bool = False, skip=None):
+    """``maybe_relu(conv3x3_same(x, weight) + bias + skip)`` as one kernel.
+
+    x ``[N, H, W, Ci]`` NHWC, weight OIHW ``[Co, Ci, 3, 3]``, bias ``[Co]``
+    or None, skip ``[N, H, W, Co]`` or None. Differentiable in all four.
+    """
+    return Conv3x3Fused.apply(x, weight, bias, skip, relu)

@@ -1,0 +1,116 @@
+"""Differentiable resizing and padding bookkeeping, PyTorch counterpart of
+``depth_completion_tpu.ops.resize``.
+
+``resize_antialias`` reproduces ``jax.image.resize(..., antialias=True)``
+exactly, which ``F.interpolate(antialias=True)`` does not at non-integer
+ratios (the main path's 480×640 ↔ 576×768 is a 1.2 ratio). Per spatial axis
+it builds jax's weight matrix — the triangle (or Keys cubic) kernel at
+half-pixel centres, its width scaled by ``max(1/scale, 1)`` when
+downsampling, each output's weights normalised by their sum — and applies
+the two matrices as small einsums, so the resize is exact and its gradient
+is the transposed product.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+LATENT_ALIGN = 16  # spatial alignment of the VAE input (8x downsample + UNet /2)
+
+
+def _triangle(x):
+    return np.maximum(np.float32(0), np.float32(1) - np.abs(x))
+
+
+def _keys_cubic(x):
+    f32 = np.float32
+    out = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1)
+    out = np.where(x >= 1.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4)) * x + f32(2), out)
+    return np.where(x >= 2.0, f32(0), out)
+
+
+def _weight_matrix(in_size: int, out_size: int, kernel) -> np.ndarray:
+    """jax.image's ``compute_weight_mat`` (antialias, no translation),
+    evaluated in float32 as jax evaluates it: ``[out_size, in_size]``."""
+    f32 = np.float32
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = f32(max(inv_scale, 1.0))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale) - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = kernel(x).astype(f32)  # [in, out]
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    w = np.where(inside[None, :], w, f32(0))
+    return np.ascontiguousarray(w.T, dtype=f32)
+
+
+def _resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """jax.image's nearest: source index floor((i + 0.5) · in · (1/out)) in
+    float32 (the compiled jax program multiplies by the reciprocal)."""
+    for axis, out_size in ((1, size[0]), (2, size[1])):
+        in_size = x.shape[axis]
+        if in_size == out_size:
+            continue
+        pos = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size)
+        idx = np.floor(pos * (np.float32(1) / np.float32(out_size))).astype(np.int64)
+        x = x.index_select(axis, torch.from_numpy(idx).to(x.device))
+    return x
+
+
+def resize_antialias(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """Resize NHWC ``x`` to ``size=(H, W)`` as ``jax.image.resize`` with
+    antialiasing does. ``method`` ∈ {"bilinear", "bicubic", "nearest"}."""
+    h, w = size
+    if method == "nearest":
+        return _resize_nearest(x, (h, w))
+    kernel = {"bilinear": _triangle, "bicubic": _keys_cubic}.get(method)
+    if kernel is None:
+        raise ValueError(f"Unknown interpolation method: {method}")
+    out = x.float()
+    if out.shape[1] != h:
+        wh = torch.from_numpy(_weight_matrix(out.shape[1], h, kernel)).to(x.device)
+        out = torch.einsum("oh,nhwc->nowc", wh, out)
+    if out.shape[2] != w:
+        ww = torch.from_numpy(_weight_matrix(out.shape[2], w, kernel)).to(x.device)
+        out = torch.einsum("ow,nhwc->nhoc", ww, out)
+    return out.to(x.dtype)
+
+
+def resize_to_max_edge(x: torch.Tensor, max_edge: int, method: str = "bilinear") -> torch.Tensor:
+    """Resize NHWC ``x`` so its longer side is ``max_edge`` (floor division,
+    aspect kept)."""
+    _, h, w, _ = x.shape
+    m = max(h, w)
+    return resize_antialias(x, (max_edge * h // m, max_edge * w // m), method=method)
+
+
+def pad_to_multiple(x: torch.Tensor, align: int = LATENT_ALIGN):
+    """Edge-pad NHWC bottom/right to a multiple of ``align`` → (padded, (ph, pw))."""
+    _, h, w, _ = x.shape
+    ph, pw = -h % align, -w % align
+    if ph == 0 and pw == 0:
+        return x, (0, 0)
+    padded = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="replicate")
+    return padded.permute(0, 2, 3, 1), (ph, pw)
+
+
+def unpad(x: torch.Tensor, padding: tuple[int, int]) -> torch.Tensor:
+    ph, pw = padding
+    return x[:, : x.shape[1] - ph, : x.shape[2] - pw, :]
+
+
+def processing_size(orig_res: tuple[int, int], resolution: int) -> tuple[int, int]:
+    """(PPH, PPW): longest side floor-scaled to ``resolution``, aligned to 16."""
+    h, w = orig_res
+    m = max(h, w)
+    rh, rw = resolution * h // m, resolution * w // m
+    return rh + (-rh % LATENT_ALIGN), rw + (-rw % LATENT_ALIGN)
+
+
+def latent_size(orig_res: tuple[int, int], resolution: int, downsample: int = 8) -> tuple[int, int]:
+    """(EH, EW): padded processing size / the VAE's downsample factor."""
+    pph, ppw = processing_size(orig_res, resolution)
+    return pph // downsample, ppw // downsample

@@ -1,0 +1,32 @@
+"""Masked statistics, PyTorch counterpart of ``depth_completion_tpu.ops.stats``
+(the part the slice runs: ``masked_minmax`` and ``masked_quantile``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def masked_minmax(x: torch.Tensor, mask: torch.Tensor, dim: int = -1):
+    """Min/max of ``x`` over ``dim`` where ``mask`` → (mins, maxs, any_valid).
+    Rows with no valid entry give (+inf, -inf) and any_valid False."""
+    if x.shape != mask.shape:
+        raise ValueError(f"x shape {tuple(x.shape)} != mask shape {tuple(mask.shape)}")
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    mins = torch.where(mask, x, inf).amin(dim=dim)
+    maxs = torch.where(mask, x, -inf).amax(dim=dim)
+    return mins, maxs, mask.any(dim=dim)
+
+
+def masked_quantile(x: torch.Tensor, mask: torch.Tensor, qs) -> torch.Tensor:
+    """Per-row quantiles of the masked entries of ``x`` [N, M] with linear
+    interpolation (``torch.quantile(x[mask], q)`` per row) → [N, Q]."""
+    if x.dim() != 2 or x.shape != mask.shape:
+        raise ValueError(f"expected matching 2-D x/mask, got {tuple(x.shape)} / {tuple(mask.shape)}")
+    x = x.float()
+    qs = torch.as_tensor(qs, dtype=torch.float32, device=x.device)
+    n_valid = mask.sum(dim=-1).float()
+    sorted_x = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf"))), dim=-1).values
+    pos = qs[None, :] * torch.clamp(n_valid[:, None] - 1.0, min=0.0)
+    lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
+    frac = pos - lo.float()
+    return sorted_x.gather(-1, lo) * (1.0 - frac) + sorted_x.gather(-1, hi) * frac

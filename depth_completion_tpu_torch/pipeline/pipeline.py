@@ -1,0 +1,132 @@
+"""Public pipeline API, PyTorch counterpart of
+``depth_completion_tpu.pipeline.pipeline.DepthCompletionPipeline``.
+
+Host-side validation (shapes, the empty-sparse and degenerate-range errors,
+the temporal-carry shape check), config assembly, then ``guided_sample`` on
+the bundle's device. Arrays are NHWC; inputs may be numpy arrays or
+tensors, outputs are tensors on the bundle's device. Ensembles are a later
+slice; PyTorch runs eagerly, so there is no program cache to port.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from depth_completion_tpu_torch.models.bundle import ModelBundle
+from depth_completion_tpu_torch.ops.resize import latent_size
+from depth_completion_tpu_torch.pipeline.sampler import SamplerConfig, guided_sample
+
+
+def _as_tensor(x: Any, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+class DepthCompletionPipeline:
+    """Sparse→dense guided-diffusion depth completion.
+
+        pipe = DepthCompletionPipeline(bundle)
+        denses, latents = pipe(images, sparses, max_depth=120.0, steps=50)
+
+    ``images``: [N,H,W,3] raw RGB (0..255); ``sparses``: [N,H,W,1] metric
+    depth with 0 at missing points. Returns metric [N,H,W,1] dense depth and
+    the final latents for temporal carry.
+    """
+
+    def __init__(self, bundle: ModelBundle):
+        self.bundle = bundle
+
+    def __call__(
+        self,
+        images: Any,
+        sparses: Any,
+        max_depth: float,
+        min_depth: float = 0.0,
+        pred_latents_prev: Any | None = None,
+        **config_overrides: Any,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        device = self.bundle.device
+        images = _as_tensor(images, device)
+        sparses = _as_tensor(sparses, device)
+        if sparses.dim() == 3:
+            sparses = sparses[..., None]
+        if (
+            images.dim() != 4
+            or sparses.dim() != 4
+            or images.shape[0] != sparses.shape[0]
+            or images.shape[1:3] != sparses.shape[1:3]
+            or sparses.shape[-1] != 1
+        ):
+            raise ValueError(
+                "images must be [N,H,W,C] and sparses [N,H,W,1] with matching "
+                f"batch and spatial dims, got {tuple(images.shape)} / {tuple(sparses.shape)}"
+            )
+
+        sp_np = sparses.cpu().numpy()
+        rows_valid = (sp_np > 0).any(axis=(1, 2, 3))
+        if not rows_valid.all():
+            raise ValueError(
+                "No valid values found in mask for some positions. Ensure "
+                "that mask has at least one True value along the specified "
+                f"dimensions. (sparse frames {np.flatnonzero(~rows_valid).tolist()} "
+                "have no points > 0)"
+            )
+
+        loss_funcs = config_overrides.pop("loss_funcs", None)
+        if loss_funcs is not None:
+            config_overrides["loss_funcs"] = tuple(loss_funcs)
+        percentile = config_overrides.pop("percentile", None)
+        if percentile is not None:
+            config_overrides["percentile"] = tuple(percentile)
+        lr = config_overrides.pop("lr", None)
+        if lr is not None:
+            config_overrides["lr_latent"], config_overrides["lr_scaling"] = lr
+        ensemble_size = int(config_overrides.pop("ensemble_size", 1))
+        for key in ("ensemble_reduce", "ensemble_mesh", "ensemble_uncertainty"):
+            config_overrides.pop(key, None)
+        if ensemble_size > 1:
+            raise NotImplementedError("ensembles are not ported yet (ROADMAP queue 1)")
+        if "ddim" not in config_overrides and self.bundle.ddim_config is not None:
+            config_overrides["ddim"] = self.bundle.ddim_config
+
+        cfg = SamplerConfig(min_depth=min_depth, max_depth=max_depth, **config_overrides)
+        cfg.validate()
+
+        # Degenerate range: minmax/percentile would divide by (max-min)=0.
+        if cfg.norm in ("minmax", "percentile"):
+            for i in range(sp_np.shape[0]):
+                vals = sp_np[i][sp_np[i] > 0]
+                if cfg.norm == "minmax":
+                    lo, hi = float(vals.min()), float(vals.max())
+                else:
+                    lo, hi = (float(q) for q in np.quantile(vals, cfg.percentile))
+                lo, hi = max(lo, cfg.min_depth), min(hi, cfg.max_depth)
+                if not hi > lo:
+                    raise ValueError(
+                        f"Degenerate sparse depth range for frame {i}: "
+                        f"norm={cfg.norm!r} estimated [{lo}, {hi}] "
+                        "(all valid points share one value, or the range "
+                        "collapses after clamping to "
+                        f"[{cfg.min_depth}, {cfg.max_depth}]). Use "
+                        "norm='const' or provide varied sparse points."
+                    )
+
+        if pred_latents_prev is not None:
+            pred_latents_prev = _as_tensor(pred_latents_prev, device)
+            eh, ew = latent_size(
+                (int(images.shape[1]), int(images.shape[2])),
+                cfg.resolution,
+                self.bundle.vae.downsample_factor,
+            )
+            expected = (images.shape[0], eh, ew, self.bundle.vae.config.latent_channels)
+            if tuple(pred_latents_prev.shape) != expected:
+                raise ValueError(
+                    f"Shape of pred_latents_prev must be {expected}, but got "
+                    f"{tuple(pred_latents_prev.shape)}"
+                )
+
+        return guided_sample(self.bundle, images, sparses, cfg, pred_latents_prev)

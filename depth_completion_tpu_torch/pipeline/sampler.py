@@ -1,0 +1,298 @@
+"""The guided sampling loop, PyTorch counterpart of
+``depth_completion_tpu.pipeline.sampler``.
+
+An eager loop over the DDIM timesteps. Per-step guided training (the main
+path) keeps the JAX package's dataflow exactly:
+
+- ε̂ comes from the UNet applied to the *pre-update* latent; the DDIM step
+  is applied to the *post-update* latent with that old ε̂;
+- the guidance gradient flows through the UNet and the TAESD decoder into
+  the latent (``torch.autograd.grad`` w.r.t. the latent and the affine
+  scale/shift);
+- per-sample losses are summed before the gradient (samples are
+  independent, so this is the per-sample gradient);
+- the latent gradient is rescaled per sample by ‖ε̂‖ / max(‖g‖, 1e-7) before
+  the optimizer step; the affine gradients are left as they are.
+
+Also ported: the no-training DDIM branch and the final decode. Per-input
+training, LCM, the KLD penalty, ring attention and UNet rematerialisation
+raise ``NotImplementedError`` (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import torch
+
+from depth_completion_tpu_torch.guidance.affine import (
+    affine_to_metric_closed_form,
+    affine_to_metric_learned,
+)
+from depth_completion_tpu_torch.guidance.losses import compute_loss
+from depth_completion_tpu_torch.guidance.optim import make_optimizer
+from depth_completion_tpu_torch.guidance.projection import (
+    DepthNormalization,
+    denormalize_depth,
+    normalize_sparse,
+    renormalize_to_guidance,
+)
+from depth_completion_tpu_torch.models.bundle import ModelBundle
+from depth_completion_tpu_torch.models.layers import attention
+from depth_completion_tpu_torch.models.unet import apply_unet
+from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
+from depth_completion_tpu_torch.ops.flash_attention import flash_attention
+from depth_completion_tpu_torch.ops.resize import resize_antialias, unpad
+from depth_completion_tpu_torch.pipeline.preprocess import preprocess_images
+from depth_completion_tpu_torch.sched.ddim import (
+    DDIMConfig,
+    ddim_step,
+    make_schedule,
+    make_timesteps,
+    pred_epsilon,
+    pred_original,
+)
+from depth_completion_tpu_torch.sched.lcm import LCMConfig
+
+EPSILON = 1e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Sampling configuration: the JAX package's fields and defaults."""
+
+    steps: int = 50
+    resolution: int = 768
+    projection: str = "linear"  # "linear" | "log" | "log10"
+    inv: bool = False
+    norm: str = "minmax"  # "const" | "minmax" | "percentile"
+    percentile: tuple[float, float] = (0.01, 0.99)
+    beta: float = 0.9
+    closed_form: bool | None = None
+    opt: str = "adam"
+    lr_latent: float = 0.05
+    lr_scaling: float = 0.005
+    kld: bool = False
+    kld_weight: float = 0.1
+    kld_mode: str = "simple"
+    interp_mode: str = "bilinear"
+    loss_funcs: tuple[str, ...] = ("l1", "l2")
+    seed: int = 2024
+    train_latents: bool = True
+    train_method: str = "per-step"  # "per-step" | "per-input"
+    train_steps: int = 10
+    min_depth: float = 0.0
+    max_depth: float = 120.0
+    scheduler: str = "ddim"  # "ddim" | "lcm"
+    ddim: DDIMConfig = DDIMConfig()
+    lcm: LCMConfig = LCMConfig()
+    # "auto" and "off" run without rematerialisation (not needed at the
+    # batch sizes one 80 GB card serves); "on" is not ported.
+    remat_unet: str | bool = "auto"
+    # "auto" / "on": ops.flash_attention (the Hopper kernel on CUDA);
+    # "off": the plain layers.attention.
+    flash_attention: str = "auto"
+    ring_mesh: Any = None
+    ring_axis: str = "data"
+    # stop the guidance gradient at the UNet output (a faster approximation;
+    # off by default to keep the exact dataflow)
+    detach_unet_grad: bool = False
+
+    def resolved_closed_form(self) -> bool:
+        """closed_form=None → not train_latents."""
+        if self.closed_form is None:
+            return not self.train_latents
+        if not self.closed_form and not self.train_latents:
+            raise ValueError("closed_form must be True (or None) when train_latents=False")
+        return self.closed_form
+
+    def validate(self) -> None:
+        if self.train_method not in ("per-step", "per-input"):
+            raise ValueError(f"Unknown train_method: {self.train_method}")
+        if self.train_method == "per-input" and self.train_steps <= 0:
+            raise ValueError("train_steps must be > 0 for per-input training")
+        if not (0 < self.beta < 1):
+            raise ValueError(f"beta must be in (0, 1), got {self.beta}")
+        if self.norm == "percentile" and not all(0 <= p <= 1 for p in self.percentile):
+            raise ValueError(f"percentile must be in [0, 1], got {self.percentile}")
+        if self.projection not in ("linear", "log", "log10"):
+            raise ValueError(f"Unknown projection method: {self.projection}")
+        if (self.projection in ("log", "log10") or self.inv) and self.min_depth <= EPSILON:
+            raise ValueError(f"min_depth must be > {EPSILON} for log/log10/inverse projection")
+        if self.norm not in ("const", "minmax", "percentile"):
+            raise ValueError(f"Unknown norm method: {self.norm}")
+        self.resolved_closed_form()
+
+
+def _check_ported(cfg: SamplerConfig) -> None:
+    unported = {
+        "scheduler='lcm'": cfg.scheduler == "lcm",
+        "train_method='per-input'": cfg.train_latents and cfg.train_method == "per-input",
+        "kld=True": cfg.kld,
+        "ring_mesh": cfg.ring_mesh is not None,
+        "remat_unet='on'": cfg.remat_unet in ("on", True),
+    }
+    for what, hit in unported.items():
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1)")
+    if cfg.remat_unet not in ("auto", "on", "off", True, False):
+        raise ValueError(f"remat_unet must be 'auto'/'on'/'off' or bool, got {cfg.remat_unet!r}")
+    if cfg.flash_attention not in ("auto", "on", "off"):
+        raise ValueError(f"flash_attention must be 'auto'/'on'/'off', got {cfg.flash_attention!r}")
+
+
+def decode_prediction(bundle: ModelBundle, latents: torch.Tensor,
+                      conv_fn=conv3x3_fused) -> torch.Tensor:
+    """Latent → [0,1] affine depth at processing resolution, decoded in the
+    model dtype with ``conv_fn`` running the decoder's 3x3 convs."""
+    return bundle.vae.decode_depth(latents.to(bundle.dtype), conv_fn)
+
+
+def latent_to_affine(decode, latents, orig_res, padding, interp_mode):
+    """Decode (``decode``: latent → [0,1] depth, e.g. a partial of
+    ``decode_prediction``), unpad, resize to the original resolution (fp32)."""
+    affine = unpad(decode(latents), padding)
+    return resize_antialias(affine.float(), orig_res, method=interp_mode)
+
+
+def _affine_to_metric(affines, dn: DepthNormalization, affine_params, closed_form: bool):
+    if closed_form:
+        return affine_to_metric_closed_form(affines, dn.sparses_normed, dn.masks)
+    scale, shift = affine_params
+    return affine_to_metric_learned(affines, dn.sparses_normed, dn.masks, scale, shift)
+
+
+def _prepare(bundle, images, sparses, cfg, pred_latents_prev, generator, init_noise=None):
+    """No-grad preprocessing: noise, image latents, normalisation state."""
+    n = images.shape[0]
+    imgs_proc, padding, orig_res = preprocess_images(images, cfg.resolution, cfg.interp_mode)
+    img_latents = bundle.vae.encode(imgs_proc.to(bundle.dtype))  # [N, EH, EW, 4]
+    eh, ew = img_latents.shape[1], img_latents.shape[2]
+    if init_noise is not None:
+        pred_latents = init_noise.float()
+    else:
+        # one noise draw shared across the batch
+        noise = torch.randn((1, eh, ew, 4), generator=generator, device=images.device)
+        pred_latents = noise.expand(n, -1, -1, -1)
+    if pred_latents_prev is not None:
+        pred_latents = cfg.beta * pred_latents + (1.0 - cfg.beta) * pred_latents_prev.float()
+    dn = normalize_sparse(
+        sparses, norm=cfg.norm, projection=cfg.projection, inv=cfg.inv,
+        min_depth=cfg.min_depth, max_depth=cfg.max_depth, percentile=cfg.percentile,
+    )
+    return img_latents, pred_latents.contiguous(), dn, padding, orig_res
+
+
+def guidance_loss(decode, cfg, dn, images, orig_res, padding, closed_form,
+                  latents_for_decode, affine_params, clamp=True):
+    """Per-sample guidance losses on a decoded latent → [N]."""
+    denses = latent_to_affine(decode, latents_for_decode, orig_res, padding, cfg.interp_mode)
+    denses = _affine_to_metric(denses, dn, affine_params, closed_form)
+    if clamp:
+        denses = torch.clamp(denses, 0.0, 1.0)
+    denses = renormalize_to_guidance(denses, dn, cfg.projection, cfg.inv)
+    return compute_loss(denses, dn.sparses_normed, dn.masks, cfg.loss_funcs, images=images)
+
+
+class _Denoiser:
+    """ε̂ = UNet(img_latents ⊕ latent, t, context) in the model dtype, with
+    ``attention_fn`` running the UNet's attention."""
+
+    def __init__(self, bundle: ModelBundle, img_latents: torch.Tensor, attention_fn):
+        self.bundle, self.img_latents = bundle, img_latents
+        n = img_latents.shape[0]
+        self.ctx = bundle.text_context.expand(n, -1, -1)
+        self.attention_fn = attention_fn
+
+    def __call__(self, latents: torch.Tensor, t: int) -> torch.Tensor:
+        x = torch.cat([self.img_latents, latents.to(self.img_latents.dtype)], dim=-1)
+        return apply_unet(
+            self.bundle.unet_params, x, t, self.ctx, self.bundle.unet_config,
+            attention_fn=self.attention_fn,
+        )
+
+
+def guided_step_grads(denoise, decode, sched, cfg, dn, images, orig_res, padding,
+                      closed_form, latents, affine_params, t):
+    """One guided step's forward and backward through the UNet ``denoise``
+    and the decoder ``decode``: (per-sample losses [N], UNet output, grads
+    w.r.t. [latents, *affine_params])."""
+    with torch.enable_grad():
+        out = denoise(latents, t)
+        x0 = pred_original(sched, out.detach() if cfg.detach_unet_grad else out, t, latents)
+        losses = guidance_loss(
+            decode, cfg, dn, images, orig_res, padding, closed_form, x0, affine_params
+        )
+        grads = torch.autograd.grad(losses.sum(), [latents, *affine_params])
+    return losses.detach(), out.detach(), grads
+
+
+@torch.no_grad()
+def guided_sample(
+    bundle: ModelBundle,
+    images: torch.Tensor,
+    sparses: torch.Tensor,
+    cfg: SamplerConfig,
+    pred_latents_prev: torch.Tensor | None = None,
+    init_noise: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full depth-completion sampling → (metric denses [N,H,W,1], latents).
+
+    ``images`` [N,H,W,3] (0..255) and ``sparses`` [N,H,W,1] are tensors on
+    the bundle's device.
+    """
+    cfg.validate()
+    _check_ported(cfg)
+    closed_form = cfg.resolved_closed_form()
+    n = images.shape[0]
+    sched = make_schedule(cfg.ddim)
+    generator = torch.Generator(device=images.device).manual_seed(cfg.seed)
+    img_latents, pred_latents, dn, padding, orig_res = _prepare(
+        bundle, images, sparses, cfg, pred_latents_prev, generator, init_noise
+    )
+    ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
+    denoise = _Denoiser(
+        bundle, img_latents, attention if cfg.flash_attention == "off" else flash_attention
+    )
+    decode = functools.partial(decode_prediction, bundle)
+
+    affine_params: list[torch.Tensor] = []
+    if not cfg.train_latents:
+        lat = pred_latents
+        for t in ts:
+            lat, _ = ddim_step(sched, denoise(lat, t), t, lat, cfg.steps)
+        final_latents = lat
+    else:
+        latents = pred_latents.clone().requires_grad_(True)
+        if not closed_form:
+            dev = images.device
+            affine_params = [
+                torch.ones((n, 1, 1, 1), device=dev).requires_grad_(True),
+                torch.zeros((n, 1, 1, 1), device=dev).requires_grad_(True),
+            ]
+        opt = make_optimizer(cfg.opt, latents, affine_params, cfg.lr_latent, cfg.lr_scaling)
+        for t in ts:
+            _, out, grads = guided_step_grads(
+                denoise, decode, sched, cfg, dn, images, orig_res, padding,
+                closed_form, latents, affine_params, t,
+            )
+            # ε-norm gradient rescale, per sample, latent grads only
+            eps_norm = pred_epsilon(sched, out, t, latents).reshape(n, -1).float().norm(dim=1)
+            g = grads[0].float()
+            g_norm = g.reshape(n, -1).norm(dim=1)
+            latents.grad = g * (eps_norm / torch.clamp(g_norm, min=EPSILON)).reshape(n, 1, 1, 1)
+            for p, gp in zip(affine_params, grads[1:]):
+                p.grad = gp
+            opt.step()
+            # DDIM transition: old ε̂ on the updated latent
+            new_lat, _ = ddim_step(sched, out, t, latents, cfg.steps)
+            latents.copy_(new_lat)
+        final_latents = latents.detach()
+
+    denses_affine = latent_to_affine(decode, final_latents, orig_res, padding, cfg.interp_mode)
+    denses_normed = torch.clamp(
+        _affine_to_metric(denses_affine, dn, affine_params, closed_form), 0.0, 1.0
+    )
+    return denormalize_depth(denses_normed, dn), final_latents

@@ -1,0 +1,58 @@
+#!/bin/bash
+# Planted-fault check of chip_smoke.py's tolerances (needs one CUDA GPU).
+#
+#     bash scripts/chip_smoke_faults.sh OUT_DIR
+#
+# Runs chip_smoke.py on the tree as it is, then on a temporary copy of the
+# port with each fault below planted (one sed edit each; --steps 2), and
+# writes one log per run to OUT_DIR. Every run prints all its readings, so
+# the logs show where each limit sits between the sound tree and the
+# faults. A fault run is expected to exit non-zero; the sound run, zero.
+#
+#   F1_rowsum     flash forward divides o by 1.01 x the row sum (lse2 kept)
+#   F2_skip_tile  flash backward skips key tile 1 (its dk, dv stay zero;
+#                 dq misses its part)
+#   F3_dq_tile    flash backward drops only key tile 1's part of dq
+#   F4_conv_halo  conv kernel applies the input mask to the tile's own rows
+#                 but not to its halo rows
+set -u
+out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR}
+cd "$(dirname "$0")/.."
+mkdir -p "$out"
+out=$(cd "$out" && pwd)
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+python3 chip_smoke.py > "$out/sound.log" 2>&1
+echo "sound rc=$?"
+
+work=$(mktemp -d "${TMPDIR:-/tmp}/chip_smoke_faults.XXXXXX")
+trap 'rm -rf "$work"' EXIT
+FA=depth_completion_tpu_torch/csrc/flash_attention.cu
+CONV=depth_completion_tpu_torch/csrc/conv3x3.cu
+
+run_fault() {  # name, then (file, sed expression) pairs
+  local name=$1 d="$work/$1"
+  shift
+  mkdir -p "$d"
+  cp -r chip_smoke.py depth_completion_tpu_torch "$d"/
+  rm -rf "$d/depth_completion_tpu_torch/_build"
+  while [ $# -gt 0 ]; do
+    local before
+    before=$(md5sum < "$d/$1")
+    sed -i "$2" "$d/$1"
+    if [ "$before" = "$(md5sum < "$d/$1")" ]; then
+      echo "$name: the edit did not apply to $1"
+      return 1
+    fi
+    shift 2
+  done
+  (cd "$d" && python3 chip_smoke.py --steps 2) > "$out/$name.log" 2>&1
+  echo "$name rc=$?"
+}
+
+run_fault F1_rowsum $FA 's|? 1.f : 1.f / l;|? 1.f : 1.f / (1.01f * l);|'
+run_fault F2_skip_tile \
+  $FA 's|const int k0 = blockIdx.x \* BR, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
+  depth_completion_tpu_torch/ops/flash_attention.py 's|torch.empty((n, sk, c)|torch.zeros((n, sk, c)|g'
+run_fault F3_dq_tile $FA 's|float\* dst = dq_acc|if (blockIdx.x == 1) break; float* dst = dq_acc|'
+run_fault F4_conv_halo $CONV \
+  's|if (mask != nullptr) val = mask_vec|if (mask != nullptr \&\& rr >= 1 \&\& rr <= TH) val = mask_vec|'

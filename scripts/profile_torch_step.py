@@ -1,0 +1,118 @@
+"""Where a guided step's device time goes in the PyTorch/CUDA port.
+
+    python3 scripts/profile_torch_step.py [--steps 5]
+
+Builds the full-width Marigold bundle (random bf16 weights, seed 0), runs
+one warm-up request, then one request of ``--steps`` per-step guided DDIM
+steps (480x640 frame, 500 sparse points, res 768, norm=const, learned
+affine) under ``torch.profiler``. Prints the wall time per step, the
+device-busy share of the profiled window, device time per step by kernel
+family, and the top kernels by device time; the last line is a JSON
+summary. Needs a CUDA device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+FAMILIES = (  # first match wins; matched against the lower-cased kernel name
+    ("flash_fwd (port)", ("flash_fwd_kernel",)),
+    ("flash_bwd (port)", ("flash_bwd_kernel", "flash_bwd_di_kernel")),
+    ("conv3x3 (port)", ("conv3x3_kernel",)),
+    ("cudnn conv", ("conv", "cudnn", "xmma_fprop", "xmma_dgrad", "implicit_gemm", "winograd")),
+    ("gemm", ("gemm", "cutlass", "sm90_xmma", "ampere_bf16", "nvjet")),
+    ("norm", ("norm",)),
+    ("softmax / reduce", ("softmax", "reduce")),
+    ("elementwise / copy", ("elementwise", "vectorized", "copy", "cat", "fill", "index")),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.stderr.write("profile_torch_step: needs a CUDA device\n")
+        return 2
+
+    from depth_completion_tpu_torch.models import registry
+    from depth_completion_tpu_torch.models.bundle import make_random_bundle
+    from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bundle = make_random_bundle(
+        seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG,
+        vae_config=registry.TAESD_CONFIG, dtype=torch.bfloat16, device="cuda",
+    )
+    pipe = DepthCompletionPipeline(bundle)
+    gen = torch.Generator().manual_seed(0)
+    h, w = 480, 640
+    images = torch.rand((1, h, w, 3), generator=gen) * 255.0
+    sparses = torch.zeros((1, h * w))
+    sparses[0, torch.randperm(h * w, generator=gen)[:500]] = 2.0 + 78.0 * torch.rand(500, generator=gen)
+    sparses = sparses.reshape(1, h, w, 1)
+
+    def request(steps):
+        return pipe(images, sparses, max_depth=120.0, steps=steps, norm="const", closed_form=False)
+
+    request(2)  # warm-up: lazy init, cuDNN heuristics, kernel build
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        request(args.steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels: dict[str, tuple[float, int]] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", 0.0) / 1e3  # us → ms
+        if t > 0:
+            kernels[evt.key] = (t, evt.count)
+    total = sum(t for t, _ in kernels.values())
+    fams: dict[str, float] = {}
+    for name, (t, _) in kernels.items():
+        fams[family(name)] = fams.get(family(name), 0.0) + t
+
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
+    print(smi)
+    per = args.steps
+    print(f"request of {per} guided steps: wall {wall_ms:.1f} ms ({wall_ms / per:.2f} ms/step, "
+          f"incl. encode and final decode); device busy {total:.1f} ms "
+          f"({100 * total / wall_ms:.1f}% of wall)")
+    print("device ms per step by kernel family:")
+    for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:22s} {t / per:9.3f}  ({100 * t / total:.1f}%)")
+    print("top kernels (device ms per step, launches per step):")
+    for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {t / per:9.3f}  {n / per:7.1f}  {name[:110]}")
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "steps": per,
+        "wall_ms_per_step": wall_ms / per, "device_ms_per_step": total / per,
+        "busy_share": total / wall_ms,
+        "family_ms_per_step": {k: v / per for k, v in fams.items()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

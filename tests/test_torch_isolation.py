@@ -1,0 +1,64 @@
+"""The port stands alone: no JAX, no optax, nothing of the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+from scripts.check_quality import _ast_lint, _undefined_names
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "depth_completion_tpu_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+PROFILE = os.path.join(REPO, "scripts", "profile_torch_step.py")
+FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu")
+
+
+def _port_files():
+    out = [SMOKE, PROFILE]
+    for root, dirs, names in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
+        out.extend(os.path.join(root, n) for n in names if n.endswith(".py"))
+    return out
+
+
+def test_no_forbidden_imports():
+    bad = []
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                mods = [node.module]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                if top in FORBIDDEN:
+                    bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno}: {mod}")
+    assert bad == []
+
+
+def test_import_leaves_jax_unloaded():
+    # modules loaded by the import itself (an interpreter's site hooks may
+    # preload others before it)
+    code = (
+        "import sys; before = set(sys.modules); "
+        "import depth_completion_tpu_torch.pipeline.pipeline, "
+        "depth_completion_tpu_torch.models.weights; "
+        "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'depth_completion_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_quality_gates_clean():
+    targets = [PORT, SMOKE, PROFILE]
+    assert _undefined_names(targets) == []
+    assert _ast_lint(targets) == []
