@@ -18,9 +18,10 @@ from typing import Any
 import torch
 
 from depth_completion_tpu_torch.device import resolve_device
-from depth_completion_tpu_torch.models import registry, vae_tiny
-from depth_completion_tpu_torch.models.registry import TaesdConfig, UNetConfig
+from depth_completion_tpu_torch.models import registry, vae_kl, vae_tiny
+from depth_completion_tpu_torch.models.registry import TaesdConfig, UNetConfig, VAEConfig
 from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
+from depth_completion_tpu_torch.ops.flash_attention import flash_attention
 
 
 class _Init:
@@ -174,31 +175,113 @@ def init_taesd(mk: _Init, cfg: TaesdConfig):
     return {"encoder": enc, "decoder": dec}
 
 
+def _kl_resnet_init(mk: _Init, cin, cout):
+    p = {
+        "norm1": mk.norm(cin),
+        "conv1": mk.conv(3, cin, cout),
+        "norm2": mk.norm(cout),
+        "conv2": mk.conv(3, cout, cout),
+    }
+    if cin != cout:
+        p["conv_shortcut"] = mk.conv(1, cin, cout)
+    return p
+
+
+def _kl_mid_init(mk: _Init, c):
+    return {
+        "resnets": [_kl_resnet_init(mk, c, c), _kl_resnet_init(mk, c, c)],
+        "attentions": [{
+            "group_norm": mk.norm(c),
+            "to_q": mk.linear(c, c),
+            "to_k": mk.linear(c, c),
+            "to_v": mk.linear(c, c),
+            "to_out": mk.linear(c, c),
+        }],
+    }
+
+
+def init_vae(mk: _Init, cfg: VAEConfig):
+    """KL-VAE parameter tree (the JAX package's ``vae_kl.init_vae`` keys)."""
+    chans = cfg.block_out_channels
+    n_stages = len(chans)
+    enc: dict = {"conv_in": mk.conv(3, cfg.in_channels, chans[0]), "down_blocks": []}
+    cin = chans[0]
+    for i, cout in enumerate(chans):
+        stage: dict = {"resnets": []}
+        for _ in range(cfg.layers_per_block):
+            stage["resnets"].append(_kl_resnet_init(mk, cin, cout))
+            cin = cout
+        if i < n_stages - 1:
+            stage["downsampler"] = mk.conv(3, cout, cout)
+        enc["down_blocks"].append(stage)
+    c_mid = chans[-1]
+    enc["mid_block"] = _kl_mid_init(mk, c_mid)
+    enc["conv_norm_out"] = mk.norm(c_mid)
+    enc["conv_out"] = mk.conv(3, c_mid, 2 * cfg.latent_channels)
+    dec: dict = {"conv_in": mk.conv(3, cfg.latent_channels, c_mid)}
+    dec["mid_block"] = _kl_mid_init(mk, c_mid)
+    up, cin = [], c_mid
+    for i in range(n_stages):
+        cout = chans[n_stages - 1 - i]
+        stage = {"resnets": []}
+        for _ in range(cfg.layers_per_block + 1):
+            stage["resnets"].append(_kl_resnet_init(mk, cin, cout))
+            cin = cout
+        if i < n_stages - 1:
+            stage["upsampler"] = mk.conv(3, cout, cout)
+        up.append(stage)
+    dec["up_blocks"] = up
+    dec["conv_norm_out"] = mk.norm(chans[0])
+    dec["conv_out"] = mk.conv(3, chans[0], cfg.in_channels)
+    return {
+        "encoder": enc,
+        "decoder": dec,
+        "quant_conv": mk.conv(1, 2 * cfg.latent_channels, 2 * cfg.latent_channels),
+        "post_quant_conv": mk.conv(1, cfg.latent_channels, cfg.latent_channels),
+    }
+
+
 @dataclasses.dataclass(frozen=True)
 class VAE:
-    """VAE params + config. Only the tiny VAE ("light") is ported so far."""
+    """VAE params + config, dispatching on the family: ``"tiny"`` (TAESD,
+    ``--vae light``) or ``"kl"`` (``AutoencoderKL``, ``--vae original``)."""
 
-    kind: str  # "tiny"
+    kind: str  # "tiny" | "kl"
     params: Any
-    config: TaesdConfig
+    config: TaesdConfig | VAEConfig
 
     def __post_init__(self):
-        if self.kind != "tiny":
-            raise NotImplementedError(
-                f"VAE kind {self.kind!r} is not ported (the KL VAE is a ROADMAP item)"
-            )
+        if self.kind not in ("tiny", "kl"):
+            raise ValueError(f"unknown VAE kind {self.kind!r} (expected 'tiny' or 'kl')")
 
-    def encode(self, images: torch.Tensor) -> torch.Tensor:
+    def encode(self, images: torch.Tensor, conv_fn=conv3x3_fused,
+               attention_fn=flash_attention) -> torch.Tensor:
+        """[-1,1] NHWC images → scaled latent; ``conv_fn`` and
+        ``attention_fn`` run the KL encoder's stride-1 3x3 convs and mid
+        attention (the TAESD encoder runs neither)."""
+        if self.kind == "kl":
+            return vae_kl.encode(self.params, images, self.config, conv_fn, attention_fn)
         return vae_tiny.encode(self.params, images, self.config)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        if self.kind == "kl":
+            return vae_kl.decode(self.params, latents, self.config)
         return vae_tiny.decode(self.params, latents, self.config)
 
-    def decode_depth(self, latents: torch.Tensor, conv_fn=conv3x3_fused) -> torch.Tensor:
+    def decode_depth(self, latents: torch.Tensor, conv_fn=conv3x3_fused,
+                     attention_fn=flash_attention) -> torch.Tensor:
+        """Latent → [0,1] depth [N,H,W,1] with ``conv_fn`` running the
+        decoder's stride-1 3x3 convs and ``attention_fn`` the KL mid
+        attention (TAESD has none)."""
+        if self.kind == "kl":
+            return vae_kl.decode_depth(self.params, latents, self.config, conv_fn, attention_fn)
         return vae_tiny.decode_depth(self.params, latents, self.config, conv_fn)
 
     @property
     def downsample_factor(self) -> int:
+        """Spatial downsampling of encode (8 for the full-size configs)."""
+        if self.kind == "kl":
+            return 2 ** (len(self.config.block_out_channels) - 1)
         return 2 ** (len(self.config.encoder_blocks) - 1)
 
 
@@ -225,16 +308,28 @@ class ModelBundle:
 def make_random_bundle(
     seed: int = 0,
     unet_config: UNetConfig = registry.TINY_UNET_CONFIG,
-    vae_config: TaesdConfig = registry.TINY_TAESD_CONFIG,
+    vae_config: TaesdConfig | VAEConfig | None = None,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = None,
+    vae_kind: str = "tiny",
 ) -> ModelBundle:
     """Random-weight bundle made from ``seed`` on ``device`` (the GPU by
-    default). The text context is a seeded ``[1, 2, cross_attention_dim]``
-    tensor standing in for the empty-prompt CLIP output."""
+    default). ``vae_kind`` picks TAESD (``"tiny"``) or the KL VAE
+    (``"kl"``) and must match ``vae_config``'s type; ``vae_config=None``
+    takes that family's tiny test config. The text context is a seeded
+    ``[1, 2, cross_attention_dim]`` tensor standing in for the empty-prompt
+    CLIP output."""
+    if vae_kind not in ("tiny", "kl"):
+        raise ValueError(f"unknown VAE kind {vae_kind!r} (expected 'tiny' or 'kl')")
+    kl = vae_kind == "kl"
+    if vae_config is None:
+        vae_config = registry.TINY_VAE_CONFIG if kl else registry.TINY_TAESD_CONFIG
+    elif isinstance(vae_config, VAEConfig) != kl:
+        raise ValueError(f"vae_kind={vae_kind!r} does not match {type(vae_config).__name__}")
     dev = resolve_device(device)
     unet_params = init_unet(_Init(seed, dtype, dev), unet_config)
-    vae_params = init_taesd(_Init(seed + 1, dtype, dev), vae_config)
+    init_vae_fn = init_vae if kl else init_taesd
+    vae_params = init_vae_fn(_Init(seed + 1, dtype, dev), vae_config)
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     ctx = torch.randn(
         (1, 2, unet_config.cross_attention_dim), generator=gen, device=dev
@@ -242,6 +337,6 @@ def make_random_bundle(
     return ModelBundle(
         unet_params=unet_params,
         unet_config=unet_config,
-        vae=VAE(kind="tiny", params=vae_params, config=vae_config),
+        vae=VAE(kind=vae_kind, params=vae_params, config=vae_config),
         text_context=ctx,
     )

@@ -28,14 +28,19 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def conv2d(params, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tensor:
-    """3x3 / 1x1 / strided conv over NHWC ``x`` with an OIHW kernel."""
+def conv2d(params, x: torch.Tensor, stride: int = 1, padding=1) -> torch.Tensor:
+    """3x3 / 1x1 / strided conv over NHWC ``x`` with an OIHW kernel.
+
+    ``padding`` is an int (symmetric) or explicit ``((top, bottom), (left,
+    right))``, as the KL encoder's downsamplers use ``((0, 1), (0, 1))``.
+    """
     w = params["kernel"].to(x.dtype)
     b = params.get("bias")
-    y = F.conv2d(
-        nhwc_to_nchw(x), w, None if b is None else b.to(x.dtype),
-        stride=stride, padding=padding,
-    )
+    xc = nhwc_to_nchw(x)
+    if not isinstance(padding, int):
+        (top, bottom), (left, right) = padding
+        xc, padding = F.pad(xc, (left, right, top, bottom)), 0
+    y = F.conv2d(xc, w, None if b is None else b.to(x.dtype), stride=stride, padding=padding)
     return nchw_to_nhwc(y)
 
 
@@ -129,3 +134,11 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """NHWC nearest resize with half-pixel centres (``jax.image.resize``'s
     "nearest", which is PyTorch's ``nearest-exact``)."""
     return nchw_to_nhwc(F.interpolate(nhwc_to_nchw(x), size=size, mode="nearest-exact"))
+
+
+def upsample_conv_2x_matmul(params, x: torch.Tensor) -> torch.Tensor:
+    """``conv2d(params, upsample_nearest_2x(x))``. The JAX package computes
+    the same function in a subpixel form (2x2 taps summed in ``x.dtype`` on
+    the source grid); on the H100 the conv of the upsampled map ran the KL
+    step's device time lower (``scripts/profile_torch_step.py --upsample``)."""
+    return conv2d(params, upsample_nearest_2x(x))

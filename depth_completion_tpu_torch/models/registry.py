@@ -4,6 +4,8 @@ dataclasses for the slice's models; the port imports nothing from there).
 - ``MARIGOLD_UNET_CONFIG``: the SD2-class Marigold UNet (8-channel input,
   v-prediction, head dim 64).
 - ``TAESD_CONFIG``: the tiny VAE (``madebyollin/taesd``), the default decode.
+- ``SD_VAE_CONFIG``: the KL autoencoder (``--vae original``, diffusers'
+  ``AutoencoderKL`` at SD widths 128/256/512/512).
 """
 
 from __future__ import annotations
@@ -33,6 +35,17 @@ class UNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    in_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_groups: int = 32
+    norm_eps: float = 1e-6
+    scaling_factor: float = 0.18215
+
+
+@dataclasses.dataclass(frozen=True)
 class TaesdConfig:
     latent_channels: int = 4
     channels: int = 64
@@ -42,6 +55,7 @@ class TaesdConfig:
 
 
 MARIGOLD_UNET_CONFIG = UNetConfig()
+SD_VAE_CONFIG = VAEConfig()
 TAESD_CONFIG = TaesdConfig()
 
 # Scaled-down geometries for tests (same topology, tiny widths).
@@ -53,4 +67,5 @@ TINY_UNET_CONFIG = UNetConfig(
     layers_per_block=1,
     norm_groups=8,
 )
+TINY_VAE_CONFIG = VAEConfig(block_out_channels=(16, 32), layers_per_block=1, norm_groups=8)
 TINY_TAESD_CONFIG = TaesdConfig(channels=16, encoder_blocks=(1, 1), decoder_blocks=(1, 1))

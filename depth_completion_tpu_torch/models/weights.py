@@ -1,7 +1,7 @@
 """Weight bridge from the JAX package's parameter trees.
 
-``from_jax_params`` takes the JAX UNet and TAESD trees as nested dicts/lists
-of numpy arrays (``jax.tree.map(np.asarray, tree)``) and returns the port's
+``from_jax_params`` takes the JAX UNet and VAE (TAESD or KL) trees as nested
+dicts/lists of numpy arrays (``jax.tree.map(np.asarray, tree)``) and returns the port's
 ``ModelBundle``: conv kernels HWIO → OIHW, linear kernels ``[in, out]`` →
 ``[out, in]``, everything else as is. The port's own parameter shapes
 (built on the ``meta`` device from the configs) are the template: a JAX
@@ -23,8 +23,9 @@ from depth_completion_tpu_torch.models.bundle import (
     _Init,
     init_taesd,
     init_unet,
+    init_vae,
 )
-from depth_completion_tpu_torch.models.registry import TaesdConfig, UNetConfig
+from depth_completion_tpu_torch.models.registry import TaesdConfig, UNetConfig, VAEConfig
 
 
 def _flatten(tree: Any, prefix: tuple = ()) -> dict[tuple, Any]:
@@ -81,23 +82,26 @@ def _convert(jax_tree: Any, template: Any, what: str, dtype, device) -> Any:
 
 def from_jax_params(
     unet_tree: Any,
-    taesd_tree: Any,
+    vae_tree: Any,
     text_context: Any,
     *,
     unet_config: UNetConfig,
-    vae_config: TaesdConfig,
+    vae_config: TaesdConfig | VAEConfig,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = None,
 ) -> ModelBundle:
-    """Port bundle holding the same weights as the JAX trees."""
+    """Port bundle holding the same weights as the JAX trees; the VAE tree
+    is read as a KL VAE for a ``VAEConfig`` and as TAESD otherwise."""
+    vae_kind, init_vae_fn = ("kl", init_vae) if isinstance(vae_config, VAEConfig) else (
+        "tiny", init_taesd)
     dev = resolve_device(device)
     meta = _Init(0, dtype, torch.device("meta"))
     unet = _convert(unet_tree, init_unet(meta, unet_config), "unet", dtype, dev)
-    taesd = _convert(taesd_tree, init_taesd(meta, vae_config), "taesd", dtype, dev)
+    vae = _convert(vae_tree, init_vae_fn(meta, vae_config), f"vae ({vae_kind})", dtype, dev)
     ctx = torch.from_numpy(np.asarray(text_context, dtype=np.float32)).to(device=dev, dtype=dtype)
     return ModelBundle(
         unet_params=unet,
         unet_config=unet_config,
-        vae=VAE(kind="tiny", params=taesd, config=vae_config),
+        vae=VAE(kind=vae_kind, params=vae, config=vae_config),
         text_context=ctx,
     )

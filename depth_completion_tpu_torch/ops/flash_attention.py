@@ -1,21 +1,25 @@
 """Flash attention: Hopper kernels (forward and one-pass backward), their
-plain PyTorch twins, and the ``autograd.Function`` behind the UNet's
-``attention_fn`` seam.
+plain PyTorch twins, and the ``autograd.Function`` behind the UNet's and the
+KL VAE's ``attention_fn`` seam.
 
 Counterpart of ``depth_completion_tpu.ops.flash_attention``. The CUDA kernels
-are in ``csrc/flash_attention.cu``; they replace the TPU kernels
+are in ``csrc/flash_attention.cu``, built for two head dims: 64 (the UNet)
+and 512 (the KL VAE's one-head mid attention). They replace the TPU kernels
 ``_fwd_kernel`` (flash_attention.py:163) and ``_bwd_fused_kernel`` /
-``_bwd_fused_kernel_t`` (:464 / :534). Routing is the JAX package's
-(``flash_attention``, :893-921): calls with ``sk < min_seq_len`` (the
-2-token cross-attention, the deep UNet stages) or a head dim other than 64
-or a multiple of 128 take the plain ``layers.attention``.
+``_bwd_fused_kernel_t`` (:464 / :534), which the JAX package runs at both
+head dims. Routing is the JAX package's (``flash_attention``, :893-921):
+calls with ``sk < min_seq_len`` (the 2-token cross-attention, the deep UNet
+stages) or a head dim other than 64 or a multiple of 128 take the plain
+``layers.attention``; on a CUDA tensor, a head dim other than 64 or 512
+raises.
 
 Row statistic: ``lse2 = m + log2(l)`` per query row in the log2 domain
 (scores scaled by ``scale * log2(e)``), fp32, ``[N, heads, Sq]``. The
 backward recomputes ``p = exp2(s * scale * log2(e) - lse2)``.
 
 Wrappers take the plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises. ``LAUNCHES`` counts kernel launches, the
+d=512 kernels under their own names.
 """
 
 from __future__ import annotations
@@ -29,10 +33,11 @@ from depth_completion_tpu_torch import _build
 from depth_completion_tpu_torch.models.layers import attention as plain_attention
 
 _LOG2E = 1.4426950408889634
-KERNEL_HEAD_DIM = 64  # the CUDA kernel's head dim
+# head dim → the kernels' entry points and launch-count names
+_KERNELS = {64: ("", "flash_fwd", "flash_bwd"), 512: ("_d512", "flash_fwd_d512", "flash_bwd_d512")}
 
 # kernel launches per wrapper, read by chip_smoke.py
-LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+LAUNCHES = {name: 0 for _, fwd, bwd in _KERNELS.values() for name in (fwd, bwd)}
 
 _i, _l, _f, _p = ctypes.c_int, ctypes.c_long, ctypes.c_float, ctypes.c_void_p
 _lib = None
@@ -42,14 +47,18 @@ def _kernels():
     global _lib
     if _lib is None:
         lib = _build.load("flash_attention")
-        lib.dct_flash_fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
-        lib.dct_flash_bwd.argtypes = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
-        lib.dct_flash_fwd.restype = lib.dct_flash_bwd.restype = _i
+        for suffix, _, _ in _KERNELS.values():
+            fwd, bwd = getattr(lib, f"dct_flash_fwd{suffix}"), getattr(lib, f"dct_flash_bwd{suffix}")
+            fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
+            bwd.argtypes = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
+            fwd.restype = bwd.restype = _i
         _lib = lib
     return _lib
 
 
-def _check_cuda_operands(*xs: torch.Tensor, head_dim: int) -> None:
+def _check_cuda_operands(*xs: torch.Tensor, head_dim: int) -> tuple[str, str, str]:
+    """Raise on what the kernels do not take; → (entry-point suffix, forward
+    and backward launch-count names) for ``head_dim``."""
     for x in xs:
         if x.dtype != torch.bfloat16:
             raise TypeError(f"flash kernel takes bfloat16, got {x.dtype}")
@@ -60,11 +69,11 @@ def _check_cuda_operands(*xs: torch.Tensor, head_dim: int) -> None:
             )
         if x.data_ptr() % 16:
             raise ValueError("flash kernel operands must be 16-byte aligned")
-    if head_dim != KERNEL_HEAD_DIM:
+    if head_dim not in _KERNELS:
         raise NotImplementedError(
-            f"the flash kernel is built for head dim {KERNEL_HEAD_DIM}, got "
-            f"{head_dim} (the KL-VAE d=512 shape is a ROADMAP item)"
+            f"the flash kernels are built for head dims {sorted(_KERNELS)}, got {head_dim}"
         )
+    return _KERNELS[head_dim]
 
 
 # ---------------------------------------------------------------------------
@@ -122,19 +131,19 @@ def flash_fwd(q, k, v, num_heads):
         return flash_fwd_plain(q, k, v, num_heads)
     n, sq, c = q.shape
     sk = k.shape[1]
-    _check_cuda_operands(q, k, v, head_dim=c // num_heads)
+    suffix, name, _ = _check_cuda_operands(q, k, v, head_dim=c // num_heads)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse2 = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _kernels().dct_flash_fwd(
+    status = getattr(_kernels(), f"dct_flash_fwd{suffix}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse2.data_ptr(),
         n, num_heads, sq, sk,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         1.0 / math.sqrt(c // num_heads), stream,
     )
-    _build.check(status, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _build.check(status, name)
+    LAUNCHES[name] += 1
     return o, lse2
 
 
@@ -145,13 +154,13 @@ def flash_bwd(q, k, v, o, do, lse2, num_heads):
     n, sq, c = q.shape
     sk = k.shape[1]
     do = do.contiguous()
-    _check_cuda_operands(q, k, v, o, do, head_dim=c // num_heads)
+    suffix, _, name = _check_cuda_operands(q, k, v, o, do, head_dim=c // num_heads)
     di = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
     dq_acc = torch.zeros((n, sq, c), device=q.device, dtype=torch.float32)
     dk = torch.empty((n, sk, c), device=q.device, dtype=k.dtype)
     dv = torch.empty((n, sk, c), device=q.device, dtype=v.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _kernels().dct_flash_bwd(
+    status = getattr(_kernels(), f"dct_flash_bwd{suffix}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse2.contiguous().data_ptr(), di.data_ptr(), dq_acc.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
@@ -160,8 +169,8 @@ def flash_bwd(q, k, v, o, do, lse2, num_heads):
         o.stride(0), o.stride(1), do.stride(0), do.stride(1),
         1.0 / math.sqrt(c // num_heads), stream,
     )
-    _build.check(status, "flash_bwd")
-    LAUNCHES["flash_bwd"] += 1
+    _build.check(status, name)
+    LAUNCHES[name] += 1
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -187,7 +196,7 @@ def flash_attention(q, k, v, num_heads: int, min_seq_len: int = 768):
     """Drop-in for ``layers.attention`` over ``[N, S, C]`` tensors.
 
     Short KV sequences and head dims other than 64 or a multiple of 128 take
-    the plain path, as in the JAX package.
+    the plain path, as in the JAX package; the kernels take d=64 and d=512.
     """
     c = q.shape[-1]
     sk = k.shape[1]

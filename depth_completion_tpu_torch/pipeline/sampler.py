@@ -6,13 +6,20 @@ path) keeps the JAX package's dataflow exactly:
 
 - ε̂ comes from the UNet applied to the *pre-update* latent; the DDIM step
   is applied to the *post-update* latent with that old ε̂;
-- the guidance gradient flows through the UNet and the TAESD decoder into
-  the latent (``torch.autograd.grad`` w.r.t. the latent and the affine
+- the guidance gradient flows through the UNet and the VAE decoder (TAESD
+  or KL) into the latent (``torch.autograd.grad`` w.r.t. the latent and the affine
   scale/shift);
 - per-sample losses are summed before the gradient (samples are
   independent, so this is the per-sample gradient);
 - the latent gradient is rescaled per sample by ‖ε̂‖ / max(‖g‖, 1e-7) before
   the optimizer step; the affine gradients are left as they are.
+
+With Adam and v- or ε-prediction without sample clipping (the Marigold
+configuration) the rescale, the latent's Adam update and the DDIM
+transition run as one fused epilogue (``ops.guidance_epilogue``, the Hopper
+kernel on CUDA; JAX ``sampler.py:466-511``), which holds the latent's Adam
+moments; the affine keeps its own ``torch.optim.Adam``. SGD and Adagrad
+run the same math as a chain of eager ops.
 
 Also ported: the no-training DDIM branch and the final decode. Per-input
 training, LCM, the KLD penalty, ring attention and UNet rematerialisation
@@ -44,6 +51,14 @@ from depth_completion_tpu_torch.models.layers import attention
 from depth_completion_tpu_torch.models.unet import apply_unet
 from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
 from depth_completion_tpu_torch.ops.flash_attention import flash_attention
+from depth_completion_tpu_torch.ops.guidance_epilogue import (
+    ADAM_B1,
+    ADAM_B2,
+    ADAM_EPS,
+    epilogue_scalars,
+    guidance_epilogue,
+)
+from depth_completion_tpu_torch.ops.guidance_epilogue import supported as epilogue_supported
 from depth_completion_tpu_torch.ops.resize import resize_antialias, unpad
 from depth_completion_tpu_torch.pipeline.preprocess import preprocess_images
 from depth_completion_tpu_torch.sched.ddim import (
@@ -144,10 +159,11 @@ def _check_ported(cfg: SamplerConfig) -> None:
 
 
 def decode_prediction(bundle: ModelBundle, latents: torch.Tensor,
-                      conv_fn=conv3x3_fused) -> torch.Tensor:
+                      conv_fn=conv3x3_fused, attention_fn=flash_attention) -> torch.Tensor:
     """Latent → [0,1] affine depth at processing resolution, decoded in the
-    model dtype with ``conv_fn`` running the decoder's 3x3 convs."""
-    return bundle.vae.decode_depth(latents.to(bundle.dtype), conv_fn)
+    model dtype with ``conv_fn`` running the decoder's 3x3 convs and
+    ``attention_fn`` the KL decoder's mid attention."""
+    return bundle.vae.decode_depth(latents.to(bundle.dtype), conv_fn, attention_fn)
 
 
 def latent_to_affine(decode, latents, orig_res, padding, interp_mode):
@@ -253,10 +269,9 @@ def guided_sample(
         bundle, images, sparses, cfg, pred_latents_prev, generator, init_noise
     )
     ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
-    denoise = _Denoiser(
-        bundle, img_latents, attention if cfg.flash_attention == "off" else flash_attention
-    )
-    decode = functools.partial(decode_prediction, bundle)
+    attention_fn = attention if cfg.flash_attention == "off" else flash_attention
+    denoise = _Denoiser(bundle, img_latents, attention_fn)
+    decode = functools.partial(decode_prediction, bundle, attention_fn=attention_fn)
 
     affine_params: list[torch.Tensor] = []
     if not cfg.train_latents:
@@ -272,23 +287,14 @@ def guided_sample(
                 torch.ones((n, 1, 1, 1), device=dev).requires_grad_(True),
                 torch.zeros((n, 1, 1, 1), device=dev).requires_grad_(True),
             ]
-        opt = make_optimizer(cfg.opt, latents, affine_params, cfg.lr_latent, cfg.lr_scaling)
-        for t in ts:
-            _, out, grads = guided_step_grads(
-                denoise, decode, sched, cfg, dn, images, orig_res, padding,
-                closed_form, latents, affine_params, t,
-            )
-            # ε-norm gradient rescale, per sample, latent grads only
-            eps_norm = pred_epsilon(sched, out, t, latents).reshape(n, -1).float().norm(dim=1)
-            g = grads[0].float()
-            g_norm = g.reshape(n, -1).norm(dim=1)
-            latents.grad = g * (eps_norm / torch.clamp(g_norm, min=EPSILON)).reshape(n, 1, 1, 1)
-            for p, gp in zip(affine_params, grads[1:]):
-                p.grad = gp
-            opt.step()
-            # DDIM transition: old ε̂ on the updated latent
-            new_lat, _ = ddim_step(sched, out, t, latents, cfg.steps)
-            latents.copy_(new_lat)
+        step = functools.partial(
+            guided_step_grads, denoise, decode, sched, cfg, dn, images, orig_res, padding,
+            closed_form, latents, affine_params,
+        )
+        if cfg.opt == "adam" and epilogue_supported(sched):
+            _fused_adam_steps(step, sched, cfg, ts, latents, affine_params)
+        else:
+            _eager_steps(step, sched, cfg, ts, latents, affine_params)
         final_latents = latents.detach()
 
     denses_affine = latent_to_affine(decode, final_latents, orig_res, padding, cfg.interp_mode)
@@ -296,3 +302,48 @@ def guided_sample(
         _affine_to_metric(denses_affine, dn, affine_params, closed_form), 0.0, 1.0
     )
     return denormalize_depth(denses_normed, dn), final_latents
+
+
+def _fused_adam_steps(step, sched, cfg, ts, latents, affine_params):
+    """Per-step guided steps with the fused epilogue (ε-rescale, the latent's
+    Adam update and DDIM in one launch); the affine has its own Adam."""
+    m, v = torch.zeros_like(latents), torch.zeros_like(latents)
+    aff_opt = None
+    if affine_params:
+        aff_opt = torch.optim.Adam(affine_params, lr=cfg.lr_scaling,
+                                   betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
+    v_pred = sched.config.prediction_type == "v_prediction"
+    for count, t in enumerate(ts):
+        _, out, grads = step(t)
+        if aff_opt is not None:
+            for p, gp in zip(affine_params, grads[1:]):
+                p.grad = gp
+            aff_opt.step()
+        guidance_epilogue(latents, grads[0], out, m, v,
+                          epilogue_scalars(sched, t, cfg.steps, count),
+                          lr=cfg.lr_latent, v_pred=v_pred)
+
+
+def eager_epilogue(sched, opt, latents, g, out, t: int, num_steps: int) -> None:
+    """The step's epilogue as a chain of eager ops: the ε-norm rescale of
+    the latent gradient ``g`` (per sample), ``opt.step()`` (the affine's
+    gradients, if any, already set) and the DDIM transition of the updated
+    ``latents`` with the old UNet output ``out``, in place."""
+    n = latents.shape[0]
+    eps_norm = pred_epsilon(sched, out, t, latents).reshape(n, -1).float().norm(dim=1)
+    g = g.float()
+    g_norm = g.reshape(n, -1).norm(dim=1)
+    latents.grad = g * (eps_norm / torch.clamp(g_norm, min=EPSILON)).reshape(n, 1, 1, 1)
+    opt.step()
+    new_lat, _ = ddim_step(sched, out, t, latents, num_steps)
+    latents.copy_(new_lat)
+
+
+def _eager_steps(step, sched, cfg, ts, latents, affine_params):
+    """Per-step guided steps as eager ops, for any optimizer."""
+    opt = make_optimizer(cfg.opt, latents, affine_params, cfg.lr_latent, cfg.lr_scaling)
+    for t in ts:
+        _, out, grads = step(t)
+        for p, gp in zip(affine_params, grads[1:]):
+            p.grad = gp
+        eager_epilogue(sched, opt, latents, grads[0], out, t, cfg.steps)

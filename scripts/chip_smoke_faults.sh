@@ -1,10 +1,11 @@
 #!/bin/bash
 # Planted-fault check of chip_smoke.py's tolerances (needs one CUDA GPU).
 #
-#     bash scripts/chip_smoke_faults.sh OUT_DIR
+#     bash scripts/chip_smoke_faults.sh OUT_DIR [FAULT ...]
 #
 # Runs chip_smoke.py on the tree as it is, then on a temporary copy of the
-# port with each fault below planted (one sed edit each; --steps 2), and
+# port with each fault below planted (one sed edit each; --steps 2), or
+# only with the faults named (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
 # the logs show where each limit sits between the sound tree and the
 # faults. A fault run is expected to exit non-zero; the sound run, zero.
@@ -15,8 +16,18 @@
 #   F3_dq_tile    flash backward drops only key tile 1's part of dq
 #   F4_conv_halo  conv kernel applies the input mask to the tile's own rows
 #                 but not to its halo rows
+#   F5_d512_rowsum    d=512 flash forward divides o by 1.01 x the row sum
+#   F6_d512_skip_tile d=512 flash backward skips key tile 1 (dk, dv zero there)
+#   F7_epilogue_norm  guidance epilogue drops the eps-norm gradient rescale
+#   F8_swap_dkdv      the flash autograd.Function returns dv as dk and dk as dv
+#   F9_kl_skip        conv3x3_fused drops the residual (skip) of the KL
+#                     ResNets (no ReLU), forward and backward
+#   F10_kl_dskip      the conv autograd.Function gives the KL ResNets'
+#                     residual (skip) no gradient
 set -u
-out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR}
+out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR [FAULT ...]}
+shift
+only=" $* "
 cd "$(dirname "$0")/.."
 mkdir -p "$out"
 out=$(cd "$out" && pwd)
@@ -32,6 +43,9 @@ CONV=depth_completion_tpu_torch/csrc/conv3x3.cu
 run_fault() {  # name, then (file, sed expression) pairs
   local name=$1 d="$work/$1"
   shift
+  if [ "$only" != "  " ] && [[ "$only" != *" $name "* ]]; then
+    return 0
+  fi
   mkdir -p "$d"
   cp -r chip_smoke.py depth_completion_tpu_torch "$d"/
   rm -rf "$d/depth_completion_tpu_torch/_build"
@@ -56,3 +70,16 @@ run_fault F2_skip_tile \
 run_fault F3_dq_tile $FA 's|float\* dst = dq_acc|if (blockIdx.x == 1) break; float* dst = dq_acc|'
 run_fault F4_conv_halo $CONV \
   's|if (mask != nullptr) val = mask_vec|if (mask != nullptr \&\& rr >= 1 \&\& rr <= TH) val = mask_vec|'
+run_fault F5_d512_rowsum $FA \
+  's|sm.alpha\[threadIdx.x\] = 1.f / l_row;|sm.alpha[threadIdx.x] = 1.f / (1.01f * l_row);|'
+run_fault F6_d512_skip_tile \
+  $FA 's|const int kt0 = blockIdx.x \* BK5, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
+  depth_completion_tpu_torch/ops/flash_attention.py 's|torch.empty((n, sk, c)|torch.zeros((n, sk, c)|g'
+run_fault F7_epilogue_norm depth_completion_tpu_torch/csrc/guidance_epilogue.cu \
+  's|const float factor = sqrtf(red\[0\]\[0\]) / fmaxf(sqrtf(red\[1\]\[0\]), 1e-7f);|const float factor = 1.f;|'
+run_fault F8_swap_dkdv depth_completion_tpu_torch/ops/flash_attention.py \
+  's|return dq, dk, dv, None|return dq, dv, dk, None|'
+run_fault F9_kl_skip depth_completion_tpu_torch/ops/conv3x3.py \
+  's|return Conv3x3Fused.apply(x, weight, bias, skip, relu)|return Conv3x3Fused.apply(x, weight, bias, skip if relu else None, relu)|'
+run_fault F10_kl_dskip depth_completion_tpu_torch/ops/conv3x3.py \
+  's|dskip = dy_m if (need_skip and ctx.has_skip) else None|dskip = dy_m if (need_skip and ctx.has_skip and ctx.relu) else None|'

@@ -1,8 +1,10 @@
 """Where a guided step's device time goes in the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_step.py [--steps 5]
+    python3 scripts/profile_torch_step.py [--steps 5] [--vae light|original]
+                                          [--upsample subpixel|nearest]
 
-Builds the full-width Marigold bundle (random bf16 weights, seed 0), runs
+Builds the full-width Marigold bundle (random bf16 weights, seed 0) with the
+TAESD decoder (``--vae light``) or the KL VAE at SD widths (``original``), runs
 one warm-up request, then one request of ``--steps`` per-step guided DDIM
 steps (480x640 frame, 500 sparse points, res 768, norm=const, learned
 affine) under ``torch.profiler``. Prints the wall time per step, the
@@ -26,7 +28,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("flash_fwd (port)", ("flash_fwd_kernel",)),
     ("flash_bwd (port)", ("flash_bwd_kernel", "flash_bwd_di_kernel")),
+    ("flash_fwd_d512 (port)", ("flash_fwd_d512_kernel",)),
+    ("flash_bwd_d512 (port)", ("flash_bwd_d512_kernel", "flash_bwd_di_d512_kernel")),
     ("conv3x3 (port)", ("conv3x3_kernel",)),
+    ("guidance_epilogue (port)", ("guidance_epilogue_kernel",)),
     ("cudnn conv", ("conv", "cudnn", "xmma_fprop", "xmma_dgrad", "implicit_gemm", "winograd")),
     ("gemm", ("gemm", "cutlass", "sm90_xmma", "ampere_bf16", "nvjet")),
     ("norm", ("norm",)),
@@ -43,23 +48,59 @@ def family(name: str) -> str:
     return "other"
 
 
+def upsample_conv_subpixel(params, x: torch.Tensor) -> torch.Tensor:
+    """``conv2d(params, upsample_nearest_2x(x))`` on the source grid, as the
+    JAX package computes it: output subpixel (di, dj) sees a 2x2 source
+    neighbourhood with the kernel's rows and columns summed (in ``x.dtype``),
+    so the four 2x2 kernels run as one conv with 4·Co outputs over ``x``
+    padded by one; subpixel (di, dj) is its window shifted by (di, dj)."""
+    import torch.nn.functional as F
+
+    n, h, w, _ = x.shape
+    k = params["kernel"].to(x.dtype)  # [Co, C, 3, 3]
+    co = k.shape[0]
+
+    def taps(a, i):  # last axis of 3 taps → subpixel i's two
+        return (a[..., 0], a[..., 1] + a[..., 2]) if i == 0 else (a[..., 0] + a[..., 1], a[..., 2])
+
+    wk = torch.cat([
+        torch.stack([torch.stack(taps(r, dj), dim=-1) for r in taps(k.transpose(2, 3), di)], dim=-2)
+        for di in (0, 1) for dj in (0, 1)
+    ])  # [4·Co, C, 2, 2], block 2·di + dj
+    b = params.get("bias")
+    y = F.conv2d(x.permute(0, 3, 1, 2), wk, None if b is None else b.to(x.dtype).repeat(4),
+                 padding=1).permute(0, 2, 3, 1)  # [N, H+1, W+1, 4·Co]
+    sub = [[y[:, di:di + h, dj:dj + w, (2 * di + dj) * co:(2 * di + dj + 1) * co]
+            for dj in (0, 1)] for di in (0, 1)]
+    out = torch.stack([torch.stack(r, dim=3) for r in sub], dim=2)  # [N, H, 2, W, 2, Co]
+    return out.reshape(n, 2 * h, 2 * w, co)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--vae", choices=("light", "original"), default="light")
+    ap.add_argument("--upsample", choices=("nearest", "subpixel"), default="nearest",
+                    help="KL decoder upsample conv: the port's conv of the nearest-2x "
+                         "upsampled map, or the same function in subpixel form")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("profile_torch_step: needs a CUDA device\n")
         return 2
 
-    from depth_completion_tpu_torch.models import registry
+    from depth_completion_tpu_torch.models import registry, vae_kl
     from depth_completion_tpu_torch.models.bundle import make_random_bundle
     from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 
+    if args.upsample == "subpixel":
+        vae_kl.upsample_conv_2x_matmul = upsample_conv_subpixel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kind, vae_config = {"light": ("tiny", registry.TAESD_CONFIG),
+                        "original": ("kl", registry.SD_VAE_CONFIG)}[args.vae]
     bundle = make_random_bundle(
-        seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG,
-        vae_config=registry.TAESD_CONFIG, dtype=torch.bfloat16, device="cuda",
+        seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG, vae_config=vae_config,
+        dtype=torch.bfloat16, device="cuda", vae_kind=kind,
     )
     pipe = DepthCompletionPipeline(bundle)
     gen = torch.Generator().manual_seed(0)
@@ -96,8 +137,8 @@ def main() -> int:
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     print(smi)
     per = args.steps
-    print(f"request of {per} guided steps: wall {wall_ms:.1f} ms ({wall_ms / per:.2f} ms/step, "
-          f"incl. encode and final decode); device busy {total:.1f} ms "
+    print(f"--vae {args.vae} --upsample {args.upsample}: request of {per} guided steps: "
+          f"wall {wall_ms:.1f} ms ({wall_ms / per:.2f} ms/step, incl. encode and final decode); device busy {total:.1f} ms "
           f"({100 * total / wall_ms:.1f}% of wall)")
     print("device ms per step by kernel family:")
     for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
@@ -106,7 +147,8 @@ def main() -> int:
     for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t / per:9.3f}  {n / per:7.1f}  {name[:110]}")
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "steps": per,
+        "device": torch.cuda.get_device_name(0), "vae": args.vae, "upsample": args.upsample,
+        "steps": per,
         "wall_ms_per_step": wall_ms / per, "device_ms_per_step": total / per,
         "busy_share": total / wall_ms,
         "family_ms_per_step": {k: v / per for k, v in fams.items()},

@@ -11,6 +11,7 @@ import torch
 
 from depth_completion_tpu.models import registry as jreg
 from depth_completion_tpu.models.unet import init_unet
+from depth_completion_tpu.models.vae_kl import init_vae as init_kl_vae
 from depth_completion_tpu.models.vae_tiny import init_taesd
 from depth_completion_tpu_torch.models import registry
 from depth_completion_tpu_torch.models.weights import _flatten, from_jax_params
@@ -25,10 +26,12 @@ def _two_torch_threads():
     torch.set_num_threads(prev)
 
 
-def tiny_jax_trees(unet_config=jreg.TINY_UNET_CONFIG, taesd_config=jreg.TINY_TAESD_CONFIG, seed=0):
-    """UNet and TAESD trees with the JAX package's structure and layouts
-    (``jax.eval_shape`` of its initialisers, no compile), filled from a
-    seeded numpy generator at the init scale, and a seeded context."""
+def tiny_jax_trees(unet_config=jreg.TINY_UNET_CONFIG, vae_config=jreg.TINY_TAESD_CONFIG, seed=0):
+    """UNet and VAE trees (TAESD, or the KL VAE for a ``VAEConfig``) with the
+    JAX package's structure and layouts (``jax.eval_shape`` of its
+    initialisers, no compile), filled from a seeded numpy generator at the
+    init scale, and a seeded context."""
+    init_vae = init_kl_vae if isinstance(vae_config, jreg.VAEConfig) else init_taesd
     rng = np.random.default_rng(seed)
     key = jax.random.PRNGKey(seed)
 
@@ -46,7 +49,7 @@ def tiny_jax_trees(unet_config=jreg.TINY_UNET_CONFIG, taesd_config=jreg.TINY_TAE
         jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init, key))
         for init in (
             lambda k: init_unet(k, unet_config, jnp.float32),
-            lambda k: init_taesd(k, taesd_config, jnp.float32),
+            lambda k: init_vae(k, vae_config, jnp.float32),
         )
     ]
     ctx = rng.normal(size=(1, 2, unet_config.cross_attention_dim)).astype(np.float32)
