@@ -7,19 +7,30 @@
 2. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (max error against a stated tolerance), and times kernel,
    plain version and the nearest single PyTorch library call (for the
-   guidance epilogue, the eager chain it replaces);
-3. drives both guided paths through ``DepthCompletionPipeline`` at full
+   guidance epilogue, the eager chain it replaces). The ring attention of
+   native-resolution mode (no kernel of its own: the flash kernels per
+   visiting key/value block) is held against one flash call over the whole
+   sequence and against the same ring through the plain versions, at ring
+   sizes 2 and 4;
+3. drives three guided paths through ``DepthCompletionPipeline`` at full
    Marigold width (random bf16 weights from a seed): the TAESD decoder
    (``--vae light``, the default) and the KL VAE at SD widths
-   (``--vae original``). Each path runs two 480x640 requests with 500 sparse
-   points at processing resolution 768, the second carrying the first's
-   latents; checks finite metric outputs and that every kernel was launched
-   the number of times the path implies (counts set to 0 just before the
-   path, read just after); holds the KL encode against the same encode
-   through the plain versions and in fp32; and holds one guided step's
-   losses and gradients, for a few noise seeds, against the same step run
-   through the plain versions (and the latent gradient against an fp32 run);
-4. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+   (``--vae original``), each on 480x640 frames with 500 sparse points at
+   processing resolution 768; and native-resolution mode (TAESD, a
+   ``LocalRing(4)`` over the UNet's self-attention) on 352x1216 KITTI-size
+   frames with 2000 points at resolution 1216. Each path runs two
+   requests, the second carrying the first's latents; checks finite metric
+   outputs and that every kernel was launched the number of times the path
+   implies (counts set to 0 just before the path, read just after); holds
+   the KL encode against the same encode through the plain versions and in
+   fp32; and holds one guided step's losses and gradients, for a few noise
+   seeds, against the same step run through the plain versions (for the
+   ring: through the flash kernels without the ring), and the latent
+   gradient against an fp32 run;
+4. prints ``{"composites": [...]}`` (the ring's passes: its times, errors
+   and bound, and the flash launches it made on the native path),
+   ``{"kernels": [...]}`` (one entry per CUDA kernel) and, last,
+   ``{"ok": true, "device": ...}``.
 
 A tolerance check that fails is reported and the run goes on, so one run
 prints every reading; the script then exits non-zero without the result
@@ -61,6 +72,8 @@ from depth_completion_tpu_torch.models.layers import attention as plain_attentio
 from depth_completion_tpu_torch.ops import conv3x3 as c3  # noqa: E402
 from depth_completion_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from depth_completion_tpu_torch.ops import guidance_epilogue as ge  # noqa: E402
+from depth_completion_tpu_torch.ops import ring_attention as ra  # noqa: E402
+from depth_completion_tpu_torch.ops.resize import latent_size  # noqa: E402
 from depth_completion_tpu_torch.pipeline import sampler as S  # noqa: E402
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline  # noqa: E402
 
@@ -143,18 +156,18 @@ def sdpa_backend(q, k, v) -> SDPBackend:
 
 
 def check_flash(sq: int, sk: int | None = None, heads: int = 5, timed: bool = True,
-                reps: int = 10, d: int = 64) -> dict:
+                reps: int = 10, d: int = 64, n: int = 1) -> dict:
     sk = sq if sk is None else sk
     fwd_name, bwd_name = ("flash_fwd", "flash_bwd") if d == 64 else (
         f"flash_fwd_d{d}", f"flash_bwd_d{d}")
-    gen = torch.Generator(device=DEV).manual_seed(sq * 7919 + sk + d)
+    gen = torch.Generator(device=DEV).manual_seed(sq * 7919 + sk + d + 100003 * (n - 1))
     c = heads * d
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
 
-    q, do, k, v = rnd(1, sq, c), rnd(1, sq, c), rnd(1, sk, c), rnd(1, sk, c)
-    print(f"flash attention N=1 heads={heads} Sq={sq} Sk={sk} d={d} bf16")
+    q, do, k, v = rnd(n, sq, c), rnd(n, sq, c), rnd(n, sk, c), rnd(n, sk, c)
+    print(f"flash attention N={n} heads={heads} Sq={sq} Sk={sk} d={d} bf16")
     o, lse2 = fa.flash_fwd(q, k, v, heads)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, heads)
     torch.cuda.synchronize()
@@ -213,6 +226,97 @@ def check_flash(sq: int, sk: int | None = None, heads: int = 5, timed: bool = Tr
               f"(SDPA {backend.name}) bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); "
               f"exp2 on the SFUs alone {exp_ms:.4f} ms")
     return {fwd_name: fwd, bwd_name: bwd}
+
+
+def check_ring(s: int, heads: int, p: int, timed: bool = True, reps: int = 10) -> dict:
+    """Ring attention over a ``LocalRing(p)`` (the flash kernels per
+    visiting block, merged in fp32), forward and backward through its
+    ``autograd.Function``, against one flash call over the whole sequence
+    (kernels, through ``FlashAttention``) and against the same ring through
+    the plain versions; the ring's global lse2 against the single call's.
+    Tolerances as for the flash kernels, but for o's rel-norm against the
+    single call: the ring rounds each block's o to bf16 before the merge
+    and the merged o again, where the single call rounds once. The sound
+    ring reads 3.0e-3-3.2e-3 there (0.8 of the kernels' 2^-8), the merge
+    without its rescale (F11) 1.2e-2-4.2e-2: the limit against the single
+    call is 2^-7 (PERF.md, Findings)."""
+    d = 64
+    c = heads * d
+    gen = torch.Generator(device=DEV).manual_seed(s * 31 + heads * 7 + p)
+
+    def rnd():
+        return torch.randn((1, s, c), generator=gen, device=DEV).to(torch.bfloat16)
+
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    ring = ra.LocalRing(p)
+    print(f"ring attention LocalRing({p}) N=1 heads={heads} S={s} ({s // p}-row shards) d={d} bf16")
+
+    def through(fn):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*leaves)
+        return o.detach(), torch.autograd.grad(o, leaves, do)
+
+    o, grads = through(lambda q, k, v: ra.ring_attention(q, k, v, heads, ring))
+    o1, grads1 = through(lambda q, k, v: fa.FlashAttention.apply(q, k, v, heads))
+    qs, ks, vs, dos = (ring.shard(x) for x in (q, k, v, do))
+    op_s, lse2p_s = ra.ring_forward(qs, ks, vs, heads, ring, fa.flash_fwd_plain)
+    grads_p = [ring.gather(g) for g in ra.ring_backward(
+        qs, ks, vs, op_s, dos, lse2p_s, heads, ring, fa.flash_bwd_plain)]
+    o_p = ring.gather(op_s)
+    o_s, lse2_s = ra.ring_forward(qs, ks, vs, heads, ring)
+    _, lse2_1 = fa.flash_fwd(q, k, v, heads)
+    torch.cuda.synchronize()
+    # [P, heads, S/P] shards → [1, heads, S]
+    lse2 = lse2_s.unflatten(0, (1, p)).permute(0, 2, 1, 3).reshape(1, heads, s)
+    errs = []
+    for ref_name, o_ref, g_ref in (("single flash", o1, grads1), ("plain ring", o_p, grads_p)):
+        name = f"ring P={p} S={s} vs {ref_name}"
+        err = check_elementwise(f"{name} o", o, o_ref, 2**-7, 2**-8)
+        check(f"{name} o rel-norm",
+              float((o.float() - o_ref.float()).norm() / o_ref.float().norm()),
+              2**-7 if ref_name == "single flash" else 2**-8, "|o-o_ref|/|o_ref|")
+        for nm, g, gr in zip(("dq", "dk", "dv"), grads, g_ref):
+            check(f"{name} {nm}", max_err(g, gr), 2e-2 * float(gr.float().abs().max()))
+        if ref_name == "plain ring":
+            errs.append(err)
+            errs.extend(max_err(g, gr) for g, gr in zip(grads, g_ref))
+    check(f"ring P={p} S={s} lse2 vs single flash", max_err(lse2, lse2_1), 1e-4)
+    fwd, bwd = {"max_abs_err": errs[0]}, {"max_abs_err": max(errs[1:])}
+    if not timed:
+        return {"ring_attention_fwd": fwd, "ring_attention_bwd": bwd}
+
+    fwd["ms"] = time_ms(lambda: ra.ring_forward(qs, ks, vs, heads, ring), reps)
+    fwd["plain_ms"] = time_ms(
+        lambda: ra.ring_forward(qs, ks, vs, heads, ring, fa.flash_fwd_plain), 3, 1)
+    fwd["single_ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, heads), reps)
+    bwd["ms"] = time_ms(lambda: ra.ring_backward(qs, ks, vs, o_s, dos, lse2_s, heads, ring), reps)
+    bwd["plain_ms"] = time_ms(lambda: ra.ring_backward(
+        qs, ks, vs, op_s, dos, lse2p_s, heads, ring, fa.flash_bwd_plain), 3, 1)
+    bwd["single_ms"] = time_ms(lambda: fa.flash_bwd(q, k, v, o1, do, lse2_1, heads), reps)
+    qh, kh, vh, doh = (t.view(1, s, heads, d).transpose(1, 2) for t in (q, k, v, do))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+    bwd["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(ol, (ql, kl, vl), doh, retain_graph=True), reps)
+    # the function's bytes and operations are full attention's; the ring's
+    # own fp32 traffic is reported beside the bound: per visiting block after
+    # the first, the forward reads o_b (bf16) and reads and writes the fp32
+    # accumulator; the backward does so for dq, dk and dv, and rotates dk
+    # and dv (fp32, read and write) after every block
+    x_bytes, stat_bytes = 2 * s * c, 4 * s * heads
+    fwd["bound_ms"], fwd["bound_by"] = bound(4.0 * s * s * d * heads, 4 * x_bytes + stat_bytes)
+    bwd["bound_ms"], bwd["bound_by"] = bound(10.0 * s * s * d * heads, 8 * x_bytes + stat_bytes)
+    fwd["extra_ms"] = (p - 1) * (2 + 4 + 4) * s * c / PEAK_BYTES * 1e3
+    bwd["extra_ms"] = ((p - 1) * 3 * (2 + 4 + 4) + p * 2 * 8) * s * c / PEAK_BYTES * 1e3
+    for nm, r in (("ring_attention_fwd", fwd), ("ring_attention_bwd", bwd)):
+        print(f"  {nm} P={p} S={s} heads={heads} d={d}: ring_ms={r['ms']:.4f} "
+              f"single_flash_ms={r['single_ms']:.4f} (overhead {r['ms'] / r['single_ms'] - 1:+.1%}) "
+              f"plain_ring_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA FLASH) "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); the ring's own fp32 bytes "
+              f"alone {r['extra_ms']:.4f} ms")
+    return {"ring_attention_fwd": fwd, "ring_attention_bwd": bwd}
 
 
 def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
@@ -345,17 +449,19 @@ def _eager_chain(sched, lat, m, v, count: int, lr: float):
     return p, opt, step
 
 
-def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100) -> dict:
-    """The fused epilogue at the latent shape of res 768, against its plain
-    twin and against the eager chain it replaces, from Adam state after
-    three steps (bias corrections and the moments all in play)."""
+def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
+                   latent_hw: tuple[int, int] = (72, 96)) -> dict:
+    """The fused epilogue at a path's latent shape (72x96 at res 768, 44x152
+    on the native path), against its plain twin and against the eager chain
+    it replaces, from Adam state after three steps (bias corrections and the
+    moments all in play)."""
     ptype = "v_prediction" if v_pred else "epsilon"
     sched = S.make_schedule(S.DDIMConfig(prediction_type=ptype))
     steps, count, lr = 50, 3, 0.05
     t = int(S.make_timesteps(sched.config, steps)[count])
     sc = ge.epilogue_scalars(sched, t, steps, count)
-    gen = torch.Generator(device=DEV).manual_seed(4242 + n + 10 * int(v_pred))
-    shape = (n, 72, 96, 4)
+    gen = torch.Generator(device=DEV).manual_seed(4242 + n + 10 * int(v_pred) + latent_hw[1])
+    shape = (n, *latent_hw, 4)
 
     def rnd(scale=1.0):
         return torch.randn(shape, generator=gen, device=DEV) * scale
@@ -372,9 +478,9 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100) ->
     chain(g, out, t)
     st = opt.state[p]
     torch.cuda.synchronize()
-    # fp32 throughout; the norms are sums of 27,648 squares per sample in
-    # another order, and the DDIM combine rounds in another order (FMA):
-    # 1e-5 of the largest value is ~100 fp32 ulps
+    # fp32 throughout; the norms are sums of 27,648 (26,752 native) squares
+    # per sample in another order, and the DDIM combine rounds in another
+    # order (FMA): 1e-5 of the largest value is ~100 fp32 ulps
     errs = []
     for nm, a, b in zip(("lat", "m", "v"), got, ref):
         errs.append(max_err(a, b))
@@ -404,20 +510,33 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100) ->
 # Phase 3: the guided paths
 # ---------------------------------------------------------------------------
 
-def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int) -> dict:
+def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
+                      ring_size: int | None = None) -> dict:
     """Kernel launches one guided request implies (JAX package routing:
-    self-attention with S >= 768 and head dim 64 or 512 takes a flash
+    with a ring, UNet self-attention whose length divides the ring size
+    takes the ring, which launches one flash kernel per visiting block;
+    other self-attention with S >= 768 and head dim 64 or 512 takes a flash
     kernel; every stride-1 3x3 conv of a decoder, and of the KL encoder,
     takes the conv kernel)."""
     eh, ew = latent_hw
-    flash_per_unet = 0
-    for i, has_attn in enumerate(unet_cfg.attention_stages):
+    attn = []  # (sequence length, head dim, attention layers) per UNet stage and the mid block
+    last = len(unet_cfg.block_out_channels) - 1
+    for i in range(last + 1):
         h, w = eh, ew
         for _ in range(i):
             h, w = (h + 1) // 2, (w + 1) // 2
         d = unet_cfg.block_out_channels[i] // unet_cfg.num_heads[i]
-        if has_attn and h * w >= 768 and d == 64:
-            flash_per_unet += 2 * unet_cfg.layers_per_block + 1
+        if unet_cfg.attention_stages[i]:
+            attn.append((h * w, d, 2 * unet_cfg.layers_per_block + 1))
+        if i == last:
+            attn.append((h * w, d, 1))  # the mid block's transformer
+    flash_per_unet = ring_per_unet = 0
+    for s, d, layers in attn:
+        if ring_size and s % ring_size == 0:
+            ring_per_unet += layers
+        elif s >= 768 and d == 64:
+            flash_per_unet += layers
+    flash_per_unet += (ring_size or 0) * ring_per_unet
     if vae_kind == "tiny":
         convs_per_decode = 3 * sum(vae_cfg.decoder_blocks) + len(vae_cfg.decoder_blocks) - 1
         convs_per_encode = mid_attn = 0  # TAESD: plain encoder convs, no attention
@@ -471,6 +590,17 @@ REF_LIMITS = {"tiny": (2e-5, 1e-2, 1e-2), "kl": (1e-3, 0.1, 2e-2)}
 # KL encode: kernel-to-fp32 distance over plain-bf16-to-fp32. Sound 1.004;
 # the d=512 row sum off by 1% (F5) 1.011; the residual dropped (F9) 64.
 ENCODE_LIMIT = 2.0
+# Native path, ring against no ring (both through the flash kernels), as
+# REF_LIMITS: the TAESD limits. Sound readings over the seeds: loss rel <=
+# 1.8e-6, affine rel <= 1.1e-3, cosine gap <= 6.9e-4; with each block's own
+# o and lse2 in the ring's backward (F13) the cosine gap reads 0.42-0.44;
+# with the merged output left unnormalised (F14, ~P·o) loss rel reads
+# 2.4e-3, affine rel 1.44-1.48 and the cosine gap 0.69-0.70. The forward
+# merge without its rescale (F11) and dk/dv left one shard short of home
+# (F12) stay inside the sound spread: at random weights the near-uniform
+# softmax passes little through the attention, and phase 2 holds both
+# (PERF.md, Findings).
+RING_LIMITS = (2e-5, 1e-2, 1e-2)
 
 
 def fp32_bundle(bundle):
@@ -513,30 +643,42 @@ def encode_check(bundle, bundle32, images) -> None:
     check("KL encode latent", rk / rp, ENCODE_LIMIT, "rel(kernel,fp32)/rel(plain,fp32)")
 
 
-def reference_step_check(bundle, bundle32, images, sparses) -> None:
+def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 768,
+                         ring=None) -> None:
     """One guided step (t = the first timestep) on the path's inputs, for
-    each of ``REF_SEEDS`` (the initial noise), three ways: through the
-    kernels (bf16), through the plain versions (bf16), and through the
-    plain versions on an fp32 copy of the bundle. The image latents come
+    each of ``REF_SEEDS`` (the initial noise), three ways: the run under
+    test, its bf16 reference, and the plain versions on an fp32 copy of the
+    bundle. Without a ring, the run under test goes through the kernels and
+    its reference through the plain versions; with ``ring``, the run under
+    test takes the sampler's ring routing and its reference one flash call
+    per attention layer (both through the kernels). The image latents come
     from one encode through the kernels, shared by the three (the KL
     encode is held on its own by ``encode_check``).
 
     Per-sample losses and the affine gradients (scalars) of the two bf16
     runs must agree to the path's loss and affine limits, relative. The
     latent gradient at random weights cancels heavily
-    (tests/test_pipeline_parity.py tolerance model), so it is held against
-    the fp32 run: the kernel run's cosine to it may fall short of the plain
-    bf16 run's by at most the path's cosine-gap limit.
+    (tests/test_pipeline_parity.py tolerance model: two bf16 runs that
+    round differently read cosines of 0.98-0.99 to each other), so it is
+    held against the fp32 run: the tested run's cosine to it may fall short
+    of the reference's by at most the path's cosine-gap limit.
     """
-    cfg = S.SamplerConfig(steps=50, norm="const", closed_form=False)
+    cfg = S.SamplerConfig(steps=50, resolution=resolution, norm="const", closed_form=False)
     sched = S.make_schedule(cfg.ddim)
     t = int(S.make_timesteps(cfg.ddim, cfg.steps)[0])
-    loss_lim, aff_lim, cos_lim = REF_LIMITS[bundle.vae.kind]
-    modes = {
-        "kernel": (bundle, fa.flash_attention, c3.conv3x3_fused),
-        "plain": (bundle, plain_attention, _plain_conv3x3_fused),
-        "fp32": (bundle32, plain_attention, _plain_conv3x3_fused),
-    }
+    kernels = (bundle, fa.flash_attention, fa.flash_attention, c3.conv3x3_fused)
+    fp32 = (bundle32, plain_attention, plain_attention, _plain_conv3x3_fused)
+    if ring is None:
+        limits = REF_LIMITS[bundle.vae.kind]
+        modes = {"kernel": kernels,
+                 "plain": (bundle, plain_attention, plain_attention, _plain_conv3x3_fused),
+                 "fp32": fp32}
+    else:
+        limits = RING_LIMITS
+        ring_attention = functools.partial(S.ring_or_base, ring, fa.flash_attention)
+        modes = {"ring": (bundle, ring_attention) + kernels[2:], "no ring": kernels, "fp32": fp32}
+    test, ref, _ = modes
+    loss_lim, aff_lim, cos_lim = limits
 
     def cos(a, b):
         return float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
@@ -544,61 +686,78 @@ def reference_step_check(bundle, bundle32, images, sparses) -> None:
     for seed in REF_SEEDS:
         gen = torch.Generator(device=DEV).manual_seed(seed)
         img_lat, lat0, dn, padding, orig_res = S._prepare(bundle, images, sparses, cfg, None, gen)
-        results = {}
-        for mode, (bnd, attention_fn, conv_fn) in modes.items():
+        results = []
+        for bnd, unet_attention, attention_fn, conv_fn in modes.values():
             lat = lat0.clone().requires_grad_(True)
             aff = [torch.ones((1, 1, 1, 1), device=DEV).requires_grad_(True),
                    torch.zeros((1, 1, 1, 1), device=DEV).requires_grad_(True)]
             losses, _, grads = S.guided_step_grads(
-                S._Denoiser(bnd, img_lat.to(bnd.dtype), attention_fn),
+                S._Denoiser(bnd, img_lat.to(bnd.dtype), unet_attention),
                 functools.partial(S.decode_prediction, bnd, conv_fn=conv_fn,
                                   attention_fn=attention_fn),
                 sched, cfg, dn, images, orig_res, padding, False, lat, aff, t)
-            results[mode] = (losses, grads)
-        (lk, gk), (lp, gp), (l32, g32) = results["kernel"], results["plain"], results["fp32"]
+            results.append((losses, grads))
+        (lk, gk), (lp, gp), (l32, g32) = results
         rel_loss = float(((lk - lp).abs() / lp.abs()).max())
         rel32 = [float(((x - l32).abs() / l32.abs()).max()) for x in (lk, lp)]
         rel_aff = max(float(((a - b).abs() / b.abs().clamp(min=1e-12)).max())
                       for a, b in zip(gk[1:], gp[1:]))
         cos_kp, cos_k32, cos_p32 = cos(gk[0], gp[0]), cos(gk[0], g32[0]), cos(gp[0], g32[0])
-        print(f"  reference step seed={seed} t={t}: loss {lk.tolist()} vs plain {lp.tolist()}; "
-              f"latent-grad cosine kernel-plain {cos_kp:.5f}, kernel-fp32 {cos_k32:.5f}, "
-              f"plain-fp32 {cos_p32:.5f}; loss rel to fp32: kernel {rel32[0]:.2e}, "
-              f"plain {rel32[1]:.2e}")
-        check(f"reference step seed={seed} loss", rel_loss, loss_lim, "rel_err")
-        check(f"reference step seed={seed} affine grads", rel_aff, aff_lim, "rel_err")
-        check(f"reference step seed={seed} latent grad", cos_p32 - cos_k32, cos_lim,
-              "cos(plain,fp32)-cos(kernel,fp32)")
+        print(f"  reference step seed={seed} t={t}: loss {lk.tolist()} vs {ref} {lp.tolist()}; "
+              f"latent-grad cosine {test}-{ref} {cos_kp:.5f}, {test}-fp32 {cos_k32:.5f}, "
+              f"{ref}-fp32 {cos_p32:.5f}; loss rel to fp32: {test} {rel32[0]:.2e}, "
+              f"{ref} {rel32[1]:.2e}")
+        check(f"reference step seed={seed} loss ({test} vs {ref})", rel_loss, loss_lim, "rel_err")
+        check(f"reference step seed={seed} affine grads ({test} vs {ref})", rel_aff, aff_lim,
+              "rel_err")
+        check(f"reference step seed={seed} latent grad ({test} vs {ref})", cos_p32 - cos_k32,
+              cos_lim, f"cos({ref},fp32)-cos({test},fp32)")
 
 
-PATHS = (  # (label, VAE kind, VAE config)
-    ("TAESD_CONFIG (--vae light)", "tiny", registry.TAESD_CONFIG),
-    ("SD_VAE_CONFIG (--vae original)", "kl", registry.SD_VAE_CONFIG),
+@dataclasses.dataclass(frozen=True)
+class GuidedPath:
+    label: str
+    vae_kind: str
+    vae_config: object
+    frame: tuple[int, int] = (480, 640)
+    points: int = 500
+    resolution: int = 768
+    ring_size: int | None = None  # native-resolution mode: LocalRing(ring_size)
+
+
+PATHS = (
+    GuidedPath("TAESD_CONFIG (--vae light)", "tiny", registry.TAESD_CONFIG),
+    GuidedPath("SD_VAE_CONFIG (--vae original)", "kl", registry.SD_VAE_CONFIG),
+    GuidedPath("TAESD_CONFIG, KITTI native-res, ring P=4", "tiny", registry.TAESD_CONFIG,
+               frame=(352, 1216), points=2000, resolution=1216, ring_size=4),
 )
 
 
-def guided_path(label: str, vae_kind: str, vae_config, steps: int) -> dict:
+def guided_path(path: GuidedPath, steps: int) -> dict:
     """Two guided requests through the pipeline, launch counts checked per
     request; then the reference step. → the path's launch counts."""
-    print(f"guided path: MARIGOLD_UNET_CONFIG + {label} bf16, 2 requests x {steps} "
-          "guided steps, 480x640 frame, 500 sparse points, res 768, norm=const, learned affine")
+    h, w = path.frame
+    ring = ra.LocalRing(path.ring_size) if path.ring_size else None
+    print(f"guided path: MARIGOLD_UNET_CONFIG + {path.label} bf16, 2 requests x {steps} "
+          f"guided steps, {h}x{w} frame, {path.points} sparse points, res {path.resolution}, "
+          "norm=const, learned affine")
     t0 = time.perf_counter()
     bundle = make_random_bundle(
-        seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG, vae_config=vae_config,
-        dtype=torch.bfloat16, device=DEV, vae_kind=vae_kind,
+        seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG, vae_config=path.vae_config,
+        dtype=torch.bfloat16, device=DEV, vae_kind=path.vae_kind,
     )
     torch.cuda.synchronize()
     print(f"  bundle built in {time.perf_counter() - t0:.1f} s")
     pipe = DepthCompletionPipeline(bundle)
+    eh, ew = latent_size(path.frame, path.resolution, bundle.vae.downsample_factor)
     rng = torch.Generator(device="cpu").manual_seed(0)
-    h, w = 480, 640
     images = torch.rand((1, h, w, 3), generator=rng) * 255.0
     sparses = torch.zeros((1, h * w))
-    idx = torch.randperm(h * w, generator=rng)[:500]
-    sparses[0, idx] = 2.0 + 78.0 * torch.rand(500, generator=rng)
+    idx = torch.randperm(h * w, generator=rng)[:path.points]
+    sparses[0, idx] = 2.0 + 78.0 * torch.rand(path.points, generator=rng)
     sparses = sparses.reshape(1, h, w, 1)
-    expected = expected_launches(
-        registry.MARIGOLD_UNET_CONFIG, vae_kind, vae_config, (72, 96), steps)
+    expected = expected_launches(registry.MARIGOLD_UNET_CONFIG, path.vae_kind, path.vae_config,
+                                 (eh, ew), steps, path.ring_size)
 
     prev, before = None, {}
     reset_launches()  # just before the path: two requests
@@ -607,7 +766,8 @@ def guided_path(label: str, vae_kind: str, vae_config, steps: int) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dense, lat = pipe(images, sparses, max_depth=120.0, steps=steps, norm="const",
-                          closed_form=False, pred_latents_prev=prev)
+                          closed_form=False, pred_latents_prev=prev,
+                          resolution=path.resolution, ring_mesh=ring)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         now = launches()
@@ -616,7 +776,7 @@ def guided_path(label: str, vae_kind: str, vae_config, steps: int) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"  request {req}: {dt:.2f} s, {dt / steps:.3f} s/step (incl. encode and final "
               f"decode), peak memory {peak:.2f} GiB, launches {counts}")
-        if tuple(dense.shape) != (1, h, w, 1) or tuple(lat.shape) != (1, 72, 96, 4):
+        if tuple(dense.shape) != (1, h, w, 1) or tuple(lat.shape) != (1, eh, ew, 4):
             raise AssertionError(f"bad output shapes {tuple(dense.shape)} {tuple(lat.shape)}")
         if not (torch.isfinite(dense).all() and torch.isfinite(lat).all()):
             raise AssertionError("non-finite output")
@@ -631,9 +791,9 @@ def guided_path(label: str, vae_kind: str, vae_config, steps: int) -> dict:
     print(f"  path launches (2 requests): {totals}")
     reset_launches()
     bundle32 = fp32_bundle(bundle)
-    if vae_kind == "kl":
+    if path.vae_kind == "kl":
         encode_check(bundle, bundle32, images.to(DEV))
-    reference_step_check(bundle, bundle32, images.to(DEV), sparses.to(DEV))
+    reference_step_check(bundle, bundle32, images.to(DEV), sparses.to(DEV), path.resolution, ring)
     return totals
 
 
@@ -660,18 +820,35 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     runs: dict[str, list] = {}  # kernel name → the checks' results, timed one first
-    for sq, sk, heads, d, is_timed in (
-        (6912, None, 5, 64, True),  # UNet stage 0 at 576x768 (main path)
-        (1728, None, 10, 64, True),  # UNet stage 1 (main path)
-        (2688, None, 5, 64, True),  # KITTI stage-0 length (42 full tiles)
-        (6900, None, 5, 64, False),  # ragged: neither length a multiple of 64
-        (1000, 2100, 5, 64, False),  # ragged, Sq != Sk
-        (6912, None, 1, 512, True),  # KL VAE mid attention at 576x768
-        (6900, None, 1, 512, False),  # ragged
-        (1000, 2100, 1, 512, False),  # ragged, Sq != Sk
+    for sq, sk, heads, d, is_timed, n in (
+        (6912, None, 5, 64, True, 1),  # UNet stage 0 at 576x768 (main path)
+        (1728, None, 10, 64, True, 1),  # UNet stage 1 (main path)
+        (2688, None, 5, 64, True, 1),  # KITTI stage-0 length (42 full tiles)
+        (6688, None, 5, 64, True, 1),  # stage 0 at 352x1216, res 1216 (44x152 latent)
+        (6900, None, 5, 64, False, 1),  # ragged: neither length a multiple of 64
+        (1000, 2100, 5, 64, False, 1),  # ragged, Sq != Sk
+        # the ring's per-shard launches at 44x152, all shards in one launch:
+        (1672, None, 5, 64, False, 4),  # stage 0, P=4
+        (418, None, 10, 64, False, 4),  # stage 1, P=4
+        (3344, None, 5, 64, False, 2),  # stage 0, P=2
+        (836, None, 10, 64, False, 2),  # stage 1, P=2
+        (209, None, 20, 64, False, 2),  # stage 2, P=2: ragged, 4 tiles
+        (57, None, 20, 64, False, 2),  # the mid block, P=2: below one 64-row tile
+        (6912, None, 1, 512, True, 1),  # KL VAE mid attention at 576x768
+        (6900, None, 1, 512, False, 1),  # ragged
+        (1000, 2100, 1, 512, False, 1),  # ragged, Sq != Sk
     ):
-        for nm, r in check_flash(sq, sk, heads, is_timed, d=d).items():
+        for nm, r in check_flash(sq, sk, heads, is_timed, d=d, n=n).items():
             runs.setdefault(nm, []).append(r)
+    ring_runs: dict[str, list] = {}  # the ring's passes, reported apart from the kernels
+    for s, heads, p, is_timed in (
+        (6688, 5, 4, True),  # stage 0 of the native path (44x152 latent)
+        (1672, 10, 4, False),  # stage 1
+        (6688, 5, 2, False),
+        (1672, 10, 2, False),
+    ):
+        for nm, r in check_ring(s, heads, p, is_timed).items():
+            ring_runs.setdefault(nm, []).append(r)
     runs["conv3x3"] = [
         check_conv(1, 576, 768),  # TAESD, C=64
         check_conv(1, 72, 96),
@@ -685,6 +862,16 @@ def main() -> int:
         check_conv(1, 144, 192, 512, relu=False),  # stage 1
         check_conv(1, 72, 96, 512, relu=False),  # mid and stage 0
         check_conv(2, 13, 37, 256, 128, relu=False, timed=False),  # ragged, cin != cout
+        # the native path's TAESD decoder (44x152 latent → 352x1216; widths
+        # 152, 304 and 608 are ragged against 64-column tiles): its blocks
+        # (ReLU), and its up-convs' form (no ReLU)
+        check_conv(1, 44, 152, timed=False),
+        check_conv(1, 88, 304, timed=False),
+        check_conv(1, 176, 608, timed=False),
+        check_conv(1, 352, 1216, timed=False),
+        check_conv(1, 88, 304, relu=False, timed=False),
+        check_conv(1, 176, 608, relu=False, timed=False),
+        check_conv(1, 352, 1216, relu=False, timed=False),
     ]
     check_autograd()
     runs["guidance_epilogue"] = [
@@ -692,12 +879,18 @@ def main() -> int:
         check_epilogue(2, v_pred=True, timed=False),
         check_epilogue(1, v_pred=False, timed=False),
         check_epilogue(2, v_pred=False, timed=False),
+        check_epilogue(1, v_pred=True, timed=False, latent_hw=(44, 152)),  # native path
+        check_epilogue(1, v_pred=False, timed=False, latent_hw=(44, 152)),
     ]
 
     counts: dict[str, int] = {}
-    for label, vae_kind, vae_config in PATHS:
-        for k, n in guided_path(label, vae_kind, vae_config, args.steps).items():
+    ring_launches: dict[str, int] = {}  # flash launches on the native (ring) path
+    for path in PATHS:
+        path_counts = guided_path(path, args.steps)
+        for k, n in path_counts.items():
             counts[k] = counts.get(k, 0) + n
+        if path.ring_size:
+            ring_launches = path_counts
     if FAILURES:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
@@ -714,6 +907,23 @@ def main() -> int:
         "guidance_epilogue": ("depth_completion_tpu_torch/csrc/guidance_epilogue.cu",
                               "depth_completion_tpu/ops/guidance_epilogue.py:62"),
     }
+    # the ring attention (TPU kernel ops/ring_attention.py:99) launches no
+    # kernel of its own: its passes run flash_fwd / flash_bwd per visiting
+    # block, and those launches count under the flash kernels. Times and
+    # bound at stage 0 of the native path, P=4; error over every case,
+    # against the ring through the plain versions.
+    composites = []
+    for name, kernel in (("ring_attention_fwd", "flash_fwd"), ("ring_attention_bwd", "flash_bwd")):
+        r = next(x for x in ring_runs[name] if "ms" in x)
+        composites.append({
+            "name": name, "source": "depth_completion_tpu_torch/ops/ring_attention.py",
+            "replaces": "depth_completion_tpu/ops/ring_attention.py:99", "kernel": kernel,
+            "native_path_kernel_launches": ring_launches[kernel],
+            "max_abs_err": max(x["max_abs_err"] for x in ring_runs[name]),
+            "ms": r["ms"], "single_flash_ms": r["single_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"composites": composites}))
     entries = []
     # times and bound at the first timed shape (the TAESD path's largest for
     # flash d=64 and the conv); error over every shape checked

@@ -21,9 +21,15 @@ kernel on CUDA; JAX ``sampler.py:466-511``), which holds the latent's Adam
 moments; the affine keeps its own ``torch.optim.Adam``. SGD and Adagrad
 run the same math as a chain of eager ops.
 
+Native-resolution mode (``ring_mesh``, a ring of ``ops.ring_attention``)
+routes the UNet's self-attention through the ring wherever the sequence
+divides the ring size, whatever its length (JAX ``sampler.py:357-370``);
+cross-attention, the other self-attention calls and the VAE keep the base
+attention.
+
 Also ported: the no-training DDIM branch and the final decode. Per-input
-training, LCM, the KLD penalty, ring attention and UNet rematerialisation
-raise ``NotImplementedError`` (ROADMAP queue 1).
+training, LCM, the KLD penalty and UNet rematerialisation raise
+``NotImplementedError`` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from depth_completion_tpu_torch.ops.guidance_epilogue import (
 )
 from depth_completion_tpu_torch.ops.guidance_epilogue import supported as epilogue_supported
 from depth_completion_tpu_torch.ops.resize import resize_antialias, unpad
+from depth_completion_tpu_torch.ops.ring_attention import ring_attention
 from depth_completion_tpu_torch.pipeline.preprocess import preprocess_images
 from depth_completion_tpu_torch.sched.ddim import (
     DDIMConfig,
@@ -109,8 +116,10 @@ class SamplerConfig:
     # "auto" / "on": ops.flash_attention (the Hopper kernel on CUDA);
     # "off": the plain layers.attention.
     flash_attention: str = "auto"
+    # native-resolution mode: a LocalRing or ProcessGroupRing
+    # (ops.ring_attention) over which the UNet's self-attention sequence is
+    # split; the JAX package's mesh and axis name in one object
     ring_mesh: Any = None
-    ring_axis: str = "data"
     # stop the guidance gradient at the UNet output (a faster approximation;
     # off by default to keep the exact dataflow)
     detach_unet_grad: bool = False
@@ -146,7 +155,6 @@ def _check_ported(cfg: SamplerConfig) -> None:
         "scheduler='lcm'": cfg.scheduler == "lcm",
         "train_method='per-input'": cfg.train_latents and cfg.train_method == "per-input",
         "kld=True": cfg.kld,
-        "ring_mesh": cfg.ring_mesh is not None,
         "remat_unet='on'": cfg.remat_unet in ("on", True),
     }
     for what, hit in unported.items():
@@ -212,6 +220,14 @@ def guidance_loss(decode, cfg, dn, images, orig_res, padding, closed_form,
     return compute_loss(denses, dn.sparses_normed, dn.masks, cfg.loss_funcs, images=images)
 
 
+def ring_or_base(ring, base, q, k, v, num_heads):
+    """Native-resolution routing: self-attention whose length divides the
+    ring size takes ``ring``; everything else ``base``."""
+    if q.shape[1] == k.shape[1] and q.shape[1] % ring.size == 0:
+        return ring_attention(q, k, v, num_heads, ring)
+    return base(q, k, v, num_heads)
+
+
 class _Denoiser:
     """ε̂ = UNet(img_latents ⊕ latent, t, context) in the model dtype, with
     ``attention_fn`` running the UNet's attention."""
@@ -270,7 +286,9 @@ def guided_sample(
     )
     ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
     attention_fn = attention if cfg.flash_attention == "off" else flash_attention
-    denoise = _Denoiser(bundle, img_latents, attention_fn)
+    unet_attention = attention_fn if cfg.ring_mesh is None else functools.partial(
+        ring_or_base, cfg.ring_mesh, attention_fn)
+    denoise = _Denoiser(bundle, img_latents, unet_attention)
     decode = functools.partial(decode_prediction, bundle, attention_fn=attention_fn)
 
     affine_params: list[torch.Tensor] = []

@@ -24,6 +24,16 @@
 #                     ResNets (no ReLU), forward and backward
 #   F10_kl_dskip      the conv autograd.Function gives the KL ResNets'
 #                     residual (skip) no gradient
+#   F11_ring_rescale  the ring's forward merge drops the 2^(m - m_new) rescale
+#                     of what it has merged so far
+#   F12_ring_dkv_home the ring's backward leaves out dk/dv's last rotation
+#                     (each shard keeps its neighbour's block gradients)
+#   F13_ring_own_stat the ring's backward feeds each block's own o and lse2
+#                     (recomputed by the plain forward) in place of the
+#                     global ones
+#   F14_ring_no_norm  the ring's forward leaves the merged output
+#                     unnormalised (acc, not acc / w: o about P times too
+#                     large); the backward gets that o
 set -u
 out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR [FAULT ...]}
 shift
@@ -39,6 +49,7 @@ work=$(mktemp -d "${TMPDIR:-/tmp}/chip_smoke_faults.XXXXXX")
 trap 'rm -rf "$work"' EXIT
 FA=depth_completion_tpu_torch/csrc/flash_attention.cu
 CONV=depth_completion_tpu_torch/csrc/conv3x3.cu
+RING=depth_completion_tpu_torch/ops/ring_attention.py
 
 run_fault() {  # name, then (file, sed expression) pairs
   local name=$1 d="$work/$1"
@@ -83,3 +94,11 @@ run_fault F9_kl_skip depth_completion_tpu_torch/ops/conv3x3.py \
   's|return Conv3x3Fused.apply(x, weight, bias, skip, relu)|return Conv3x3Fused.apply(x, weight, bias, skip if relu else None, relu)|'
 run_fault F10_kl_dskip depth_completion_tpu_torch/ops/conv3x3.py \
   's|dskip = dy_m if (need_skip and ctx.has_skip) else None|dskip = dy_m if (need_skip and ctx.has_skip and ctx.relu) else None|'
+run_fault F11_ring_rescale $RING \
+  's|scale_old, scale_b = torch.exp2(m - m_new), torch.exp2(lse2_b - m_new)|scale_old, scale_b = 1.0, torch.exp2(lse2_b - m_new)|'
+run_fault F12_ring_dkv_home $RING \
+  's|        dk, dv = ring.shift(dk), ring.shift(dv)|        if step < ring.size - 1: dk, dv = ring.shift(dk), ring.shift(dv)|'
+run_fault F13_ring_own_stat $RING \
+  's|import flash_bwd, flash_fwd$|import flash_bwd, flash_fwd, flash_fwd_plain|; s|dq_b, dk_b, dv_b = block_bwd(q, k_blk, v_blk, o, do, lse2, num_heads)|o, lse2 = flash_fwd_plain(q, k_blk, v_blk, num_heads); &|'
+run_fault F14_ring_no_norm $RING \
+  's|o = (acc / w).to(q.dtype).view(n, s_loc, c)|o = acc.to(q.dtype).view(n, s_loc, c)|'

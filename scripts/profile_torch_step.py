@@ -1,13 +1,15 @@
 """Where a guided step's device time goes in the PyTorch/CUDA port.
 
     python3 scripts/profile_torch_step.py [--steps 5] [--vae light|original]
-                                          [--upsample subpixel|nearest]
+                                          [--upsample subpixel|nearest] [--ring P]
 
 Builds the full-width Marigold bundle (random bf16 weights, seed 0) with the
 TAESD decoder (``--vae light``) or the KL VAE at SD widths (``original``), runs
 one warm-up request, then one request of ``--steps`` per-step guided DDIM
 steps (480x640 frame, 500 sparse points, res 768, norm=const, learned
-affine) under ``torch.profiler``. Prints the wall time per step, the
+affine; with ``--ring P``, native-resolution mode: a 352x1216 frame, 2000
+points, res 1216, the UNet's self-attention on ``LocalRing(P)``) under
+``torch.profiler``. Prints the wall time per step, the
 device-busy share of the profiled window, device time per step by kernel
 family, and the top kernels by device time; the last line is a JSON
 summary. Needs a CUDA device; exits 2 without one.
@@ -83,6 +85,8 @@ def main() -> int:
     ap.add_argument("--upsample", choices=("nearest", "subpixel"), default="nearest",
                     help="KL decoder upsample conv: the port's conv of the nearest-2x "
                          "upsampled map, or the same function in subpixel form")
+    ap.add_argument("--ring", type=int, default=0,
+                    help="native-resolution mode over LocalRing(P) at KITTI size (0: off)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("profile_torch_step: needs a CUDA device\n")
@@ -90,6 +94,7 @@ def main() -> int:
 
     from depth_completion_tpu_torch.models import registry, vae_kl
     from depth_completion_tpu_torch.models.bundle import make_random_bundle
+    from depth_completion_tpu_torch.ops.ring_attention import LocalRing
     from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 
     if args.upsample == "subpixel":
@@ -104,23 +109,28 @@ def main() -> int:
     )
     pipe = DepthCompletionPipeline(bundle)
     gen = torch.Generator().manual_seed(0)
-    h, w = 480, 640
+    (h, w), points, res = ((352, 1216), 2000, 1216) if args.ring else ((480, 640), 500, 768)
+    ring = LocalRing(args.ring) if args.ring else None
     images = torch.rand((1, h, w, 3), generator=gen) * 255.0
     sparses = torch.zeros((1, h * w))
-    sparses[0, torch.randperm(h * w, generator=gen)[:500]] = 2.0 + 78.0 * torch.rand(500, generator=gen)
+    sparses[0, torch.randperm(h * w, generator=gen)[:points]] = \
+        2.0 + 78.0 * torch.rand(points, generator=gen)
     sparses = sparses.reshape(1, h, w, 1)
 
     def request(steps):
-        return pipe(images, sparses, max_depth=120.0, steps=steps, norm="const", closed_form=False)
+        return pipe(images, sparses, max_depth=120.0, steps=steps, norm="const", closed_form=False,
+                    resolution=res, ring_mesh=ring)
 
     request(2)  # warm-up: lazy init, cuDNN heuristics, kernel build
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         request(args.steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     kernels: dict[str, tuple[float, int]] = {}
     for evt in prof.key_averages():
@@ -137,9 +147,10 @@ def main() -> int:
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     print(smi)
     per = args.steps
-    print(f"--vae {args.vae} --upsample {args.upsample}: request of {per} guided steps: "
+    print(f"--vae {args.vae} --upsample {args.upsample} --ring {args.ring} ({h}x{w}, res {res}): "
+          f"request of {per} guided steps: "
           f"wall {wall_ms:.1f} ms ({wall_ms / per:.2f} ms/step, incl. encode and final decode); device busy {total:.1f} ms "
-          f"({100 * total / wall_ms:.1f}% of wall)")
+          f"({100 * total / wall_ms:.1f}% of wall); peak memory {peak_gib:.2f} GiB")
     print("device ms per step by kernel family:")
     for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:22s} {t / per:9.3f}  ({100 * t / total:.1f}%)")
@@ -148,9 +159,9 @@ def main() -> int:
         print(f"  {t / per:9.3f}  {n / per:7.1f}  {name[:110]}")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "vae": args.vae, "upsample": args.upsample,
-        "steps": per,
+        "ring": args.ring, "steps": per,
         "wall_ms_per_step": wall_ms / per, "device_ms_per_step": total / per,
-        "busy_share": total / wall_ms,
+        "busy_share": total / wall_ms, "peak_gib": peak_gib,
         "family_ms_per_step": {k: v / per for k, v in fams.items()},
     }))
     return 0

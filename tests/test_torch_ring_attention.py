@@ -1,0 +1,178 @@
+"""The port's ring attention (``ops.ring_attention``) against the JAX
+package's, on the CPU in fp32: ``LocalRing`` forward and gradients against
+JAX ``ring_attention`` on the virtual mesh and against full attention, one
+case against JAX's flash ring in the Pallas interpreter,
+``ProcessGroupRing`` under gloo in spawned ranks against ``LocalRing``, and
+the guided sampler in native-resolution mode against JAX's ring sampler
+and against the port's own run without the ring."""
+
+import multiprocessing
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from depth_completion_tpu.models.layers import attention as j_attention
+from depth_completion_tpu.ops.ring_attention import ring_attention as j_ring_attention
+from depth_completion_tpu.pipeline import sampler as JS
+from depth_completion_tpu_torch.ops.ring_attention import LocalRing, ring_attention
+from depth_completion_tpu_torch.pipeline import sampler as TS
+
+from tests import torch_ring_worker
+from tests.test_ring_attention import _mesh, _run_flash_ring
+from tests.test_torch_sampler import _rms, bundles, inputs  # noqa: F401  (fixtures)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small CPU shapes: two threads, restored after the module."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _qkvdo(n, s, c, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(n, s, c)).astype(np.float32) for _ in range(4))
+
+
+def _port(q, k, v, do, heads, ring):
+    """→ (o, (dq, dk, dv)) of the port's ring attention, as numpy."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o = ring_attention(q, k, v, heads, ring)
+    grads = torch.autograd.grad(o, (q, k, v), torch.from_numpy(do))
+    return o.detach().numpy(), tuple(g.numpy() for g in grads)
+
+
+def _jax_vjp(fn, q, k, v, do):
+    """→ (fn(q, k, v), its vjp with ``do``), jitted as one program."""
+    @jax.jit
+    def run(q, k, v, do):
+        o, vjp = jax.vjp(fn, q, k, v)
+        return o, vjp(do)
+
+    o, grads = run(*(jnp.asarray(x) for x in (q, k, v, do)))
+    return np.asarray(o), tuple(np.asarray(g) for g in grads)
+
+
+# the shapes of tests/test_ring_attention.py:25-73: (n, s, c, heads, seed,
+# forward (rtol, atol), gradient (rtol, atol))
+CASES = {
+    "s256": (2, 256, 64, 4, 0, (1e-4, 1e-5), (1e-4, 1e-5)),
+    "s64": (1, 64, 32, 2, 1, (1e-4, 1e-5), (1e-4, 1e-5)),
+    "stage0": (1, 2304, 320, 5, 2, (1e-4, 1e-4), (1e-4, 1e-3)),
+}
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_local_ring_matches_jax(case, p):
+    """``LocalRing(P)`` forward and dq/dk/dv against JAX ``ring_attention``
+    on a P-device virtual mesh (its XLA body) and against full attention."""
+    n, s, c, heads, seed, fwd_tol, grad_tol = CASES[case]
+    q, k, v, do = _qkvdo(n, s, c, seed)
+    o, grads = _port(q, k, v, do, heads, LocalRing(p))
+    mesh = _mesh(p)
+    refs = {
+        "jax ring": _jax_vjp(lambda q, k, v: j_ring_attention(q, k, v, heads, mesh), q, k, v, do),
+        "jax attention": _jax_vjp(lambda q, k, v: j_attention(q, k, v, heads), q, k, v, do),
+    }
+    for ref_name, (o_ref, grads_ref) in refs.items():
+        np.testing.assert_allclose(o, o_ref, rtol=fwd_tol[0], atol=fwd_tol[1], err_msg=ref_name)
+        for g, g_ref, name in zip(grads, grads_ref, "qkv"):
+            np.testing.assert_allclose(g, g_ref, rtol=grad_tol[0], atol=grad_tol[1],
+                                       err_msg=f"{ref_name} d{name}")
+
+
+def test_local_ring_matches_jax_flash_ring():
+    """Against JAX's flash-tiled ring (``_make_flash_ring``, Pallas kernels
+    in the interpreter): 2 heads of d=64, 600 rows on a 4-ring, so 150-row
+    shards, not a multiple of the 128-row blocks (padded and masked there)."""
+    q, k, v, _ = _qkvdo(1, 600, 128, 6)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o = ring_attention(tq, tk, tv, 2, LocalRing(4))
+    # the gradient of sum(o²), as _run_flash_ring takes it
+    grads = [g.numpy() for g in torch.autograd.grad(o.square().sum(), (tq, tk, tv))]
+    mesh = _mesh(4)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(_run_flash_ring(jq, jk, jv, 2, mesh)),
+                               rtol=2e-4, atol=2e-4)
+    grads_ref = _run_flash_ring(jq, jk, jv, 2, mesh, grad=True)
+    for g, g_ref, name in zip(grads, grads_ref, "qkv"):
+        np.testing.assert_allclose(g, np.asarray(g_ref), rtol=2e-3, atol=2e-3, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_process_group_ring_matches_local_ring(world, tmp_path):
+    """``ProcessGroupRing`` under gloo, ``world`` spawned ranks on replicated
+    inputs: every rank's output and gradients equal ``LocalRing``'s."""
+    q, k, v, do = _qkvdo(2, 128, 64, 7)
+    heads = 4
+    torch.save(tuple(torch.from_numpy(x) for x in (q, k, v, do)) + (heads,), tmp_path / "in.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=torch_ring_worker.run,
+                         args=(r, world, str(tmp_path / "store"), str(tmp_path / "in.pt"),
+                               str(tmp_path / f"out{r}.pt")))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    try:
+        for proc in procs:
+            proc.join(timeout=120)
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        assert not hung, f"ranks {hung} did not finish within 120 s"
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    assert [proc.exitcode for proc in procs] == [0] * world
+    o_ref, grads_ref = _port(q, k, v, do, heads, LocalRing(world))
+    for r in range(world):
+        got = torch.load(tmp_path / f"out{r}.pt")
+        assert got["primary"] == (r == 0)
+        np.testing.assert_allclose(got["o"].numpy(), o_ref, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"rank {r}")
+        for g, g_ref, name in zip(got["grads"], grads_ref, "qkv"):
+            np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"rank {r} d{name}")
+
+
+def test_ring_rejects_ragged_sequence():
+    x = torch.zeros(1, 102, 8)
+    with pytest.raises(ValueError, match="not divisible"):
+        ring_attention(x, x, x, 2, LocalRing(4))
+    with pytest.raises(ValueError, match="self-attention"):
+        ring_attention(x, torch.zeros(1, 2, 8), torch.zeros(1, 2, 8), 2, LocalRing(2))
+
+
+def test_ring_sampler_matches_jax_and_base(bundles, inputs):  # noqa: F811
+    """Native-resolution mode in the guided sampler: 3 per-step guided
+    steps, learned affine, with ``ring_mesh=LocalRing(4)`` (every UNet
+    self-attention of the 24x32 latent divides 4: 768, 192 rows) against
+    JAX ``guided_sample`` on a 4-device ring mesh, at the bounds of
+    ``test_torch_sampler.py``'s guided test; and against the port's own run
+    without the ring at the bounds of ``test_ring_attention.py``'s sampler
+    test (rtol 1e-3, atol 1e-4)."""
+    jbundle, tbundle = bundles
+    imgs, sparses, noise = inputs
+    kw = dict(steps=3, resolution=64, closed_form=False, max_depth=10.0)
+    jfn = jax.jit(JS.guided_sample, static_argnames=("cfg",))
+    d_j, l_j = jfn(jbundle, jnp.asarray(imgs), jnp.asarray(sparses),
+                   JS.SamplerConfig(**kw, ring_mesh=_mesh(4)), init_noise=jnp.asarray(noise))
+    runs = {}
+    for name, ring in (("ring", LocalRing(4)), ("base", None)):
+        d, lat = TS.guided_sample(tbundle, torch.from_numpy(imgs), torch.from_numpy(sparses),
+                                  TS.SamplerConfig(**kw, ring_mesh=ring),
+                                  init_noise=torch.from_numpy(noise))
+        runs[name] = (d.numpy(), lat.numpy())
+    (d_r, l_r), (d_b, l_b) = runs["ring"], runs["base"]
+    assert np.isfinite(d_r).all()
+    dd, ll = d_r - np.asarray(d_j), l_r - np.asarray(l_j)
+    assert _rms(dd) < 1.2e-2 and np.abs(dd).max() < 0.15 and _rms(ll) < 3.5e-2, (
+        _rms(dd), np.abs(dd).max(), _rms(ll))
+    np.testing.assert_allclose(d_r, d_b, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(l_r, l_b, rtol=1e-3, atol=1e-4)
