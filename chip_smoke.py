@@ -12,6 +12,11 @@
    visiting key/value block) is held against one flash call over the whole
    sequence and against the same ring through the plain versions, at ring
    sizes 2 and 4;
+   2b. the probes of the flash kernel's inner loop
+   (``depth_completion_tpu_torch.probes``): each probe kernel held against
+   its twin at the probes' shapes, then each probe's own ``run`` with its
+   launches counted from 0 (each must launch its kernel), its verdict, and
+   its times beside bound, plain and library times;
 3. drives three guided paths through ``DepthCompletionPipeline`` at full
    Marigold width (random bf16 weights from a seed): the TAESD decoder
    (``--vae light``, the default) and the KL VAE at SD widths
@@ -27,9 +32,12 @@
    seeds, against the same step run through the plain versions (for the
    ring: through the flash kernels without the ring), and the latent
    gradient against an fp32 run;
-4. prints ``{"composites": [...]}`` (the ring's passes: its times, errors
+4. prints ``{"probes": [...]}`` (each probe's readings and verdict),
+   ``{"composites": [...]}`` (the ring's passes: its times, errors
    and bound, and the flash launches it made on the native path),
-   ``{"kernels": [...]}`` (one entry per CUDA kernel) and, last,
+   ``{"kernels": [...]}`` (one entry per CUDA kernel; a probe kernel's
+   launches are its probe's, and every guided path must launch it 0
+   times) and, last,
    ``{"ok": true, "device": ...}``.
 
 A tolerance check that fails is reported and the run goes on, so one run
@@ -76,6 +84,11 @@ from depth_completion_tpu_torch.ops import ring_attention as ra  # noqa: E402
 from depth_completion_tpu_torch.ops.resize import latent_size  # noqa: E402
 from depth_completion_tpu_torch.pipeline import sampler as S  # noqa: E402
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline  # noqa: E402
+from depth_completion_tpu_torch.probes import card, time_ms  # noqa: E402
+from depth_completion_tpu_torch.probes import flash_overlap as fo  # noqa: E402
+from depth_completion_tpu_torch.probes import flash_twostream as fts  # noqa: E402
+from depth_completion_tpu_torch.probes import mma_n64 as n64  # noqa: E402
+from depth_completion_tpu_torch.probes import packed_pv as ppv  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -83,7 +96,19 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SFU_PER_SM_CLK = 16  # MUFU ex2 results per SM per clock (4 per SM sub-partition)
 DEV = torch.device("cuda")
 FAILURES: list[str] = []  # tolerance checks that failed, reported at the end
-LAUNCH_COUNTS = (fa.LAUNCHES, c3.LAUNCHES, ge.LAUNCHES)
+LAUNCH_COUNTS = (fa.LAUNCHES, c3.LAUNCHES, ge.LAUNCHES, fo.LAUNCHES, fts.LAUNCHES, n64.LAUNCHES,
+                 ppv.LAUNCHES)
+# the probes' kernels: name → (source, TPU probe kernel it replaces)
+PROBE_KERNELS = {
+    "probe_block_step": ("depth_completion_tpu_torch/csrc/probe_block_step.cu",
+                         "scripts/exp_flash_overlap.py:39"),
+    "flash_fwd_twostream": ("depth_completion_tpu_torch/csrc/probe_flash_twostream.cu",
+                            "scripts/exp_flash_twostream.py:64"),
+    "probe_mma_n64": ("depth_completion_tpu_torch/csrc/probe_mma.cu",
+                      "scripts/exp_pallas_n64.py:61"),
+    "probe_packed_pv": ("depth_completion_tpu_torch/csrc/probe_mma.cu",
+                        "scripts/exp_packed_pv.py:36"),
+}
 
 
 def exp_bound_ms(n_exp: float) -> float:
@@ -94,19 +119,6 @@ def exp_bound_ms(n_exp: float) -> float:
         capture_output=True, text=True, check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return n_exp / (sms * SFU_PER_SM_CLK * mhz * 1e6) * 1e3
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -507,6 +519,213 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the probes of the flash kernel's inner loop (depth_completion_tpu_torch.probes)
+# ---------------------------------------------------------------------------
+
+def check_block_step() -> dict:
+    """9a: each mode, one block per SM, ``fo.STEPS`` steps, against its
+    twin. full and dots: the accumulator is STEPS times one tile's p·v
+    (α = 1 after the first step) summed in another order, p rounds to bf16
+    on both sides from scores that may differ in the last fp32 bit, and o
+    rounds to bf16: the flash kernels' o tolerance. softmax: no products;
+    the faked scores make every p an exact power of two (1, or 2^-64 once
+    the running max runs ahead of l), so both sides sum the same values in
+    the same order: exact."""
+    q, k, v = fo.inputs(DEV, seed=5)
+    print(f"probe block_step: {q.shape[0]} blocks x [{fo.BR}, {fo.D}] bf16, {fo.STEPS} steps")
+    errs = []
+    for mode in fo.MODES:
+        o = fo.block_step(q, k, v, mode)
+        ref = fo.block_step_plain(q, k, v, mode)
+        if mode == "softmax":
+            errs.append(max_err(o, ref))
+            check("probe block_step softmax (exact)", errs[-1], 0.0)
+        else:
+            errs.append(check_elementwise(f"probe block_step {mode}", o, ref, 2**-7, 2**-8))
+    return {"max_abs_err": max(errs), "blocks": q.shape[0],
+            "plain_ms": time_ms(lambda: fo.block_step_plain(q, k, v, "full"), 3, 1)}
+
+
+def check_twostream(sq: int, sk: int | None = None, heads: int = 5, timed: bool = False) -> dict:
+    """9b: the two-stream flash forward against the plain forward, with the
+    flash kernels' tolerances (the same function, the same roundings)."""
+    sk = sq if sk is None else sk
+    gen = torch.Generator(device=DEV).manual_seed(sq * 13 + sk)
+
+    def rnd(n):
+        return torch.randn((1, n, heads * 64), generator=gen, device=DEV).to(torch.bfloat16)
+
+    q, k, v = rnd(sq), rnd(sk), rnd(sk)
+    print(f"probe flash_fwd_twostream heads={heads} Sq={sq} Sk={sk} d=64 bf16")
+    o, lse2 = fts.flash_fwd_twostream(q, k, v, heads)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, heads)
+    err = check_elementwise("flash_fwd_twostream o", o, o_ref, 2**-7, 2**-8)
+    check("flash_fwd_twostream o rel-norm",
+          float((o.float() - o_ref.float()).norm() / o_ref.float().norm()), 2**-8,
+          "|o-o_ref|/|o_ref|")
+    check("flash_fwd_twostream lse2", max_err(lse2, lse_ref), 1e-4)
+    out = {"max_abs_err": err}
+    if timed:
+        qh, kh, vh = (t.view(1, -1, heads, 64).transpose(1, 2) for t in (q, k, v))
+        out["plain_ms"] = time_ms(lambda: fa.flash_fwd_plain(q, k, v, heads), 3, 1)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        out["bound_ms"], out["bound_by"] = bound(
+            4.0 * sq * sk * 64 * heads, 2 * (2 * q.numel() + 2 * k.numel()) + 4 * sq * heads)
+        out["bound_ms"] = max(out["bound_ms"], exp_bound_ms(float(sq) * sk * heads))
+    return out
+
+
+def check_mma_n64() -> dict:
+    """9c: each variant at the script's shapes against its twin (bf16 of
+    fp32 sums of the same products in another order: one bf16 ulp, 2^-7 of
+    the element, plus 2^-12 of the largest for the fp32 order) and against
+    the function it computes (p·v per head; do^T·p for E) at 2^-7 of that
+    function's largest magnitude: C's bf16 p_sum and p_diff move it by
+    ~2^-9, a variant off by any factor or term by far more. → per variant:
+    max_abs_err, plain_ms, library_ms (``torch.bmm`` of the same operands,
+    each product once: 1/R of the kernel's products; C: two calls),
+    bound_ms, bound_by."""
+    xs = n64.inputs(DEV, seed=3)
+    ops = n64.make_operands(*xs)
+    print(f"probe mma_n64: PAIRS={n64.PAIRS} bq={n64.BQ} bk={n64.BK} d={n64.D} R={n64.R} bf16")
+    res = {}
+    for name in n64.VARIANTS:
+        a, b, a2, b2, trans_a, scale = ops[name]
+
+        def twin(a=a, b=b, a2=a2, b2=b2, trans_a=trans_a, scale=scale):
+            return n64.products_plain(a, b, a2, b2, repeats=n64.R, scale=scale / n64.R,
+                                      trans_a=trans_a)
+
+        def library(a=a, b=b, a2=a2, b2=b2, trans_a=trans_a):
+            out = torch.bmm(a.transpose(1, 2) if trans_a else a, b)
+            return out if a2 is None else torch.baddbmm(out, a2, b2)
+
+        out = n64.run_variant(ops, name)
+        r = {"max_abs_err": check_elementwise(f"probe mma_n64 {name} vs twin", out, twin(),
+                                              2**-7, 2**-12)}
+        fn = n64.reference(name, *xs)
+        check(f"probe mma_n64 {name} vs the function",
+              max_err(n64.as_heads(name, out), fn) / float(fn.abs().max()), 2**-7,
+              "max|err|/max|ref|")
+        r["plain_ms"] = time_ms(twin, 3, 1)
+        r["library_ms"] = time_ms(library)
+        nbytes = 2 * (sum(x.numel() for x in (a, b, a2, b2) if x is not None) + out.numel())
+        r["bound_ms"], r["bound_by"] = bound(n64.flops(name), nbytes)
+        res[name] = r
+    return res
+
+
+def check_packed_pv() -> dict:
+    """9d: each variant, one block per SM over copies of one product on
+    shared tiles, against its twin: one bf16 ulp as in 9c, and a floor for
+    the kernel's 8,192 fp32 adds per element (16 chunks x 512 repeats),
+    which drift by up to 8192 half-ulps, 2^-12 of the largest sum, where the
+    roundings lean one way; with the bf16 rounding of both sides, 2^-10. →
+    per variant as ``check_mma_n64`` (library: one ``torch.bmm`` of the
+    expanded operands, each product once)."""
+    copies = ppv.copies_for(DEV)
+    res = {}
+    for name, (n_out, bk, mult) in ppv.VARIANTS.items():
+        p, v = ppv.inputs(DEV, n_out, bk, seed=7)
+        steps = mult * ppv.N_STEPS
+        print(f"probe packed_pv {name}: {copies} copies of [{ppv.BQ},{bk}]x[{bk},{n_out}] "
+              f"x{steps} bf16")
+        out = ppv.resident_products(p, v, steps, copies)
+        ref = ppv.resident_products_plain(p, v, steps, copies)
+        r = {"max_abs_err": check_elementwise(f"probe packed_pv {name} vs twin", out, ref,
+                                              2**-7, 2**-10)}
+        r["plain_ms"] = time_ms(lambda: ppv.resident_products_plain(p, v, steps, copies), 3, 1)
+        pe, ve = p.expand(copies, *p.shape), v.expand(copies, *v.shape)
+        r["library_ms"] = time_ms(lambda: torch.bmm(pe, ve))
+        r["bound_ms"], r["bound_by"] = bound(ppv.flops(name, copies=copies),
+                                             2 * (p.numel() + v.numel() + out.numel()))
+        res[name] = r
+    return res
+
+
+def probe_phase() -> tuple[list, list]:
+    """Phase 2b: every probe kernel against its twin at the probes' shapes;
+    then each probe's own run (``run(DEV)``, the launches counted from 0),
+    its verdict, and its readings beside bound, plain and library times. →
+    (the probes line, the probe kernels' kernels-line entries)."""
+    block = check_block_step()
+    twostream = [check_twostream(7168, timed=True), check_twostream(6912, timed=True),
+                 check_twostream(6900), check_twostream(1000, 2100)]
+    mma = check_mma_n64()
+    packed = check_packed_pv()
+
+    reset_launches()  # just before the probes' runs
+    runs = {"flash_overlap": fo.run(DEV), "flash_twostream": fts.run(DEV),
+            "mma_n64": n64.run(DEV), "packed_pv": ppv.run(DEV)}
+    counts = launches()  # just after
+    reset_launches()
+    for name in PROBE_KERNELS:
+        if counts[name] == 0:
+            FAILURES.append(f"probe kernel {name} was not launched by its probe's run")
+    print(f"  probe launches: { {k: counts[k] for k in PROBE_KERNELS} }")
+
+    ov = runs["flash_overlap"]
+    per_step = ov["blocks"] * 4.0 * fo.BR * fo.BR * fo.D  # QK and PV FLOP, all blocks
+    exps = ov["blocks"] * float(fo.BR * fo.BR)
+    ov["bound_us_per_step"] = {
+        "full": max(bound(per_step, 0)[0], exp_bound_ms(exps)) * 1e3,
+        "dots": bound(per_step, 0)[0] * 1e3, "softmax": exp_bound_ms(exps) * 1e3}
+    ov["plain_ms"], ov["library_ms"] = block["plain_ms"], None  # no single library call
+    ts = runs["flash_twostream"]
+    for row, chk in zip(ts["rows"], twostream):
+        row.update({k: chk[k] for k in ("plain_ms", "library_ms", "bound_ms")})
+    for name in ("mma_n64", "packed_pv"):
+        for v, r in (mma if name == "mma_n64" else packed).items():
+            runs[name].setdefault("bound_ms", {})[v] = r["bound_ms"]
+            runs[name].setdefault("plain_ms", {})[v] = r["plain_ms"]
+            runs[name].setdefault("library_ms", {})[v] = r["library_ms"]
+    for name, r in runs.items():
+        print(f"  probe {name}: {r['verdict']}")
+    us, b = ov["us_per_step"], ov["bound_us_per_step"]
+    print(f"  flash_overlap ({ov['blocks']} blocks): full {us['full']:.4f} dots {us['dots']:.4f} "
+          f"softmax {us['softmax']:.4f} us/step (bounds {b['full']:.4f} / {b['dots']:.4f} / "
+          f"{b['softmax']:.4f}); dots+softmax {ov['dots_plus_softmax_us']:.4f}, max "
+          f"{ov['max_dots_softmax_us']:.4f}; plain full {ov['plain_ms']:.4f} ms; "
+          "library: none (no single call does a block step)")
+    for row in ts["rows"]:
+        print(f"  flash_twostream S={row['s']}: single {row['single_ms']:.4f} twostream "
+              f"{row['twostream_ms']:.4f} ms (x{row['speedup']:.3f}, max|diff| "
+              f"{row['max_abs_diff']:.2e}) plain {row['plain_ms']:.4f} library "
+              f"{row['library_ms']:.4f} (SDPA FLASH) bound {row['bound_ms']:.4f}")
+    for name in ("mma_n64", "packed_pv"):
+        r = runs[name]
+        for v in r["ms"]:
+            print(f"  {name} {v}: kernel_ms={r['ms'][v]:.4f} ({r['tflops_executed'][v]:.1f} "
+                  f"TFLOP/s) plain_ms={r['plain_ms'][v]:.4f} library_ms={r['library_ms'][v]:.4f} "
+                  f"(torch.bmm) bound_ms={r['bound_ms'][v]:.4f}")
+
+    full_ms = ov["ms"]["full"]
+    rows7168 = ts["rows"][0]
+    readings = {  # per kernel: max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms
+        "probe_block_step": (block["max_abs_err"], full_ms, ov["plain_ms"],
+                             b["full"] * fo.STEPS / 1e3, "operations", None),
+        "flash_fwd_twostream": (max(x["max_abs_err"] for x in twostream),
+                                rows7168["twostream_ms"], rows7168["plain_ms"],
+                                rows7168["bound_ms"], "operations", rows7168["library_ms"]),
+        "probe_mma_n64": (max(x["max_abs_err"] for x in mma.values()), runs["mma_n64"]["ms"]["A"],
+                          mma["A"]["plain_ms"], mma["A"]["bound_ms"], mma["A"]["bound_by"],
+                          mma["A"]["library_ms"]),
+        "probe_packed_pv": (max(x["max_abs_err"] for x in packed.values()),
+                            runs["packed_pv"]["ms"]["A"], packed["A"]["plain_ms"],
+                            packed["A"]["bound_ms"], packed["A"]["bound_by"],
+                            packed["A"]["library_ms"]),
+    }
+    entries = []
+    for name, (src, replaces) in PROBE_KERNELS.items():
+        err, ms, plain, bnd, by, lib = readings[name]
+        entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": counts[name], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib})
+    return list(runs.values()), entries
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the guided paths
 # ---------------------------------------------------------------------------
 
@@ -554,6 +773,7 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
         # per step: forward and dx of every decoder conv; the encode; the final decode
         "conv3x3": 2 * convs_per_decode * steps + convs_per_encode + convs_per_decode,
         "guidance_epilogue": steps,
+        **{name: 0 for name in PROBE_KERNELS},  # no path launches a probe kernel
     }
 
 
@@ -802,11 +1022,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=50, help="guided steps per request")
     args = ap.parse_args()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -882,6 +1098,7 @@ def main() -> int:
         check_epilogue(1, v_pred=True, timed=False, latent_hw=(44, 152)),  # native path
         check_epilogue(1, v_pred=False, timed=False, latent_hw=(44, 152)),
     ]
+    probes, probe_entries = probe_phase()
 
     counts: dict[str, int] = {}
     ring_launches: dict[str, int] = {}  # flash launches on the native (ring) path
@@ -923,6 +1140,7 @@ def main() -> int:
             "ms": r["ms"], "single_flash_ms": r["single_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    print(json.dumps({"probes": probes}))
     print(json.dumps({"composites": composites}))
     entries = []
     # times and bound at the first timed shape (the TAESD path's largest for
@@ -935,6 +1153,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    entries.extend(probe_entries)  # launches from the probes' runs; 0 on every path
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention", "conv3x3", "guidance_epilogue")
+SOURCES = ("flash_attention", "conv3x3", "guidance_epilogue", "probe_mma", "probe_block_step",
+           "probe_flash_twostream")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",

@@ -34,6 +34,11 @@
 #   F14_ring_no_norm  the ring's forward leaves the merged output
 #                     unnormalised (acc, not acc / w: o about P times too
 #                     large); the backward gets that o
+#   F15_twostream_alpha the two-stream flash forward's second stream skips
+#                     the alpha rescale of its accumulator
+#   F16_n64_c_half    probe variant C (sum/diff) without its 0.5
+#   F17_block_step_max the block-step probe's full mode takes p = exp2(s),
+#                     without the running max
 set -u
 out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR [FAULT ...]}
 shift
@@ -50,6 +55,7 @@ trap 'rm -rf "$work"' EXIT
 FA=depth_completion_tpu_torch/csrc/flash_attention.cu
 CONV=depth_completion_tpu_torch/csrc/conv3x3.cu
 RING=depth_completion_tpu_torch/ops/ring_attention.py
+PROBES=depth_completion_tpu_torch/probes
 
 run_fault() {  # name, then (file, sed expression) pairs
   local name=$1 d="$work/$1"
@@ -102,3 +108,9 @@ run_fault F13_ring_own_stat $RING \
   's|import flash_bwd, flash_fwd$|import flash_bwd, flash_fwd, flash_fwd_plain|; s|dq_b, dk_b, dv_b = block_bwd(q, k_blk, v_blk, o, do, lse2, num_heads)|o, lse2 = flash_fwd_plain(q, k_blk, v_blk, num_heads); &|'
 run_fault F14_ring_no_norm $RING \
   's|o = (acc / w).to(q.dtype).view(n, s_loc, c)|o = acc.to(q.dtype).view(n, s_loc, c)|'
+run_fault F15_twostream_alpha depth_completion_tpu_torch/csrc/probe_flash_twostream.cu \
+  's|o_w\[r \* LDF + c\([01]\)\] \*= alpha;|if (warp < TS_WARPS / 2) &|'
+run_fault F16_n64_c_half $PROBES/mma_n64.py \
+  's|p_diff, torch.cat(\[v1, -v2\], 2), False, 0.5)|p_diff, torch.cat([v1, -v2], 2), False, 1.0)|'
+run_fault F17_block_step_max depth_completion_tpu_torch/csrc/probe_block_step.cu \
+  's|exp2f(s\([01]\) - m_new)|exp2f(s\1 - (MODE == FULL ? 0.f : m_new))|g'
