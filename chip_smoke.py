@@ -385,6 +385,11 @@ def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
     out["plain_ms"] = time_ms(lambda: c3.conv3x3_plain(x, w_hwio, b, relu=relu), 3, 1)
     out["library_ms"] = time_ms(lambda: F.conv2d(xc, wgt, b, padding=1), reps)
     out["dx_ms"] = time_ms(run_dx, reps)
+    # cuDNN's backward-data on the same channels-last views (the dx of the
+    # conv alone: no single call applies the ReLU mask too)
+    dyc = dy.permute(0, 3, 1, 2)
+    out["dx_library_ms"] = time_ms(lambda: torch.ops.aten.convolution_backward(
+        dyc, xc, wgt, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False]), reps)
     flops = 2.0 * n * h * w * cin * cout * 9
     x_bytes, y_bytes, w_bytes = 2 * n * h * w * cin, 2 * n * h * w * cout, 2 * 9 * cin * cout
     out["bound_ms"], out["bound_by"] = bound(flops, x_bytes + y_bytes + w_bytes + 2 * cout)
@@ -392,7 +397,8 @@ def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
     dx_bytes = x_bytes + y_bytes + w_bytes + (2 * y_bytes if relu else 0)
     out["dx_bound_ms"], _ = bound(flops, dx_bytes)
     print(f"  conv3x3 {h}x{w} {cin}->{cout}: kernel_ms={out['ms']:.4f} "
-          f"({'masked ' if relu else ''}dx {out['dx_ms']:.4f}, bound {out['dx_bound_ms']:.4f}) "
+          f"({'masked ' if relu else ''}dx {out['dx_ms']:.4f}, bound {out['dx_bound_ms']:.4f}, "
+          f"dx_library_ms {out['dx_library_ms']:.4f}) "
           f"plain_ms={out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
           f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']})")
     return out
@@ -523,9 +529,11 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
 # ---------------------------------------------------------------------------
 
 def check_block_step() -> dict:
-    """9a: each mode, one block per SM, ``fo.STEPS`` steps, against its
-    twin. full and dots: the accumulator is STEPS times one tile's p·v
-    (α = 1 after the first step) summed in another order, p rounds to bf16
+    """9a: each mode of each design (``fo.DESIGNS``: the first flash
+    kernel's WMMA block step and the redesigned kernel's ``mma.sync`` one),
+    one block per SM, ``fo.STEPS`` steps, against the twin. full and dots:
+    the accumulator is STEPS times one tile's p·v (α = 1 after the first
+    step) summed in another order, p rounds to bf16
     on both sides from scores that may differ in the last fp32 bit, and o
     rounds to bf16: the flash kernels' o tolerance. softmax: no products;
     the faked scores make every p an exact power of two (1, or 2^-64 once
@@ -535,13 +543,15 @@ def check_block_step() -> dict:
     print(f"probe block_step: {q.shape[0]} blocks x [{fo.BR}, {fo.D}] bf16, {fo.STEPS} steps")
     errs = []
     for mode in fo.MODES:
-        o = fo.block_step(q, k, v, mode)
         ref = fo.block_step_plain(q, k, v, mode)
-        if mode == "softmax":
-            errs.append(max_err(o, ref))
-            check("probe block_step softmax (exact)", errs[-1], 0.0)
-        else:
-            errs.append(check_elementwise(f"probe block_step {mode}", o, ref, 2**-7, 2**-8))
+        for design in fo.DESIGNS:
+            o = fo.block_step(q, k, v, mode, design=design)
+            if mode == "softmax":
+                errs.append(max_err(o, ref))
+                check(f"probe block_step {design} softmax (exact)", errs[-1], 0.0)
+            else:
+                errs.append(check_elementwise(f"probe block_step {design} {mode}", o, ref,
+                                              2**-7, 2**-8))
     return {"max_abs_err": max(errs), "blocks": q.shape[0],
             "plain_ms": time_ms(lambda: fo.block_step_plain(q, k, v, "full"), 3, 1)}
 
@@ -682,12 +692,15 @@ def probe_phase() -> tuple[list, list]:
             runs[name].setdefault("library_ms", {})[v] = r["library_ms"]
     for name, r in runs.items():
         print(f"  probe {name}: {r['verdict']}")
-    us, b = ov["us_per_step"], ov["bound_us_per_step"]
-    print(f"  flash_overlap ({ov['blocks']} blocks): full {us['full']:.4f} dots {us['dots']:.4f} "
-          f"softmax {us['softmax']:.4f} us/step (bounds {b['full']:.4f} / {b['dots']:.4f} / "
-          f"{b['softmax']:.4f}); dots+softmax {ov['dots_plus_softmax_us']:.4f}, max "
-          f"{ov['max_dots_softmax_us']:.4f}; plain full {ov['plain_ms']:.4f} ms; "
-          "library: none (no single call does a block step)")
+    b = ov["bound_us_per_step"]
+    for design, d in ov["designs"].items():
+        us = d["us_per_step"]
+        print(f"  flash_overlap {design} ({ov['blocks']} blocks): full {us['full']:.4f} dots "
+              f"{us['dots']:.4f} softmax {us['softmax']:.4f} us/step (bounds {b['full']:.4f} / "
+              f"{b['dots']:.4f} / {b['softmax']:.4f}); dots+softmax "
+              f"{d['dots_plus_softmax_us']:.4f}, max {d['max_dots_softmax_us']:.4f} -> "
+              f"{d['verdict']}; plain full {ov['plain_ms']:.4f} ms; "
+              "library: none (no single call does a block step)")
     for row in ts["rows"]:
         print(f"  flash_twostream S={row['s']}: single {row['single_ms']:.4f} twostream "
               f"{row['twostream_ms']:.4f} ms (x{row['speedup']:.3f}, max|diff| "
@@ -700,7 +713,7 @@ def probe_phase() -> tuple[list, list]:
                   f"TFLOP/s) plain_ms={r['plain_ms'][v]:.4f} library_ms={r['library_ms'][v]:.4f} "
                   f"(torch.bmm) bound_ms={r['bound_ms'][v]:.4f}")
 
-    full_ms = ov["ms"]["full"]
+    full_ms = ov["designs"]["mma"]["ms"]["full"]  # the design flash_fwd now runs
     rows7168 = ts["rows"][0]
     readings = {  # per kernel: max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms
         "probe_block_step": (block["max_abs_err"], full_ms, ov["plain_ms"],

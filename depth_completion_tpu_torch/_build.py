@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes``. Libraries live in ``_build/`` beside this file, named by a hash
-of the source and the flags, so an edited source rebuilds and an unchanged
-one loads at once. Nothing is built at import time: a machine without
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once. Nothing is built at import time: a machine without
 ``nvcc`` imports the package and runs its CPU paths.
 """
 
@@ -44,7 +44,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

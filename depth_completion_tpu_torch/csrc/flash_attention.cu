@@ -11,13 +11,34 @@
 //
 // What bounds it: at the UNet's stage-0 shape (S=6912, 5 heads, d=64) the
 // work is ~4·S²·d FLOP per head forward against ~4·S·d·2 bytes of q/k/v/o,
-// i.e. hundreds of FLOP per byte: the tensor cores bound it, not memory.
-// Design: scores never leave shared memory. A block owns 64 query rows
-// (forward) or 64 key rows (backward) of one (batch, head) and walks the
-// other sequence in 64-row tiles; products run on the tensor cores through
-// WMMA (bf16 m16n16k16, fp32 accumulate) and the online softmax runs in
-// fp32 on a shared-memory score tile. This is the simple, right first form:
-// no TMA, no wgmma, no pipelining of the tile loads.
+// i.e. hundreds of FLOP per byte: the tensor cores bound it, not memory;
+// next come the S² exp2 on the special-function units (~1/16 of the
+// products' time at peak) and the softmax's own instructions around them.
+//
+// d=64 forward (flash_fwd_kernel), the FlashAttention-2 form on mma.sync:
+// a block of 4 warps owns 64 query rows of one (batch, head), 16 per warp,
+// and walks the keys in 64-row tiles. Q's fragments are loaded into
+// registers once (ldmatrix); each tile's scores s = q·kᵀ (mma.sync
+// m16n8k16, bf16 in, fp32 out) stay in the accumulator registers, where the
+// online softmax runs: a row's 16 columns per lane, its max and (after the
+// loop) its sum over the lane quad by two __shfl_xor_sync, exp2f on the
+// fragments, α rescaling the fp32 o accumulator (16x64 per warp, 32 values a
+// lane) in place. p's C fragments become the bf16 A fragments of p·v without
+// leaving the registers; v is read through ldmatrix.trans. No score, p or o
+// tile and no m/l array lives in shared memory. K and V tiles arrive through
+// a two-stage cp.async ring (16-byte copies, zero-filled past sk), so tile
+// j+1 loads while tile j is used; the 128-byte tile rows are XOR-swizzled
+// (16-byte chunk ^ row % 8) so that every ldmatrix is free of bank
+// conflicts. Tile and occupancy: 40 KB of shared memory and at most 128
+// registers (launch bounds) give 4 blocks (16 warps) per SM. At S=6912 with
+// 5 heads that is 540 blocks on 528 slots: 12 blocks run a second, nearly
+// empty wave. 128-row blocks (8 warps, 2 per SM) leave 6 of 270 in the same
+// spot with twice the work each, and 96-row blocks (3 per SM) need <= 113
+// registers, where this kernel's fragments (q 16, s 32, o 32) leave no room:
+// 64 rows keeps the tail quantum smallest (reckoned, not measured).
+//
+// The backward and the d=512 kernels are the first, simple WMMA form:
+// scores in shared memory, no pipelining of the tile loads.
 //
 // Layout: q/k/v/o are [N, S, heads*64] with the head at channel offset
 // h*64, addressed through (batch, row) strides, so the projections need no
@@ -35,6 +56,8 @@
 #include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -77,18 +100,43 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long row_s
   }
 }
 
+// ---------------------------------------------------------------------------
+// d=64 forward: mma.sync m16n8k16 with the online softmax on the accumulator
+// fragments (design notes at the top of this file).
+// ---------------------------------------------------------------------------
+
+// BR query rows per block (16 per warp) and BR key rows per tile, each tile
+// 64x64 bf16 (8 KB) with swizzled rows (dct::swz64)
 struct FwdSmem {
-  bf16 q[BR * LDB];
-  bf16 k[BR * LDB];
-  bf16 v[BR * LDB];
-  bf16 p[BR * LDB];
-  float s[BR * LDF];
-  float o[BR * LDF];
-  float m[BR];
-  float l[BR];
+  bf16 q[BR * D];
+  bf16 k[2][BR * D];  // two-stage cp.async ring: tile j+1 lands while tile j is used
+  bf16 v[2][BR * D];
 };
 
-__global__ void __launch_bounds__(NTHREADS)
+// cp.async rows [row0, row0 + 64) x 64 channels of a strided bf16 matrix into
+// a swizzled tile; rows at or past nrows are zero-filled.
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long row_stride, int row0,
+                                           int nrows) {
+  for (int i = threadIdx.x; i < BR * 8; i += NTHREADS) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = row0 + r < nrows;
+    dct::cp_async_16(dct::smem_u32(dst + dct::swz64(r, c)),
+                     ok ? src + (long)(row0 + r) * row_stride + c * 8 : src, ok);
+  }
+}
+
+// the o accumulator's rows g and g + 8 scaled by this tile's α
+__device__ __forceinline__ void rescale(float (&acc)[8][4], float alpha0, float alpha1) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[i][0] *= alpha0;
+    acc[i][1] *= alpha0;
+    acc[i][2] *= alpha1;
+    acc[i][3] *= alpha1;
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 4)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int heads,
@@ -97,102 +145,147 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
   const int q0 = blockIdx.x * BR, h = blockIdx.y, n = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* qb = q + n * q_sn + h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix addressing: lane gives row lr of matrix mi. For Q (A) and V
+  // (B through .trans) matrix mi is rows +8·(mi & 1), chunk +(mi >> 1); for
+  // K (B) rows +8·(mi >> 1), chunk +(mi & 1). Row offsets are multiples of
+  // 8, so the swizzle term row % 8 is lr throughout.
+  const int lr = lane & 7, mi = lane >> 3;
+  const int row_qv = ((mi & 1) << 3) + lr, ch_qv = mi >> 1;
+  const int row_k = ((mi >> 1) << 3) + lr, ch_k = mi & 1;
   const bf16* kb = k + n * k_sn + h * D;
   const bf16* vb = v + n * v_sn + h * D;
+  const int ntiles = (sk + BR - 1) / BR;
 
-  load_tile(sm.q, qb, q_ss, q0, sq);
-  for (int i = threadIdx.x; i < BR * LDF; i += NTHREADS) sm.o[i] = 0.f;
-  if (threadIdx.x < BR) {
-    sm.m[threadIdx.x] = -INFINITY;
-    sm.l[threadIdx.x] = 0.f;
+  stage_tile(sm.q, q + n * q_sn + h * D, q_ss, q0, sq);
+  stage_tile(sm.k[0], kb, k_ss, 0, sk);
+  stage_tile(sm.v[0], vb, v_ss, 0, sk);
+  dct::cp_async_commit();
+
+  uint32_t qf[4][4];  // this warp's 16 query rows as A fragments, 4 steps of 16 channels
+  float acc[8][4];    // o: 16 rows x 64 channels (8 n8 tiles)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (log2 domain)
+  float l0 = 0.f, l1 = 0.f;              // this lane's part of their row sums
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    dct::cp_async_wait<0>();
+    __syncthreads();  // tile j landed for every thread; tile j-1 consumed by every warp
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        dct::ldsm_x4(qf[kk], dct::smem_u32(sm.q + (warp * 16 + row_qv) * D +
+                                           (((kk * 2 + ch_qv) ^ lr) << 3)));
+    }
+    if (j + 1 < ntiles) {
+      stage_tile(sm.k[st ^ 1], kb, k_ss, (j + 1) * BR, sk);
+      stage_tile(sm.v[st ^ 1], vb, v_ss, (j + 1) * BR, sk);
+    }
+    dct::cp_async_commit();
+    const bf16* ks = sm.k[st];
+    const bf16* vs = sm.v[st];
+
+    // s = q kᵀ: 16 rows x 64 keys (8 n8 tiles) in registers
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        dct::ldsm_x4(b, dct::smem_u32(ks + (jp * 16 + row_k) * D + (((kk * 2 + ch_k) ^ lr) << 3)));
+        dct::mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+        dct::mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // online softmax on the fragments: lane holds columns 8i + 2t, +1 of rows
+    // g (s[i][0..1]) and g + 8 (s[i][2..3]); a row's four lanes form a quad
+    const int kcol = j * BR + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] *= scale_log2;
+    if ((j + 1) * BR > sk) {  // the ragged last tile: keys at or past sk score -inf
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kcol + i * 8 + (e & 1) >= sk) s[i][e] = -INFINITY;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[i][0], s[i][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[i][2], s[i][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // column k0 < sk is valid in every row, so mx is finite; α is 0 at the first tile
+    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[i][0] = exp2f(s[i][0] - m0);
+      s[i][1] = exp2f(s[i][1] - m0);
+      s[i][2] = exp2f(s[i][2] - m1);
+      s[i][3] = exp2f(s[i][3] - m1);
+      ps0 += s[i][0] + s[i][1];
+      ps1 += s[i][2] + s[i][3];
+    }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+    rescale(acc, alpha0, alpha1);
+
+    // o += p v: p's C fragments of score tiles 2kk and 2kk+1 are the A
+    // fragment of key step kk; v through ldmatrix.trans as B
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {dct::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              dct::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              dct::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              dct::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {
+        uint32_t b[4];
+        dct::ldsm_x4_t(b, dct::smem_u32(vs + (kk * 16 + row_qv) * D +
+                                        (((dp * 2 + ch_qv) ^ lr) << 3)));
+        dct::mma_bf16(acc[2 * dp], pa, b[0], b[1]);
+        dct::mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
   }
-  float* s_w = sm.s + warp * 16 * LDF;
-  float* o_w = sm.o + warp * 16 * LDF;
 
-  for (int k0 = 0; k0 < sk; k0 += BR) {
-    __syncthreads();  // previous tile fully consumed
-    load_tile(sm.k, kb, k_ss, k0, sk);
-    load_tile(sm.v, vb, v_ss, k0, sk);
-    __syncthreads();
-
-    // s = q k^T for this warp's 16 query rows
-    FragC acc[4];
+  // full row sums from the quad; o = acc / l (a row with l == 0 keeps inv = 1)
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
+  const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  float* lse_bh = lse + ((long)n * heads + h) * sq;
+  if (r0 < sq) {
+    bf16* orow = o + n * o_sn + (long)r0 * o_ss + h * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, sm.q + warp * 16 * LDB + kk, LDB);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT b;
-        wmma::load_matrix_sync(b, sm.k + j * 16 * LDB + kk, LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s_w + j * 16, acc[j], LDF, wmma::mem_row_major);
-    __syncwarp();
-
-    // online softmax over the tile (log2 domain), rows private to the warp
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const float* srow = s_w + r * LDF;
-      const int c0 = lane, c1 = lane + 32;
-      const float s0 = (k0 + c0 < sk) ? srow[c0] * scale_log2 : -INFINITY;
-      const float s1 = (k0 + c1 < sk) ? srow[c1] * scale_log2 : -INFINITY;
-      const float m_old = sm.m[row];
-      const float l_old = sm.l[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
-      const float psum = warp_sum(p0 + p1);
-      const float alpha = exp2f(m_old - m_new);
-      sm.p[row * LDB + c0] = __float2bfloat16(p0);
-      sm.p[row * LDB + c1] = __float2bfloat16(p1);
-      o_w[r * LDF + c0] *= alpha;
-      o_w[r * LDF + c1] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sm.m[row] = m_new;
-        sm.l[row] = l_old * alpha + psum;
-      }
-    }
-    __syncwarp();
-
-    // o += p v
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::load_matrix_sync(acc[j], o_w + j * 16, LDF, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BR; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, sm.p + warp * 16 * LDB + kk, LDB);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, sm.v + kk * LDB + j * 16, LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(o_w + j * 16, acc[j], LDF, wmma::mem_row_major);
-    __syncwarp();
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint32_t*>(orow + i * 8) = dct::pack_bf16(acc[i][0] * inv0, acc[i][1] * inv0);
+    if (t == 0) lse_bh[r0] = m0 + (l0 == 0.f ? 0.f : log2f(l0));
   }
-
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r, gq = q0 + row;
-    if (gq >= sq) break;
-    const float l = sm.l[row];
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-    bf16* orow = o + n * o_sn + (long)gq * o_ss + h * D;
-    orow[lane] = __float2bfloat16(o_w[r * LDF + lane] * inv);
-    orow[lane + 32] = __float2bfloat16(o_w[r * LDF + lane + 32] * inv);
-    if (lane == 0)
-      lse[((long)n * heads + h) * sq + gq] = sm.m[row] + (l == 0.f ? 0.f : log2f(l));
+  if (r1 < sq) {
+    bf16* orow = o + n * o_sn + (long)r1 * o_ss + h * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint32_t*>(orow + i * 8) = dct::pack_bf16(acc[i][2] * inv1, acc[i][3] * inv1);
+    if (t == 0) lse_bh[r1] = m1 + (l1 == 0.f ? 0.f : log2f(l1));
   }
 }
 

@@ -13,6 +13,12 @@ block per SM, each on its own q, k, v. Its ``dots`` mode reads α from a
 scratch that starts at 1: the reference's starts at -inf and its dots
 output is all NaN (0·(-inf) at the first step).
 
+Two designs of the block step (``DESIGNS``), one twin: ``wmma``, the first
+flash kernel's (score, p and accumulator tiles in shared memory), and
+``mma``, the redesigned ``flash_fwd_kernel``'s (scores, p and accumulator
+in ``mma.sync`` fragments, the softmax by quad shuffles). ``run`` times
+every mode of both, so the two block steps read side by side.
+
     python3 -m depth_completion_tpu_torch.probes.flash_overlap
 """
 
@@ -29,22 +35,23 @@ from depth_completion_tpu_torch.probes import card, require_cuda, time_ms
 BR, D, STEPS = 64, 64, 256
 SCALE = 0.125 * 1.4426950408889634  # 1/sqrt(64) in the log2 domain, the script's
 MODES = ("full", "dots", "softmax")
+DESIGNS = ("wmma", "mma")  # the first flash_fwd kernel's block step; the redesigned one's
 
 # kernel launches by the wrapper, read by chip_smoke.py
 LAUNCHES = {"probe_block_step": 0}
 
 _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-_fn = None
+_fns: dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("probe_block_step").dct_probe_block_step
+def _kernel(design: str):
+    if design not in _fns:
+        suffix = "" if design == "wmma" else f"_{design}"
+        fn = getattr(_build.load("probe_block_step"), f"dct_probe_block_step{suffix}")
         fn.argtypes = [_p] * 4 + [_i] * 3 + [_f, _p]
         fn.restype = _i
-        _fn = fn
-    return _fn
+        _fns[design] = fn
+    return _fns[design]
 
 
 def block_step_plain(q, k, v, mode: str, steps: int = STEPS, scale: float = SCALE):
@@ -74,9 +81,12 @@ def block_step_plain(q, k, v, mode: str, steps: int = STEPS, scale: float = SCAL
     return acc.to(torch.bfloat16)
 
 
-def block_step(q, k, v, mode: str, steps: int = STEPS):
-    """The kernel on CUDA tensors (contiguous [B, 64, 64] bf16, one block
-    each), the plain twin on the CPU."""
+def block_step(q, k, v, mode: str, steps: int = STEPS, design: str = "wmma"):
+    """The kernel of ``design`` on CUDA tensors (contiguous [B, 64, 64]
+    bf16, one block each), the plain twin (the same for both designs) on
+    the CPU."""
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     if q.device.type == "cpu":
         return block_step_plain(q, k, v, mode, steps)
     for x in (q, k, v):
@@ -87,10 +97,10 @@ def block_step(q, k, v, mode: str, steps: int = STEPS):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     o = torch.empty_like(q)
-    status = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q.shape[0],
+    status = _kernel(design)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q.shape[0],
                        steps, MODES.index(mode), SCALE,
                        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, f"probe block_step {mode}")
+    _build.check(status, f"probe block_step {design} {mode}")
     LAUNCHES["probe_block_step"] += 1
     return o
 
@@ -111,26 +121,31 @@ def verdict(us: dict) -> str:
 
 
 def run(device="cuda", steps: int = STEPS, reps: int = 20, seed: int = 0) -> dict:
-    """Each mode timed through the kernel: µs per step (one block per SM)."""
+    """Each mode of each design timed through its kernel: µs per step (one
+    block per SM). Per design: ms, us_per_step, dots_plus_softmax_us,
+    max_dots_softmax_us and the verdict."""
     device = require_cuda(device)
     q, k, v = inputs(device, seed=seed)
-    ms = {mode: time_ms(lambda mode=mode: block_step(q, k, v, mode, steps), reps)
-          for mode in MODES}
-    us = {mode: t * 1e3 / steps for mode, t in ms.items()}
-    return {
-        "probe": "flash_overlap", "blocks": q.shape[0], "steps": steps, "ms": ms,
-        "us_per_step": us, "dots_plus_softmax_us": us["dots"] + us["softmax"],
-        "max_dots_softmax_us": max(us["dots"], us["softmax"]), "verdict": verdict(us),
-    }
+    designs = {}
+    for design in DESIGNS:
+        ms = {mode: time_ms(lambda mode=mode: block_step(q, k, v, mode, steps, design), reps)
+              for mode in MODES}
+        us = {mode: t * 1e3 / steps for mode, t in ms.items()}
+        designs[design] = {
+            "ms": ms, "us_per_step": us, "dots_plus_softmax_us": us["dots"] + us["softmax"],
+            "max_dots_softmax_us": max(us["dots"], us["softmax"]), "verdict": verdict(us)}
+    return {"probe": "flash_overlap", "blocks": q.shape[0], "steps": steps, "designs": designs,
+            "verdict": ", ".join(f"{d}: {r['verdict']}" for d, r in designs.items())}
 
 
 def main() -> None:
     print(card())
     r = run()
-    us = r["us_per_step"]
     print(json.dumps(r))
-    print(f"full {us['full']:.3f} vs dots+softmax {r['dots_plus_softmax_us']:.3f} vs max "
-          f"{r['max_dots_softmax_us']:.3f} us/step -> {r['verdict']}")
+    for design, d in r["designs"].items():
+        us = d["us_per_step"]
+        print(f"{design}: full {us['full']:.3f} vs dots+softmax {d['dots_plus_softmax_us']:.3f} "
+              f"vs max {d['max_dots_softmax_us']:.3f} us/step -> {d['verdict']}")
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@
 #   F2_skip_tile  flash backward skips key tile 1 (its dk, dv stay zero;
 #                 dq misses its part)
 #   F3_dq_tile    flash backward drops only key tile 1's part of dq
-#   F4_conv_halo  conv kernel applies the input mask to the tile's own rows
-#                 but not to its halo rows
+#   F4_conv_halo  conv kernel applies the input mask (in shared memory) to
+#                 the tile's own rows but not to its halo rows
 #   F5_d512_rowsum    d=512 flash forward divides o by 1.01 x the row sum
 #   F6_d512_skip_tile d=512 flash backward skips key tile 1 (dk, dv zero there)
 #   F7_epilogue_norm  guidance epilogue drops the eps-norm gradient rescale
@@ -37,8 +37,12 @@
 #   F15_twostream_alpha the two-stream flash forward's second stream skips
 #                     the alpha rescale of its accumulator
 #   F16_n64_c_half    probe variant C (sum/diff) without its 0.5
-#   F17_block_step_max the block-step probe's full mode takes p = exp2(s),
-#                     without the running max
+#   F17_block_step_max the block-step probe's full mode (WMMA design) takes
+#                     p = exp2(s), without the running max
+#   F18_fwd_alpha flash forward (d=64) skips the α rescale of its register
+#                 o accumulator
+#   F19_conv_co_tile  conv kernel reads weights and bias by the tile-local
+#                 output channel (wrong only where Co spans two or more tiles)
 set -u
 out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR [FAULT ...]}
 shift
@@ -80,13 +84,13 @@ run_fault() {  # name, then (file, sed expression) pairs
   echo "$name rc=$?"
 }
 
-run_fault F1_rowsum $FA 's|? 1.f : 1.f / l;|? 1.f : 1.f / (1.01f * l);|'
+run_fault F1_rowsum $FA 's|1.f / l0;|1.f / (1.01f * l0);|; s|1.f / l1;|1.f / (1.01f * l1);|'
 run_fault F2_skip_tile \
   $FA 's|const int k0 = blockIdx.x \* BR, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
   depth_completion_tpu_torch/ops/flash_attention.py 's|torch.empty((n, sk, c)|torch.zeros((n, sk, c)|g'
 run_fault F3_dq_tile $FA 's|float\* dst = dq_acc|if (blockIdx.x == 1) break; float* dst = dq_acc|'
 run_fault F4_conv_halo $CONV \
-  's|if (mask != nullptr) val = mask_vec|if (mask != nullptr \&\& rr >= 1 \&\& rr <= TH) val = mask_vec|'
+  's|const uint4 val = mask_vec(xv, mv);|const uint4 val = (rr >= 1 \&\& rr <= TH) ? mask_vec(xv, mv) : xv;|'
 run_fault F5_d512_rowsum $FA \
   's|sm.alpha\[threadIdx.x\] = 1.f / l_row;|sm.alpha[threadIdx.x] = 1.f / (1.01f * l_row);|'
 run_fault F6_d512_skip_tile \
@@ -114,3 +118,6 @@ run_fault F16_n64_c_half $PROBES/mma_n64.py \
   's|p_diff, torch.cat(\[v1, -v2\], 2), False, 0.5)|p_diff, torch.cat([v1, -v2], 2), False, 1.0)|'
 run_fault F17_block_step_max depth_completion_tpu_torch/csrc/probe_block_step.cu \
   's|exp2f(s\([01]\) - m_new)|exp2f(s\1 - (MODE == FULL ? 0.f : m_new))|g'
+run_fault F18_fwd_alpha $FA 's|rescale(acc, alpha0, alpha1);||'
+run_fault F19_conv_co_tile $CONV \
+  's|) \* Co + co0 + nv \* 8|) * Co + nv * 8|; s|bias\[co0 + co|bias[co|g'

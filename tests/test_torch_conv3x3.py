@@ -124,3 +124,19 @@ def test_weight_grads_only_when_asked():
     frozen = tc3.conv3x3_fused(tx, _oihw(k), torch.from_numpy(b), relu=True)
     (dx_only,) = torch.autograd.grad(frozen, (tx,), torch.from_numpy(g))
     np.testing.assert_allclose(dx_only.numpy(), rx.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_kernel_library_name_follows_shared_headers(tmp_path, monkeypatch):
+    """The conv and flash kernels include ``csrc/mma_sync.cuh``: a library
+    is named by the hash of its source and of the shared headers, so an
+    edited header rebuilds every kernel and an unchanged tree reuses it."""
+    from depth_completion_tpu_torch import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert _build._target("k") != first
+    assert (_build.CSRC / "k.cu").exists() and not first.exists()

@@ -11,11 +11,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "depth_completion_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 PROFILE = os.path.join(REPO, "scripts", "profile_torch_step.py")
+KERNEL_AB = os.path.join(REPO, "scripts", "kernel_ab.py")
 FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu")
 
 
 def _port_files():
-    out = [SMOKE, PROFILE]
+    out = [SMOKE, PROFILE, KERNEL_AB]
     for root, dirs, names in os.walk(PORT):
         dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
         out.extend(os.path.join(root, n) for n in names if n.endswith(".py"))
@@ -59,6 +60,6 @@ def test_import_leaves_jax_unloaded():
 
 
 def test_quality_gates_clean():
-    targets = [PORT, SMOKE, PROFILE]
+    targets = [PORT, SMOKE, PROFILE, KERNEL_AB]
     assert _undefined_names(targets) == []
     assert _ast_lint(targets) == []

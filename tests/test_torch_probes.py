@@ -112,19 +112,27 @@ def _overlap_inputs():
     return (jq, jk, jv), (tq[None], tk[None], tv[None])
 
 
+@pytest.mark.parametrize("design", fo.DESIGNS)
 @pytest.mark.parametrize("mode", ["full", "softmax"])
-def test_block_step_twin_matches_jax_probe(mode, monkeypatch):
+def test_block_step_twin_matches_jax_probe(mode, design, monkeypatch):
     """full: the flash body's QK, online softmax and PV with bf16 p;
     softmax: the faked score tile (exact: every p is 1 in 3 steps, so both
-    give exactly 3.0, the count of steps)."""
+    give exactly 3.0, the count of steps). Both designs of the block step
+    compute the same function: on a CPU tensor each takes the one twin."""
     jx, tx = _overlap_inputs()
     ref = _overlap_jax(mode, *jx, monkeypatch)
-    got = fo.block_step_plain(*tx, mode, STEPS)[0].float().numpy()
+    got = fo.block_step(*tx, mode, STEPS, design=design)[0].float().numpy()
     if mode == "softmax":
         np.testing.assert_array_equal(got, ref)
         np.testing.assert_array_equal(got, np.full_like(got, STEPS))
     else:
         _assert_bf16_close(got, ref)
+
+
+def test_block_step_rejects_unknown_design():
+    _, tx = _overlap_inputs()
+    with pytest.raises(ValueError, match="design"):
+        fo.block_step(*tx, "full", STEPS, design="wgmma")
 
 
 def test_dots_mode_reference_nan_port_repaired(monkeypatch):
