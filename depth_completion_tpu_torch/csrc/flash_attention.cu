@@ -10,10 +10,13 @@
 //                 _bwd_fused_kernel_t (:534), launched by _fused_bwd_call (:673)
 //
 // What bounds it: at the UNet's stage-0 shape (S=6912, 5 heads, d=64) the
-// work is ~4·S²·d FLOP per head forward against ~4·S·d·2 bytes of q/k/v/o,
-// i.e. hundreds of FLOP per byte: the tensor cores bound it, not memory;
-// next come the S² exp2 on the special-function units (~1/16 of the
-// products' time at peak) and the softmax's own instructions around them.
+// work is ~4·S²·d FLOP per head forward (10·S²·d backward) against ~4·S·d·2
+// bytes of q/k/v/o, i.e. hundreds of FLOP per byte: the tensor cores bound
+// it, not memory; next come the S² exp2 on the special-function units (~1/16
+// of the products' time at peak) and the softmax's own instructions around
+// them. With mma.sync on 16-row warp tiles every B fragment read from shared
+// memory feeds one m16n8k16 product, so shared-memory bandwidth (128 B per
+// clock per SM, 4 clocks per ldmatrix.x4) runs level with the tensor cores.
 //
 // d=64 forward (flash_fwd_kernel), the FlashAttention-2 form on mma.sync:
 // a block of 4 warps owns 64 query rows of one (batch, head), 16 per warp,
@@ -37,19 +40,53 @@
 // registers, where this kernel's fragments (q 16, s 32, o 32) leave no room:
 // 64 rows keeps the tail quantum smallest (reckoned, not measured).
 //
-// The backward and the d=512 kernels are the first, simple WMMA form:
-// scores in shared memory, no pipelining of the tile loads.
+// d=64 backward (flash_bwd_kernel), the same machinery turned round: a
+// block of 4 warps owns 64 key rows, 16 per warp, and walks the query tiles
+// (64 rows). Each warp loads its k and v rows as A fragments once and keeps
+// them (32 registers) with its dk and dv accumulators (16x64 fp32 each, 64
+// registers). Per query tile, in four groups of 16 queries: sᵀ = k·qᵀ and
+// dpᵀ = v·doᵀ (q and do as B through plain ldmatrix) land in accumulator
+// registers; pᵀ = exp2(sᵀ·scale·log2e − lse2) and dsᵀ = pᵀ∘(dpᵀ − di)·scale
+// are formed there, with lse2 and di read by the lane's columns; their C
+// fragments become the A fragments of dv += pᵀ·do and dk += dsᵀ·q (do and q
+// through ldmatrix.trans). The groups keep s and dp at 8 registers each, so
+// the kernel fits 168 registers with no spill. dq needs ds with the queries
+// as rows: each group's dsᵀ is written once as bf16 into an 8 KB swizzled
+// tile, and after one barrier each warp takes 16 query rows of dq = ds·k
+// over the block's 64 keys (dsᵀ and k through ldmatrix.trans) and adds them
+// into the fp32 dq buffer with 16-byte atomicAdd (float4, sm_90): lanes t
+// and t^1 swap halves of their C fragments so that each holds four
+// consecutive columns of one row. Q, dO and their lse2/di slices arrive
+// through a two-stage cp.async ring (the statistics as 4-byte copies: their
+// rows start anywhere), zero-filled past sq; p is zeroed past sq and sk.
+// Per warp and query tile: 160 mma against 84 ldmatrix.x4.
+// dq, reckoned both ways at S=6912, 5 heads: atomics add S²·heads·64/64 =
+// 239M fp32 values per call as 60M 16-byte reductions into L2, overlapped
+// with the products; the two-kernel form (a dk/dv kernel plus a dq kernel
+// parallel over query blocks, as _bwd_dkv_kernel / _bwd_dq_kernel) needs no
+// atomics but recomputes s and dp: 7 products for 5, +40% FLOP on a kernel
+// that the products and their ldmatrix traffic bound. Atomics chosen.
+// Occupancy: 57 KB of shared memory gives 3 blocks (12 warps) per SM (4
+// would need 4·58 KB > 228 KB), and ptxas fits the launch bounds' 168
+// registers with 0 bytes of spill; 540 blocks at S=6912, 5 heads fill 396
+// slots and 144 run in a second wave (1.36 waves); at S=1728, 10 heads 270
+// blocks fit one wave. Tried on an H100 and dropped, each slower than this
+// form: 128-key blocks of 8 warps (half the atomics; 2 blocks per SM, 128
+// registers with k and v reloaded, a few bytes of spill); clusters of two
+// blocks summing their dq partials through distributed shared memory before
+// the atomics (half the atomics, one cluster barrier per query tile); each
+// block starting at its own query tile (atomics spread over rows). What the
+// atomics cost: PERF.md, Findings.
 //
 // Layout: q/k/v/o are [N, S, heads*64] with the head at channel offset
 // h*64, addressed through (batch, row) strides, so the projections need no
 // transpose copy. The ragged tail of either sequence is masked in-kernel.
 // The row statistic is lse2 = m + log2(l) in the log2 domain (scores
-// scaled by scale*log2(e)); the backward recomputes p = exp2(s - lse2).
-//
-// Backward: parallel over key blocks. dk/dv accumulate in WMMA registers
-// over all query tiles; dq accumulates in an fp32 buffer with atomicAdd
-// (the caller zeroes it and casts it). di = rowsum(do*o) comes from a small
-// pre-pass kernel launched by the same entry point.
+// scaled by scale*log2(e)); the backward recomputes p = exp2(s - lse2), and
+// takes lse2 as given: the ring passes the global statistic of a row whose
+// o came from other key blocks too. di = rowsum(do*o) comes from a small
+// pre-pass kernel launched by the same entry point; the caller zeroes dq's
+// fp32 buffer and casts it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,8 +105,6 @@ constexpr int D = 64;           // head dim
 constexpr int BR = 64;          // rows per tile (query and key tiles alike)
 constexpr int NWARPS = 4;       // 16 rows per warp
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDB = D + 16;     // bf16 tile row stride: 160 B keeps WMMA pointers 32 B aligned
-constexpr int LDF = BR + 4;     // fp32 tile row stride
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -77,27 +112,9 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Copy rows [row0, row0+64) x 64 channels of a strided bf16 matrix into a
-// shared tile; rows at or past nrows are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long row_stride,
-                                          int row0, int nrows) {
-  for (int i = threadIdx.x; i < BR * (D / 8); i += NTHREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDB + c) = val;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -126,9 +143,10 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long row_
 }
 
 // the o accumulator's rows g and g + 8 scaled by this tile's α
-__device__ __forceinline__ void rescale(float (&acc)[8][4], float alpha0, float alpha1) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N][4], float alpha0, float alpha1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N; ++i) {
     acc[i][0] *= alpha0;
     acc[i][1] *= alpha0;
     acc[i][2] *= alpha1;
@@ -307,19 +325,35 @@ __global__ void flash_bwd_di_kernel(const bf16* __restrict__ o, const bf16* __re
   if (lane == 0) di[row] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// d=64 backward: mma.sync m16n8k16 with p, dp and ds on the accumulator
+// fragments (design notes at the top of this file).
+// ---------------------------------------------------------------------------
+
+// BR key rows per block (16 per warp); query tiles of BR rows through a
+// two-stage cp.async ring, with their lse2 and di slices
 struct BwdSmem {
-  bf16 k[BR * LDB];
-  bf16 v[BR * LDB];
-  bf16 q[BR * LDB];
-  bf16 dout[BR * LDB];
-  bf16 p[BR * LDB];
-  bf16 ds[BR * LDB];
-  float s[BR * LDF];
-  float lse[BR];
-  float di[BR];
+  bf16 k[BR * D];
+  bf16 v[BR * D];
+  bf16 q[2][BR * D];
+  bf16 dout[2][BR * D];
+  bf16 ds[BR * D];  // dsᵀ of the current query tile: [key][query], swizzled
+  float lse[2][BR];
+  float di[2][BR];
 };
 
-__global__ void __launch_bounds__(NTHREADS)
+// cp.async the fp32 statistics of rows [row0, row0 + 64) (lse2 by threads
+// 0-63, di by 64-127); rows at or past nrows are zero-filled
+__device__ __forceinline__ void stage_stats(float* lse_dst, float* di_dst, const float* lse_row,
+                                            const float* di_row, int row0, int nrows) {
+  const int i = threadIdx.x & (BR - 1);
+  const bool ok = row0 + i < nrows;
+  const float* src = threadIdx.x < BR ? lse_row : di_row;
+  float* dst = threadIdx.x < BR ? lse_dst : di_dst;
+  dct::cp_async_4(dct::smem_u32(dst + i), ok ? src + row0 + i : src, ok);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 3)
 flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ di,
@@ -329,163 +363,169 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
   const int k0 = blockIdx.x * BR, h = blockIdx.y, n = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix addressing as in flash_fwd_kernel: (row_qv, ch_qv) for an A
+  // operand stored row-major and for a B operand through .trans; (row_k,
+  // ch_k) for a B operand stored [n][k] and for an A operand stored [k][m]
+  // through .trans (dsᵀ in the dq product)
+  const int lr = lane & 7, mi = lane >> 3;
+  const int row_qv = ((mi & 1) << 3) + lr, ch_qv = mi >> 1;
+  const int row_k = ((mi >> 1) << 3) + lr, ch_k = mi & 1;
   const bf16* qb = q + n * q_sn + h * D;
   const bf16* db = dout + n * d_sn + h * D;
-  const long stat0 = ((long)n * heads + h) * sq;
+  const float* lse_bh = lse + ((long)n * heads + h) * sq;
+  const float* di_bh = di + ((long)n * heads + h) * sq;
   const int C = heads * D;  // dq_acc / dk / dv are contiguous [N, S, heads*D]
+  const int ntiles = (sq + BR - 1) / BR;
+  const int kr0 = k0 + warp * 16 + g;  // this lane's key rows kr0 and kr0 + 8
+  const bool key_tail = k0 + BR > sk;
 
-  load_tile(sm.k, k + n * k_sn + h * D, k_ss, k0, sk);
-  load_tile(sm.v, v + n * v_sn + h * D, v_ss, k0, sk);
+  stage_tile(sm.k, k + n * k_sn + h * D, k_ss, k0, sk);
+  stage_tile(sm.v, v + n * v_sn + h * D, v_ss, k0, sk);
+  stage_tile(sm.q[0], qb, q_ss, 0, sq);
+  stage_tile(sm.dout[0], db, d_ss, 0, sq);
+  stage_stats(sm.lse[0], sm.di[0], lse_bh, di_bh, 0, sq);
+  dct::cp_async_commit();
 
-  FragC dk_acc[4], dv_acc[4];
+  uint32_t kf[4][4], vf[4][4];  // this warp's 16 key rows of k and v as A fragments
+  float dk_acc[8][4], dv_acc[8][4];  // dk, dv: 16 key rows x 64 channels
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1, q0 = j * BR;
+    dct::cp_async_wait<0>();
+    __syncthreads();  // tile j landed; tile j-1 and its dsᵀ consumed by every warp
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int off = (warp * 16 + row_qv) * D + (((kk * 2 + ch_qv) ^ lr) << 3);
+        dct::ldsm_x4(kf[kk], dct::smem_u32(sm.k + off));
+        dct::ldsm_x4(vf[kk], dct::smem_u32(sm.v + off));
+      }
+    }
+    if (j + 1 < ntiles) {
+      stage_tile(sm.q[st ^ 1], qb, q_ss, q0 + BR, sq);
+      stage_tile(sm.dout[st ^ 1], db, d_ss, q0 + BR, sq);
+      stage_stats(sm.lse[st ^ 1], sm.di[st ^ 1], lse_bh, di_bh, q0 + BR, sq);
+    }
+    dct::cp_async_commit();
+    const bf16* qs = sm.q[st];
+    const bf16* dos = sm.dout[st];
+    const bool ragged = key_tail || q0 + BR > sq;
+
+    // four groups of 16 queries: sᵀ = k qᵀ and dpᵀ = v doᵀ (16 keys x 16
+    // queries, two n8 tiles each) in registers, then pᵀ and dsᵀ, then one
+    // key step of dv += pᵀ do and dk += dsᵀ q
+#pragma unroll
+    for (int jq = 0; jq < 4; ++jq) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b[4];
+        const int off = (jq * 16 + row_k) * D + (((kk * 2 + ch_k) ^ lr) << 3);
+        dct::ldsm_x4(b, dct::smem_u32(qs + off));
+        dct::mma_bf16(s[0], kf[kk], b[0], b[1]);
+        dct::mma_bf16(s[1], kf[kk], b[2], b[3]);
+        dct::ldsm_x4(b, dct::smem_u32(dos + off));
+        dct::mma_bf16(dp[0], vf[kk], b[0], b[1]);
+        dct::mma_bf16(dp[1], vf[kk], b[2], b[3]);
+      }
+      // lane holds keys g (e = 0, 1) and g + 8 (e = 2, 3) at queries
+      // jq·16 + 8i + 2t + (e & 1): lse2 and di are read by the columns
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = jq * 16 + i * 8 + 2 * t;
+        const float2 lse2 = *reinterpret_cast<const float2*>(sm.lse[st] + c);
+        const float2 dis = *reinterpret_cast<const float2*>(sm.di[st] + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[i][e] * scale_log2 - ((e & 1) ? lse2.y : lse2.x));
+          if (ragged && (q0 + c + (e & 1) >= sq || kr0 + ((e >> 1) << 3) >= sk)) p = 0.f;
+          s[i][e] = p;
+          dp[i][e] = p * (dp[i][e] - ((e & 1) ? dis.y : dis.x)) * scale;
+        }
+        // dsᵀ rows (keys) g and g + 8 of this warp, 32-bit stores
+        bf16* dst = sm.ds + (warp * 16 + g) * D + 2 * t;
+        *reinterpret_cast<uint32_t*>(dst + (((jq * 2 + i) ^ g) << 3)) =
+            dct::pack_bf16(dp[i][0], dp[i][1]);
+        *reinterpret_cast<uint32_t*>(dst + 8 * D + (((jq * 2 + i) ^ g) << 3)) =
+            dct::pack_bf16(dp[i][2], dp[i][3]);
+      }
+      const uint32_t pa[4] = {dct::pack_bf16(s[0][0], s[0][1]), dct::pack_bf16(s[0][2], s[0][3]),
+                              dct::pack_bf16(s[1][0], s[1][1]), dct::pack_bf16(s[1][2], s[1][3])};
+      const uint32_t da[4] = {dct::pack_bf16(dp[0][0], dp[0][1]), dct::pack_bf16(dp[0][2], dp[0][3]),
+                              dct::pack_bf16(dp[1][0], dp[1][1]), dct::pack_bf16(dp[1][2], dp[1][3])};
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        uint32_t b[4];
+        const int off = (jq * 16 + row_qv) * D + (((dd * 2 + ch_qv) ^ lr) << 3);
+        dct::ldsm_x4_t(b, dct::smem_u32(dos + off));
+        dct::mma_bf16(dv_acc[2 * dd], pa, b[0], b[1]);
+        dct::mma_bf16(dv_acc[2 * dd + 1], pa, b[2], b[3]);
+        dct::ldsm_x4_t(b, dct::smem_u32(qs + off));
+        dct::mma_bf16(dk_acc[2 * dd], da, b[0], b[1]);
+        dct::mma_bf16(dk_acc[2 * dd + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // dsᵀ complete
+
+    // dq rows q0 + 16·warp.. += ds k over the block's 64 keys: ds as A
+    // through ldmatrix.trans of dsᵀ, k as B through ldmatrix.trans
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      dct::ldsm_x4_t(a, dct::smem_u32(sm.ds + (kk * 16 + row_k) * D +
+                                      (((warp * 2 + ch_k) ^ lr) << 3)));
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        uint32_t b[4];
+        dct::ldsm_x4_t(b, dct::smem_u32(sm.k + (kk * 16 + row_qv) * D +
+                                        (((dd * 2 + ch_qv) ^ lr) << 3)));
+        dct::mma_bf16(acc[2 * dd], a, b[0], b[1]);
+        dct::mma_bf16(acc[2 * dd + 1], a, b[2], b[3]);
+      }
+    }
+    // into fp32 dq, 16 bytes per atomic: lanes t and t ^ 1 swap halves so
+    // that an even t holds row g, columns 8i + 2t.. 2t + 3, and an odd t
+    // row g + 8, columns 8i + 2t - 2.. 2t + 1
+    const bool odd = t & 1;
+    const int row = q0 + warp * 16 + g + (odd ? 8 : 0);
+    float* dq_row = dq_acc + ((long)n * sq + row) * C + h * D + 2 * (t & 2);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float x = __shfl_xor_sync(0xffffffffu, odd ? acc[i][0] : acc[i][2], 1);
+      const float y = __shfl_xor_sync(0xffffffffu, odd ? acc[i][1] : acc[i][3], 1);
+      const float4 val = odd ? make_float4(x, y, acc[i][2], acc[i][3])
+                             : make_float4(acc[i][0], acc[i][1], x, y);
+      if (row < sq) atomicAdd(reinterpret_cast<float4*>(dq_row + i * 8), val);
+    }
   }
-  float* s_w = sm.s + warp * 16 * LDF;
-  const bool c0_ok = k0 + lane < sk, c1_ok = k0 + lane + 32 < sk;
 
-  for (int q0 = 0; q0 < sq; q0 += BR) {
-    __syncthreads();  // previous query tile fully consumed
-    load_tile(sm.q, qb, q_ss, q0, sq);
-    load_tile(sm.dout, db, d_ss, q0, sq);
-    if (threadIdx.x < BR) {
-      const int gq = q0 + threadIdx.x;
-      sm.lse[threadIdx.x] = gq < sq ? lse[stat0 + gq] : 0.f;
-      sm.di[threadIdx.x] = gq < sq ? di[stat0 + gq] : 0.f;
+  // dk and dv rows kr0 and kr0 + 8
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = kr0 + 8 * half;
+    if (r >= sk) continue;
+    bf16* dk_row = dk + ((long)n * sk + r) * C + h * D + 2 * t;
+    bf16* dv_row = dv + ((long)n * sk + r) * C + h * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      *reinterpret_cast<uint32_t*>(dk_row + i * 8) =
+          dct::pack_bf16(dk_acc[i][2 * half], dk_acc[i][2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dv_row + i * 8) =
+          dct::pack_bf16(dv_acc[i][2 * half], dv_acc[i][2 * half + 1]);
     }
-    __syncthreads();
-
-    // s = q k^T (warp owns 16 query rows)
-    FragC acc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, sm.q + warp * 16 * LDB + kk, LDB);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT b;
-        wmma::load_matrix_sync(b, sm.k + j * 16 * LDB + kk, LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s_w + j * 16, acc[j], LDF, wmma::mem_row_major);
-    __syncwarp();
-
-    // p = exp2(s*scale*log2e - lse2), zero outside both sequences
-    float p_reg[16][2];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const bool row_ok = q0 + row < sq;
-      const float m = sm.lse[row];
-      const float p0 = (row_ok && c0_ok) ? exp2f(s_w[r * LDF + lane] * scale_log2 - m) : 0.f;
-      const float p1 = (row_ok && c1_ok) ? exp2f(s_w[r * LDF + lane + 32] * scale_log2 - m) : 0.f;
-      p_reg[r][0] = p0;
-      p_reg[r][1] = p1;
-      sm.p[row * LDB + lane] = __float2bfloat16(p0);
-      sm.p[row * LDB + lane + 32] = __float2bfloat16(p1);
-    }
-    __syncwarp();
-
-    // dp = do v^T
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, sm.dout + warp * 16 * LDB + kk, LDB);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT b;
-        wmma::load_matrix_sync(b, sm.v + j * 16 * LDB + kk, LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s_w + j * 16, acc[j], LDF, wmma::mem_row_major);
-    __syncwarp();
-
-    // ds = p * (dp - di) * scale
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const float dd = sm.di[row];
-      sm.ds[row * LDB + lane] =
-          __float2bfloat16(p_reg[r][0] * (s_w[r * LDF + lane] - dd) * scale);
-      sm.ds[row * LDB + lane + 32] =
-          __float2bfloat16(p_reg[r][1] * (s_w[r * LDF + lane + 32] - dd) * scale);
-    }
-    __syncthreads();  // all of p and ds before the key-row products
-
-    // dv += p^T do ; dk += ds^T q   (warp owns 16 key rows)
-#pragma unroll
-    for (int kk = 0; kk < BR; kk += 16) {
-      FragAT pt, dst;
-      wmma::load_matrix_sync(pt, sm.p + kk * LDB + warp * 16, LDB);
-      wmma::load_matrix_sync(dst, sm.ds + kk * LDB + warp * 16, LDB);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, sm.dout + kk * LDB + j * 16, LDB);
-        wmma::mma_sync(dv_acc[j], pt, b, dv_acc[j]);
-        wmma::load_matrix_sync(b, sm.q + kk * LDB + j * 16, LDB);
-        wmma::mma_sync(dk_acc[j], dst, b, dk_acc[j]);
-      }
-    }
-
-    // dq partial = ds k (warp owns 16 query rows), added into fp32 dq
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < BR; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, sm.ds + warp * 16 * LDB + kk, LDB);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, sm.k + kk * LDB + j * 16, LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s_w + j * 16, acc[j], LDF, wmma::mem_row_major);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int gq = q0 + warp * 16 + r;
-      if (gq >= sq) break;
-      float* dst = dq_acc + ((long)n * sq + gq) * C + h * D;
-      atomicAdd(dst + lane, s_w[r * LDF + lane]);
-      atomicAdd(dst + lane + 32, s_w[r * LDF + lane + 32]);
-    }
-  }
-
-  // write dv then dk for this warp's 16 key rows
-  __syncwarp();
-#pragma unroll
-  for (int which = 0; which < 2; ++which) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s_w + j * 16, which == 0 ? dv_acc[j] : dk_acc[j], LDF,
-                              wmma::mem_row_major);
-    __syncwarp();
-    bf16* out = which == 0 ? dv : dk;
-    for (int r = 0; r < 16; ++r) {
-      const int gk = k0 + warp * 16 + r;
-      if (gk >= sk) break;
-      bf16* dst = out + ((long)n * sk + gk) * C + h * D;
-      dst[lane] = __float2bfloat16(s_w[r * LDF + lane]);
-      dst[lane + 32] = __float2bfloat16(s_w[r * LDF + lane + 32]);
-    }
-    __syncwarp();
   }
 }
 
@@ -539,19 +579,35 @@ extern "C" int dct_flash_bwd(const void* q, const void* k, const void* v, const 
 // What bounds it: 4·S²·512 FLOP forward (98 GFLOP at S=6912) against
 // 4·S·512·2 bytes of q/k/v/o: the tensor cores, by far. What changes from
 // d=64 is the size of the per-row state: a 64-row fp32 output accumulator is
-// 128 KB, so the d=64 design (accumulators in shared memory) does not fit.
-// Design: the accumulators live in WMMA registers, split over the 8 warps
-// by output columns (a warp owns 64 of the 512). The online softmax's
-// per-row rescale reaches them through an accumulator fragment loaded from a
-// row-broadcast tile (alpha_r in every column of row r): two accumulator
-// fragments of one type map their elements to the same (row, column), so an
-// elementwise product scales each row. Forward: 32 query rows per block,
-// 64-key tiles. Backward: 32 key rows per block, 32-row query tiles; dk and
-// dv (2 x 32 x 512 fp32) stay in registers across the query loop, each warp
-// holding its 64 columns of both; P and dS need the full-d products Q·Kᵀ
-// and dO·Vᵀ, which warps 0-3 and 4-7 compute side by side; dq is added into
-// fp32 with atomics, one 16x16 fragment at a time through a per-warp tile.
-// Simple first form: no TMA, no wgmma, one block per SM.
+// 128 KB, half the SM's register file.
+//
+// Forward (flash_fwd_d512_kernel), mma.sync with the softmax on the
+// fragments as at d=64. A block of 8 warps owns 64 query rows (108 blocks
+// at S=6912: one wave on 82% of the SMs; 32-row blocks made 216, two waves,
+// and read k and v 216 times). The output columns are split over a warp
+// pair: warps 2p and 2p+1 share query rows 16p.., each contracts s = q·kᵀ
+// over its half of the 512 channels (16 k-steps, q and k through
+// ldmatrix), the pair swaps the 16x32 partial score fragments through
+// shared memory (lane-major float4, a named barrier of 64 threads), both
+// add them (the same sum in both: IEEE addition commutes) and run the same
+// online softmax; each then holds o for its 256 channels, 128 fp32
+// registers a lane, rescaled by α in place, and adds p·v with p's C
+// fragments repacked as A and v through ldmatrix.trans. Chosen over each
+// warp recomputing the full q·kᵀ for its rows (1.5x the FLOP and twice the
+// k reads) for the price of 4 KB of stores and loads per warp pair and one
+// pair barrier per key tile. K and V come in 32-key tiles (32 KB each)
+// through a two-stage cp.async ring beside the 64 KB q tile: 208 KB of
+// shared memory, one block per SM; ptxas gives 229 registers, 0 bytes of
+// spill. 512-column rows are swizzled within each group of eight 16-byte
+// chunks (swz512).
+//
+// Backward (flash_bwd_d512_kernel), the first WMMA form: 32 key rows per
+// block, 32-row query tiles; dk and dv (2 x 32 x 512 fp32) stay in
+// registers across the query loop, each warp holding its 64 columns of
+// both; P and dS need the full-d products Q·Kᵀ and dO·Vᵀ, which warps 0-3
+// and 4-7 compute side by side; dq is added into fp32 with atomics, one
+// 16x16 fragment at a time through a per-warp tile. No TMA, no wgmma, one
+// block per SM.
 // ===========================================================================
 
 namespace {
@@ -561,10 +617,6 @@ constexpr int LD5 = HD5 + 8;     // bf16 row stride of a 512-wide tile (1040 B)
 constexpr int LDO5 = HD5 + 4;    // fp32 row stride of the output staging
 constexpr int NW5 = 8;           // warps per block
 constexpr int NT5 = NW5 * 32;
-constexpr int FQ5 = 32;          // forward: query rows per block
-constexpr int FK5 = 64;          // forward: key rows per tile
-constexpr int FLDS = FK5 + 4;    // forward: fp32 score stride
-constexpr int FLDP = FK5 + 8;    // forward: bf16 p stride
 constexpr int BK5 = 32;          // backward: key rows per block
 constexpr int BQ5 = 32;          // backward: query rows per tile
 constexpr int BLDS = BK5 + 4;
@@ -583,40 +635,58 @@ __device__ __forceinline__ void load_rows512(bf16* dst, const bf16* src, long ro
   }
 }
 
-// Write rows [row0, row0 + rows) of an fp32 staging tile (stride LDO5),
-// times the per-row factor (nullptr: 1), as bf16 rows below nrows.
+// Write rows [row0, row0 + rows) of an fp32 staging tile (stride LDO5) as
+// bf16 rows below nrows.
 __device__ __forceinline__ void store_rows512(bf16* dst, long row_stride, const float* stage,
-                                              const float* row_scale, int row0, int nrows,
-                                              int rows) {
+                                              int row0, int nrows, int rows) {
   for (int i = threadIdx.x; i < rows * (HD5 / 8); i += NT5) {
     const int r = i / (HD5 / 8), c = (i % (HD5 / 8)) * 8;
     if (row0 + r >= nrows) continue;
-    const float f = row_scale == nullptr ? 1.f : row_scale[r];
     uint4 ov;
     bf16* os = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) os[e] = __float2bfloat16(stage[r * LDO5 + c + e] * f);
+    for (int e = 0; e < 8; ++e) os[e] = __float2bfloat16(stage[r * LDO5 + c + e]);
     *reinterpret_cast<uint4*>(dst + (long)(row0 + r) * row_stride + c) = ov;
   }
 }
 
+constexpr int FQ5 = 64;          // forward: query rows per block (16 per warp pair)
+constexpr int FK5 = 32;          // forward: key rows per tile
+constexpr int HALF5 = HD5 / 2;   // forward: a warp's half of the channels
+
+// Element offset of 16-byte chunk `chunk` (0-63) of row `row` in a 512-column
+// bf16 tile whose chunks are XORed with row % 8 (within their group of
+// eight): the eight rows one ldmatrix reads sit in eight distinct bank groups
+__device__ __forceinline__ int swz512(int row, int chunk) {
+  return row * HD5 + ((chunk ^ (row & 7)) << 3);
+}
+
+// cp.async rows [row0, row0 + rows) x 512 channels of a strided bf16 matrix
+// into a swizzled tile; rows at or past nrows are zero-filled
+__device__ __forceinline__ void stage_rows512(bf16* dst, const bf16* src, long row_stride,
+                                              int row0, int nrows, int rows) {
+  for (int i = threadIdx.x; i < rows * (HD5 / 8); i += NT5) {
+    const int r = i >> 6, c = i & 63;
+    const bool ok = row0 + r < nrows;
+    dct::cp_async_16(dct::smem_u32(dst + swz512(r, c)),
+                     ok ? src + (long)(row0 + r) * row_stride + c * 8 : src, ok);
+  }
+}
+
+// the two warps of pair `id - 1` (barrier 0 is __syncthreads)
+__device__ __forceinline__ void bar_pair(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
 struct Fwd512Smem {
-  bf16 q[FQ5 * LD5];
-  bf16 k[FK5 * LD5];   // also the fp32 output staging after the key loop
-  bf16 v[FK5 * LD5];
-  float s[FQ5 * FLDS];
-  bf16 p[FQ5 * FLDP];
-  float alpha[FQ5 * 16];  // row r: this tile's rescale of row r, in all 16 columns
-  float m[FQ5];
-  float l[FQ5];
+  bf16 q[FQ5 * HD5];
+  bf16 k[2][FK5 * HD5];  // two-stage cp.async ring: tile j+1 lands while tile j is used
+  bf16 v[2][FK5 * HD5];
+  float4 xch[NW5][FK5 / 8][32];  // each warp's partial score fragments, lane-major
 };
 static_assert(sizeof(Fwd512Smem) <= 232448, "forward tiles exceed shared memory");
-static_assert(FQ5 * LDO5 * 4 <= FK5 * LD5 * 2, "output staging must fit the k tile");
-static_assert(offsetof(Fwd512Smem, k) % 32 == 0 && offsetof(Fwd512Smem, v) % 32 == 0 &&
-              offsetof(Fwd512Smem, s) % 32 == 0 && offsetof(Fwd512Smem, p) % 32 == 0 &&
-              offsetof(Fwd512Smem, alpha) % 32 == 0, "WMMA tiles must be 32-byte aligned");
 
-__global__ void __launch_bounds__(NT5)
+__global__ void __launch_bounds__(NT5, 1)
 flash_fwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ lse, int sq, int sk, int heads,
@@ -625,108 +695,151 @@ flash_fwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Fwd512Smem& sm = *reinterpret_cast<Fwd512Smem*>(smem_raw);
   const int q0 = blockIdx.x * FQ5, h = blockIdx.y, n = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, mi = lane >> 3;  // ldmatrix addressing as in flash_fwd_kernel
+  const int row_qv = ((mi & 1) << 3) + lr, ch_qv = mi >> 1;
+  const int row_k = ((mi >> 1) << 3) + lr, ch_k = mi & 1;
+  const int pair = warp >> 1, half = warp & 1;  // query rows 16·pair.., channels 256·half..
+  const int c0 = half * (HALF5 / 8);            // this warp's first 16-byte chunk
   const bf16* kb = k + n * k_sn + (long)h * HD5;
   const bf16* vb = v + n * v_sn + (long)h * HD5;
+  const int ntiles = (sk + FK5 - 1) / FK5;
 
-  load_rows512(sm.q, q + n * q_sn + (long)h * HD5, q_ss, q0, sq, FQ5);
-  if (threadIdx.x < FQ5) {
-    sm.m[threadIdx.x] = -INFINITY;
-    sm.l[threadIdx.x] = 0.f;
-  }
-  FragC acc_o[2][4];  // rows rb*16.., columns warp*64 + c*16..
+  stage_rows512(sm.q, q + n * q_sn + (long)h * HD5, q_ss, q0, sq, FQ5);
+  stage_rows512(sm.k[0], kb, k_ss, 0, sk, FK5);
+  stage_rows512(sm.v[0], vb, v_ss, 0, sk, FK5);
+  dct::cp_async_commit();
+
+  float o_acc[32][4];  // o: 16 rows x this warp's 256 channels (32 n8 tiles)
 #pragma unroll
-  for (int rb = 0; rb < 2; ++rb)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc_o[rb][c], 0.f);
-  const int srb = warp >> 2, scb = warp & 3;  // this warp's 16x16 score fragment
+  for (int i = 0; i < 32; ++i) o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (log2 domain)
+  float sum0 = 0.f, sum1 = 0.f;          // this lane's part of their row sums
 
-  for (int k0 = 0; k0 < sk; k0 += FK5) {
-    __syncthreads();  // previous tile fully consumed
-    load_rows512(sm.k, kb, k_ss, k0, sk, FK5);
-    load_rows512(sm.v, vb, v_ss, k0, sk, FK5);
-    __syncthreads();
-
-    // s = q kᵀ: one 16x16 fragment per warp, contracted over all 512 columns
-    {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll 8
-      for (int kk = 0; kk < HD5; kk += 16) {
-        FragA a;
-        FragBT b;
-        wmma::load_matrix_sync(a, sm.q + srb * 16 * LD5 + kk, LD5);
-        wmma::load_matrix_sync(b, sm.k + scb * 16 * LD5 + kk, LD5);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sm.s + srb * 16 * FLDS + scb * 16, acc, FLDS, wmma::mem_row_major);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    dct::cp_async_wait<0>();
+    __syncthreads();  // tile j landed for every thread; tile j-1 and the partials consumed
+    if (j + 1 < ntiles) {
+      stage_rows512(sm.k[st ^ 1], kb, k_ss, (j + 1) * FK5, sk, FK5);
+      stage_rows512(sm.v[st ^ 1], vb, v_ss, (j + 1) * FK5, sk, FK5);
     }
-    __syncthreads();
+    dct::cp_async_commit();
+    const bf16* ks = sm.k[st];
+    const bf16* vs = sm.v[st];
 
-    // online softmax (log2 domain), 4 rows per warp, 2 columns per lane
-    for (int r = 0; r < FQ5 / NW5; ++r) {
-      const int row = warp * (FQ5 / NW5) + r;
-      const float* srow = sm.s + row * FLDS;
-      const float s0 = (k0 + lane < sk) ? srow[lane] * scale_log2 : -INFINITY;
-      const float s1 = (k0 + lane + 32 < sk) ? srow[lane + 32] * scale_log2 : -INFINITY;
-      const float m_old = sm.m[row], l_old = sm.l[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
-      const float psum = warp_sum(p0 + p1);
-      const float alpha = exp2f(m_old - m_new);
-      sm.p[row * FLDP + lane] = __float2bfloat16(p0);
-      sm.p[row * FLDP + lane + 32] = __float2bfloat16(p1);
-      if (lane < 16) sm.alpha[row * 16 + lane] = alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sm.m[row] = m_new;
-        sm.l[row] = l_old * alpha + psum;
+    // this warp's half of the contraction of s = q kᵀ: 16 rows x 32 keys
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HALF5 / 16; ++kk) {
+      uint32_t a[4];
+      dct::ldsm_x4(a, dct::smem_u32(sm.q + swz512(pair * 16 + row_qv, c0 + kk * 2 + ch_qv)));
+#pragma unroll
+      for (int jp = 0; jp < FK5 / 16; ++jp) {
+        uint32_t b[4];
+        dct::ldsm_x4(b, dct::smem_u32(ks + swz512(jp * 16 + row_k, c0 + kk * 2 + ch_k)));
+        dct::mma_bf16(s[2 * jp], a, b[0], b[1]);
+        dct::mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
       }
     }
-    __syncthreads();
-
-    // o = alpha·o + p v over this warp's 64 output columns
+    // the pair adds the other half: same fragment layout, so lane l reads
+    // lane l's partial of the other warp; both then hold the same s
 #pragma unroll
-    for (int rb = 0; rb < 2; ++rb) {
-      FragC af;
-      wmma::load_matrix_sync(af, sm.alpha + rb * 16 * 16, 16, wmma::mem_row_major);
+    for (int i = 0; i < 4; ++i) sm.xch[warp][i][lane] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    bar_pair(1 + pair);
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int e = 0; e < af.num_elements; ++e) acc_o[rb][c].x[e] *= af.x[e];
+    for (int i = 0; i < 4; ++i) {
+      const float4 other = sm.xch[warp ^ 1][i][lane];
+      s[i][0] += other.x;
+      s[i][1] += other.y;
+      s[i][2] += other.z;
+      s[i][3] += other.w;
     }
+
+    // online softmax on the fragments, as in flash_fwd_kernel
+    const int kcol = j * FK5 + 2 * t;
 #pragma unroll
-    for (int kk = 0; kk < FK5; kk += 16) {
-      FragA pa[2];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int rb = 0; rb < 2; ++rb)
-        wmma::load_matrix_sync(pa[rb], sm.p + rb * 16 * FLDP + kk, FLDP);
+      for (int e = 0; e < 4; ++e) s[i][e] *= scale_log2;
+    if ((j + 1) * FK5 > sk) {  // the ragged last tile: keys at or past sk score -inf
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        FragB b;
-        wmma::load_matrix_sync(b, sm.v + kk * LD5 + warp * 64 + c * 16, LD5);
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int rb = 0; rb < 2; ++rb) wmma::mma_sync(acc_o[rb][c], pa[rb], b, acc_o[rb][c]);
+        for (int e = 0; e < 4; ++e)
+          if (kcol + i * 8 + (e & 1) >= sk) s[i][e] = -INFINITY;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[i][0], s[i][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[i][2], s[i][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i][0] = exp2f(s[i][0] - m0);
+      s[i][1] = exp2f(s[i][1] - m0);
+      s[i][2] = exp2f(s[i][2] - m1);
+      s[i][3] = exp2f(s[i][3] - m1);
+      ps0 += s[i][0] + s[i][1];
+      ps1 += s[i][2] + s[i][3];
+    }
+    sum0 = sum0 * alpha0 + ps0;
+    sum1 = sum1 * alpha1 + ps1;
+    rescale(o_acc, alpha0, alpha1);
+
+    // o += p v over this warp's 256 channels, v through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < FK5 / 16; ++kk) {
+      const uint32_t pa[4] = {dct::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              dct::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              dct::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              dct::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HALF5 / 16; ++dp) {
+        uint32_t b[4];
+        dct::ldsm_x4_t(b, dct::smem_u32(vs + swz512(kk * 16 + row_qv, c0 + dp * 2 + ch_qv)));
+        dct::mma_bf16(o_acc[2 * dp], pa, b[0], b[1]);
+        dct::mma_bf16(o_acc[2 * dp + 1], pa, b[2], b[3]);
       }
     }
   }
 
-  __syncthreads();  // k and v consumed: the k tile becomes the output staging
-  float* stage = reinterpret_cast<float*>(sm.k);
+  // full row sums from the quad (every row saw key 0: sums >= 1); o = acc / sum
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+  const int r0 = q0 + pair * 16 + g, r1 = r0 + 8;
+  float* lse_bh = lse + ((long)n * heads + h) * sq;
+  if (r0 < sq) {
+    bf16* orow = o + n * o_sn + (long)r0 * o_ss + (long)h * HD5 + half * HALF5 + 2 * t;
 #pragma unroll
-  for (int rb = 0; rb < 2; ++rb)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      wmma::store_matrix_sync(stage + rb * 16 * LDO5 + warp * 64 + c * 16, acc_o[rb][c], LDO5,
-                              wmma::mem_row_major);
-  if (threadIdx.x < FQ5) {
-    const float l_row = sm.l[threadIdx.x];
-    sm.alpha[threadIdx.x] = 1.f / l_row;  // every row saw at least one key: l_row >= 1
-    if (q0 + threadIdx.x < sq)
-      lse[((long)n * heads + h) * sq + q0 + threadIdx.x] = sm.m[threadIdx.x] + log2f(l_row);
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<uint32_t*>(orow + i * 8) =
+          dct::pack_bf16(o_acc[i][0] * inv0, o_acc[i][1] * inv0);
+    if (half == 0 && t == 0) lse_bh[r0] = m0 + log2f(sum0);
   }
-  __syncthreads();
-  store_rows512(o + n * o_sn + (long)h * HD5, o_ss, stage, sm.alpha, q0, sq, FQ5);
+  if (r1 < sq) {
+    bf16* orow = o + n * o_sn + (long)r1 * o_ss + (long)h * HD5 + half * HALF5 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<uint32_t*>(orow + i * 8) =
+          dct::pack_bf16(o_acc[i][2] * inv1, o_acc[i][3] * inv1);
+    if (half == 0 && t == 0) lse_bh[r1] = m1 + log2f(sum1);
+  }
 }
 
 // di[n, h, s] = sum over the 512 columns of do * o (one warp per row)
@@ -901,8 +1014,7 @@ flash_bwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 which == 0 ? acc_dv[rb][c] : acc_dk[rb][c], LDO5,
                                 wmma::mem_row_major);
     __syncthreads();
-    store_rows512((which == 0 ? dv : dk) + n * sk * C + (long)h * HD5, C, stage, nullptr, kt0, sk,
-                  BK5);
+    store_rows512((which == 0 ? dv : dk) + n * sk * C + (long)h * HD5, C, stage, kt0, sk, BK5);
   }
 }
 

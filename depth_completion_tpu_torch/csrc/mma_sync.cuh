@@ -28,6 +28,14 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
                : "memory");
 }
 
+// 4 bytes global → shared (through L1: the 4-byte form has no .cg), for
+// fp32 rows whose start need not be 16-byte aligned; zero-filled when !valid
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -2,6 +2,7 @@
 # Planted-fault check of chip_smoke.py's tolerances (needs one CUDA GPU).
 #
 #     bash scripts/chip_smoke_faults.sh OUT_DIR [FAULT ...]
+#     bash scripts/chip_smoke_faults.sh --check-anchors [FAULT ...]
 #
 # Runs chip_smoke.py on the tree as it is, then on a temporary copy of the
 # port with each fault below planted (one sed edit each; --steps 2), or
@@ -9,11 +10,17 @@
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
 # the logs show where each limit sits between the sound tree and the
 # faults. A fault run is expected to exit non-zero; the sound run, zero.
+# Exits 0 when that holds for every run, else 1.
+#
+# --check-anchors applies every fault's edits to a temporary copy of the
+# files they patch and exits 1 if one of them changes nothing (a stale
+# anchor), without a GPU and without running chip_smoke.py.
 #
 #   F1_rowsum     flash forward divides o by 1.01 x the row sum (lse2 kept)
-#   F2_skip_tile  flash backward skips key tile 1 (its dk, dv stay zero;
+#   F2_skip_tile  flash backward skips key block 1 (its dk, dv stay zero;
 #                 dq misses its part)
-#   F3_dq_tile    flash backward drops only key tile 1's part of dq
+#   F3_dq_tile    flash backward drops only key block 1's part of dq (its
+#                 16-byte atomics into the fp32 dq)
 #   F4_conv_halo  conv kernel applies the input mask (in shared memory) to
 #                 the tile's own rows but not to its halo rows
 #   F5_d512_rowsum    d=512 flash forward divides o by 1.01 x the row sum
@@ -43,16 +50,31 @@
 #                 o accumulator
 #   F19_conv_co_tile  conv kernel reads weights and bias by the tile-local
 #                 output channel (wrong only where Co spans two or more tiles)
+#   F20_bwd_di    flash backward (d=64) forms ds = p·dp·scale in its
+#                 registers, without subtracting di
+#   F21_d512_alpha d=512 flash forward skips the α rescale of its register
+#                 o accumulator
 set -u
-out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR [FAULT ...]}
-shift
+check=0
+if [ "${1:-}" = "--check-anchors" ]; then
+  check=1
+  shift
+else
+  out=${1:?usage: scripts/chip_smoke_faults.sh OUT_DIR|--check-anchors [FAULT ...]}
+  shift
+fi
 only=" $* "
 cd "$(dirname "$0")/.."
-mkdir -p "$out"
-out=$(cd "$out" && pwd)
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-python3 chip_smoke.py > "$out/sound.log" 2>&1
-echo "sound rc=$?"
+status=0
+if [ $check = 0 ]; then
+  mkdir -p "$out"
+  out=$(cd "$out" && pwd)
+  nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+  python3 chip_smoke.py > "$out/sound.log" 2>&1
+  rc=$?
+  echo "sound rc=$rc"
+  [ $rc = 0 ] || status=1
+fi
 
 work=$(mktemp -d "${TMPDIR:-/tmp}/chip_smoke_faults.XXXXXX")
 trap 'rm -rf "$work"' EXIT
@@ -68,31 +90,44 @@ run_fault() {  # name, then (file, sed expression) pairs
     return 0
   fi
   mkdir -p "$d"
-  cp -r chip_smoke.py depth_completion_tpu_torch "$d"/
-  rm -rf "$d/depth_completion_tpu_torch/_build"
+  if [ $check = 0 ]; then
+    cp -r chip_smoke.py depth_completion_tpu_torch "$d"/
+    rm -rf "$d/depth_completion_tpu_torch/_build"
+  fi
   while [ $# -gt 0 ]; do
     local before
+    if [ ! -e "$d/$1" ]; then
+      mkdir -p "$(dirname "$d/$1")"
+      cp "$1" "$d/$1"
+    fi
     before=$(md5sum < "$d/$1")
     sed -i "$2" "$d/$1"
     if [ "$before" = "$(md5sum < "$d/$1")" ]; then
       echo "$name: the edit did not apply to $1"
+      status=1
       return 1
     fi
     shift 2
   done
+  if [ $check = 1 ]; then
+    echo "$name: edits apply"
+    return 0
+  fi
   (cd "$d" && python3 chip_smoke.py --steps 2) > "$out/$name.log" 2>&1
-  echo "$name rc=$?"
+  local rc=$?
+  echo "$name rc=$rc"
+  [ $rc != 0 ] || status=1
 }
 
 run_fault F1_rowsum $FA 's|1.f / l0;|1.f / (1.01f * l0);|; s|1.f / l1;|1.f / (1.01f * l1);|'
 run_fault F2_skip_tile \
   $FA 's|const int k0 = blockIdx.x \* BR, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
   depth_completion_tpu_torch/ops/flash_attention.py 's|torch.empty((n, sk, c)|torch.zeros((n, sk, c)|g'
-run_fault F3_dq_tile $FA 's|float\* dst = dq_acc|if (blockIdx.x == 1) break; float* dst = dq_acc|'
+run_fault F3_dq_tile $FA 's|if (row < sq) atomicAdd|if (row < sq \&\& blockIdx.x != 1) atomicAdd|'
 run_fault F4_conv_halo $CONV \
   's|const uint4 val = mask_vec(xv, mv);|const uint4 val = (rr >= 1 \&\& rr <= TH) ? mask_vec(xv, mv) : xv;|'
 run_fault F5_d512_rowsum $FA \
-  's|sm.alpha\[threadIdx.x\] = 1.f / l_row;|sm.alpha[threadIdx.x] = 1.f / (1.01f * l_row);|'
+  's|const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;|const float inv0 = 1.f / (1.01f * sum0), inv1 = 1.f / (1.01f * sum1);|'
 run_fault F6_d512_skip_tile \
   $FA 's|const int kt0 = blockIdx.x \* BK5, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
   depth_completion_tpu_torch/ops/flash_attention.py 's|torch.empty((n, sk, c)|torch.zeros((n, sk, c)|g'
@@ -121,3 +156,7 @@ run_fault F17_block_step_max depth_completion_tpu_torch/csrc/probe_block_step.cu
 run_fault F18_fwd_alpha $FA 's|rescale(acc, alpha0, alpha1);||'
 run_fault F19_conv_co_tile $CONV \
   's|) \* Co + co0 + nv \* 8|) * Co + nv * 8|; s|bias\[co0 + co|bias[co|g'
+run_fault F20_bwd_di $FA \
+  's|dp\[i\]\[e\] = p \* (dp\[i\]\[e\] - ((e \& 1) ? dis.y : dis.x)) \* scale;|dp[i][e] = p * dp[i][e] * scale;|'
+run_fault F21_d512_alpha $FA 's|rescale(o_acc, alpha0, alpha1);||'
+exit $status

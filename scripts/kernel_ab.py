@@ -1,5 +1,6 @@
-"""Device time of the d=64 flash forward and the fused 3x3 conv in two
-checkouts, side by side, on one CUDA GPU.
+"""Device time of the flash kernels (d=64 forward and backward, d=512
+forward) and the fused 3x3 conv in two checkouts, side by side, on one CUDA
+GPU.
 
     python3 scripts/kernel_ab.py BASE_DIR [--reps 20]
 
@@ -9,14 +10,18 @@ unpacked with ``git archive`` into the git-ignored
 ``csrc/flash_attention.cu`` and ``csrc/conv3x3.cu`` is compiled with nvcc
 (this tree's flags) into ``depth_completion_tpu_torch/_build/ab/``, loaded
 with ctypes through the C entry points both trees share (``dct_flash_fwd``,
-``dct_conv3x3``), and timed at the guided paths' shapes: ``reps`` launches
-captured in one CUDA graph and replayed, so a time is the kernel's device
-time without the host's launch overhead (``chip_smoke.py`` times through
-the Python wrappers, which at small shapes measures the host). Turns: base,
-this tree, this tree, base; each tree's two turns are averaged. The two
-trees' outputs on the same inputs are compared (max abs difference: both
-compute one function, in other summation orders). Prints the card, one
-line per case, and last a JSON object with every case.
+``dct_flash_bwd``, ``dct_flash_fwd_d512``, ``dct_conv3x3``), and timed at
+the guided paths' shapes: ``reps`` launches captured in one CUDA graph and
+replayed, so a time is the kernel's device time without the host's launch
+overhead (``chip_smoke.py`` times through the Python wrappers, which at
+small shapes measures the host). The backward's time holds what its entry
+point launches (the ``di`` pre-pass and the kernel) and the zeroing of its
+fp32 dq buffer, as the wrapper does; its inputs o and lse2 come from this
+tree's forward. Turns: base, this tree, this tree, base; each tree's two
+turns are averaged. The two trees' outputs on the same inputs are compared
+(max abs difference over every output: both compute one function, in other
+summation orders). Prints the card, one line per case, and last a JSON
+object with every case.
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ SOURCES = ("flash_attention", "conv3x3")
 # stage 0 at 352x1216 in one call; the ring's per-step launches there (P=4)
 FLASH_CASES = ((6912, 5, 1), (1728, 10, 1), (2688, 5, 1), (6688, 5, 1), (1672, 5, 4),
                (418, 10, 4))
+# (S, heads, batch) at head dim 512: the KL VAE's mid attention at 576x768,
+# and a ragged length
+FLASH_D512_CASES = ((6912, 1, 1), (6900, 1, 1))
 # (H, W, Ci, Co, relu): relu is the TAESD form (bias+ReLU; masked dx with
 # the emitted operand), else the KL form (bias; dx without a mask)
 CONV_CASES = ((576, 768, 64, 64, True), (72, 96, 64, 64, True), (352, 1216, 64, 64, True),
@@ -72,8 +80,11 @@ def build(tree: Path, tag: str) -> dict:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         if name == "flash_attention":
-            lib.dct_flash_fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
-            lib.dct_flash_fwd.restype = _i
+            for fwd in (lib.dct_flash_fwd, lib.dct_flash_fwd_d512):
+                fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
+                fwd.restype = _i
+            lib.dct_flash_bwd.argtypes = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
+            lib.dct_flash_bwd.restype = _i
         else:
             lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
             lib.dct_conv3x3.restype = _i
@@ -109,14 +120,32 @@ def _stream() -> int:
 
 
 def flash_fwd(lib, q, k, v, heads: int):
+    """→ (o, lse2) through ``dct_flash_fwd`` or, at head dim 512,
+    ``dct_flash_fwd_d512``."""
     n, s, c = q.shape
+    d = c // heads
     o = torch.empty_like(q)
     lse = torch.empty((n, heads, s), device=q.device, dtype=torch.float32)
-    status = lib.dct_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               lse.data_ptr(), n, heads, s, s, s * c, c, s * c, c, s * c, c,
-                               s * c, c, 1.0 / 8.0, _stream())
+    entry = lib.dct_flash_fwd if d == 64 else lib.dct_flash_fwd_d512
+    status = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                   n, heads, s, s, s * c, c, s * c, c, s * c, c, s * c, c, 1.0 / math.sqrt(d),
+                   _stream())
     _build.check(status, "flash_fwd")
-    return o
+    return o, lse
+
+
+def flash_bwd(lib, q, k, v, o, do, lse, heads: int):
+    """→ (dq in fp32, dk, dv) through ``dct_flash_bwd`` (d=64)."""
+    n, s, c = q.shape
+    di = torch.empty((n, heads, s), device=q.device, dtype=torch.float32)
+    dq = torch.zeros((n, s, c), device=q.device, dtype=torch.float32)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = lib.dct_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                               dk.data_ptr(), dv.data_ptr(), n, heads, s, s, s * c, c, s * c, c,
+                               s * c, c, s * c, c, s * c, c, 1.0 / 8.0, _stream())
+    _build.check(status, "flash_bwd")
+    return dq, dk, dv
 
 
 def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
@@ -135,12 +164,15 @@ def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
 
 
 def turns(libs: dict, run, reps: int) -> dict:
-    """base, this, this, base → per tree the mean ms, and the outputs' max
-    abs difference."""
+    """base, this, this, base → per tree the mean ms, and the max abs
+    difference over the outputs (``run`` returns a tensor or a tuple)."""
     times = {"base": [], "this": []}
     for tag in ("base", "this", "this", "base"):
         times[tag].append(graph_ms(lambda: run(libs[tag]), reps))
-    diff = float((run(libs["base"]).float() - run(libs["this"]).float()).abs().max())
+    outs = {tag: run(libs[tag]) for tag in times}
+    outs = {tag: out if isinstance(out, tuple) else (out,) for tag, out in outs.items()}
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(outs["base"], outs["this"]))
     base, this = (sum(times[t]) / 2 for t in ("base", "this"))
     return {"base_ms": base, "this_ms": this, "speedup": base / this, "max_abs_diff": diff}
 
@@ -161,11 +193,20 @@ def main() -> int:
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
     results = []
+    flash_libs = {t: lib["flash_attention"] for t, lib in libs.items()}
     for s, heads, n in FLASH_CASES:
-        q, k, v = (rnd(n, s, heads * 64) for _ in range(3))
-        r = turns({t: lib["flash_attention"] for t, lib in libs.items()},
-                  lambda lib: flash_fwd(lib, q, k, v, heads), args.reps)
+        q, k, v, do = (rnd(n, s, heads * 64) for _ in range(4))
+        r = turns(flash_libs, lambda lib: flash_fwd(lib, q, k, v, heads)[0], args.reps)
         r.update(kernel="flash_fwd", shape=f"N={n} S={s} heads={heads}")
+        results.append(r)
+        o, lse = flash_fwd(flash_libs["this"], q, k, v, heads)
+        r = turns(flash_libs, lambda lib: flash_bwd(lib, q, k, v, o, do, lse, heads), args.reps)
+        r.update(kernel="flash_bwd", shape=f"N={n} S={s} heads={heads}")
+        results.append(r)
+    for s, heads, n in FLASH_D512_CASES:
+        q, k, v = (rnd(n, s, heads * 512) for _ in range(3))
+        r = turns(flash_libs, lambda lib: flash_fwd(lib, q, k, v, heads)[0], args.reps)
+        r.update(kernel="flash_fwd_d512", shape=f"N={n} S={s} heads={heads}")
         results.append(r)
     for h, w, ci, co, relu in CONV_CASES:
         x, dy = rnd(1, h, w, ci), rnd(1, h, w, co)

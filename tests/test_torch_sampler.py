@@ -324,9 +324,12 @@ def test_losses_match_jax(inputs):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("grad_scale", [1.0, 1e-5])
 @pytest.mark.parametrize("opt", ["adam", "sgd", "adagrad"])
-def test_optimizers_match_optax(opt):
-    """Two updates of the two-group optimizer (latent and affine lrs)."""
+def test_optimizers_match_optax(opt, grad_scale):
+    """Two updates of the two-group optimizer (latent and affine lrs), with
+    gradients near 1 and near 1e-5 (where Adagrad's eps inside the root,
+    optax's rule, and outside it, torch's, part)."""
     import optax
 
     from depth_completion_tpu.guidance.optim import make_optimizer as joptim
@@ -334,8 +337,8 @@ def test_optimizers_match_optax(opt):
 
     rng = np.random.default_rng(12)
     lat, scale = rng.normal(size=(2, 3, 4, 4)).astype(np.float32), np.ones((2, 1, 1, 1), np.float32)
-    grads = [(rng.normal(size=lat.shape).astype(np.float32),
-              rng.normal(size=scale.shape).astype(np.float32)) for _ in range(2)]
+    grads = [((grad_scale * rng.normal(size=lat.shape)).astype(np.float32),
+              (grad_scale * rng.normal(size=scale.shape)).astype(np.float32)) for _ in range(2)]
     params = {"latents": jnp.asarray(lat), "affine": {"scale": jnp.asarray(scale)}}
     tx = joptim(opt, 0.05, 0.005)
     state = tx.init(params)
