@@ -8,6 +8,9 @@
 //   flash_fwd, flash_fwd_d512  <- _fwd_kernel (:163, launched by _fwd :354)
 //   flash_bwd, flash_bwd_d512  <- _bwd_fused_kernel (:464) /
 //                 _bwd_fused_kernel_t (:534), launched by _fused_bwd_call (:673)
+//   flash_fwd_ring, flash_bwd_ring  <- the flash ring of
+//                 depth_completion_tpu/ops/ring_attention.py (_make_flash_ring,
+//                 :99): #1 and #2 per visiting key block, merged online
 //
 // What bounds it: at the UNet's stage-0 shape (S=6912, 5 heads, d=64) the
 // work is ~4·S²·d FLOP per head forward (10·S²·d backward) against ~4·S·d·2
@@ -87,16 +90,29 @@
 // o came from other key blocks too. di = rowsum(do*o) comes from a small
 // pre-pass kernel launched by the same entry point; the caller zeroes dq's
 // fp32 buffer and casts it.
+//
+// The ring (ops/ring_attention.py) runs template instantiations of the same
+// two kernels, one launch per visiting key block over every shard. Its
+// running state is the online softmax's own: with M the running max, the
+// row sum W = Σ 2^(s−M) and ACC = Σ 2^(s−M)·v over every key seen so far, a
+// ring step is flash_fwd_kernel started from the carried (M, W, ACC) in
+// place of (−inf, 0, 0) over the visiting block's keys. Steps before the
+// last write the state back in fp32 (m, l [N, heads, S], acc [N, S, C]:
+// acc read and written, 8 bytes an element a step, in place), the last
+// writes o and lse2, so o is rounded to bf16 once. The backward's ring
+// instantiation takes di from the first step's pre-pass (o and dO are the
+// same for every block), adds dq into one fp32 buffer with its atomics, and
+// adds dk and dv into the travelling fp32 buffer (8-byte reductions, two
+// fp32 a lane) where flash_bwd stores bf16. Plain flash_fwd / flash_bwd
+// are <false, false> / <false>, the same code as before the ring took them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include "mma_sync.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -105,12 +121,6 @@ constexpr int D = 64;           // head dim
 constexpr int BR = 64;          // rows per tile (query and key tiles alike)
 constexpr int NWARPS = 4;       // 16 rows per warp
 constexpr int NTHREADS = NWARPS * 32;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -154,10 +164,18 @@ __device__ __forceinline__ void rescale(float (&acc)[N][4], float alpha0, float 
   }
 }
 
+// StateIn: the online softmax starts from the ring's carried state (m, l,
+// acc of the key blocks visited before) in place of (-inf, 0, 0); StateOut:
+// it ends by writing that state back in fp32 (m, the full row sum l, acc
+// unnormalised) in place of o and lse2. <false, false> is flash_fwd; the
+// ring's first step is <false, true>, its middle steps <true, true>, its
+// last <true, false>. m and l are [N, heads, sq], acc [N, sq, heads*64].
+template <bool StateIn, bool StateOut>
 __global__ void __launch_bounds__(NTHREADS, 4)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, int heads,
+                 float* __restrict__ lse, float* __restrict__ m_st, float* __restrict__ l_st,
+                 float* __restrict__ acc_st, int sq, int sk, int heads,
                  long q_sn, long q_ss, long k_sn, long k_ss, long v_sn, long v_ss,
                  long o_sn, long o_ss, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -187,6 +205,33 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (log2 domain)
   float l0 = 0.f, l1 = 0.f;              // this lane's part of their row sums
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const long stat_bh = ((long)n * heads + h) * sq;
+  // this lane's columns of rows r0 and r1 in the fp32 state acc [N, sq, heads*64]
+  float* acc_r0 = acc_st + ((long)n * sq + r0) * heads * D + h * D + 2 * t;
+  float* acc_r1 = acc_r0 + (long)8 * heads * D;
+  if constexpr (StateIn) {  // the quad's lane t = 0 carries the row sum
+    if (r0 < sq) {
+      m0 = m_st[stat_bh + r0];
+      l0 = t == 0 ? l_st[stat_bh + r0] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(acc_r0 + i * 8);
+        acc[i][0] = a.x;
+        acc[i][1] = a.y;
+      }
+    }
+    if (r1 < sq) {
+      m1 = m_st[stat_bh + r1];
+      l1 = t == 0 ? l_st[stat_bh + r1] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(acc_r1 + i * 8);
+        acc[i][2] = a.x;
+        acc[i][3] = a.y;
+      }
+    }
+  }
 
   for (int j = 0; j < ntiles; ++j) {
     const int st = j & 1;
@@ -245,7 +290,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // column k0 < sk is valid in every row, so mx is finite; α is 0 at the first tile
+    // column k0 < sk is valid in every row, so mx is finite; α is 0 at the
+    // first tile, or rescales the carried state there
     const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
@@ -287,10 +333,30 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if constexpr (StateOut) {  // the state for the next ring step, in place
+    if (r0 < sq) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float2*>(acc_r0 + i * 8) = make_float2(acc[i][0], acc[i][1]);
+      if (t == 0) {
+        m_st[stat_bh + r0] = m0;
+        l_st[stat_bh + r0] = l0;
+      }
+    }
+    if (r1 < sq) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float2*>(acc_r1 + i * 8) = make_float2(acc[i][2], acc[i][3]);
+      if (t == 0) {
+        m_st[stat_bh + r1] = m1;
+        l_st[stat_bh + r1] = l1;
+      }
+    }
+    return;
+  }
   const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  float* lse_bh = lse + ((long)n * heads + h) * sq;
+  float* lse_bh = lse + stat_bh;
   if (r0 < sq) {
     bf16* orow = o + n * o_sn + (long)r0 * o_ss + h * D + 2 * t;
 #pragma unroll
@@ -353,12 +419,23 @@ __device__ __forceinline__ void stage_stats(float* lse_dst, float* di_dst, const
   dct::cp_async_4(dct::smem_u32(dst + i), ok ? src + row0 + i : src, ok);
 }
 
+// p[0..1] += (x, y) into the travelling fp32 dk|dv of the ring, as one
+// 8-byte reduction (sm_90): L2 adds it, so the block's last loop issues its
+// adds without waiting for a load (no other block touches these rows)
+__device__ __forceinline__ void add_f2(float* p, float x, float y) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
+}
+
+// Ring: dk and dv are added into the ring's travelling fp32 buffer dkv_acc
+// ([N, sk, 2·heads·64], dk in the first heads·64 channels of a row, dv in
+// the rest) in place of the bf16 stores into dk and dv.
+template <bool Ring>
 __global__ void __launch_bounds__(NTHREADS, 3)
 flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ di,
                  float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                 int sq, int sk, int heads, long q_sn, long q_ss, long k_sn, long k_ss,
+                 float* __restrict__ dkv_acc, int sq, int sk, int heads, long q_sn, long q_ss, long k_sn, long k_ss,
                  long v_sn, long v_ss, long d_sn, long d_ss, float scale, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
@@ -517,6 +594,16 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int r = kr0 + 8 * half;
     if (r >= sk) continue;
+    if constexpr (Ring) {
+      float* dk_row = dkv_acc + ((long)n * sk + r) * 2 * C + h * D + 2 * t;
+      float* dv_row = dk_row + C;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        add_f2(dk_row + i * 8, dk_acc[i][2 * half], dk_acc[i][2 * half + 1]);
+        add_f2(dv_row + i * 8, dv_acc[i][2 * half], dv_acc[i][2 * half + 1]);
+      }
+      continue;
+    }
     bf16* dk_row = dk + ((long)n * sk + r) * C + h * D + 2 * t;
     bf16* dv_row = dv + ((long)n * sk + r) * C + h * D + 2 * t;
 #pragma unroll
@@ -531,19 +618,77 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
+namespace {
+
+template <bool StateIn, bool StateOut>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* m, void* l,
+               void* acc, int batch, int heads, int sq, int sk, long q_sn, long q_ss, long k_sn,
+               long k_ss, long v_sn, long v_ss, long o_sn, long o_ss, float scale, void* stream) {
+  const int smem = sizeof(FwdSmem);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<StateIn, StateOut>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + BR - 1) / BR, heads, batch);
+  flash_fwd_kernel<StateIn, StateOut><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, (float*)m,
+      (float*)l, (float*)acc, sq, sk, heads, q_sn, q_ss, k_sn, k_ss, v_sn, v_ss, o_sn, o_ss,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// the di pre-pass, then the backward kernel
+template <bool Ring>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const void* lse, void* di, void* dq_acc, void* dk, void* dv, void* dkv_acc,
+               int batch, int heads, int sq, int sk, long q_sn, long q_ss, long k_sn, long k_ss,
+               long v_sn, long v_ss, long o_sn, long o_ss, long d_sn, long d_ss, bool with_di,
+               float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (with_di) {
+    const long rows = (long)batch * heads * sq;
+    const int rows_per_block = 8;
+    flash_bwd_di_kernel<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                          rows_per_block * 32, 0, st>>>((const bf16*)o, (const bf16*)dout,
+                                                        (float*)di, rows, sq, heads, o_sn, o_ss,
+                                                        d_sn, d_ss);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int smem = sizeof(BwdSmem);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<Ring>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sk + BR - 1) / BR, heads, batch);
+  flash_bwd_kernel<Ring><<<grid, NTHREADS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)di, (float*)dq_acc, (bf16*)dk, (bf16*)dv, (float*)dkv_acc, sq, sk, heads,
+      q_sn, q_ss, k_sn, k_ss, v_sn, v_ss, d_sn, d_ss, scale, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int dct_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int batch, int heads, int sq, int sk, long q_sn, long q_ss,
                              long k_sn, long k_ss, long v_sn, long v_ss, long o_sn, long o_ss,
                              float scale, void* stream) {
-  const int smem = sizeof(FwdSmem);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + BR - 1) / BR, heads, batch);
-  flash_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, sq, sk, heads,
-      q_sn, q_ss, k_sn, k_ss, v_sn, v_ss, o_sn, o_ss, scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  return launch_fwd<false, false>(q, k, v, o, lse, nullptr, nullptr, nullptr, batch, heads, sq,
+                                  sk, q_sn, q_ss, k_sn, k_ss, v_sn, v_ss, o_sn, o_ss, scale,
+                                  stream);
+}
+
+// One step of the ring's forward: state_in reads (m, l, acc), state_out
+// writes them (in place: each lane reads and writes only its own rows);
+// without state_out the step writes o and lse2.
+extern "C" int dct_flash_fwd_ring(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, void* m, void* l, void* acc, int batch, int heads,
+                                  int sq, int sk, long q_sn, long q_ss, long k_sn, long k_ss,
+                                  long v_sn, long v_ss, long o_sn, long o_ss, int state_in,
+                                  int state_out, float scale, void* stream) {
+  auto launch = state_in ? (state_out ? launch_fwd<true, true> : launch_fwd<true, false>)
+                         : (state_out ? launch_fwd<false, true> : launch_fwd<false, false>);
+  return launch(q, k, v, o, lse, m, l, acc, batch, heads, sq, sk, q_sn, q_ss, k_sn, k_ss, v_sn,
+                v_ss, o_sn, o_ss, scale, stream);
 }
 
 extern "C" int dct_flash_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -552,25 +697,23 @@ extern "C" int dct_flash_bwd(const void* q, const void* k, const void* v, const 
                              long q_sn, long q_ss, long k_sn, long k_ss, long v_sn, long v_ss,
                              long o_sn, long o_ss, long d_sn, long d_ss, float scale,
                              void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const long rows = (long)batch * heads * sq;
-  const int rows_per_block = 8;
-  flash_bwd_di_kernel<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
-                        rows_per_block * 32, 0, st>>>((const bf16*)o, (const bf16*)dout,
-                                                      (float*)di, rows, sq, heads, o_sn, o_ss,
-                                                      d_sn, d_ss);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int smem = sizeof(BwdSmem);
-  err = cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sk + BR - 1) / BR, heads, batch);
-  flash_bwd_kernel<<<grid, NTHREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)di, (float*)dq_acc, (bf16*)dk, (bf16*)dv, sq, sk, heads, q_sn, q_ss, k_sn,
-      k_ss, v_sn, v_ss, d_sn, d_ss, scale, scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  return launch_bwd<false>(q, k, v, o, dout, lse, di, dq_acc, dk, dv, nullptr, batch, heads, sq,
+                           sk, q_sn, q_ss, k_sn, k_ss, v_sn, v_ss, o_sn, o_ss, d_sn, d_ss, true,
+                           scale, stream);
+}
+
+// One step of the ring's backward: dq and the travelling dk|dv (fp32,
+// zeroed by the caller before the first step) gain this key block's part;
+// the first step also computes di, which o and dout fix for every step.
+extern "C" int dct_flash_bwd_ring(const void* q, const void* k, const void* v, const void* o,
+                                  const void* dout, const void* lse, void* di, void* dq_acc,
+                                  void* dkv_acc, int batch, int heads, int sq, int sk, long q_sn,
+                                  long q_ss, long k_sn, long k_ss, long v_sn, long v_ss,
+                                  long o_sn, long o_ss, long d_sn, long d_ss, int first,
+                                  float scale, void* stream) {
+  return launch_bwd<true>(q, k, v, o, dout, lse, di, dq_acc, nullptr, nullptr, dkv_acc, batch,
+                          heads, sq, sk, q_sn, q_ss, k_sn, k_ss, v_sn, v_ss, o_sn, o_ss, d_sn,
+                          d_ss, first != 0, scale, stream);
 }
 
 // ===========================================================================
@@ -601,54 +744,50 @@ extern "C" int dct_flash_bwd(const void* q, const void* k, const void* v, const 
 // spill. 512-column rows are swizzled within each group of eight 16-byte
 // chunks (swz512).
 //
-// Backward (flash_bwd_d512_kernel), the first WMMA form: 32 key rows per
-// block, 32-row query tiles; dk and dv (2 x 32 x 512 fp32) stay in
-// registers across the query loop, each warp holding its 64 columns of
-// both; P and dS need the full-d products Q·Kᵀ and dO·Vᵀ, which warps 0-3
-// and 4-7 compute side by side; dq is added into fp32 with atomics, one
-// 16x16 fragment at a time through a per-warp tile. No TMA, no wgmma, one
-// block per SM.
+// Backward (flash_bwd_d512_kernel), mma.sync with sᵀ, dpᵀ, pᵀ and dsᵀ on
+// accumulator fragments, as flash_bwd_kernel. The constraint is registers:
+// dk and dv for 32 keys x 512 channels are 128 KB of fp32, half the SM's
+// register file (64 keys would need all of it). So a block of 8 warps owns
+// 32 key rows and each warp holds 64 columns of dk and dv for all 32 (128
+// fp32 registers a lane), walking the queries in 32-row tiles. Per tile:
+// warps 0-3 form sᵀ = k·qᵀ and warps 4-7 dpᵀ = v·doᵀ, each a 16-key x
+// 16-query quarter contracted over all 512 channels (k/v as A, q/do as B
+// through ldmatrix); warps w + 4 hand their dpᵀ fragments to warps w
+// through shared memory (lane-major float4, a 64-thread named barrier),
+// which form pᵀ = exp2(sᵀ·scale·log2e − lse2) and dsᵀ = pᵀ∘(dpᵀ − di)·scale
+// and store both as bf16 tiles (80-byte rows: the eight rows of one
+// ldmatrix in distinct banks). After one barrier every warp adds dv += pᵀ·do
+// and dk += dsᵀ·q over its 64 columns (pᵀ, dsᵀ as A; do, q through
+// ldmatrix.trans). Q, dO and their lse2/di slices arrive through a
+// two-stage cp.async ring (swz512 rows), K and V once. 32 KB each for k
+// and v, 128 KB for the q/do ring, 9 KB for pᵀ, dsᵀ and the hand-over:
+// one block per SM, 216 blocks at S=6912 (1.64 waves on 132 SMs).
+//
+// dq, reckoned both ways at S=6912 (PERF.md, Findings, has the times):
+//  1. one pass (kDq): per tile each warp also forms dq = ds·k for the
+//     tile's 32 queries over its 64 columns (dsᵀ and k through
+//     ldmatrix.trans), in two 16-query halves of 32 registers, and adds it
+//     into fp32 dq with float4 atomics (lanes t, t^1 swap halves, as
+//     flash_bwd_kernel): 216 key blocks x 6912 rows x 512 channels / 4 =
+//     191M 16-byte reductions into L2, in place of the first form's 764M
+//     scalar ones. Per warp and tile: 160 mma against 108 ldmatrix.x4.
+//     Built only by scripts/kernel_ab_variants.cu, for the comparison.
+//  2. two kernels, no atomics, as JAX's _bwd_dkv_kernel / _bwd_dq_kernel
+//     (what dct_flash_bwd_d512 runs): this kernel without dq (128 mma, 88
+//     ldmatrix.x4), then flash_bwd_dq_d512_kernel over 64-row query blocks
+//     (below): 7 products for 5, +40% FLOP (the bound from 0.2473 to 0.346
+//     ms), but no atomics, and the dq kernel's 108 blocks are one wave. On
+//     an H100 the atomics cost more than the recomputed products do.
 // ===========================================================================
 
 namespace {
 
 constexpr int HD5 = 512;         // head dim
-constexpr int LD5 = HD5 + 8;     // bf16 row stride of a 512-wide tile (1040 B)
-constexpr int LDO5 = HD5 + 4;    // fp32 row stride of the output staging
 constexpr int NW5 = 8;           // warps per block
 constexpr int NT5 = NW5 * 32;
 constexpr int BK5 = 32;          // backward: key rows per block
 constexpr int BQ5 = 32;          // backward: query rows per tile
-constexpr int BLDS = BK5 + 4;
-constexpr int BLDP = BK5 + 8;
-
-// Copy rows [row0, row0 + rows) x 512 channels of a strided bf16 matrix into
-// a shared tile; rows at or past nrows are zero.
-__device__ __forceinline__ void load_rows512(bf16* dst, const bf16* src, long row_stride,
-                                             int row0, int nrows, int rows) {
-  for (int i = threadIdx.x; i < rows * (HD5 / 8); i += NT5) {
-    const int r = i / (HD5 / 8), c = (i % (HD5 / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD5 + c) = val;
-  }
-}
-
-// Write rows [row0, row0 + rows) of an fp32 staging tile (stride LDO5) as
-// bf16 rows below nrows.
-__device__ __forceinline__ void store_rows512(bf16* dst, long row_stride, const float* stage,
-                                              int row0, int nrows, int rows) {
-  for (int i = threadIdx.x; i < rows * (HD5 / 8); i += NT5) {
-    const int r = i / (HD5 / 8), c = (i % (HD5 / 8)) * 8;
-    if (row0 + r >= nrows) continue;
-    uint4 ov;
-    bf16* os = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) os[e] = __float2bfloat16(stage[r * LDO5 + c + e]);
-    *reinterpret_cast<uint4*>(dst + (long)(row0 + r) * row_stride + c) = ov;
-  }
-}
+constexpr int LDP5 = BQ5 + 8;    // backward: bf16 row stride of the pᵀ and dsᵀ tiles (80 B)
 
 constexpr int FQ5 = 64;          // forward: query rows per block (16 per warp pair)
 constexpr int FK5 = 32;          // forward: key rows per tile
@@ -863,27 +1002,34 @@ __global__ void flash_bwd_di_d512_kernel(const bf16* __restrict__ o, const bf16*
 }
 
 struct Bwd512Smem {
-  bf16 k[BK5 * LD5];
-  bf16 v[BK5 * LD5];
-  bf16 q[BQ5 * LD5];     // q and dout together are the fp32 dk/dv staging at the end
-  bf16 dout[BQ5 * LD5];
-  float s[BQ5 * BLDS];
-  float dp[BQ5 * BLDS];
-  bf16 p[BQ5 * BLDP];
-  bf16 ds[BQ5 * BLDP];
-  float stage[NW5 * 256];  // one 16x16 fp32 tile per warp (dq partials)
-  float lse[BQ5];
-  float di[BQ5];
+  bf16 k[BK5 * HD5];  // the block's 32 key rows (swz512), loaded once
+  bf16 v[BK5 * HD5];
+  bf16 q[2][BQ5 * HD5];  // two-stage cp.async ring: tile j+1 lands while tile j is used
+  bf16 dout[2][BQ5 * HD5];
+  bf16 pt[BK5 * LDP5];  // pᵀ of the current query tile: [key][query]
+  bf16 dst[BK5 * LDP5];  // dsᵀ
+  float4 xch[4][2][32];  // dpᵀ fragments of warps 4-7, lane-major
+  float lse[2][BQ5];
+  float di[2][BQ5];
 };
 static_assert(sizeof(Bwd512Smem) <= 232448, "backward tiles exceed shared memory");
-static_assert(BK5 * LDO5 * 4 <= 2 * BQ5 * LD5 * 2, "dk/dv staging must fit the q and dout tiles");
-static_assert(offsetof(Bwd512Smem, v) % 32 == 0 && offsetof(Bwd512Smem, q) % 32 == 0 &&
-              offsetof(Bwd512Smem, dout) % 32 == 0 && offsetof(Bwd512Smem, s) % 32 == 0 &&
-              offsetof(Bwd512Smem, dp) % 32 == 0 && offsetof(Bwd512Smem, p) % 32 == 0 &&
-              offsetof(Bwd512Smem, ds) % 32 == 0 && offsetof(Bwd512Smem, stage) % 32 == 0,
-              "WMMA tiles must be 32-byte aligned");
 
-__global__ void __launch_bounds__(NT5)
+// cp.async the fp32 statistics of query rows [row0, row0 + 32) (lse2 by
+// threads 0-31, di by 32-63); rows at or past nrows are zero-filled
+__device__ __forceinline__ void stage_stats512(float* lse_dst, float* di_dst, const float* lse_row,
+                                               const float* di_row, int row0, int nrows) {
+  if (threadIdx.x >= 2 * BQ5) return;
+  const int i = threadIdx.x & (BQ5 - 1);
+  const bool ok = row0 + i < nrows;
+  const float* src = threadIdx.x < BQ5 ? lse_row : di_row;
+  float* dst = threadIdx.x < BQ5 ? lse_dst : di_dst;
+  dct::cp_async_4(dct::smem_u32(dst + i), ok ? src + row0 + i : src, ok);
+}
+
+// kDq: dq by float4 atomics in the same pass (design 1 of the note above);
+// without it the kernel computes dk and dv only (design 2's first kernel)
+template <bool kDq>
+__global__ void __launch_bounds__(NT5, 1)
 flash_bwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ di,
@@ -892,130 +1038,367 @@ flash_bwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       long v_sn, long v_ss, long d_sn, long d_ss, float scale, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Bwd512Smem& sm = *reinterpret_cast<Bwd512Smem*>(smem_raw);
-  const int kt0 = blockIdx.x * BK5, h = blockIdx.y, n = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * BK5, h = blockIdx.y, n = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, mi = lane >> 3;  // ldmatrix addressing as in flash_bwd_kernel
+  const int row_qv = ((mi & 1) << 3) + lr, ch_qv = mi >> 1;
+  const int row_k = ((mi >> 1) << 3) + lr, ch_k = mi & 1;
   const bf16* qb = q + n * q_sn + (long)h * HD5;
   const bf16* db = dout + n * d_sn + (long)h * HD5;
-  const long stat0 = ((long)n * heads + h) * sq;
+  const float* lse_bh = lse + ((long)n * heads + h) * sq;
+  const float* di_bh = di + ((long)n * heads + h) * sq;
   const long C = (long)heads * HD5;  // dq_acc / dk / dv are contiguous [N, S, heads*512]
+  const int ntiles = (sq + BQ5 - 1) / BQ5;
+  const int c0 = warp * 8;  // this warp's first 16-byte chunk: columns 64·warp..
+  // score quarter of this warp: sᵀ (warps 0-3) or dpᵀ (4-7), keys 16·kh..,
+  // queries 16·qh.. of the tile
+  const bool is_dp = warp >= 4;
+  const int kh = (warp >> 1) & 1, qh = warp & 1;
+  const bf16* a_src = is_dp ? sm.v : sm.k;
 
-  load_rows512(sm.k, k + n * k_sn + (long)h * HD5, k_ss, kt0, sk, BK5);
-  load_rows512(sm.v, v + n * v_sn + (long)h * HD5, v_ss, kt0, sk, BK5);
+  stage_rows512(sm.k, k + n * k_sn + (long)h * HD5, k_ss, k0, sk, BK5);
+  stage_rows512(sm.v, v + n * v_sn + (long)h * HD5, v_ss, k0, sk, BK5);
+  stage_rows512(sm.q[0], qb, q_ss, 0, sq, BQ5);
+  stage_rows512(sm.dout[0], db, d_ss, 0, sq, BQ5);
+  stage_stats512(sm.lse[0], sm.di[0], lse_bh, di_bh, 0, sq);
+  dct::cp_async_commit();
 
-  FragC acc_dk[2][4], acc_dv[2][4];  // key rows rb*16.., columns warp*64 + c*16..
+  float dk_acc[2][8][4], dv_acc[2][8][4];  // keys 16m + g (+8), columns 64·warp + 8i + 2t
 #pragma unroll
-  for (int rb = 0; rb < 2; ++rb)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      wmma::fill_fragment(acc_dk[rb][c], 0.f);
-      wmma::fill_fragment(acc_dv[rb][c], 0.f);
-    }
-  // warps 0-3: a fragment of s = q kᵀ; warps 4-7: the same fragment of dp = do vᵀ
-  const int frb = (warp & 3) >> 1, fcb = warp & 1;
-  const bf16* a_src = warp < 4 ? sm.q : sm.dout;
-  const bf16* b_src = warp < 4 ? sm.k : sm.v;
-  float* f_dst = warp < 4 ? sm.s : sm.dp;
-  float* stg = sm.stage + warp * 256;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[m][i][e] = dv_acc[m][i][e] = 0.f;
 
-  for (int q0 = 0; q0 < sq; q0 += BQ5) {
-    __syncthreads();  // previous query tile fully consumed
-    load_rows512(sm.q, qb, q_ss, q0, sq, BQ5);
-    load_rows512(sm.dout, db, d_ss, q0, sq, BQ5);
-    if (threadIdx.x < BQ5) {
-      const int gq = q0 + threadIdx.x;
-      sm.lse[threadIdx.x] = gq < sq ? lse[stat0 + gq] : 0.f;
-      sm.di[threadIdx.x] = gq < sq ? di[stat0 + gq] : 0.f;
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1, q0 = j * BQ5;
+    dct::cp_async_wait<0>();
+    __syncthreads();  // tile j landed; tile j-1, its pᵀ and dsᵀ consumed by every warp
+    if (j + 1 < ntiles) {
+      stage_rows512(sm.q[st ^ 1], qb, q_ss, q0 + BQ5, sq, BQ5);
+      stage_rows512(sm.dout[st ^ 1], db, d_ss, q0 + BQ5, sq, BQ5);
+      stage_stats512(sm.lse[st ^ 1], sm.di[st ^ 1], lse_bh, di_bh, q0 + BQ5, sq);
     }
-    __syncthreads();
+    dct::cp_async_commit();
+    const bf16* qs = sm.q[st];
+    const bf16* dos = sm.dout[st];
 
-    {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
+    // this warp's quarter of sᵀ or dpᵀ: 16 keys x 16 queries over 512 channels
+    float c[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+    const bf16* b_src = is_dp ? dos : qs;
 #pragma unroll 8
-      for (int kk = 0; kk < HD5; kk += 16) {
-        FragA a;
-        FragBT b;
-        wmma::load_matrix_sync(a, a_src + frb * 16 * LD5 + kk, LD5);
-        wmma::load_matrix_sync(b, b_src + fcb * 16 * LD5 + kk, LD5);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(f_dst + frb * 16 * BLDS + fcb * 16, acc, BLDS, wmma::mem_row_major);
+    for (int kk = 0; kk < HD5 / 16; ++kk) {
+      uint32_t a[4], b[4];
+      dct::ldsm_x4(a, dct::smem_u32(a_src + swz512(kh * 16 + row_qv, kk * 2 + ch_qv)));
+      dct::ldsm_x4(b, dct::smem_u32(b_src + swz512(qh * 16 + row_k, kk * 2 + ch_k)));
+      dct::mma_bf16(c[0], a, b[0], b[1]);
+      dct::mma_bf16(c[1], a, b[2], b[3]);
     }
-    __syncthreads();
-
-    // p = exp2(s·scale·log2e − lse2), ds = p·(dp − di)·scale; zero outside both sequences
-    for (int i = threadIdx.x; i < BQ5 * BK5; i += NT5) {
-      const int r = i / BK5, c = i % BK5;
-      const bool ok = q0 + r < sq && kt0 + c < sk;
-      const float pv = ok ? exp2f(sm.s[r * BLDS + c] * scale_log2 - sm.lse[r]) : 0.f;
-      sm.p[r * BLDP + c] = __float2bfloat16(pv);
-      sm.ds[r * BLDP + c] = __float2bfloat16(pv * (sm.dp[r * BLDS + c] - sm.di[r]) * scale);
+    if (is_dp) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        sm.xch[warp - 4][i][lane] = make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
     }
-    __syncthreads();
-
-    // dv += pᵀ do ; dk += dsᵀ q over this warp's 64 columns
+    bar_pair(1 + (warp & 3));  // warps w and w + 4
+    if (!is_dp) {
+      // lane holds keys kh·16 + g (e = 0, 1) and + 8 (e = 2, 3) at queries
+      // qh·16 + 8i + 2t + (e & 1): lse2 and di are read by the columns
+      const int kr = k0 + kh * 16 + g;
 #pragma unroll
-    for (int kk = 0; kk < BQ5; kk += 16) {
-      FragAT pt[2], dst[2];
+      for (int i = 0; i < 2; ++i) {
+        const int qc = qh * 16 + i * 8 + 2 * t;
+        const float2 lse2 = *reinterpret_cast<const float2*>(sm.lse[st] + qc);
+        const float2 dis = *reinterpret_cast<const float2*>(sm.di[st] + qc);
+        const float4 dpv = sm.xch[warp][i][lane];
+        const float dpe[4] = {dpv.x, dpv.y, dpv.z, dpv.w};
+        float p[4], ds[4];
 #pragma unroll
-      for (int rb = 0; rb < 2; ++rb) {
-        wmma::load_matrix_sync(pt[rb], sm.p + kk * BLDP + rb * 16, BLDP);
-        wmma::load_matrix_sync(dst[rb], sm.ds + kk * BLDP + rb * 16, BLDP);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        FragB b;
-        wmma::load_matrix_sync(b, sm.dout + kk * LD5 + warp * 64 + c * 16, LD5);
-#pragma unroll
-        for (int rb = 0; rb < 2; ++rb) wmma::mma_sync(acc_dv[rb][c], pt[rb], b, acc_dv[rb][c]);
-        wmma::load_matrix_sync(b, sm.q + kk * LD5 + warp * 64 + c * 16, LD5);
-#pragma unroll
-        for (int rb = 0; rb < 2; ++rb) wmma::mma_sync(acc_dk[rb][c], dst[rb], b, acc_dk[rb][c]);
-      }
-    }
-
-    // dq += ds k over this warp's 64 columns, one fragment at a time into fp32
-    for (int rb = 0; rb < 2; ++rb) {
-      for (int c = 0; c < 4; ++c) {
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < BK5; kk += 16) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, sm.ds + rb * 16 * BLDP + kk, BLDP);
-          wmma::load_matrix_sync(b, sm.k + kk * LD5 + warp * 64 + c * 16, LD5);
-          wmma::mma_sync(acc, a, b, acc);
+        for (int e = 0; e < 4; ++e) {
+          float pe = exp2f(c[i][e] * scale_log2 - ((e & 1) ? lse2.y : lse2.x));
+          if (q0 + qc + (e & 1) >= sq || kr + ((e >> 1) << 3) >= sk) pe = 0.f;
+          p[e] = pe;
+          ds[e] = pe * (dpe[e] - ((e & 1) ? dis.y : dis.x)) * scale;
         }
-        wmma::store_matrix_sync(stg, acc, 16, wmma::mem_row_major);
-        __syncwarp();
+        const int off = (kh * 16 + g) * LDP5 + qc;
+        *reinterpret_cast<uint32_t*>(sm.pt + off) = dct::pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(sm.pt + off + 8 * LDP5) = dct::pack_bf16(p[2], p[3]);
+        *reinterpret_cast<uint32_t*>(sm.dst + off) = dct::pack_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(sm.dst + off + 8 * LDP5) = dct::pack_bf16(ds[2], ds[3]);
+      }
+    }
+    __syncthreads();  // pᵀ and dsᵀ complete
+
+    // dv += pᵀ do and dk += dsᵀ q over this warp's 64 columns, 16 queries a step
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int idx = lane + 32 * e, gq = q0 + rb * 16 + idx / 16;
-          if (gq < sq)
-            atomicAdd(dq_acc + ((long)n * sq + gq) * C + (long)h * HD5 + warp * 64 + c * 16 + idx % 16,
-                      stg[idx]);
+    for (int kk = 0; kk < BQ5 / 16; ++kk) {
+      uint32_t pa[2][4], da[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int off = (m * 16 + row_qv) * LDP5 + (kk * 2 + ch_qv) * 8;
+        dct::ldsm_x4(pa[m], dct::smem_u32(sm.pt + off));
+        dct::ldsm_x4(da[m], dct::smem_u32(sm.dst + off));
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        const int off = swz512(kk * 16 + row_qv, c0 + np * 2 + ch_qv);
+        dct::ldsm_x4_t(b, dct::smem_u32(dos + off));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          dct::mma_bf16(dv_acc[m][2 * np], pa[m], b[0], b[1]);
+          dct::mma_bf16(dv_acc[m][2 * np + 1], pa[m], b[2], b[3]);
         }
-        __syncwarp();
+        dct::ldsm_x4_t(b, dct::smem_u32(qs + off));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          dct::mma_bf16(dk_acc[m][2 * np], da[m], b[0], b[1]);
+          dct::mma_bf16(dk_acc[m][2 * np + 1], da[m], b[2], b[3]);
+        }
+      }
+    }
+
+    if constexpr (kDq) {
+      // dq rows q0 + 16·mq.., columns 64·warp.. += ds k over the block's 32
+      // keys: ds as A through ldmatrix.trans of dsᵀ, k as B through .trans
+#pragma unroll
+      for (int mq = 0; mq < BQ5 / 16; ++mq) {
+        float acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK5 / 16; ++kk) {
+          uint32_t a[4];
+          dct::ldsm_x4_t(a, dct::smem_u32(sm.dst + (kk * 16 + row_k) * LDP5 + (mq * 2 + ch_k) * 8));
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t b[4];
+            dct::ldsm_x4_t(b, dct::smem_u32(sm.k + swz512(kk * 16 + row_qv, c0 + np * 2 + ch_qv)));
+            dct::mma_bf16(acc[2 * np], a, b[0], b[1]);
+            dct::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+        // into fp32 dq, 16 bytes per atomic (the lane pairing of flash_bwd_kernel)
+        const bool odd = t & 1;
+        const int qr = q0 + mq * 16 + g + (odd ? 8 : 0);
+        float* dq_row = dq_acc + ((long)n * sq + qr) * C + (long)h * HD5 + warp * 64 + 2 * (t & 2);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float x = __shfl_xor_sync(0xffffffffu, odd ? acc[i][0] : acc[i][2], 1);
+          const float y = __shfl_xor_sync(0xffffffffu, odd ? acc[i][1] : acc[i][3], 1);
+          const float4 val = odd ? make_float4(x, y, acc[i][2], acc[i][3])
+                                 : make_float4(acc[i][0], acc[i][1], x, y);
+          if (qr < sq) atomicAdd(reinterpret_cast<float4*>(dq_row + i * 8), val);
+        }
       }
     }
   }
 
-  // write dv, then dk, through the staging tile over q and dout
-  float* stage = reinterpret_cast<float*>(sm.q);
+  // dk and dv: keys k0 + 16m + g (+8), this warp's 64 columns
 #pragma unroll
-  for (int which = 0; which < 2; ++which) {
-    __syncthreads();  // q/dout (then the previous output) no longer read
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int rb = 0; rb < 2; ++rb)
+    for (int half = 0; half < 2; ++half) {
+      const int r = k0 + m * 16 + g + 8 * half;
+      if (r >= sk) continue;
+      bf16* dk_row = dk + ((long)n * sk + r) * C + (long)h * HD5 + warp * 64 + 2 * t;
+      bf16* dv_row = dv + ((long)n * sk + r) * C + (long)h * HD5 + warp * 64 + 2 * t;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        wmma::store_matrix_sync(stage + rb * 16 * LDO5 + warp * 64 + c * 16,
-                                which == 0 ? acc_dv[rb][c] : acc_dk[rb][c], LDO5,
-                                wmma::mem_row_major);
-    __syncthreads();
-    store_rows512((which == 0 ? dv : dk) + n * sk * C + (long)h * HD5, C, stage, kt0, sk, BK5);
+      for (int i = 0; i < 8; ++i) {
+        *reinterpret_cast<uint32_t*>(dk_row + i * 8) =
+            dct::pack_bf16(dk_acc[m][i][2 * half], dk_acc[m][i][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dv_row + i * 8) =
+            dct::pack_bf16(dv_acc[m][i][2 * half], dv_acc[m][i][2 * half + 1]);
+      }
+    }
+}
+
+// dq of the d=512 backward (design 2 of the note above): 64 query rows per
+// block, warps 2p and 2p+1 on rows 16p.., each contracting q·kᵀ and do·vᵀ
+// over its half of the channels; the pair swaps the 16x32 partial
+// fragments of both through shared memory and both form ds = p∘(dp −
+// di)·scale on the fragments; each warp then holds dq for its 256 channels
+// and adds ds·k (ds's C fragments repacked as A, k through ldmatrix.trans).
+// The q and do tiles (64 KB each) stay for the whole key loop, so K and V
+// have one 32-key buffer each (32 KB), refilled as soon as every warp is
+// done with it: V(j+1) lands while s and dq of tile j run, K(j+1) while dp
+// of tile j+1 runs. Per warp and tile: 192 mma against 128 ldmatrix.x4.
+constexpr int DQ_Q = 64;  // dq kernel: query rows per block (16 per warp pair)
+constexpr int DQ_K = 32;  // dq kernel: key rows per tile
+
+struct Dq512Smem {
+  bf16 q[DQ_Q * HD5];
+  bf16 dout[DQ_Q * HD5];
+  bf16 k[DQ_K * HD5];
+  bf16 v[DQ_K * HD5];
+  float4 xs[NW5][DQ_K / 8][32];   // each warp's partial s fragments, lane-major
+  float4 xdp[NW5][DQ_K / 8][32];  // and its partial dp fragments
+};
+static_assert(sizeof(Dq512Smem) <= 232448, "dq tiles exceed shared memory");
+
+__global__ void __launch_bounds__(NT5, 1)
+flash_bwd_dq_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         float* __restrict__ dq, int sq, int sk, int heads, long q_sn, long q_ss,
+                         long k_sn, long k_ss, long v_sn, long v_ss, long d_sn, long d_ss,
+                         float scale, float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Dq512Smem& sm = *reinterpret_cast<Dq512Smem*>(smem_raw);
+  const int q0 = blockIdx.x * DQ_Q, h = blockIdx.y, n = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, mi = lane >> 3;  // ldmatrix addressing as in flash_fwd_kernel
+  const int row_qv = ((mi & 1) << 3) + lr, ch_qv = mi >> 1;
+  const int row_k = ((mi >> 1) << 3) + lr, ch_k = mi & 1;
+  const int pair = warp >> 1, half = warp & 1;  // query rows 16·pair.., channels 256·half..
+  const int c0 = half * (HALF5 / 8);
+  const bf16* kb = k + n * k_sn + (long)h * HD5;
+  const bf16* vb = v + n * v_sn + (long)h * HD5;
+  const int ntiles = (sk + DQ_K - 1) / DQ_K;
+
+  // groups in flight: (q, do, V(0)), then K(0); per tile one V and one K group
+  stage_rows512(sm.q, q + n * q_sn + (long)h * HD5, q_ss, q0, sq, DQ_Q);
+  stage_rows512(sm.dout, dout + n * d_sn + (long)h * HD5, d_ss, q0, sq, DQ_Q);
+  stage_rows512(sm.v, vb, v_ss, 0, sk, DQ_K);
+  dct::cp_async_commit();
+  stage_rows512(sm.k, kb, k_ss, 0, sk, DQ_K);
+  dct::cp_async_commit();
+
+  const int r0 = q0 + pair * 16 + g, r1 = r0 + 8;
+  const long stat = ((long)n * heads + h) * sq;
+  const float lse0 = r0 < sq ? lse[stat + r0] : 0.f, lse1 = r1 < sq ? lse[stat + r1] : 0.f;
+  const float di0 = r0 < sq ? di[stat + r0] : 0.f, di1 = r1 < sq ? di[stat + r1] : 0.f;
+  float acc[32][4];  // dq: 16 rows x this warp's 256 channels
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    dct::cp_async_wait<1>();
+    __syncthreads();  // V(j) landed for every thread
+
+    // this warp's half of dp = do vᵀ: 16 rows x 32 keys
+    float dp[4][4], s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[i][e] = s[i][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < HALF5 / 16; ++kk) {
+      uint32_t a[4];
+      dct::ldsm_x4(a, dct::smem_u32(sm.dout + swz512(pair * 16 + row_qv, c0 + kk * 2 + ch_qv)));
+#pragma unroll
+      for (int jp = 0; jp < DQ_K / 16; ++jp) {
+        uint32_t b[4];
+        dct::ldsm_x4(b, dct::smem_u32(sm.v + swz512(jp * 16 + row_k, c0 + kk * 2 + ch_k)));
+        dct::mma_bf16(dp[2 * jp], a, b[0], b[1]);
+        dct::mma_bf16(dp[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+    dct::cp_async_wait<0>();
+    __syncthreads();  // every warp done with V(j); K(j) landed for every thread
+    if (j + 1 < ntiles) stage_rows512(sm.v, vb, v_ss, (j + 1) * DQ_K, sk, DQ_K);
+    dct::cp_async_commit();
+
+    // this warp's half of s = q kᵀ
+#pragma unroll 4
+    for (int kk = 0; kk < HALF5 / 16; ++kk) {
+      uint32_t a[4];
+      dct::ldsm_x4(a, dct::smem_u32(sm.q + swz512(pair * 16 + row_qv, c0 + kk * 2 + ch_qv)));
+#pragma unroll
+      for (int jp = 0; jp < DQ_K / 16; ++jp) {
+        uint32_t b[4];
+        dct::ldsm_x4(b, dct::smem_u32(sm.k + swz512(jp * 16 + row_k, c0 + kk * 2 + ch_k)));
+        dct::mma_bf16(s[2 * jp], a, b[0], b[1]);
+        dct::mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+    // the pair adds the other half of both (lane l reads lane l's partials)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sm.xs[warp][i][lane] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      sm.xdp[warp][i][lane] = make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+    }
+    bar_pair(1 + pair);
+    const int kcol = j * DQ_K + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 os = sm.xs[warp ^ 1][i][lane], od = sm.xdp[warp ^ 1][i][lane];
+      const float sa[4] = {s[i][0] + os.x, s[i][1] + os.y, s[i][2] + os.z, s[i][3] + os.w};
+      const float da[4] = {dp[i][0] + od.x, dp[i][1] + od.y, dp[i][2] + od.z, dp[i][3] + od.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = exp2f(sa[e] * scale_log2 - (e < 2 ? lse0 : lse1));
+        if (kcol + i * 8 + (e & 1) >= sk) pe = 0.f;
+        s[i][e] = pe * (da[e] - (e < 2 ? di0 : di1)) * scale;  // ds
+      }
+    }
+    // dq += ds k over this warp's 256 channels: ds's C fragments of key
+    // tiles 2kk and 2kk+1 are the A fragment of key step kk
+#pragma unroll
+    for (int kk = 0; kk < DQ_K / 16; ++kk) {
+      const uint32_t pa[4] = {dct::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              dct::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              dct::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              dct::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < HALF5 / 16; ++dd) {
+        uint32_t b[4];
+        dct::ldsm_x4_t(b, dct::smem_u32(sm.k + swz512(kk * 16 + row_qv, c0 + dd * 2 + ch_qv)));
+        dct::mma_bf16(acc[2 * dd], pa, b[0], b[1]);
+        dct::mma_bf16(acc[2 * dd + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp done with K(j) and the partials
+    if (j + 1 < ntiles) stage_rows512(sm.k, kb, k_ss, (j + 1) * DQ_K, sk, DQ_K);
+    dct::cp_async_commit();
   }
+
+  const long C = (long)heads * HD5;  // dq is contiguous [N, S, heads*512], written here
+  if (r0 < sq) {
+    float* row = dq + ((long)n * sq + r0) * C + (long)h * HD5 + half * HALF5 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<float2*>(row + i * 8) = make_float2(acc[i][0], acc[i][1]);
+  }
+  if (r1 < sq) {
+    float* row = dq + ((long)n * sq + r1) * C + (long)h * HD5 + half * HALF5 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<float2*>(row + i * 8) = make_float2(acc[i][2], acc[i][3]);
+  }
+}
+
+// the di pre-pass of the d=512 backward
+int launch_di512(const void* o, const void* dout, void* di, int batch, int heads, int sq,
+                 long o_sn, long o_ss, long d_sn, long d_ss, cudaStream_t st) {
+  const long rows = (long)batch * heads * sq;
+  const int rows_per_block = 8;
+  flash_bwd_di_d512_kernel<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                             rows_per_block * 32, 0, st>>>((const bf16*)o, (const bf16*)dout,
+                                                           (float*)di, rows, sq, heads, o_sn,
+                                                           o_ss, d_sn, d_ss);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDq>
+int launch_bwd512(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* di, void* dq_acc, void* dk, void* dv, int batch, int heads, int sq,
+                  int sk, long q_sn, long q_ss, long k_sn, long k_ss, long v_sn, long v_ss,
+                  long d_sn, long d_ss, float scale, cudaStream_t st) {
+  const int smem = sizeof(Bwd512Smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_d512_kernel<kDq>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sk + BK5 - 1) / BK5, heads, batch);
+  flash_bwd_d512_kernel<kDq><<<grid, NT5, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)di, (float*)dq_acc, (bf16*)dk, (bf16*)dv, sq, sk, heads, q_sn, q_ss, k_sn,
+      k_ss, v_sn, v_ss, d_sn, d_ss, scale, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1042,22 +1425,19 @@ extern "C" int dct_flash_bwd_d512(const void* q, const void* k, const void* v, c
                                   long v_ss, long o_sn, long o_ss, long d_sn, long d_ss,
                                   float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long rows = (long)batch * heads * sq;
-  const int rows_per_block = 8;
-  flash_bwd_di_d512_kernel<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
-                             rows_per_block * 32, 0, st>>>((const bf16*)o, (const bf16*)dout,
-                                                           (float*)di, rows, sq, heads, o_sn,
-                                                           o_ss, d_sn, d_ss);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int smem = sizeof(Bwd512Smem);
-  err = cudaFuncSetAttribute(flash_bwd_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sk + BK5 - 1) / BK5, heads, batch);
-  flash_bwd_d512_kernel<<<grid, NT5, smem, st>>>(
+  int err = launch_di512(o, dout, di, batch, heads, sq, o_sn, o_ss, d_sn, d_ss, st);
+  if (err != 0) return err;
+  err = launch_bwd512<false>(q, k, v, dout, lse, di, dq_acc, dk, dv, batch, heads, sq, sk, q_sn,
+                             q_ss, k_sn, k_ss, v_sn, v_ss, d_sn, d_ss, scale, st);
+  if (err != 0) return err;
+  const int smem = sizeof(Dq512Smem);
+  err = (int)cudaFuncSetAttribute(flash_bwd_dq_d512_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  dim3 grid((sq + DQ_Q - 1) / DQ_Q, heads, batch);
+  flash_bwd_dq_d512_kernel<<<grid, NT5, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)di, (float*)dq_acc, (bf16*)dk, (bf16*)dv, sq, sk, heads, q_sn, q_ss, k_sn,
-      k_ss, v_sn, v_ss, d_sn, d_ss, scale, scale * 1.4426950408889634f);
+      (const float*)di, (float*)dq_acc, sq, sk, heads, q_sn, q_ss, k_sn, k_ss, v_sn, v_ss, d_sn,
+      d_ss, scale, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

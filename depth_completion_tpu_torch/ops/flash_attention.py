@@ -17,9 +17,16 @@ Row statistic: ``lse2 = m + log2(l)`` per query row in the log2 domain
 (scores scaled by ``scale * log2(e)``), fp32, ``[N, heads, Sq]``. The
 backward recomputes ``p = exp2(s * scale * log2(e) - lse2)``.
 
+The ring of ``ops.ring_attention`` (TPU kernel ``_make_flash_ring``,
+ring_attention.py:99) runs its own instantiations of the d=64 kernels, one
+step per visiting key/value block: ``flash_fwd_ring`` carries the online
+softmax's state (m, l, acc) in fp32 from block to block, ``flash_bwd_ring``
+adds into one fp32 dq and the travelling fp32 dk|dv. Each has a plain twin
+with the same signature.
+
 Wrappers take the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches, the
-d=512 kernels under their own names.
+d=512 and ring kernels under their own names.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ _LOG2E = 1.4426950408889634
 # head dim → the kernels' entry points and launch-count names
 _KERNELS = {64: ("", "flash_fwd", "flash_bwd"), 512: ("_d512", "flash_fwd_d512", "flash_bwd_d512")}
 
-# kernel launches per wrapper, read by chip_smoke.py
+# kernel launches per wrapper, read by chip_smoke.py; the ring step kernels
+# (head dim 64) under their own names
 LAUNCHES = {name: 0 for _, fwd, bwd in _KERNELS.values() for name in (fwd, bwd)}
+LAUNCHES.update(flash_fwd_ring=0, flash_bwd_ring=0)
 
 _i, _l, _f, _p = ctypes.c_int, ctypes.c_long, ctypes.c_float, ctypes.c_void_p
 _lib = None
@@ -52,6 +61,9 @@ def _kernels():
             fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
             bwd.argtypes = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
             fwd.restype = bwd.restype = _i
+        lib.dct_flash_fwd_ring.argtypes = [_p] * 8 + [_i] * 4 + [_l] * 8 + [_i, _i, _f, _p]
+        lib.dct_flash_bwd_ring.argtypes = [_p] * 9 + [_i] * 4 + [_l] * 10 + [_i, _f, _p]
+        lib.dct_flash_fwd_ring.restype = lib.dct_flash_bwd_ring.restype = _i
         _lib = lib
     return _lib
 
@@ -80,45 +92,81 @@ def _check_cuda_operands(*xs: torch.Tensor, head_dim: int) -> tuple[str, str, st
 # Plain twins (fp32 math)
 # ---------------------------------------------------------------------------
 
+def _heads(x, num_heads):
+    """[N, S, C] → [N, heads, S, d] in fp32."""
+    n, s, c = x.shape
+    return x.float().reshape(n, s, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _merge(x):
+    """[N, heads, S, d] → [N, S, heads·d]."""
+    n, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(n, s, h * d)
+
+
+def flash_fwd_ring_plain(q, k, v, num_heads, state=None, last=False):
+    """One ring step of the forward: the online softmax over the visiting
+    block's keys started from ``state`` = (m, l ``[N, heads, Sq]``, acc
+    ``[N, Sq, C]``, fp32: running max, row sum 2^(s−m) and unnormalised
+    output of the blocks before), or from scratch when ``state`` is None. →
+    the new state, written into ``state``'s tensors where given; with
+    ``last``, (o in q.dtype, lse2) instead. p is rounded to q.dtype for p·v,
+    as the kernel rounds it to bf16."""
+    n, sq, c = q.shape
+    qh, kh, vh = _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads)
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * ((1.0 / math.sqrt(c // num_heads)) * _LOG2E)
+    m = s.amax(dim=-1)
+    if state is not None:
+        m = torch.maximum(state[0], m)
+        alpha = torch.exp2(state[0] - m)
+    p = torch.exp2(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.matmul(p.to(q.dtype).float(), vh)
+    if state is not None:
+        l = state[1] * alpha + l
+        acc = _heads(state[2], num_heads) * alpha[..., None] + acc
+    if last:
+        return _merge(acc / l[..., None]).to(q.dtype), m + torch.log2(l)
+    if state is None:
+        return m, l, _merge(acc)
+    for dst, src in zip(state, (m, l, _merge(acc))):
+        dst.copy_(src)
+    return state
+
+
 def flash_fwd_plain(q, k, v, num_heads):
     """→ (o [N, Sq, C] in q.dtype, lse2 [N, heads, Sq] fp32)."""
-    n, sq, c = q.shape
-    sk = k.shape[1]
-    d = c // num_heads
-    qh = q.float().reshape(n, sq, num_heads, d).transpose(1, 2)
-    kh = k.float().reshape(n, sk, num_heads, d).transpose(1, 2)
-    vh = v.float().reshape(n, sk, num_heads, d).transpose(1, 2)
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * ((1.0 / math.sqrt(d)) * _LOG2E)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(q.dtype).float(), vh) / l
-    lse2 = (m + torch.log2(l))[..., 0]
-    return o.transpose(1, 2).reshape(n, sq, c).to(q.dtype), lse2
+    return flash_fwd_ring_plain(q, k, v, num_heads, last=True)
+
+
+def flash_bwd_ring_plain(q, k, v, o, do, lse2, num_heads, state=None):
+    """One ring step of the backward against one visiting block, from the
+    global o and lse2: ``state`` is None on the first step (di = rowsum(do·o)
+    is computed, dq ``[N, Sq, C]`` and the travelling dk|dv ``[N, Sk, 2C]``
+    start at 0, fp32), else (di, dq, dkv) of the step before. Adds this
+    block's dq, dk and dv into them in place → (di, dq, dkv)."""
+    c = q.shape[-1]
+    scale = 1.0 / math.sqrt(c // num_heads)
+    qh, kh, vh, doh = (_heads(x, num_heads) for x in (q, k, v, do))
+    if state is None:
+        di = (doh * _heads(o, num_heads)).sum(dim=-1)
+        dq = torch.zeros(q.shape, device=q.device, dtype=torch.float32)
+        dkv = torch.zeros((k.shape[0], k.shape[1], 2 * c), device=q.device, dtype=torch.float32)
+    else:
+        di, dq, dkv = state
+    p = torch.exp2(torch.matmul(qh, kh.transpose(-1, -2)) * (scale * _LOG2E) - lse2[..., None])
+    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - di[..., None]) * scale
+    dq += _merge(torch.matmul(ds, kh))
+    dkv[..., :c] += _merge(torch.matmul(ds.transpose(-1, -2), qh))
+    dkv[..., c:] += _merge(torch.matmul(p.transpose(-1, -2), doh))
+    return di, dq, dkv
 
 
 def flash_bwd_plain(q, k, v, o, do, lse2, num_heads):
     """→ (dq, dk, dv) in the operands' dtype, recomputing p from lse2."""
-    n, sq, c = q.shape
-    sk = k.shape[1]
-    d = c // num_heads
-    scale = 1.0 / math.sqrt(d)
-
-    def heads(x, s):
-        return x.float().reshape(n, s, num_heads, d).transpose(1, 2)
-
-    qh, kh, vh, oh, doh = heads(q, sq), heads(k, sk), heads(v, sk), heads(o, sq), heads(do, sq)
-    p = torch.exp2(torch.matmul(qh, kh.transpose(-1, -2)) * (scale * _LOG2E) - lse2[..., None])
-    di = (doh * oh).sum(dim=-1, keepdim=True)
-    dv = torch.matmul(p.transpose(-1, -2), doh)
-    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - di) * scale
-    dq = torch.matmul(ds, kh)
-    dk = torch.matmul(ds.transpose(-1, -2), qh)
-
-    def merge(x, s):
-        return x.transpose(1, 2).reshape(n, s, c).to(q.dtype)
-
-    return merge(dq, sq), merge(dk, sk), merge(dv, sk)
+    c = q.shape[-1]
+    _, dq, dkv = flash_bwd_ring_plain(q, k, v, o, do, lse2, num_heads)
+    return dq.to(q.dtype), dkv[..., :c].to(k.dtype), dkv[..., c:].to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +220,82 @@ def flash_bwd(q, k, v, o, do, lse2, num_heads):
     _build.check(status, name)
     LAUNCHES[name] += 1
     return dq_acc.to(q.dtype), dk, dv
+
+
+def _check_ring(*xs: torch.Tensor, num_heads: int) -> None:
+    _check_cuda_operands(*xs, head_dim=xs[0].shape[-1] // num_heads)
+    if xs[0].shape[-1] // num_heads != 64:
+        raise NotImplementedError("the ring step kernels are built for head dim 64")
+
+
+def flash_fwd_ring(q, k, v, num_heads, state=None, last=False):
+    """One step of the ring's forward (``flash_fwd_ring_plain``'s contract):
+    q's rows against one visiting key/value block, the online softmax
+    started from ``state`` (None on the first step) → the state, updated in
+    place, or with ``last`` (o, lse2). CPU → plain twin."""
+    if q.device.type == "cpu":
+        return flash_fwd_ring_plain(q, k, v, num_heads, state, last)
+    n, sq, c = q.shape
+    sk = k.shape[1]
+    _check_ring(q, k, v, num_heads=num_heads)
+    state_in = state is not None
+    if state is None and not last:
+        m = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
+        state = (m, torch.empty_like(m),
+                 torch.empty((n, sq, c), device=q.device, dtype=torch.float32))
+    if state is not None and not all(x.is_contiguous() and x.dtype == torch.float32 for x in state):
+        raise ValueError("the ring's state must be contiguous fp32")
+    o = lse2 = None
+    if last:
+        o = torch.empty((n, sq, c), device=q.device, dtype=q.dtype)
+        lse2 = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
+    m, l, acc = state if state is not None else (None, None, None)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    status = _kernels().dct_flash_fwd_ring(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(o), ptr(lse2), ptr(m), ptr(l), ptr(acc),
+        n, num_heads, sq, sk,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        sq * c, c, int(state_in), int(not last), 1.0 / math.sqrt(c // num_heads),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "flash_fwd_ring")
+    LAUNCHES["flash_fwd_ring"] += 1
+    return (o, lse2) if last else state
+
+
+def flash_bwd_ring(q, k, v, o, do, lse2, num_heads, state=None):
+    """One step of the ring's backward (``flash_bwd_ring_plain``'s
+    contract): the first step (``state`` None) also computes di and zeroes
+    the fp32 dq and dk|dv; every step adds this block's part in place →
+    (di, dq, dkv). CPU → plain twin."""
+    if q.device.type == "cpu":
+        return flash_bwd_ring_plain(q, k, v, o, do, lse2, num_heads, state)
+    n, sq, c = q.shape
+    sk = k.shape[1]
+    do = do.contiguous()
+    _check_ring(q, k, v, o, do, num_heads=num_heads)
+    if state is None:
+        di = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
+        dq = torch.zeros((n, sq, c), device=q.device, dtype=torch.float32)
+        dkv = torch.zeros((n, sk, 2 * c), device=q.device, dtype=torch.float32)
+    else:
+        di, dq, dkv = state
+        if not (dq.is_contiguous() and dkv.is_contiguous()):
+            raise ValueError("the ring's dq and dk|dv must be contiguous fp32")
+    status = _kernels().dct_flash_bwd_ring(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse2.contiguous().data_ptr(), di.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
+        n, num_heads, sq, sk,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        o.stride(0), o.stride(1), do.stride(0), do.stride(1), int(state is None),
+        1.0 / math.sqrt(c // num_heads), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "flash_bwd_ring")
+    LAUNCHES["flash_bwd_ring"] += 1
+    return di, dq, dkv
 
 
 class FlashAttention(torch.autograd.Function):

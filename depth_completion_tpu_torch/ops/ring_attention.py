@@ -3,17 +3,20 @@ shards whose key/value blocks rotate around a ring, PyTorch counterpart of
 ``depth_completion_tpu.ops.ring_attention`` (its flash-tiled body,
 ``_make_flash_ring``, :99, the TPU kernel this replaces).
 
-The ring has no kernel of its own. Each shard's query rows meet every
-visiting KV block through ``flash_fwd`` (the Hopper kernel on a CUDA
-tensor, its plain twin on a CPU tensor), and the per-block outputs merge
-exactly in the kernels' log2 domain: with ``lse2_b = m + log2 l`` per query
-row, softmax attention over all keys is Σ_b o_b·2^lse2_b / Σ_b 2^lse2_b,
-accumulated against a running max M (JAX ``ring_attention.py:145-165``).
-The merged ``lse2 = M + log2 W`` is the global flash row statistic, so the
-backward is a second ring pass of ``flash_bwd`` per visiting block fed the
-global o and lse2: dq accumulates where it is, dk/dv accumulate in fp32 and
-travel with their blocks, and are home after P rotations (:167-205). The
-merge is eager PyTorch, as the JAX package computes it outside Pallas.
+Each shard's query rows meet every visiting KV block through one ring
+step of the flash kernels (``flash_fwd_ring`` / ``flash_bwd_ring``: the
+Hopper kernels on a CUDA tensor, their plain twins on a CPU tensor). The
+ring's merge is the kernels' own online softmax: with ``lse2_b = m + log2 l``
+per block, softmax attention over all keys is Σ_b o_b·2^lse2_b /
+Σ_b 2^lse2_b (JAX ``ring_attention.py:145-165``), and Σ_b o_b·2^(lse2_b−M)
+= Σ_i 2^(s_i−M)·v_i over every key seen so far, so each step starts the
+forward kernel from the running (max, row sum, fp32 accumulator) of the
+blocks before and the last step normalises. Its lse2 is the global flash
+row statistic, so the backward is a second ring pass of the backward
+kernel per visiting block fed the global o and lse2: di is computed once,
+dq accumulates in place in fp32, dk/dv accumulate in fp32 and travel with
+their blocks, and are home after P rotations (:167-205). k and v travel
+packed, as one ``[N', S/P, 2C]`` tensor, and so do dk and dv.
 
 Shard r holds rows ``[r·S/P, (r+1)·S/P)`` (``PartitionSpec(None, axis,
 None)`` in JAX). Two transports share the body, each with ``size``,
@@ -38,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from depth_completion_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+from depth_completion_tpu_torch.ops.flash_attention import flash_bwd_ring, flash_fwd_ring
 
 
 class LocalRing:
@@ -58,7 +61,10 @@ class LocalRing:
         return x.reshape(n // self.size, s_loc * self.size, c)
 
     def shift(self, x: torch.Tensor) -> torch.Tensor:
-        return x.unflatten(0, (-1, self.size)).roll(1, dims=1).flatten(0, 1)
+        # two slices concatenated: one vectorised copy, faster on an H100
+        # than roll's indexed copy of the same bytes (PERF.md, Findings)
+        x = x.unflatten(0, (-1, self.size))
+        return torch.cat((x[:, -1:], x[:, :-1]), dim=1).flatten(0, 1)
 
 
 class ProcessGroupRing:
@@ -93,52 +99,40 @@ class ProcessGroupRing:
         return out
 
 
-def ring_forward(q, k, v, num_heads: int, ring, block_fwd=flash_fwd):
+def ring_forward(q, k, v, num_heads: int, ring, step_fwd=flash_fwd_ring):
     """The ring's forward over shards ``[N', S/P, C]`` (``ring.shard``
     layout): → (o in q.dtype, lse2 ``[N', heads, S/P]`` fp32, the global
-    row statistic). ``block_fwd`` computes one visiting block."""
-    n, s_loc, c = q.shape
-    d = c // num_heads
-    k_blk, v_blk = k, v
+    row statistic). ``step_fwd`` runs one visiting block from the carried
+    state (``flash_fwd_ring``'s contract)."""
+    c = q.shape[-1]
+    kv, state = torch.cat((k, v), dim=-1), None
     for step in range(ring.size):
-        o_b, lse2_b = block_fwd(q, k_blk, v_blk, num_heads)
-        o_b = o_b.float().view(n, s_loc, num_heads, d)
-        lse2_b = lse2_b.transpose(1, 2).unsqueeze(-1)  # [N', S/P, heads, 1]
-        if step == 0:
-            m, w, acc = lse2_b, torch.ones_like(lse2_b), o_b
-        else:
-            m_new = torch.maximum(m, lse2_b)
-            scale_old, scale_b = torch.exp2(m - m_new), torch.exp2(lse2_b - m_new)
-            acc = acc * scale_old + o_b * scale_b
-            w = w * scale_old + scale_b
-            m = m_new
-        if step < ring.size - 1:  # the last block need not move on
-            k_blk, v_blk = ring.shift(k_blk), ring.shift(v_blk)
-    o = (acc / w).to(q.dtype).view(n, s_loc, c)
-    lse2 = (m + torch.log2(w)).squeeze(-1).transpose(1, 2).contiguous()
-    return o, lse2
+        last = step == ring.size - 1
+        state = step_fwd(q, kv[..., :c], kv[..., c:], num_heads, state, last)
+        if not last:  # the last block need not move on
+            kv = ring.shift(kv)
+    return state
 
 
-def ring_backward(q, k, v, o, do, lse2, num_heads: int, ring, block_bwd=flash_bwd):
+def ring_backward(q, k, v, o, do, lse2, num_heads: int, ring, step_bwd=flash_bwd_ring):
     """The ring's backward over shards, from the global ``o`` and ``lse2``
-    of ``ring_forward``: → (dq, dk, dv) in the operands' dtypes. dk/dv
+    of ``ring_forward``: → (dq, dk, dv) in the operands' dtypes. dk|dv
     rotate with their blocks, P times, so each ends at its own shard."""
-    k_blk, v_blk = k, v
+    c = q.shape[-1]
+    kv, state = torch.cat((k, v), dim=-1), None
     for step in range(ring.size):
-        dq_b, dk_b, dv_b = block_bwd(q, k_blk, v_blk, o, do, lse2, num_heads)
-        if step == 0:
-            dq, dk, dv = dq_b.float(), dk_b.float(), dv_b.float()
-        else:
-            dq, dk, dv = dq + dq_b, dk + dk_b, dv + dv_b
+        di, dq, dkv = step_bwd(q, kv[..., :c], kv[..., c:], o, do, lse2, num_heads, state)
         if step < ring.size - 1:
-            k_blk, v_blk = ring.shift(k_blk), ring.shift(v_blk)
-        dk, dv = ring.shift(dk), ring.shift(dv)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+            kv = ring.shift(kv)
+        state = (di, dq, ring.shift(dkv))
+    _, dq, dkv = state
+    dkv = dkv.to(k.dtype)
+    return dq.to(q.dtype), dkv[..., :c], dkv[..., c:]
 
 
 class RingAttention(torch.autograd.Function):
     """Softmax attention over ``[N, S, C]`` computed by ``ring``'s shards,
-    forward and backward through the flash wrappers."""
+    forward and backward through the ring step wrappers."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, ring):

@@ -24,23 +24,24 @@
 #   F4_conv_halo  conv kernel applies the input mask (in shared memory) to
 #                 the tile's own rows but not to its halo rows
 #   F5_d512_rowsum    d=512 flash forward divides o by 1.01 x the row sum
-#   F6_d512_skip_tile d=512 flash backward skips key tile 1 (dk, dv zero there)
+#   F6_d512_skip_tile d=512 flash backward skips key block 1 (dk, dv zero
+#                 there; dq misses its part)
 #   F7_epilogue_norm  guidance epilogue drops the eps-norm gradient rescale
 #   F8_swap_dkdv      the flash autograd.Function returns dv as dk and dk as dv
 #   F9_kl_skip        conv3x3_fused drops the residual (skip) of the KL
 #                     ResNets (no ReLU), forward and backward
 #   F10_kl_dskip      the conv autograd.Function gives the KL ResNets'
 #                     residual (skip) no gradient
-#   F11_ring_rescale  the ring's forward merge drops the 2^(m - m_new) rescale
-#                     of what it has merged so far
-#   F12_ring_dkv_home the ring's backward leaves out dk/dv's last rotation
+#   F11_ring_rescale  the ring's forward step does not rescale the carried
+#                     acc by alpha at its first key tile (the state of the
+#                     blocks before is added unscaled)
+#   F12_ring_dkv_home the ring's backward leaves out dk|dv's last rotation
 #                     (each shard keeps its neighbour's block gradients)
 #   F13_ring_own_stat the ring's backward feeds each block's own o and lse2
 #                     (recomputed by the plain forward) in place of the
-#                     global ones
-#   F14_ring_no_norm  the ring's forward leaves the merged output
-#                     unnormalised (acc, not acc / w: o about P times too
-#                     large); the backward gets that o
+#                     global ones (di from the first block's own o)
+#   F14_ring_no_norm  the ring's last forward step writes acc without
+#                     dividing by the row sum l; the backward gets that o
 #   F15_twostream_alpha the two-stream flash forward's second stream skips
 #                     the alpha rescale of its accumulator
 #   F16_n64_c_half    probe variant C (sum/diff) without its 0.5
@@ -54,6 +55,10 @@
 #                 registers, without subtracting di
 #   F21_d512_alpha d=512 flash forward skips the α rescale of its register
 #                 o accumulator
+#   F22_ring_dkv_store the ring's backward step stores its dk|dv block over
+#                 the travelling fp32 buffer instead of adding into it
+#   F23_d512_dq_tile d=512 flash backward drops key tile 1's part of dq
+#                 (its dq kernel zeroes ds there)
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -129,7 +134,7 @@ run_fault F4_conv_halo $CONV \
 run_fault F5_d512_rowsum $FA \
   's|const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;|const float inv0 = 1.f / (1.01f * sum0), inv1 = 1.f / (1.01f * sum1);|'
 run_fault F6_d512_skip_tile \
-  $FA 's|const int kt0 = blockIdx.x \* BK5, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
+  $FA 's|const int k0 = blockIdx.x \* BK5, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
   depth_completion_tpu_torch/ops/flash_attention.py 's|torch.empty((n, sk, c)|torch.zeros((n, sk, c)|g'
 run_fault F7_epilogue_norm depth_completion_tpu_torch/csrc/guidance_epilogue.cu \
   's|const float factor = sqrtf(red\[0\]\[0\]) / fmaxf(sqrtf(red\[1\]\[0\]), 1e-7f);|const float factor = 1.f;|'
@@ -139,14 +144,14 @@ run_fault F9_kl_skip depth_completion_tpu_torch/ops/conv3x3.py \
   's|return Conv3x3Fused.apply(x, weight, bias, skip, relu)|return Conv3x3Fused.apply(x, weight, bias, skip if relu else None, relu)|'
 run_fault F10_kl_dskip depth_completion_tpu_torch/ops/conv3x3.py \
   's|dskip = dy_m if (need_skip and ctx.has_skip) else None|dskip = dy_m if (need_skip and ctx.has_skip and ctx.relu) else None|'
-run_fault F11_ring_rescale $RING \
-  's|scale_old, scale_b = torch.exp2(m - m_new), torch.exp2(lse2_b - m_new)|scale_old, scale_b = 1.0, torch.exp2(lse2_b - m_new)|'
+run_fault F11_ring_rescale $FA \
+  's|    rescale(acc, alpha0, alpha1);|    if (!(StateIn \&\& j == 0)) rescale(acc, alpha0, alpha1);|'
 run_fault F12_ring_dkv_home $RING \
-  's|        dk, dv = ring.shift(dk), ring.shift(dv)|        if step < ring.size - 1: dk, dv = ring.shift(dk), ring.shift(dv)|'
+  's|        state = (di, dq, ring.shift(dkv))|        state = (di, dq, dkv if step == ring.size - 1 else ring.shift(dkv))|'
 run_fault F13_ring_own_stat $RING \
-  's|import flash_bwd, flash_fwd$|import flash_bwd, flash_fwd, flash_fwd_plain|; s|dq_b, dk_b, dv_b = block_bwd(q, k_blk, v_blk, o, do, lse2, num_heads)|o, lse2 = flash_fwd_plain(q, k_blk, v_blk, num_heads); &|'
-run_fault F14_ring_no_norm $RING \
-  's|o = (acc / w).to(q.dtype).view(n, s_loc, c)|o = acc.to(q.dtype).view(n, s_loc, c)|'
+  's|import flash_bwd_ring, flash_fwd_ring$|import flash_bwd_ring, flash_fwd_plain, flash_fwd_ring|; s|        di, dq, dkv = step_bwd(|        o, lse2 = flash_fwd_plain(q, kv[..., :c], kv[..., c:], num_heads); &|'
+run_fault F14_ring_no_norm $FA \
+  's|const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;|const float inv0 = StateIn ? 1.f : (l0 == 0.f ? 1.f : 1.f / l0);|; s|const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;|const float inv1 = StateIn ? 1.f : (l1 == 0.f ? 1.f : 1.f / l1);|'
 run_fault F15_twostream_alpha depth_completion_tpu_torch/csrc/probe_flash_twostream.cu \
   's|o_w\[r \* LDF + c\([01]\)\] \*= alpha;|if (warp < TS_WARPS / 2) &|'
 run_fault F16_n64_c_half $PROBES/mma_n64.py \
@@ -159,4 +164,8 @@ run_fault F19_conv_co_tile $CONV \
 run_fault F20_bwd_di $FA \
   's|dp\[i\]\[e\] = p \* (dp\[i\]\[e\] - ((e \& 1) ? dis.y : dis.x)) \* scale;|dp[i][e] = p * dp[i][e] * scale;|'
 run_fault F21_d512_alpha $FA 's|rescale(o_acc, alpha0, alpha1);||'
+run_fault F22_ring_dkv_store $FA \
+  's|atomicAdd(reinterpret_cast<float2\*>(p), make_float2(x, y));|*reinterpret_cast<float2*>(p) = make_float2(x, y);|'
+run_fault F23_d512_dq_tile $FA \
+  's|s\[i\]\[e\] = pe \* (da\[e\]|s[i][e] = (j == 1 ? 0.f : pe) * (da[e]|'
 exit $status

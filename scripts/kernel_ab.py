@@ -1,6 +1,6 @@
 """Device time of the flash kernels (d=64 forward and backward, d=512
-forward) and the fused 3x3 conv in two checkouts, side by side, on one CUDA
-GPU.
+forward and backward), the ring's passes and the fused 3x3 conv in two
+checkouts, side by side, on one CUDA GPU.
 
     python3 scripts/kernel_ab.py BASE_DIR [--reps 20]
 
@@ -10,18 +10,29 @@ unpacked with ``git archive`` into the git-ignored
 ``csrc/flash_attention.cu`` and ``csrc/conv3x3.cu`` is compiled with nvcc
 (this tree's flags) into ``depth_completion_tpu_torch/_build/ab/``, loaded
 with ctypes through the C entry points both trees share (``dct_flash_fwd``,
-``dct_flash_bwd``, ``dct_flash_fwd_d512``, ``dct_conv3x3``), and timed at
-the guided paths' shapes: ``reps`` launches captured in one CUDA graph and
-replayed, so a time is the kernel's device time without the host's launch
-overhead (``chip_smoke.py`` times through the Python wrappers, which at
-small shapes measures the host). The backward's time holds what its entry
-point launches (the ``di`` pre-pass and the kernel) and the zeroing of its
-fp32 dq buffer, as the wrapper does; its inputs o and lse2 come from this
-tree's forward. Turns: base, this tree, this tree, base; each tree's two
-turns are averaged. The two trees' outputs on the same inputs are compared
-(max abs difference over every output: both compute one function, in other
-summation orders). Prints the card, one line per case, and last a JSON
-object with every case.
+``dct_flash_bwd``, ``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``,
+``dct_conv3x3``), and timed at the guided paths' shapes: ``reps`` launches
+captured in one CUDA graph and replayed, so a time is the kernel's device
+time without the host's launch overhead (``chip_smoke.py`` times through the
+Python wrappers, which at small shapes measures the host). A backward's
+time holds what its entry point launches (the ``di`` pre-pass and the
+kernel) and the zeroing of its fp32 dq buffer, as the wrapper does; its
+inputs o and lse2 come from this tree's forward. The ring's passes
+(``LocalRing(P)`` at the native path's shapes) run each tree's form: with
+the ring step entry points (``dct_flash_fwd_ring``, ``dct_flash_bwd_ring``),
+this tree's ``ops.ring_attention`` over that tree's kernels; without, one
+flash call per visiting block, ``roll`` and the eager fp32 merge the ring
+had before them. Turns:
+base, this tree, this tree, base; each tree's two turns are averaged. The
+two trees' outputs on the same inputs are compared (max abs difference over
+every output: both compute one function, in other summation orders).
+
+The same turns then hold this tree's ``flash_bwd_d512`` (the two-kernel
+design of its source note) against variants built beside it
+(``VARIANTS``): the one-pass design (``scripts/kernel_ab_variants.cu``),
+and the same with its dq atomics left out (the dq products kept, the adds
+skipped: the result's dq is then wrong, its time what the atomics cost). Prints the card,
+one line per case, and last a JSON object with every case.
 """
 
 from __future__ import annotations
@@ -41,10 +52,22 @@ sys.path.insert(0, str(ROOT))
 
 from depth_completion_tpu_torch import _build  # noqa: E402
 from depth_completion_tpu_torch.ops import conv3x3 as c3  # noqa: E402
+from depth_completion_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from depth_completion_tpu_torch.ops import ring_attention as ra  # noqa: E402
 from depth_completion_tpu_torch.probes import card  # noqa: E402
 
 _p, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 SOURCES = ("flash_attention", "conv3x3")
+FWD_ARGS = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
+BWD_ARGS = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
+# variants of this tree's d=512 backward: ``scripts/kernel_ab_variants.cu``
+# (entry ``VARIANT_ENTRY``, the one-pass design) built over a copy of
+# csrc/ whose flash_attention.cu takes these (old, new) text edits
+VARIANTS = {
+    "one_pass": (),
+    "one_pass_no_dq_atomics": (("if (qr < sq) atomicAdd(", "if (qr < sq && sq < 0) atomicAdd("),),
+}
+VARIANT_ENTRY = "dct_flash_bwd_d512_one_pass"
 
 # (S, heads, batch): UNet stages 0-1 at 576x768; the KITTI stage-0 length;
 # stage 0 at 352x1216 in one call; the ring's per-step launches there (P=4)
@@ -53,6 +76,8 @@ FLASH_CASES = ((6912, 5, 1), (1728, 10, 1), (2688, 5, 1), (6688, 5, 1), (1672, 5
 # (S, heads, batch) at head dim 512: the KL VAE's mid attention at 576x768,
 # and a ragged length
 FLASH_D512_CASES = ((6912, 1, 1), (6900, 1, 1))
+# (S, heads, P): the native path's ring at stages 0 and 1 (44x152 latent)
+RING_CASES = ((6688, 5, 4), (1672, 10, 4))
 # (H, W, Ci, Co, relu): relu is the TAESD form (bias+ReLU; masked dx with
 # the emitted operand), else the KL form (bias; dx without a mask)
 CONV_CASES = ((576, 768, 64, 64, True), (72, 96, 64, 64, True), (352, 1216, 64, 64, True),
@@ -80,14 +105,47 @@ def build(tree: Path, tag: str) -> dict:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         if name == "flash_attention":
-            for fwd in (lib.dct_flash_fwd, lib.dct_flash_fwd_d512):
-                fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
-                fwd.restype = _i
-            lib.dct_flash_bwd.argtypes = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
-            lib.dct_flash_bwd.restype = _i
+            for fn, args in ((lib.dct_flash_fwd, FWD_ARGS), (lib.dct_flash_fwd_d512, FWD_ARGS),
+                             (lib.dct_flash_bwd, BWD_ARGS), (lib.dct_flash_bwd_d512, BWD_ARGS)):
+                fn.argtypes, fn.restype = args, _i
+            if hasattr(lib, "dct_flash_fwd_ring"):  # the ring step kernels
+                lib.dct_flash_fwd_ring.argtypes = [_p] * 8 + [_i] * 4 + [_l] * 8 + [_i, _i, _f, _p]
+                lib.dct_flash_bwd_ring.argtypes = [_p] * 9 + [_i] * 4 + [_l] * 10 + [_i, _f, _p]
+                lib.dct_flash_fwd_ring.restype = lib.dct_flash_bwd_ring.restype = _i
         else:
             lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
             lib.dct_conv3x3.restype = _i
+        libs[name] = lib
+    return libs
+
+
+def build_variants() -> dict:
+    """Compile ``VARIANTS`` (in parallel) → {name: CDLL}."""
+    out = ROOT / "depth_completion_tpu_torch" / "_build" / "ab" / "variants"
+    csrc = ROOT / "depth_completion_tpu_torch" / "csrc"
+    procs = {}
+    for name, edits in VARIANTS.items():
+        copy = out / name / "csrc"
+        copy.mkdir(parents=True, exist_ok=True)
+        for src in (*csrc.glob("*.cu"), *csrc.glob("*.cuh")):
+            text = src.read_text()
+            for old, new in edits if src.name == "flash_attention.cu" else ():
+                if text.count(old) != 1:
+                    raise RuntimeError(f"variant {name}: {old!r} is not once in {src.name}")
+                text = text.replace(old, new)
+            (copy / src.name).write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(copy), "-o",
+               str(out / name / "lib.so"), str(ROOT / "scripts" / "kernel_ab_variants.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        lib = ctypes.CDLL(str(out / name / "lib.so"))
+        fn = getattr(lib, VARIANT_ENTRY)
+        fn.argtypes, fn.restype = BWD_ARGS, _i
         libs[name] = lib
     return libs
 
@@ -134,18 +192,92 @@ def flash_fwd(lib, q, k, v, heads: int):
     return o, lse
 
 
-def flash_bwd(lib, q, k, v, o, do, lse, heads: int):
-    """→ (dq in fp32, dk, dv) through ``dct_flash_bwd`` (d=64)."""
+def flash_bwd(lib, q, k, v, o, do, lse, heads: int, entry: str | None = None):
+    """→ (dq in fp32, dk, dv) through ``dct_flash_bwd`` or, at head dim 512,
+    ``dct_flash_bwd_d512`` (or the entry point named)."""
     n, s, c = q.shape
+    d = c // heads
     di = torch.empty((n, heads, s), device=q.device, dtype=torch.float32)
     dq = torch.zeros((n, s, c), device=q.device, dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = lib.dct_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(), n, heads, s, s, s * c, c, s * c, c,
-                               s * c, c, s * c, c, s * c, c, 1.0 / 8.0, _stream())
-    _build.check(status, "flash_bwd")
+    entry = entry or ("dct_flash_bwd" if d == 64 else "dct_flash_bwd_d512")
+    status = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                 do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                                 dk.data_ptr(), dv.data_ptr(), n, heads, s, s, s * c, c, s * c,
+                                 c, s * c, c, s * c, c, s * c, c, 1.0 / math.sqrt(d), _stream())
+    _build.check(status, entry)
     return dq, dk, dv
+
+
+def with_kernels(lib, fn):
+    """``fn()`` with this tree's flash wrappers (``ops.flash_attention``)
+    launching ``lib``'s kernels."""
+    saved, fa._lib = fa._lib, lib
+    try:
+        return fn()
+    finally:
+        fa._lib = saved
+
+
+def ring_pass(lib, fwd: bool, q, k, v, o, do, lse, heads: int, p: int):
+    """One pass of the ring over ``LocalRing(p)`` with ``lib``'s kernels:
+    through this tree's ``ops.ring_attention`` where ``lib`` has the ring
+    step kernels, else as the ring was before them."""
+    if hasattr(lib, "dct_flash_fwd_ring"):
+        ring = ra.LocalRing(p)
+        if fwd:
+            return with_kernels(lib, lambda: ra.ring_forward(q, k, v, heads, ring))
+        return with_kernels(lib, lambda: ra.ring_backward(q, k, v, o, do, lse, heads, ring))
+    if fwd:
+        return ring_fwd_merged(lib, q, k, v, heads, p)
+    return ring_bwd_merged(lib, q, k, v, o, do, lse, heads, p)
+
+
+def _roll(x, p: int):
+    """``LocalRing(p).shift``: shard r takes shard r-1's block."""
+    return x.unflatten(0, (-1, p)).roll(1, dims=1).flatten(0, 1)
+
+
+def ring_fwd_merged(lib, q, k, v, heads: int, p: int):
+    """The ring's forward as it was before the ring step kernels: one flash
+    call per visiting block, then the eager fp32 merge of (o_b, lse2_b)
+    against a running max. → (o, lse2)."""
+    n, s_loc, c = q.shape
+    k_blk, v_blk = k, v
+    for step in range(p):
+        o_b, lse2_b = flash_fwd(lib, q, k_blk, v_blk, heads)
+        o_b = o_b.float().view(n, s_loc, heads, c // heads)
+        lse2_b = lse2_b.transpose(1, 2).unsqueeze(-1)
+        if step == 0:
+            m, w, acc = lse2_b, torch.ones_like(lse2_b), o_b
+        else:
+            m_new = torch.maximum(m, lse2_b)
+            scale_old, scale_b = torch.exp2(m - m_new), torch.exp2(lse2_b - m_new)
+            acc = acc * scale_old + o_b * scale_b
+            w = w * scale_old + scale_b
+            m = m_new
+        if step < p - 1:
+            k_blk, v_blk = _roll(k_blk, p), _roll(v_blk, p)
+    o = (acc / w).to(q.dtype).view(n, s_loc, c)
+    return o, (m + torch.log2(w)).squeeze(-1).transpose(1, 2).contiguous()
+
+
+def ring_bwd_merged(lib, q, k, v, o, do, lse2, heads: int, p: int):
+    """The ring's backward as it was before the ring step kernels: one flash
+    backward per visiting block (its dq cast to bf16), the blocks' dq, dk
+    and dv summed eagerly in fp32, dk/dv rotated P times. → (dq, dk, dv)."""
+    k_blk, v_blk = k, v
+    for step in range(p):
+        dq_b, dk_b, dv_b = flash_bwd(lib, q, k_blk, v_blk, o, do, lse2, heads)
+        dq_b = dq_b.to(q.dtype)
+        if step == 0:
+            dq, dk, dv = dq_b.float(), dk_b.float(), dv_b.float()
+        else:
+            dq, dk, dv = dq + dq_b, dk + dk_b, dv + dv_b
+        if step < p - 1:
+            k_blk, v_blk = _roll(k_blk, p), _roll(v_blk, p)
+        dk, dv = _roll(dk, p), _roll(dv, p)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
@@ -165,7 +297,8 @@ def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
 
 def turns(libs: dict, run, reps: int) -> dict:
     """base, this, this, base → per tree the mean ms, and the max abs
-    difference over the outputs (``run`` returns a tensor or a tuple)."""
+    difference over the outputs (``run(libs[tag])`` returns a tensor or a
+    tuple)."""
     times = {"base": [], "this": []}
     for tag in ("base", "this", "this", "base"):
         times[tag].append(graph_ms(lambda: run(libs[tag]), reps))
@@ -203,10 +336,33 @@ def main() -> int:
         r = turns(flash_libs, lambda lib: flash_bwd(lib, q, k, v, o, do, lse, heads), args.reps)
         r.update(kernel="flash_bwd", shape=f"N={n} S={s} heads={heads}")
         results.append(r)
+    variants = build_variants()
     for s, heads, n in FLASH_D512_CASES:
-        q, k, v = (rnd(n, s, heads * 512) for _ in range(3))
+        q, k, v, do = (rnd(n, s, heads * 512) for _ in range(4))
         r = turns(flash_libs, lambda lib: flash_fwd(lib, q, k, v, heads)[0], args.reps)
         r.update(kernel="flash_fwd_d512", shape=f"N={n} S={s} heads={heads}")
+        results.append(r)
+        o, lse = flash_fwd(flash_libs["this"], q, k, v, heads)
+        r = turns(flash_libs, lambda lib: flash_bwd(lib, q, k, v, o, do, lse, heads), args.reps)
+        r.update(kernel="flash_bwd_d512", shape=f"N={n} S={s} heads={heads}")
+        results.append(r)
+        for name, lib in variants.items():
+            pair = {"base": (lib, VARIANT_ENTRY), "this": (flash_libs["this"], "dct_flash_bwd_d512")}
+            r = turns(pair, lambda le: flash_bwd(le[0], q, k, v, o, do, lse, heads, le[1]),
+                      args.reps)
+            r.update(kernel=f"flash_bwd_d512 (base: variant {name})",
+                     shape=f"N={n} S={s} heads={heads}")
+            results.append(r)
+    for s, heads, p in RING_CASES:
+        q, k, v, do = (ra.LocalRing(p).shard(rnd(1, s, heads * 64)) for _ in range(4))
+        r = turns(flash_libs, lambda lib: ring_pass(lib, True, q, k, v, None, None, None, heads,
+                                                    p), args.reps)
+        r.update(kernel="ring_attention_fwd", shape=f"S={s} heads={heads} P={p}")
+        results.append(r)
+        o, lse = ring_pass(flash_libs["this"], True, q, k, v, None, None, None, heads, p)
+        r = turns(flash_libs, lambda lib: ring_pass(lib, False, q, k, v, o, do, lse, heads, p),
+                  args.reps)
+        r.update(kernel="ring_attention_bwd", shape=f"S={s} heads={heads} P={p}")
         results.append(r)
     for h, w, ci, co, relu in CONV_CASES:
         x, dy = rnd(1, h, w, ci), rnd(1, h, w, co)

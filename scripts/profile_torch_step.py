@@ -10,9 +10,11 @@ steps (480x640 frame, 500 sparse points, res 768, norm=const, learned
 affine; with ``--ring P``, native-resolution mode: a 352x1216 frame, 2000
 points, res 1216, the UNet's self-attention on ``LocalRing(P)``) under
 ``torch.profiler``. Prints the wall time per step, the
-device-busy share of the profiled window, device time per step by kernel
-family, and the top kernels by device time; the last line is a JSON
-summary. Needs a CUDA device; exits 2 without one.
+device-busy share of the profiled window, device time and device launches
+(kernels, memsets and copies) per step by kernel family, the port's own
+kernel launches per step (the wrappers' counts), and the top kernels by
+device time; the last line is a JSON summary. Needs a CUDA device; exits 2
+without one.
 """
 
 from __future__ import annotations
@@ -28,10 +30,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
+    # the ring step instantiations of the flash kernels' templates
+    ("flash_fwd_ring (port)", ("flash_fwd_kernel<true", "flash_fwd_kernel<false, true")),
+    ("flash_bwd_ring (port)", ("flash_bwd_kernel<true",)),
     ("flash_fwd (port)", ("flash_fwd_kernel",)),
     ("flash_bwd (port)", ("flash_bwd_kernel", "flash_bwd_di_kernel")),
     ("flash_fwd_d512 (port)", ("flash_fwd_d512_kernel",)),
-    ("flash_bwd_d512 (port)", ("flash_bwd_d512_kernel", "flash_bwd_di_d512_kernel")),
+    ("flash_bwd_d512 (port)", ("flash_bwd_d512_kernel", "flash_bwd_dq_d512_kernel",
+                               "flash_bwd_di_d512_kernel")),
     ("conv3x3 (port)", ("conv3x3_kernel",)),
     ("guidance_epilogue (port)", ("guidance_epilogue_kernel",)),
     ("cudnn conv", ("conv", "cudnn", "xmma_fprop", "xmma_dgrad", "implicit_gemm", "winograd")),
@@ -94,6 +100,7 @@ def main() -> int:
 
     from depth_completion_tpu_torch.models import registry, vae_kl
     from depth_completion_tpu_torch.models.bundle import make_random_bundle
+    from depth_completion_tpu_torch.ops import conv3x3, flash_attention, guidance_epilogue
     from depth_completion_tpu_torch.ops.ring_attention import LocalRing
     from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 
@@ -124,6 +131,9 @@ def main() -> int:
     request(2)  # warm-up: lazy init, cuDNN heuristics, kernel build
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    port_counts = (flash_attention.LAUNCHES, conv3x3.LAUNCHES, guidance_epilogue.LAUNCHES)
+    for counts in port_counts:
+        counts.update({k: 0 for k in counts})
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -141,8 +151,12 @@ def main() -> int:
             kernels[evt.key] = (t, evt.count)
     total = sum(t for t, _ in kernels.values())
     fams: dict[str, float] = {}
-    for name, (t, _) in kernels.items():
+    fam_launches: dict[str, int] = {}
+    for name, (t, n) in kernels.items():
         fams[family(name)] = fams.get(family(name), 0.0) + t
+        fam_launches[family(name)] = fam_launches.get(family(name), 0) + n
+    launches = sum(fam_launches.values())
+    port = {k: v / args.steps for counts in port_counts for k, v in counts.items() if v}
 
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     print(smi)
@@ -151,9 +165,12 @@ def main() -> int:
           f"request of {per} guided steps: "
           f"wall {wall_ms:.1f} ms ({wall_ms / per:.2f} ms/step, incl. encode and final decode); device busy {total:.1f} ms "
           f"({100 * total / wall_ms:.1f}% of wall); peak memory {peak_gib:.2f} GiB")
-    print("device ms per step by kernel family:")
+    print(f"device launches per step: {launches / per:.1f} (kernels, memsets and copies)")
+    print(f"port kernel launches per step (wrapper counts): {port}")
+    print("device ms and launches per step by kernel family:")
     for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:22s} {t / per:9.3f}  ({100 * t / total:.1f}%)")
+        print(f"  {fam:22s} {t / per:9.3f}  ({100 * t / total:.1f}%)  "
+              f"{fam_launches[fam] / per:8.1f} launches")
     print("top kernels (device ms per step, launches per step):")
     for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t / per:9.3f}  {n / per:7.1f}  {name[:110]}")
@@ -163,6 +180,9 @@ def main() -> int:
         "wall_ms_per_step": wall_ms / per, "device_ms_per_step": total / per,
         "busy_share": total / wall_ms, "peak_gib": peak_gib,
         "family_ms_per_step": {k: v / per for k, v in fams.items()},
+        "launches_per_step": launches / per,
+        "family_launches_per_step": {k: v / per for k, v in fam_launches.items()},
+        "port_launches_per_step": port,
     }))
     return 0
 

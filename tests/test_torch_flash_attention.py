@@ -124,12 +124,67 @@ def test_jax_two_kernel_backward_matches_port(c, heads, monkeypatch):
 
 def test_kernel_head_dims():
     """The kernels take head dims 64 and 512, each under its own launch
-    count; any other head dim that routes to them raises on a CUDA tensor
-    (the operand check is device-independent, so it runs here)."""
+    count, the ring step kernels head dim 64 under theirs; any other head
+    dim that routes to them raises on a CUDA tensor (the operand checks are
+    device-independent, so they run here)."""
     x = torch.zeros((1, 8, 512), dtype=torch.bfloat16)
     assert tfa._check_cuda_operands(x, head_dim=64) == ("", "flash_fwd", "flash_bwd")
     assert tfa._check_cuda_operands(x, head_dim=512)[1:] == ("flash_fwd_d512", "flash_bwd_d512")
     for d in (128, 256):
         with pytest.raises(NotImplementedError, match="head dims"):
             tfa._check_cuda_operands(x, head_dim=d)
-    assert set(tfa.LAUNCHES) == {"flash_fwd", "flash_bwd", "flash_fwd_d512", "flash_bwd_d512"}
+    with pytest.raises(NotImplementedError, match="ring step kernels"):
+        tfa._check_ring(x, num_heads=1)  # head dim 512: no ring step kernel
+    tfa._check_ring(x, num_heads=8)
+    assert set(tfa.LAUNCHES) == {"flash_fwd", "flash_bwd", "flash_fwd_d512", "flash_bwd_d512",
+                                 "flash_fwd_ring", "flash_bwd_ring"}
+
+
+# the ring step twins over P key blocks of 150 rows (ragged against the
+# kernels' 64-row tiles), 2 heads of d=64, a batch of 2 and 100 query rows
+RING_PS = pytest.mark.parametrize("p", [1, 2, 3, 4])
+
+
+def _ring_blocks(p, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.normal(size=(2, 100, 128)).astype(np.float32)) for _ in "qd")
+    k, v = (torch.from_numpy(rng.normal(size=(2, 150 * p, 128)).astype(np.float32)) for _ in "kv")
+    return q, k, v, do, [slice(b * 150, (b + 1) * 150) for b in range(p)]
+
+
+@RING_PS
+def test_ring_step_twin_matches_flash_fwd_plain(p):
+    """``flash_fwd_ring_plain`` over P visiting blocks, the state carried
+    from step to step, equals ``flash_fwd_plain`` over all the keys at once
+    in o and lse2. fp32 on both sides; the carried sums are taken in
+    another order: rtol 1e-5 (tens of fp32 ulps), lse2 (|lse2| ~ 10) to
+    1e-5."""
+    q, k, v, _, blocks = _ring_blocks(p, seed=11)
+    state = None
+    for i, b in enumerate(blocks):
+        state = tfa.flash_fwd_ring_plain(q, k[:, b], v[:, b], 2, state, last=i == p - 1)
+    o, lse2 = state
+    o_ref, lse2_ref = tfa.flash_fwd_plain(q, k, v, 2)
+    np.testing.assert_allclose(o.numpy(), o_ref.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(lse2.numpy(), lse2_ref.numpy(), rtol=0, atol=1e-5)
+
+
+@RING_PS
+def test_ring_bwd_step_twin_matches_flash_bwd_plain(p):
+    """``flash_bwd_ring_plain`` over P visiting blocks equals
+    ``flash_bwd_plain`` over all the keys: dq summed in place over the
+    blocks, each block's dk|dv in its own rows (no rotation here: one query
+    shard). fp32, sums in another order: 1e-5 of each gradient's largest
+    magnitude."""
+    q, k, v, do, blocks = _ring_blocks(p, seed=12)
+    o, lse2 = tfa.flash_fwd_plain(q, k, v, 2)
+    dq_ref, dk_ref, dv_ref = tfa.flash_bwd_plain(q, k, v, o, do, lse2, 2)
+    state, dks, dvs = None, [], []
+    for b in blocks:
+        di, dq, dkv = tfa.flash_bwd_ring_plain(q, k[:, b], v[:, b], o, do, lse2, 2, state)
+        dks.append(dkv[..., :128].clone())
+        dvs.append(dkv[..., 128:].clone())
+        state = (di, dq, torch.zeros_like(dkv))
+    for got, ref in ((dq, dq_ref), (torch.cat(dks, 1), dk_ref), (torch.cat(dvs, 1), dv_ref)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))

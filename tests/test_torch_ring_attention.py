@@ -17,6 +17,7 @@ import torch
 from depth_completion_tpu.models.layers import attention as j_attention
 from depth_completion_tpu.ops.ring_attention import ring_attention as j_ring_attention
 from depth_completion_tpu.pipeline import sampler as JS
+from depth_completion_tpu_torch.ops import flash_attention as tfa
 from depth_completion_tpu_torch.ops.ring_attention import LocalRing, ring_attention
 from depth_completion_tpu_torch.pipeline import sampler as TS
 
@@ -139,6 +140,55 @@ def test_process_group_ring_matches_local_ring(world, tmp_path):
         for g, g_ref, name in zip(got["grads"], grads_ref, "qkv"):
             np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-5, atol=1e-5,
                                        err_msg=f"rank {r} d{name}")
+
+
+@pytest.mark.parametrize("p", [2, 3, 4])
+def test_ring_step_state_matches_jax_merge(p):
+    """The state ``flash_fwd_ring_plain`` carries between ring steps against
+    the JAX ring's online merge (``ring_attention.py:145-165``) rebuilt in
+    float64 numpy from per-block (o_b, lse2_b): the step's (m, l, acc) is
+    the merge's (M, W, ACC) against its own max, 2^m·l = 2^M·W and
+    2^m·acc = 2^M·ACC, after every step; the last step's o and lse2 are
+    ACC / W and M + log2 W. 2 shards of 2 heads (d=64), 150-row blocks
+    (ragged against the kernels' 64-row tiles). fp32 twin against float64:
+    rtol 1e-5, atol 1e-6 of the largest magnitude."""
+    rng = np.random.default_rng(21)
+    n, s_loc, heads, d = 2, 150, 2, 64
+    q = rng.normal(size=(n, s_loc, heads * d))
+    k, v = (rng.normal(size=(n, p * s_loc, heads * d)) for _ in "kv")
+
+    def split(x):  # [N, S, C] → [N, heads, S, d]
+        return x.reshape(n, -1, heads, d).transpose(0, 2, 1, 3)
+
+    qh = split(q)
+    m_j = np.full((n, heads, s_loc), -np.inf)
+    w_j = np.zeros((n, heads, s_loc))
+    acc_j = np.zeros((n, heads, s_loc, d))
+    state = None
+    for b in range(p):
+        kb, vb = k[:, b * s_loc:(b + 1) * s_loc], v[:, b * s_loc:(b + 1) * s_loc]
+        sc = qh @ split(kb).transpose(0, 1, 3, 2) / np.sqrt(d) * np.log2(np.e)
+        lse2_b = np.log2(np.exp2(sc).sum(-1))
+        o_b = np.exp2(sc - lse2_b[..., None]) @ split(vb)
+        m_new = np.maximum(m_j, lse2_b)
+        scale_old, scale_b = np.exp2(m_j - m_new), np.exp2(lse2_b - m_new)
+        acc_j = acc_j * scale_old[..., None] + o_b * scale_b[..., None]
+        w_j = w_j * scale_old + scale_b
+        m_j = m_new
+        last = b == p - 1
+        state = tfa.flash_fwd_ring_plain(
+            *(torch.from_numpy(x.astype(np.float32)) for x in (q, kb, vb)), heads, state, last)
+        if last:
+            break
+        m, l, acc = (x.double().numpy() for x in state)
+        rel = np.exp2(m - m_j)
+        np.testing.assert_allclose(l * rel, w_j, rtol=1e-5, atol=1e-6 * w_j.max())
+        np.testing.assert_allclose(split(acc) * rel[..., None], acc_j, rtol=1e-5,
+                                   atol=1e-6 * np.abs(acc_j).max())
+    o, lse2 = (x.double().numpy() for x in state)
+    o_ref = (acc_j / w_j[..., None]).transpose(0, 2, 1, 3).reshape(n, s_loc, heads * d)
+    np.testing.assert_allclose(o, o_ref, rtol=1e-5, atol=1e-6 * np.abs(o_ref).max())
+    np.testing.assert_allclose(lse2, m_j + np.log2(w_j), rtol=0, atol=1e-5)
 
 
 def test_ring_rejects_ragged_sequence():
