@@ -7,7 +7,9 @@
 2. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (max error against a stated tolerance), and times kernel,
    plain version and the nearest single PyTorch library call (for the
-   guidance epilogue, the eager chain it replaces). The ring attention of
+   guidance epilogue, the eager chain it replaces; the epilogue at batch 1,
+   2 and 8, at the paths' latents, at a latent larger than the kernel's
+   cluster holds in registers and at a ragged one). The ring attention of
    native-resolution mode runs the ring instantiations of the flash kernels
    (``flash_fwd_ring``, ``flash_bwd_ring``), one step per visiting
    key/value block: each step kernel is held against its twin from the same
@@ -19,9 +21,14 @@
    its twin at the probes' shapes, then each probe's own ``run`` with its
    launches counted from 0 (each must launch its kernel), its verdict, and
    its times beside bound, plain and library times;
-3. drives three guided paths through ``DepthCompletionPipeline`` at full
-   Marigold width (random bf16 weights from a seed): the TAESD decoder
-   (``--vae light``, the default) and the KL VAE at SD widths
+3. writes the seeded full-width bundle (Marigold UNet, TAESD, the SD2 CLIP
+   text tower; bf16) as an HF-layout checkpoint directory with the port's
+   exporters and safetensors writer, loads it with ``load_bundle`` (every
+   leaf bit-exact, the context the tower's), and drives three guided
+   paths through ``DepthCompletionPipeline`` at full Marigold width
+   (random bf16 weights from a seed, the context made by the SD2 tower):
+   the TAESD decoder (``--vae light``, the default) on the loaded bundle,
+   and the KL VAE at SD widths
    (``--vae original``), each on 480x640 frames with 500 sparse points at
    processing resolution 768; and native-resolution mode (TAESD, a
    ``LocalRing(4)`` over the UNet's self-attention) on 352x1216 KITTI-size
@@ -58,7 +65,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 
 def _require_cuda():
@@ -76,8 +85,17 @@ from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from depth_completion_tpu_torch import _build  # noqa: E402
 from depth_completion_tpu_torch.guidance.optim import make_optimizer  # noqa: E402
-from depth_completion_tpu_torch.models import registry  # noqa: E402
-from depth_completion_tpu_torch.models.bundle import make_random_bundle  # noqa: E402
+from depth_completion_tpu_torch.models import (  # noqa: E402
+    clip_text,
+    registry,
+    safetensors_io,
+    weights,
+)
+from depth_completion_tpu_torch.models.bundle import (  # noqa: E402
+    load_bundle,
+    make_random_bundle,
+    make_random_params,
+)
 from depth_completion_tpu_torch.models.layers import attention as plain_attention  # noqa: E402
 from depth_completion_tpu_torch.ops import conv3x3 as c3  # noqa: E402
 from depth_completion_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -582,9 +600,10 @@ def _eager_chain(sched, lat, m, v, count: int, lr: float):
 
 def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
                    latent_hw: tuple[int, int] = (72, 96)) -> dict:
-    """The fused epilogue at a path's latent shape (72x96 at res 768, 44x152
-    on the native path), against its plain twin and against the eager chain
-    it replaces, from Adam state after three steps (bias corrections and the
+    """The fused epilogue at a latent shape (72x96 at res 768, 44x152 on the
+    native path, 128x128 at res 1024: more than the kernel's cluster holds
+    in registers), against its plain twin and against the eager chain it
+    replaces, from Adam state after three steps (bias corrections and the
     moments all in play)."""
     ptype = "v_prediction" if v_pred else "epsilon"
     sched = S.make_schedule(S.DDIMConfig(prediction_type=ptype))
@@ -609,9 +628,10 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
     chain(g, out, t)
     st = opt.state[p]
     torch.cuda.synchronize()
-    # fp32 throughout; the norms are sums of 27,648 (26,752 native) squares
-    # per sample in another order, and the DDIM combine rounds in another
-    # order (FMA): 1e-5 of the largest value is ~100 fp32 ulps
+    # fp32 throughout; the norms are sums of 27,648 (26,752 native; 65,536
+    # at 128x128) squares per sample in another order, and the DDIM combine
+    # rounds in another order (FMA): 1e-5 of the largest value is ~100 fp32
+    # ulps
     errs = []
     for nm, a, b in zip(("lat", "m", "v"), got, ref):
         errs.append(max_err(a, b))
@@ -1083,21 +1103,24 @@ PATHS = (
 )
 
 
-def guided_path(path: GuidedPath, steps: int) -> dict:
-    """Two guided requests through the pipeline, launch counts checked per
-    request; then the reference step. → the path's launch counts."""
+def guided_path(path: GuidedPath, steps: int, bundle=None) -> dict:
+    """Two guided requests through the pipeline on ``bundle`` (default: the
+    seeded random bundle), launch counts checked per request; then the
+    reference step. → the path's launch counts."""
     h, w = path.frame
     ring = ra.LocalRing(path.ring_size) if path.ring_size else None
     print(f"guided path: MARIGOLD_UNET_CONFIG + {path.label} bf16, 2 requests x {steps} "
           f"guided steps, {h}x{w} frame, {path.points} sparse points, res {path.resolution}, "
           "norm=const, learned affine")
-    t0 = time.perf_counter()
-    bundle = make_random_bundle(
-        seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG, vae_config=path.vae_config,
-        dtype=torch.bfloat16, device=DEV, vae_kind=path.vae_kind,
-    )
-    torch.cuda.synchronize()
-    print(f"  bundle built in {time.perf_counter() - t0:.1f} s")
+    if bundle is None:
+        t0 = time.perf_counter()
+        bundle = make_random_bundle(
+            seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG, vae_config=path.vae_config,
+            dtype=torch.bfloat16, device=DEV, vae_kind=path.vae_kind,
+            text_config=registry.SD2_TEXT_CONFIG,
+        )
+        torch.cuda.synchronize()
+        print(f"  bundle built in {time.perf_counter() - t0:.1f} s")
     pipe = DepthCompletionPipeline(bundle)
     eh, ew = latent_size(path.frame, path.resolution, bundle.vae.downsample_factor)
     rng = torch.Generator(device="cpu").manual_seed(0)
@@ -1145,6 +1168,110 @@ def guided_path(path: GuidedPath, steps: int) -> dict:
         encode_check(bundle, bundle32, images.to(DEV))
     reference_step_check(bundle, bundle32, images.to(DEV), sparses.to(DEV), path.resolution, ring)
     return totals
+
+
+# The config JSONs of an HF-layout Marigold checkpoint (the fields the
+# readers in models/registry.py consume, at prs-eth/marigold-v1-0's
+# published geometry; scripts/make_synthetic_checkpoint.py writes the
+# same), and transformers' CLIPTextConfig of SD2's OpenCLIP-ViT/H tower
+# with the tokenizer's BOS and EOS ids.
+UNET_CONFIG_JSON = {
+    "_class_name": "UNet2DConditionModel", "in_channels": 8, "out_channels": 4,
+    "block_out_channels": [320, 640, 1280, 1280],
+    "down_block_types": ["CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+                         "DownBlock2D"],
+    "up_block_types": ["UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                       "CrossAttnUpBlock2D"],
+    "layers_per_block": 2, "cross_attention_dim": 1024, "attention_head_dim": [5, 10, 20, 20],
+    "norm_num_groups": 32, "norm_eps": 1e-05, "sample_size": 96,
+}
+SCHEDULER_CONFIG_JSON = {
+    "_class_name": "DDIMScheduler", "num_train_timesteps": 1000, "beta_start": 0.00085,
+    "beta_end": 0.012, "beta_schedule": "scaled_linear", "clip_sample": False,
+    "set_alpha_to_one": False, "steps_offset": 1, "prediction_type": "v_prediction",
+    "timestep_spacing": "leading",
+}
+TAESD_CONFIG_JSON = {
+    "_class_name": "AutoencoderTiny", "in_channels": 3, "out_channels": 3, "latent_channels": 4,
+    "encoder_block_out_channels": [64, 64, 64, 64], "decoder_block_out_channels": [64, 64, 64, 64],
+    "num_encoder_blocks": [1, 3, 3, 3], "num_decoder_blocks": [3, 3, 3, 1], "scaling_factor": 1.0,
+}
+TEXT_ENCODER_CONFIG_JSON = {
+    "architectures": ["CLIPTextModel"], "hidden_act": "gelu", "hidden_size": 1024,
+    "intermediate_size": 4096, "layer_norm_eps": 1e-05, "max_position_embeddings": 77,
+    "num_attention_heads": 16, "num_hidden_layers": 23, "projection_dim": 512,
+    "vocab_size": 49408, "bos_token_id": 49406, "eos_token_id": 49407, "torch_dtype": "bfloat16",
+}
+
+
+def checkpoint_bundle(seed: int = 0):
+    """Phase 3a: the seeded full-width trees (``make_random_params``: the
+    Marigold UNet, TAESD, the SD2 text tower; bf16 on the card) written
+    with the port's exporters and safetensors writer into a temporary
+    HF-layout directory (``unet/``, ``text_encoder/``, ``scheduler/``, and
+    a TAESD directory), then read back with ``load_bundle``. Every leaf of
+    the loaded UNet, TAESD and text tower must equal its source bit for
+    bit, the configs the registry's, and the context (the loaded tower's on
+    the empty prompt) that of the source tower: [1, 2, 1024], finite. The
+    directory is deleted before the path runs. → the loaded bundle."""
+    print("checkpoint: MARIGOLD_UNET_CONFIG + TAESD_CONFIG + SD2_TEXT_CONFIG bf16, seed "
+          f"{seed}, written in HF layout and loaded with load_bundle")
+    bf16 = torch.bfloat16
+    text_cfg = registry.text_config_from_transformers(TEXT_ENCODER_CONFIG_JSON)
+    params = make_random_params(seed, registry.MARIGOLD_UNET_CONFIG, "tiny",
+                                registry.TAESD_CONFIG, text_cfg, bf16, DEV)
+    with torch.no_grad():
+        ctx_ref = clip_text.empty_prompt_context(params["text_encoder"], text_cfg)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoint_") as tmp:
+        model_dir, taesd_dir = Path(tmp) / "marigold", Path(tmp) / "taesd"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = 0
+        for sub, state, fname, cfg in (
+            ("unet", weights.to_diffusers_unet_state(params["unet"]),
+             "diffusion_pytorch_model.safetensors", UNET_CONFIG_JSON),
+            ("text_encoder", weights.to_transformers_text_encoder_state(params["text_encoder"]),
+             "model.safetensors", TEXT_ENCODER_CONFIG_JSON),
+        ):
+            (model_dir / sub).mkdir(parents=True)
+            nbytes += safetensors_io.save_file(state, model_dir / sub / fname)
+            (model_dir / sub / "config.json").write_text(json.dumps(cfg))
+        (model_dir / "scheduler").mkdir()
+        (model_dir / "scheduler" / "scheduler_config.json").write_text(
+            json.dumps(SCHEDULER_CONFIG_JSON))
+        taesd_dir.mkdir()
+        nbytes += safetensors_io.save_file(
+            weights.to_diffusers_taesd_state(params["vae"], registry.TAESD_CONFIG),
+            taesd_dir / "diffusion_pytorch_model.safetensors")
+        (taesd_dir / "config.json").write_text(json.dumps(TAESD_CONFIG_JSON))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bundle = load_bundle(model_dir, "tiny", taesd_dir, bf16, device=DEV)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        text = weights.load_text_encoder(model_dir / "text_encoder", text_cfg, bf16, DEV)
+    print(f"  wrote {nbytes} bytes in {t_write:.2f} s; load_bundle in {t_load:.2f} s "
+          "(the tower's context included)")
+    if bundle.unet_config != registry.MARIGOLD_UNET_CONFIG or text_cfg != registry.SD2_TEXT_CONFIG \
+            or bundle.vae.config != registry.TAESD_CONFIG or bundle.ddim_config != S.DDIMConfig():
+        raise AssertionError(f"configs read back differ: {bundle.unet_config}, {text_cfg}, "
+                             f"{bundle.vae.config}, {bundle.ddim_config}")
+    for name, got, src in (("unet", bundle.unet_params, params["unet"]),
+                           ("taesd", bundle.vae.params, params["vae"]),
+                           ("text_encoder", text, params["text_encoder"])):
+        g, r = weights._flatten(got), weights._flatten(src)
+        if set(g) != set(r):
+            raise AssertionError(f"checkpoint {name}: leaves {sorted(set(g) ^ set(r))[:4]}")
+        bad = [p for p in r if g[p].dtype != r[p].dtype or not torch.equal(g[p], r[p])]
+        print(f"  {name}: {len(r)} leaves, {sum(t.numel() for t in r.values())} parameters, "
+              f"{len(bad)} differ")
+        check(f"checkpoint {name} leaves bit-exact", len(bad), 0, "leaves differing")
+    ctx = bundle.text_context
+    if tuple(ctx.shape) != (1, 2, 1024) or ctx.dtype != bf16 or not torch.isfinite(ctx).all():
+        raise AssertionError(f"bad context {tuple(ctx.shape)} {ctx.dtype}")
+    check("checkpoint context vs the source tower's", max_err(ctx, ctx_ref), 0.0)
+    del params, text
+    return bundle
 
 
 def main() -> int:
@@ -1230,20 +1357,30 @@ def main() -> int:
         check_conv(1, 352, 1216, relu=False, timed=False),
     ]
     check_autograd()
+    # one sample per cluster: n = 1, 2 and 8 (bench.py's batch), both
+    # prediction types; timed at n = 1 (the kernels line) and n = 8
     runs["guidance_epilogue"] = [
         check_epilogue(1, v_pred=True),
-        check_epilogue(2, v_pred=True, timed=False),
-        check_epilogue(1, v_pred=False, timed=False),
-        check_epilogue(2, v_pred=False, timed=False),
-        check_epilogue(1, v_pred=True, timed=False, latent_hw=(44, 152)),  # native path
-        check_epilogue(1, v_pred=False, timed=False, latent_hw=(44, 152)),
+        check_epilogue(8, v_pred=True),
+        *(check_epilogue(n, v_pred=vp, timed=False, latent_hw=hw) for n, vp, hw in (
+            (2, True, (72, 96)), (1, False, (72, 96)), (2, False, (72, 96)),
+            (8, False, (72, 96)),
+            (1, True, (44, 152)), (1, False, (44, 152)), (8, True, (44, 152)),  # native path
+            # res 1024: 16,384 float4s a sample, twice what the cluster holds
+            (1, True, (128, 128)), (2, False, (128, 128)),
+            # 1,961 float4s a sample: no multiple of the cluster's 4,096 threads
+            (1, True, (37, 53)), (8, False, (37, 53)),
+        )),
     ]
     probes, probe_entries = probe_phase()
 
     counts: dict[str, int] = {}
     ring_launches: dict[str, int] = {}  # kernel launches on the native (ring) path
     for path in PATHS:
-        path_counts = guided_path(path, args.steps)
+        # the TAESD path runs on the bundle read back from a checkpoint
+        loaded = checkpoint_bundle() if path.vae_kind == "tiny" and not path.ring_size else None
+        path_counts = guided_path(path, args.steps, loaded)
+        del loaded
         for k, n in path_counts.items():
             counts[k] = counts.get(k, 0) + n
         if path.ring_size:

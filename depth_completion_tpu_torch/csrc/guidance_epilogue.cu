@@ -7,23 +7,49 @@
 // [R, 128] lanes and paid a relayout on either side; here a sample is a
 // flat run of float4s and nothing is padded or moved.
 //
-// What bounds it: 8 x 4 bytes per element (lat, g, out, m, v read; lat, m,
-// v written; out as bf16 reads 2), about 0.9 MB per sample at res 768:
-// 0.26 us at the card's memory rate, so in practice its launch. Design: one
-// block per sample; the first pass reduces ‖ε̂‖² and ‖g‖² (fp32, warp
-// shuffles, then one warp over the per-warp sums), the second applies the
-// update elementwise and writes lat, m and v in place. Each element is read
-// and written by the same thread, so in place is safe.
+// What bounds it: 8 x 4 bytes per element less 2 (lat, g, m, v read as
+// fp32, out as bf16; lat, m, v written), about 0.83 MB per sample at res
+// 768: 0.25 us at the card's memory rate, so in practice its launch and
+// how many SMs stream those bytes.
+//
+// Design: one thread-block cluster per sample (CLUSTER blocks of NT
+// threads, launched with cudaLaunchKernelEx and a cluster-dimension
+// attribute), so a sample's bytes stream through CLUSTER SMs and not one.
+// Each thread loads its share of lat, g, out, m and v once, into registers
+// (VPT float4s of each: HELD float4s per sample in all), and sums its part
+// of ‖ε̂‖² and ‖g‖². Each block reduces its partials with warp shuffles;
+// after one cluster barrier every warp reads the CLUSTER blocks' partials
+// through distributed shared memory (lane r reads block r, then a warp
+// sum: the same sum in the same order in every block), so every block has
+// the sample's two norms without a second launch or global atomics. The
+// update is applied from the registers and written in place. A sample
+// larger than HELD float4s is read a second time beyond that share: once
+// for the norms, once more for the update. Each element is read and
+// written by the same thread, so in place is safe. A second cluster
+// barrier (arrive after the reads of the other blocks' partials, wait at
+// the end) keeps every block's shared memory alive while it may be read.
+//
+// Cluster size: 16 blocks (non-portable) over the portable 8, for the main
+// path's batch 1: device time 0.0050 against 0.0058 ms at [1,72,96,4]; at
+// batch 8, 0.0064 against 0.0059 (scripts/kernel_ab.py, NVIDIA H100 80GB
+// HBM3 at 700 W; the one-block design took 0.0144 and 0.0153).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NT = 512;  // threads per block (one block per sample)
+constexpr int CLUSTER = 16;  // blocks per sample (above 8, a non-portable cluster size)
+constexpr int NT = 256;      // threads per block
+constexpr int NW = NT / 32;
+constexpr int HELD = 8192;                  // float4s of a sample held in registers
+constexpr int VPT = HELD / (CLUSTER * NT);  // float4s of each tensor per thread
+static_assert(VPT * CLUSTER * NT == HELD, "HELD must split evenly over the cluster's threads");
 
 struct Step {
   float sa, s1, sap, s1p, bc1, bc2, lr, b1, b2, eps;
@@ -47,6 +73,16 @@ __device__ __forceinline__ float eps_hat(float x, float o, int v_pred, const Ste
   return v_pred ? st.sa * o + st.s1 * x : o;
 }
 
+__device__ __forceinline__ float sq4(float4 a) {
+  return a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
+}
+
+// ‖ε̂‖² of four elements
+__device__ __forceinline__ float eps_sq4(float4 x, float4 o, int v_pred, const Step& st) {
+  return sq4(make_float4(eps_hat(x.x, o.x, v_pred, st), eps_hat(x.y, o.y, v_pred, st),
+                         eps_hat(x.z, o.z, v_pred, st), eps_hat(x.w, o.w, v_pred, st)));
+}
+
 // one element: rescaled gradient → Adam → DDIM on the updated latent
 __device__ __forceinline__ void update(float& x, float g, float o, float& m, float& v,
                                        float factor, int v_pred, const Step& st) {
@@ -58,27 +94,57 @@ __device__ __forceinline__ void update(float& x, float g, float o, float& m, flo
   x = st.sap * x0 + st.s1p * eps_hat(x, o, v_pred, st);
 }
 
+__device__ __forceinline__ void update4(float4& x, float4 g, float4 o, float4& m, float4& v,
+                                        float factor, int v_pred, const Step& st) {
+  update(x.x, g.x, o.x, m.x, v.x, factor, v_pred, st);
+  update(x.y, g.y, o.y, m.y, v.y, factor, v_pred, st);
+  update(x.z, g.z, o.z, m.z, v.z, factor, v_pred, st);
+  update(x.w, g.w, o.w, m.w, v.w, factor, v_pred, st);
+}
+
 __global__ void __launch_bounds__(NT)
 guidance_epilogue_kernel(float* __restrict__ lat, const float* __restrict__ g,
                          const void* __restrict__ out, float* __restrict__ m,
                          float* __restrict__ v, long k4, int out_bf16, int v_pred, Step st) {
-  __shared__ float red[2][NT / 32];
-  const long base = (long)blockIdx.x * k4;  // this sample, in float4 units
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float red[2][NW];
+  __shared__ float2 part;  // this block's (‖ε̂‖², ‖g‖²) partial
+  const int rank = (int)cluster.block_rank();
+  const long base = (long)(blockIdx.x / CLUSTER) * k4;  // this sample, in float4 units
   float4* lat4 = reinterpret_cast<float4*>(lat) + base;
   const float4* g4 = reinterpret_cast<const float4*>(g) + base;
   float4* m4 = reinterpret_cast<float4*>(m) + base;
   float4* v4 = reinterpret_cast<float4*>(v) + base;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long first = (long)rank * NT + threadIdx.x;  // this thread's first float4
+  constexpr long STRIDE = (long)CLUSTER * NT;
 
-  // pass 1: ‖ε̂‖² and ‖g‖² of the sample
-  float e2 = 0.f, g2 = 0.f;
-  for (long i = threadIdx.x; i < k4; i += NT) {
-    const float4 x = lat4[i], gg = g4[i], o = load_out(out, out_bf16, base + i);
-    const float ex = eps_hat(x.x, o.x, v_pred, st), ey = eps_hat(x.y, o.y, v_pred, st);
-    const float ez = eps_hat(x.z, o.z, v_pred, st), ew = eps_hat(x.w, o.w, v_pred, st);
-    e2 += ex * ex + ey * ey + ez * ez + ew * ew;
-    g2 += gg.x * gg.x + gg.y * gg.y + gg.z * gg.z + gg.w * gg.w;
+  // the held share, read once: lat, g and out for the norms, m and v in flight
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 x[VPT], gg[VPT], o[VPT], mm[VPT], vv[VPT];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const long i = first + j * STRIDE;
+    const bool in = i < k4;
+    x[j] = in ? lat4[i] : zero;
+    gg[j] = in ? g4[i] : zero;
+    o[j] = in ? load_out(out, out_bf16, base + i) : zero;
+    mm[j] = in ? m4[i] : zero;
+    vv[j] = in ? v4[i] : zero;
   }
+  float e2 = 0.f, g2 = 0.f;  // zeros add nothing to either norm
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    e2 += eps_sq4(x[j], o[j], v_pred, st);
+    g2 += sq4(gg[j]);
+  }
+  // beyond the held share: read here for the norms, again for the update
+  for (long i = first + HELD; i < k4; i += STRIDE) {
+    e2 += eps_sq4(lat4[i], load_out(out, out_bf16, base + i), v_pred, st);
+    g2 += sq4(g4[i]);
+  }
+
+  // the block's partial
   e2 = warp_sum(e2);
   g2 = warp_sum(g2);
   if (lane == 0) {
@@ -87,28 +153,41 @@ guidance_epilogue_kernel(float* __restrict__ lat, const float* __restrict__ g,
   }
   __syncthreads();
   if (warp == 0) {
-    e2 = warp_sum(lane < NT / 32 ? red[0][lane] : 0.f);
-    g2 = warp_sum(lane < NT / 32 ? red[1][lane] : 0.f);
-    if (lane == 0) {
-      red[0][0] = e2;
-      red[1][0] = g2;
+    e2 = warp_sum(lane < NW ? red[0][lane] : 0.f);
+    g2 = warp_sum(lane < NW ? red[1][lane] : 0.f);
+    if (lane == 0) part = make_float2(e2, g2);
+  }
+  cluster.sync();  // every block's partial written and visible to the cluster
+
+  // the sample's norms: lane r of each warp reads block r's partial (DSMEM)
+  const float2 p = lane < CLUSTER ? *cluster.map_shared_rank(&part, lane)
+                                   : make_float2(0.f, 0.f);
+  e2 = warp_sum(p.x);
+  g2 = warp_sum(p.y);
+  // this block has read the others' shared memory: arrive now, wait at the end
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  const float factor = sqrtf(e2) / fmaxf(sqrtf(g2), 1e-7f);
+
+  // the update, from the registers, in place
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const long i = first + j * STRIDE;
+    if (i < k4) {
+      update4(x[j], gg[j], o[j], mm[j], vv[j], factor, v_pred, st);
+      lat4[i] = x[j];
+      m4[i] = mm[j];
+      v4[i] = vv[j];
     }
   }
-  __syncthreads();
-  const float factor = sqrtf(red[0][0]) / fmaxf(sqrtf(red[1][0]), 1e-7f);
-
-  // pass 2: the update, in place
-  for (long i = threadIdx.x; i < k4; i += NT) {
-    float4 x = lat4[i], mm = m4[i], vv = v4[i];
-    const float4 gg = g4[i], o = load_out(out, out_bf16, base + i);
-    update(x.x, gg.x, o.x, mm.x, vv.x, factor, v_pred, st);
-    update(x.y, gg.y, o.y, mm.y, vv.y, factor, v_pred, st);
-    update(x.z, gg.z, o.z, mm.z, vv.z, factor, v_pred, st);
-    update(x.w, gg.w, o.w, mm.w, vv.w, factor, v_pred, st);
-    lat4[i] = x;
-    m4[i] = mm;
-    v4[i] = vv;
+  for (long i = first + HELD; i < k4; i += STRIDE) {
+    float4 xr = lat4[i], mr = m4[i], vr = v4[i];
+    update4(xr, g4[i], load_out(out, out_bf16, base + i), mr, vr, factor, v_pred, st);
+    lat4[i] = xr;
+    m4[i] = mr;
+    v4[i] = vr;
   }
+  // no block leaves while another may still read its partial
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace
@@ -117,8 +196,28 @@ extern "C" int dct_guidance_epilogue(void* lat, const void* g, const void* out, 
                                      int n, long k, int out_bf16, int v_pred, float sa, float s1,
                                      float sap, float s1p, float bc1, float bc2, float lr,
                                      float b1, float b2, float adam_eps, void* stream) {
+  if (n <= 0 || k <= 0 || k % 4) return (int)cudaErrorInvalidValue;
+  if (CLUSTER > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        guidance_epilogue_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
   const Step st{sa, s1, sap, s1p, bc1, bc2, lr, b1, b2, adam_eps};
-  guidance_epilogue_kernel<<<n, NT, 0, (cudaStream_t)stream>>>(
-      (float*)lat, (const float*)g, out, (float*)m, (float*)v, k / 4, out_bf16, v_pred, st);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * CLUSTER);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, guidance_epilogue_kernel, (float*)lat,
+                                           (const float*)g, out, (float*)m, (float*)v, k / 4,
+                                           out_bf16, v_pred, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

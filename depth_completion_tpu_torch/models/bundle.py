@@ -1,25 +1,35 @@
 """ModelBundle: the pipeline's view of (UNet, VAE, text context, schedule),
-and the port's own seeded random initialisation.
+the port's own seeded random initialisation, and ``load_bundle``, which
+reads an HF-layout checkpoint directory.
 
 Counterpart of ``depth_completion_tpu.models.bundle``. Parameter trees are
 nested dicts with the JAX package's keys; tensors use PyTorch layouts (conv
 OIHW, linear ``[out, in]``). Initialisation follows the JAX package's
 scheme (Kaiming-uniform ``±1/√fan_in`` for weights and biases, unit/zero
-norms) from a ``torch.Generator``; the numbers differ from JAX's, which is
-why the tests move weights across with ``weights.from_jax_params``.
+norms, normal embeddings) from a ``torch.Generator``; the numbers differ
+from JAX's, which is why the tests move weights across with
+``weights.from_jax_params``. Either way the context is the CLIP text
+tower's output for the empty prompt, computed once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+from pathlib import Path
 from typing import Any
 
 import torch
 
 from depth_completion_tpu_torch.device import resolve_device
-from depth_completion_tpu_torch.models import registry, vae_kl, vae_tiny
-from depth_completion_tpu_torch.models.registry import TaesdConfig, UNetConfig, VAEConfig
+from depth_completion_tpu_torch.models import clip_text, registry, vae_kl, vae_tiny
+from depth_completion_tpu_torch.models.registry import (
+    CLIPTextConfig,
+    TaesdConfig,
+    UNetConfig,
+    VAEConfig,
+)
 from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
 from depth_completion_tpu_torch.ops.flash_attention import flash_attention
 
@@ -39,6 +49,12 @@ class _Init:
         bound = 1.0 / math.sqrt(fan_in)
         t = torch.empty(shape, dtype=torch.float32, device=self.device)
         return t.uniform_(-bound, bound, generator=self.gen).to(self.dtype)
+
+    def normal(self, shape, std):
+        if self.gen is None:
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
+        t = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+        return (t * std).to(self.dtype)
 
     def conv(self, k, cin, cout, bias=True):
         p = {"kernel": self._uniform((cout, cin, k, k), k * k * cin)}
@@ -305,6 +321,26 @@ class ModelBundle:
         return self.text_context.dtype
 
 
+def make_random_params(
+    seed: int,
+    unet_config: UNetConfig,
+    vae_kind: str,
+    vae_config: TaesdConfig | VAEConfig,
+    text_config: CLIPTextConfig,
+    dtype: torch.dtype,
+    device: torch.device,
+) -> dict:
+    """Seeded ``{"unet", "vae", "text_encoder"}`` trees (seeds ``seed``,
+    ``seed + 1``, ``seed + 2``): what ``make_random_bundle`` assembles, and
+    what a checkpoint directory written from them holds."""
+    init_vae_fn = init_vae if vae_kind == "kl" else init_taesd
+    return {
+        "unet": init_unet(_Init(seed, dtype, device), unet_config),
+        "vae": init_vae_fn(_Init(seed + 1, dtype, device), vae_config),
+        "text_encoder": clip_text.init_text_encoder(_Init(seed + 2, dtype, device), text_config),
+    }
+
+
 def make_random_bundle(
     seed: int = 0,
     unet_config: UNetConfig = registry.TINY_UNET_CONFIG,
@@ -312,13 +348,14 @@ def make_random_bundle(
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = None,
     vae_kind: str = "tiny",
+    text_config: CLIPTextConfig = registry.TINY_TEXT_CONFIG,
 ) -> ModelBundle:
     """Random-weight bundle made from ``seed`` on ``device`` (the GPU by
     default). ``vae_kind`` picks TAESD (``"tiny"``) or the KL VAE
     (``"kl"``) and must match ``vae_config``'s type; ``vae_config=None``
-    takes that family's tiny test config. The text context is a seeded
-    ``[1, 2, cross_attention_dim]`` tensor standing in for the empty-prompt
-    CLIP output."""
+    takes that family's tiny test config. The context is a seeded text
+    tower's output for the empty prompt, zero-padded or trimmed to the
+    UNet's ``cross_attention_dim`` where the two configs disagree."""
     if vae_kind not in ("tiny", "kl"):
         raise ValueError(f"unknown VAE kind {vae_kind!r} (expected 'tiny' or 'kl')")
     kl = vae_kind == "kl"
@@ -327,16 +364,80 @@ def make_random_bundle(
     elif isinstance(vae_config, VAEConfig) != kl:
         raise ValueError(f"vae_kind={vae_kind!r} does not match {type(vae_config).__name__}")
     dev = resolve_device(device)
-    unet_params = init_unet(_Init(seed, dtype, dev), unet_config)
-    init_vae_fn = init_vae if kl else init_taesd
-    vae_params = init_vae_fn(_Init(seed + 1, dtype, dev), vae_config)
-    gen = torch.Generator(device=dev).manual_seed(seed + 2)
-    ctx = torch.randn(
-        (1, 2, unet_config.cross_attention_dim), generator=gen, device=dev
-    ).to(dtype)
+    params = make_random_params(seed, unet_config, vae_kind, vae_config, text_config, dtype, dev)
+    with torch.no_grad():
+        ctx = clip_text.empty_prompt_context(params["text_encoder"], text_config)
+    width = unet_config.cross_attention_dim
+    if ctx.shape[-1] != width:
+        padded = ctx.new_zeros((1, ctx.shape[1], width))
+        keep = min(ctx.shape[-1], width)
+        padded[..., :keep] = ctx[..., :keep]
+        ctx = padded
     return ModelBundle(
-        unet_params=unet_params,
+        unet_params=params["unet"],
         unet_config=unet_config,
-        vae=VAE(kind=vae_kind, params=vae_params, config=vae_config),
+        vae=VAE(kind=vae_kind, params=params["vae"], config=vae_config),
         text_context=ctx,
+    )
+
+
+def _read_json(path: Path) -> dict | None:
+    return json.loads(path.read_text()) if path.exists() else None
+
+
+def load_bundle(
+    model_dir: str | Path,
+    vae_kind: str = "tiny",
+    taesd_dir: str | Path | None = None,
+    dtype: torch.dtype = torch.bfloat16,
+    unet_config: UNetConfig | None = None,
+    text_config: CLIPTextConfig | None = None,
+    device: str | torch.device | None = None,
+) -> ModelBundle:
+    """A Marigold HF-layout checkpoint directory on ``device`` (the GPU by
+    default).
+
+    ``model_dir`` holds ``unet/``, ``vae/``, ``text_encoder/`` and
+    ``scheduler/``; ``taesd_dir`` (flat safetensors, ``TAESD_CONFIG``)
+    replaces the VAE when ``vae_kind="tiny"``, the reference's default
+    assembly (predict.py:478-488). Geometry and the diffusion schedule come
+    from the directory's config JSONs where present (explicit
+    ``unet_config`` / ``text_config`` override), else the full-size
+    defaults; the context is the loaded tower's, computed once."""
+    from depth_completion_tpu_torch.models import weights
+
+    dev = resolve_device(device)
+    if vae_kind not in ("tiny", "kl"):
+        raise ValueError(f"unknown VAE kind {vae_kind!r} (expected 'tiny' or 'kl')")
+    if vae_kind == "tiny" and taesd_dir is None:
+        raise ValueError("taesd_dir is required for vae_kind='tiny'")
+    model_dir = Path(model_dir)
+    if unet_config is None:
+        cfg = _read_json(model_dir / "unet" / "config.json")
+        unet_config = (registry.unet_config_from_diffusers(cfg) if cfg
+                       else registry.MARIGOLD_UNET_CONFIG)
+    if text_config is None:
+        cfg = _read_json(model_dir / "text_encoder" / "config.json")
+        text_config = (registry.text_config_from_transformers(cfg) if cfg
+                       else registry.SD2_TEXT_CONFIG)
+    cfg = _read_json(model_dir / "scheduler" / "scheduler_config.json")
+    ddim_config = registry.ddim_config_from_diffusers(cfg) if cfg else None
+
+    unet = weights.load_unet(model_dir / "unet", unet_config, dtype, dev)
+    if vae_kind == "tiny":
+        vae = VAE("tiny", weights.load_taesd(taesd_dir, registry.TAESD_CONFIG, dtype, dev),
+                  registry.TAESD_CONFIG)
+    else:
+        cfg = _read_json(model_dir / "vae" / "config.json")
+        vae_config = registry.vae_config_from_diffusers(cfg) if cfg else registry.SD_VAE_CONFIG
+        vae = VAE("kl", weights.load_vae(model_dir / "vae", vae_config, dtype, dev), vae_config)
+    text = weights.load_text_encoder(model_dir / "text_encoder", text_config, dtype, dev)
+    with torch.no_grad():
+        ctx = clip_text.empty_prompt_context(text, text_config)
+    return ModelBundle(
+        unet_params=unet,
+        unet_config=unet_config,
+        vae=vae,
+        text_context=ctx,
+        ddim_config=ddim_config,
     )

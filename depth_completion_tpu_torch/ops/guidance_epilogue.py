@@ -10,10 +10,15 @@ guidance backward pass of a per-step guided DDIM step, per sample:
     lat ← sap·x0(lat) + s1p·ε(lat)   (x0, ε from the updated lat and the old out)
 
 The CUDA kernel (``csrc/guidance_epilogue.cu``) replaces the TPU kernel
-``_kernel`` (guidance_epilogue.py:62): one block per sample, the two norms
-in a first pass over the sample's latent, the update in a second. It needs
-no padding of the latent to 128 lanes and no relayout, which is where the
-TPU kernel lost its time. The plain twin follows ``_epilogue_xla`` (:120).
+``_kernel`` (guidance_epilogue.py:62): one thread-block cluster per sample,
+each thread holding its share of the five tensors in registers (read
+once), the two norms summed across the cluster's blocks through
+distributed shared memory, the update applied from the registers. Any
+per-sample size K with K % 4 == 0 launches (the part beyond what the
+cluster holds is read a second time); any other K raises, as does a
+launch the card refuses. It needs no padding of the latent to 128 lanes
+and no relayout, which is where the TPU kernel lost its time. The plain
+twin follows ``_epilogue_xla`` (:120).
 
 The six per-step scalars [sa, s1, sap, s1p, bc1, bc2] are Python floats
 computed on the host from the schedule and the step count

@@ -59,6 +59,10 @@
 #                 the travelling fp32 buffer instead of adding into it
 #   F23_d512_dq_tile d=512 flash backward drops key tile 1's part of dq
 #                 (its dq kernel zeroes ds there)
+#   F24_epilogue_own_norms each block of the epilogue's cluster takes only
+#                 its own partial norms, not the sample's
+#   F25_loader_transpose the port's checkpoint loader transposes conv
+#                 kernels (OIHW → HWIO) as the JAX package's converter does
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -137,7 +141,7 @@ run_fault F6_d512_skip_tile \
   $FA 's|const int k0 = blockIdx.x \* BK5, h = blockIdx.y, n = blockIdx.z;|&\n  if (blockIdx.x == 1) return;|' \
   depth_completion_tpu_torch/ops/flash_attention.py 's|torch.empty((n, sk, c)|torch.zeros((n, sk, c)|g'
 run_fault F7_epilogue_norm depth_completion_tpu_torch/csrc/guidance_epilogue.cu \
-  's|const float factor = sqrtf(red\[0\]\[0\]) / fmaxf(sqrtf(red\[1\]\[0\]), 1e-7f);|const float factor = 1.f;|'
+  's|const float factor = sqrtf(e2) / fmaxf(sqrtf(g2), 1e-7f);|const float factor = 1.f;|'
 run_fault F8_swap_dkdv depth_completion_tpu_torch/ops/flash_attention.py \
   's|return dq, dk, dv, None|return dq, dv, dk, None|'
 run_fault F9_kl_skip depth_completion_tpu_torch/ops/conv3x3.py \
@@ -168,4 +172,8 @@ run_fault F22_ring_dkv_store $FA \
   's|atomicAdd(reinterpret_cast<float2\*>(p), make_float2(x, y));|*reinterpret_cast<float2*>(p) = make_float2(x, y);|'
 run_fault F23_d512_dq_tile $FA \
   's|s\[i\]\[e\] = pe \* (da\[e\]|s[i][e] = (j == 1 ? 0.f : pe) * (da[e]|'
+run_fault F24_epilogue_own_norms depth_completion_tpu_torch/csrc/guidance_epilogue.cu \
+  's|const float2 p = lane < CLUSTER ?|const float2 p = lane == rank ?|'
+run_fault F25_loader_transpose depth_completion_tpu_torch/models/weights.py \
+  's|^        leaf = "kernel"$|&\n        if kind == "conv":\n            value = value.permute(2, 3, 1, 0)|'
 exit $status

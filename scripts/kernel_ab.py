@@ -1,17 +1,18 @@
 """Device time of the flash kernels (d=64 forward and backward, d=512
-forward and backward), the ring's passes and the fused 3x3 conv in two
-checkouts, side by side, on one CUDA GPU.
+forward and backward), the ring's passes, the fused 3x3 conv and the
+guidance epilogue in two checkouts, side by side, on one CUDA GPU.
 
     python3 scripts/kernel_ab.py BASE_DIR [--reps 20]
 
 BASE_DIR is another checkout of this repository, e.g. the parent commit
 unpacked with ``git archive`` into the git-ignored
 ``depth_completion_tpu_torch/_build/parent/``. Each tree's
-``csrc/flash_attention.cu`` and ``csrc/conv3x3.cu`` is compiled with nvcc
-(this tree's flags) into ``depth_completion_tpu_torch/_build/ab/``, loaded
-with ctypes through the C entry points both trees share (``dct_flash_fwd``,
-``dct_flash_bwd``, ``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``,
-``dct_conv3x3``), and timed at the guided paths' shapes: ``reps`` launches
+``csrc/flash_attention.cu``, ``csrc/conv3x3.cu`` and
+``csrc/guidance_epilogue.cu`` is compiled with nvcc (this tree's flags)
+into ``depth_completion_tpu_torch/_build/ab/``, loaded with ctypes through
+the C entry points both trees share (``dct_flash_fwd``, ``dct_flash_bwd``,
+``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``, ``dct_conv3x3``,
+``dct_guidance_epilogue``), and timed at the guided paths' shapes: ``reps`` launches
 captured in one CUDA graph and replayed, so a time is the kernel's device
 time without the host's launch overhead (``chip_smoke.py`` times through the
 Python wrappers, which at small shapes measures the host). A backward's
@@ -31,8 +32,12 @@ The same turns then hold this tree's ``flash_bwd_d512`` (the two-kernel
 design of its source note) against variants built beside it
 (``VARIANTS``): the one-pass design (``scripts/kernel_ab_variants.cu``),
 and the same with its dq atomics left out (the dq products kept, the adds
-skipped: the result's dq is then wrong, its time what the atomics cost). Prints the card,
-one line per case, and last a JSON object with every case.
+skipped: the result's dq is then wrong, its time what the atomics cost).
+The guidance epilogue (in place on lat, m, v: timed on working copies,
+compared from fresh ones) runs at batch 1 and 8 against the other tree,
+and against this tree's source built with ``EPILOGUE_VARIANT_CLUSTER``
+blocks per cluster. Prints the card, one line per case, and last a JSON
+object with every case.
 """
 
 from __future__ import annotations
@@ -53,13 +58,21 @@ sys.path.insert(0, str(ROOT))
 from depth_completion_tpu_torch import _build  # noqa: E402
 from depth_completion_tpu_torch.ops import conv3x3 as c3  # noqa: E402
 from depth_completion_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from depth_completion_tpu_torch.ops import guidance_epilogue as ge  # noqa: E402
 from depth_completion_tpu_torch.ops import ring_attention as ra  # noqa: E402
 from depth_completion_tpu_torch.probes import card  # noqa: E402
+from depth_completion_tpu_torch.sched.ddim import make_schedule, make_timesteps  # noqa: E402
 
 _p, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-SOURCES = ("flash_attention", "conv3x3")
+SOURCES = ("flash_attention", "conv3x3", "guidance_epilogue")
 FWD_ARGS = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
 BWD_ARGS = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
+EPILOGUE_ARGS = [_p] * 5 + [_i, _l, _i, _i] + [_f] * 10 + [_p]
+# (N, EH, EW): the latent of res 768 at batch 1 and at bench.py's batch 8
+EPILOGUE_CASES = ((1, 72, 96), (8, 72, 96))
+# the other cluster size, built from this tree's source (a text edit)
+EPILOGUE_CLUSTER_LINE = "constexpr int CLUSTER = {};"
+EPILOGUE_VARIANT_CLUSTER = 8
 # variants of this tree's d=512 backward: ``scripts/kernel_ab_variants.cu``
 # (entry ``VARIANT_ENTRY``, the one-pass design) built over a copy of
 # csrc/ whose flash_attention.cu takes these (old, new) text edits
@@ -112,11 +125,34 @@ def build(tree: Path, tag: str) -> dict:
                 lib.dct_flash_fwd_ring.argtypes = [_p] * 8 + [_i] * 4 + [_l] * 8 + [_i, _i, _f, _p]
                 lib.dct_flash_bwd_ring.argtypes = [_p] * 9 + [_i] * 4 + [_l] * 10 + [_i, _f, _p]
                 lib.dct_flash_fwd_ring.restype = lib.dct_flash_bwd_ring.restype = _i
-        else:
+        elif name == "conv3x3":
             lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
             lib.dct_conv3x3.restype = _i
+        else:
+            lib.dct_guidance_epilogue.argtypes, lib.dct_guidance_epilogue.restype = \
+                EPILOGUE_ARGS, _i
         libs[name] = lib
     return libs
+
+
+def build_epilogue_variant(cluster: int) -> ctypes.CDLL:
+    """This tree's ``guidance_epilogue.cu`` with ``cluster`` blocks per
+    cluster (its ``CLUSTER`` line edited in a copy)."""
+    out = ROOT / "depth_completion_tpu_torch" / "_build" / "ab" / f"epilogue_c{cluster}"
+    out.mkdir(parents=True, exist_ok=True)
+    text = (ROOT / "depth_completion_tpu_torch" / "csrc" / "guidance_epilogue.cu").read_text()
+    line = next(EPILOGUE_CLUSTER_LINE.format(c) for c in (8, 16)
+                if EPILOGUE_CLUSTER_LINE.format(c) in text)
+    (out / "guidance_epilogue.cu").write_text(text.replace(line,
+                                                           EPILOGUE_CLUSTER_LINE.format(cluster)))
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"),
+           str(out / "guidance_epilogue.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the epilogue at cluster {cluster}:\n{proc.stdout}")
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    lib.dct_guidance_epilogue.argtypes, lib.dct_guidance_epilogue.restype = EPILOGUE_ARGS, _i
+    return lib
 
 
 def build_variants() -> dict:
@@ -295,6 +331,35 @@ def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
     return y
 
 
+def epilogue(lib, lat, g, out, m, v, sc):
+    """One v-prediction step through ``dct_guidance_epilogue``, in place."""
+    n = lat.shape[0]
+    status = lib.dct_guidance_epilogue(
+        lat.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(), v.data_ptr(), n,
+        lat.numel() // n, int(out.dtype == torch.bfloat16), 1, *sc, 0.05, ge.ADAM_B1,
+        ge.ADAM_B2, ge.ADAM_EPS, _stream())
+    _build.check(status, "guidance_epilogue")
+
+
+def epilogue_turns(libs: dict, state: tuple, sc, reps: int) -> dict:
+    """``turns`` for the in-place epilogue: each tree timed on working
+    copies of (lat, g, out, m, v), its outputs taken from fresh ones."""
+    lat, g, out, m, v = state
+    work = [x.clone() for x in (lat, m, v)]
+    times = {"base": [], "this": []}
+    for tag in ("base", "this", "this", "base"):
+        times[tag].append(graph_ms(
+            lambda: epilogue(libs[tag], work[0], g, out, work[1], work[2], sc), reps))
+    outs = {}
+    for tag in times:
+        fresh = [x.clone() for x in (lat, m, v)]
+        epilogue(libs[tag], fresh[0], g, out, fresh[1], fresh[2], sc)
+        outs[tag] = fresh
+    diff = max(float((a - b).abs().max()) for a, b in zip(outs["base"], outs["this"]))
+    base, this = (sum(times[t]) / 2 for t in ("base", "this"))
+    return {"base_ms": base, "this_ms": this, "speedup": base / this, "max_abs_diff": diff}
+
+
 def turns(libs: dict, run, reps: int) -> dict:
     """base, this, this, base → per tree the mean ms, and the max abs
     difference over the outputs (``run(libs[tag])`` returns a tensor or a
@@ -378,6 +443,22 @@ def main() -> int:
         r = turns(conv_libs, lambda lib: conv(lib, dy, kf, mask=mask), args.reps)
         r.update(kernel="conv3x3", shape=f"{h}x{w} {co}->{ci} {form} {'masked ' if relu else ''}dx")
         results.append(r)
+    epi_libs = {t: lib["guidance_epilogue"] for t, lib in libs.items()}
+    variant = {"base": build_epilogue_variant(EPILOGUE_VARIANT_CLUSTER), "this": epi_libs["this"]}
+    sched = make_schedule()
+    t = int(make_timesteps(sched.config, 50)[3])
+    sc = ge.epilogue_scalars(sched, t, 50, 3)
+    for n, eh, ew in EPILOGUE_CASES:
+        shape = (n, eh, ew, 4)
+        lat, g, m = (torch.randn(shape, generator=gen, device="cuda") * s for s in (1.0, 1e-3, 0.3))
+        out = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        v = m * m + 0.1 * torch.rand(shape, generator=gen, device="cuda")
+        for pair, label in ((epi_libs, "guidance_epilogue"),
+                            (variant, "guidance_epilogue (base: this tree at cluster "
+                                      f"{EPILOGUE_VARIANT_CLUSTER})")):
+            r = epilogue_turns(pair, (lat, g, out, m, v), sc, args.reps)
+            r.update(kernel=label, shape=f"N={n} {eh}x{ew}x4 v-pred")
+            results.append(r)
     for r in results:
         print(f"{r['kernel']} {r['shape']}: base {r['base_ms']:.4f} ms, this {r['this_ms']:.4f} ms "
               f"(x{r['speedup']:.3f}), max|diff| {r['max_abs_diff']:.3e}")

@@ -112,7 +112,7 @@ def main() -> int:
                         "original": ("kl", registry.SD_VAE_CONFIG)}[args.vae]
     bundle = make_random_bundle(
         seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG, vae_config=vae_config,
-        dtype=torch.bfloat16, device="cuda", vae_kind=kind,
+        dtype=torch.bfloat16, device="cuda", vae_kind=kind, text_config=registry.SD2_TEXT_CONFIG,
     )
     pipe = DepthCompletionPipeline(bundle)
     gen = torch.Generator().manual_seed(0)

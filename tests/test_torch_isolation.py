@@ -1,4 +1,6 @@
-"""The port stands alone: no JAX, no optax, nothing of the JAX package."""
+"""The port stands alone: no JAX, no optax, nothing of the JAX package, and
+none of the packages the card's machine lacks (safetensors, transformers,
+click, cv2)."""
 
 import ast
 import os
@@ -12,7 +14,8 @@ PORT = os.path.join(REPO, "depth_completion_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 PROFILE = os.path.join(REPO, "scripts", "profile_torch_step.py")
 KERNEL_AB = os.path.join(REPO, "scripts", "kernel_ab.py")
-FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu", "safetensors", "transformers",
+             "click", "cv2")
 
 
 def _port_files():
@@ -48,9 +51,9 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys; before = set(sys.modules); "
         "import depth_completion_tpu_torch.pipeline.pipeline, "
-        "depth_completion_tpu_torch.models.weights; "
-        "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'depth_completion_tpu')]; "
+        "depth_completion_tpu_torch.models.weights, "
+        "depth_completion_tpu_torch.models.bundle; "
+        f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
