@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--steps N]
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
-   versions, and builds every CUDA kernel of the package from ``csrc/``;
+   versions, and builds every CUDA kernel of the package from ``csrc/``
+   (and the host codecs, with g++), one compiler each, in parallel;
 2. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (max error against a stated tolerance), and times kernel,
    plain version and the nearest single PyTorch library call (for the
@@ -38,12 +39,21 @@
    implies (counts set to 0 just before the path, read just after); holds
    the KL encode against the same encode through the plain versions and in
    fp32; and holds one guided step's losses and gradients, for a few noise
-   seeds, against the same step run through the plain versions (for the
-   ring: through the flash kernels without the ring), and the latent
-   gradient against an fp32 run;
-4. prints ``{"probes": [...]}`` (each probe's readings and verdict),
+   seeds (JAX's noise for each seed), against the same step run through the
+   plain versions (for the ring: through the flash kernels without the
+   ring), and the latent gradient against an fp32 run;
+4. runs the predict CLI (``depth_completion_tpu_torch.cli.predict``) in
+   process with its defaults on the checkpoint directory of step 3 over a
+   3-frame 480x640 PNG dataset written with the port's PNG writer: dense
+   ``.dcz`` maps and JPEG vis grids checked, the kernel launches three
+   times one request's, frame 0 against the pipeline called directly on
+   the same weights and arrays; ``--resume true`` then launches nothing,
+   and the analyze CLI scores the outputs;
+5. prints ``{"probes": [...]}`` (each probe's readings and verdict),
    ``{"composites": [...]}`` (the ring's passes: their times, errors
    and bound, and the ring step launches on the native path),
+   ``{"cli": {...}}`` (the CLI's seconds per frame and their split, PNG
+   decode and JPEG encode ms per frame, dense bytes, analyze MAE),
    ``{"kernels": [...]}`` (one entry per CUDA kernel; a probe kernel's
    launches are its probe's, and every guided path must launch it 0
    times) and, last,
@@ -83,8 +93,13 @@ torch = _require_cuda()
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
+import numpy as np  # noqa: E402
+
 from depth_completion_tpu_torch import _build  # noqa: E402
+from depth_completion_tpu_torch.cli import analyze as analyze_cli  # noqa: E402
+from depth_completion_tpu_torch.cli import predict as predict_cli  # noqa: E402
 from depth_completion_tpu_torch.guidance.optim import make_optimizer  # noqa: E402
+from depth_completion_tpu_torch.io import codecs, image, png  # noqa: E402
 from depth_completion_tpu_torch.models import (  # noqa: E402
     clip_text,
     registry,
@@ -1054,8 +1069,8 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
         return float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
 
     for seed in REF_SEEDS:
-        gen = torch.Generator(device=DEV).manual_seed(seed)
-        img_lat, lat0, dn, padding, orig_res = S._prepare(bundle, images, sparses, cfg, None, gen)
+        img_lat, lat0, dn, padding, orig_res = S._prepare(
+            bundle, images, sparses, dataclasses.replace(cfg, seed=seed), None)
         results = []
         for bnd, unet_attention, attention_fn, conv_fn in modes.values():
             lat = lat0.clone().requires_grad_(True)
@@ -1204,16 +1219,17 @@ TEXT_ENCODER_CONFIG_JSON = {
 }
 
 
-def checkpoint_bundle(seed: int = 0):
+def checkpoint_bundle(root: Path, seed: int = 0):
     """Phase 3a: the seeded full-width trees (``make_random_params``: the
     Marigold UNet, TAESD, the SD2 text tower; bf16 on the card) written
-    with the port's exporters and safetensors writer into a temporary
-    HF-layout directory (``unet/``, ``text_encoder/``, ``scheduler/``, and
-    a TAESD directory), then read back with ``load_bundle``. Every leaf of
-    the loaded UNet, TAESD and text tower must equal its source bit for
-    bit, the configs the registry's, and the context (the loaded tower's on
-    the empty prompt) that of the source tower: [1, 2, 1024], finite. The
-    directory is deleted before the path runs. → the loaded bundle."""
+    with the port's exporters and safetensors writer into an HF-layout
+    directory under ``root`` (``marigold/``: ``unet/``, ``text_encoder/``,
+    ``scheduler/``; and ``taesd/``), then read back with ``load_bundle``.
+    Every leaf of the loaded UNet, TAESD and text tower must equal its
+    source bit for bit, the configs the registry's, and the context (the
+    loaded tower's on the empty prompt) that of the source tower: [1, 2,
+    1024], finite. The directory stays for the CLI phase, which loads it
+    again. → (the loaded bundle, the model directory, the TAESD directory)."""
     print("checkpoint: MARIGOLD_UNET_CONFIG + TAESD_CONFIG + SD2_TEXT_CONFIG bf16, seed "
           f"{seed}, written in HF layout and loaded with load_bundle")
     bf16 = torch.bfloat16
@@ -1222,34 +1238,33 @@ def checkpoint_bundle(seed: int = 0):
                                 registry.TAESD_CONFIG, text_cfg, bf16, DEV)
     with torch.no_grad():
         ctx_ref = clip_text.empty_prompt_context(params["text_encoder"], text_cfg)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoint_") as tmp:
-        model_dir, taesd_dir = Path(tmp) / "marigold", Path(tmp) / "taesd"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        nbytes = 0
-        for sub, state, fname, cfg in (
-            ("unet", weights.to_diffusers_unet_state(params["unet"]),
-             "diffusion_pytorch_model.safetensors", UNET_CONFIG_JSON),
-            ("text_encoder", weights.to_transformers_text_encoder_state(params["text_encoder"]),
-             "model.safetensors", TEXT_ENCODER_CONFIG_JSON),
-        ):
-            (model_dir / sub).mkdir(parents=True)
-            nbytes += safetensors_io.save_file(state, model_dir / sub / fname)
-            (model_dir / sub / "config.json").write_text(json.dumps(cfg))
-        (model_dir / "scheduler").mkdir()
-        (model_dir / "scheduler" / "scheduler_config.json").write_text(
-            json.dumps(SCHEDULER_CONFIG_JSON))
-        taesd_dir.mkdir()
-        nbytes += safetensors_io.save_file(
-            weights.to_diffusers_taesd_state(params["vae"], registry.TAESD_CONFIG),
-            taesd_dir / "diffusion_pytorch_model.safetensors")
-        (taesd_dir / "config.json").write_text(json.dumps(TAESD_CONFIG_JSON))
-        t_write = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        bundle = load_bundle(model_dir, "tiny", taesd_dir, bf16, device=DEV)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        text = weights.load_text_encoder(model_dir / "text_encoder", text_cfg, bf16, DEV)
+    model_dir, taesd_dir = root / "marigold", root / "taesd"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = 0
+    for sub, state, fname, cfg in (
+        ("unet", weights.to_diffusers_unet_state(params["unet"]),
+         "diffusion_pytorch_model.safetensors", UNET_CONFIG_JSON),
+        ("text_encoder", weights.to_transformers_text_encoder_state(params["text_encoder"]),
+         "model.safetensors", TEXT_ENCODER_CONFIG_JSON),
+    ):
+        (model_dir / sub).mkdir(parents=True)
+        nbytes += safetensors_io.save_file(state, model_dir / sub / fname)
+        (model_dir / sub / "config.json").write_text(json.dumps(cfg))
+    (model_dir / "scheduler").mkdir()
+    (model_dir / "scheduler" / "scheduler_config.json").write_text(
+        json.dumps(SCHEDULER_CONFIG_JSON))
+    taesd_dir.mkdir()
+    nbytes += safetensors_io.save_file(
+        weights.to_diffusers_taesd_state(params["vae"], registry.TAESD_CONFIG),
+        taesd_dir / "diffusion_pytorch_model.safetensors")
+    (taesd_dir / "config.json").write_text(json.dumps(TAESD_CONFIG_JSON))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = load_bundle(model_dir, "tiny", taesd_dir, bf16, device=DEV)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    text = weights.load_text_encoder(model_dir / "text_encoder", text_cfg, bf16, DEV)
     print(f"  wrote {nbytes} bytes in {t_write:.2f} s; load_bundle in {t_load:.2f} s "
           "(the tower's context included)")
     if bundle.unet_config != registry.MARIGOLD_UNET_CONFIG or text_cfg != registry.SD2_TEXT_CONFIG \
@@ -1271,7 +1286,158 @@ def checkpoint_bundle(seed: int = 0):
         raise AssertionError(f"bad context {tuple(ctx.shape)} {ctx.dtype}")
     check("checkpoint context vs the source tower's", max_err(ctx, ctx_ref), 0.0)
     del params, text
-    return bundle
+    return bundle, model_dir, taesd_dir
+
+
+# Phase 4: the predict and analyze CLIs on the checkpoint directory
+# Check (d): the arrays the CLI hands DepthCompletionPipeline must equal
+# the generated image and 120·v/255 m sparse map, computed here without
+# the port's IO (limit CLI_INPUT_LIMIT, in 0..255 and metres), and its
+# frame 0 must agree with the pipeline called directly on the same weights
+# and arrays (rms and max of the difference over the 120 m range). Two
+# sound runs differ: flash_bwd adds dq with atomics, and 50 guided steps
+# carry the difference (sound, NVIDIA H100 80GB HBM3, 700 W: rms 4.2e-4 to
+# 4.4e-4, max 2.5e-2 to 2.7e-2 at 50 steps; 2.3e-5, 4.8e-4 at 2). At random
+# weights the dense map barely depends on the image's channel order or the
+# sparse scale: at 2 steps the planted faults F26 (the CLI's to_depth
+# scaled by 255/max_sparse_depth) and F27 (the PNG decoder handing over
+# BGR) of scripts/chip_smoke_faults.sh read rms 5.4e-5 and 4.7e-5, inside
+# the sound 50-step noise; the input comparison catches both (PERF.md,
+# Findings).
+CLI_LIMITS = (5e-3, 0.2)
+CLI_INPUT_LIMIT = 1e-5
+CLI_FRAMES, CLI_FRAME, CLI_POINTS = 3, (480, 640), 500
+
+
+def cli_dataset(root: Path, seed: int = 0):
+    """``scene/image/*.png`` (random RGB) and ``scene/sparse/*.png`` (8-bit
+    grey, ~500 points of 1..255 = 120·v/255 m), written with the port's
+    PNG writer. → (the dataset root, the generated images and sparse
+    bytes, [F, H, W, 3] and [F, H, W] uint8)."""
+    rng = np.random.default_rng(seed)
+    h, w = CLI_FRAME
+    imgs = rng.integers(0, 256, (CLI_FRAMES, h, w, 3), dtype=np.uint8)
+    sparse = np.zeros((CLI_FRAMES, h * w), np.uint8)
+    for f in range(CLI_FRAMES):
+        idx = rng.choice(h * w, CLI_POINTS, replace=False)
+        sparse[f, idx] = rng.integers(1, 256, CLI_POINTS)
+    sparse = sparse.reshape(CLI_FRAMES, h, w)
+    for sub, arrays in (("image", imgs), ("sparse", sparse)):
+        (root / "scene" / sub).mkdir(parents=True)
+        for f, arr in enumerate(arrays):
+            png.write_png(arr, root / "scene" / sub / f"{f:05d}.png")
+    return root, imgs, sparse
+
+
+def cli_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
+    """The predict CLI in process, with its defaults (res 768, bf16,
+    ``--vae light``, dcz, vis grids, batch 1) and the smoke's ``--steps``,
+    over a 3-frame 480x640 dataset, loading the checkpoint directory of
+    phase 3a; (a) three dense maps (480, 640, 1), float32, finite, in
+    [0, 120]; (b) three vis grids whose JPEG size is 2039x512 (the grid of
+    three 480x640 views resized to height 512); (c) the kernel launches of
+    the run three times one request's; (d) the arrays the CLI hands the
+    pipeline equal to the generated ones, and frame 0 within
+    ``CLI_LIMITS`` of ``DepthCompletionPipeline`` on the same directory's
+    bundle (``load_bundle``, bit-exact to its source in phase 3a) called
+    directly with those arrays. Then
+    ``--resume true`` skips every frame and launches nothing, and the
+    analyze CLI scores the outputs. → the ``cli`` line."""
+    h, w = CLI_FRAME
+    print(f"cli: predict over {CLI_FRAMES} frames of {h}x{w} ({CLI_POINTS} points), "
+          f"{steps} steps, res 768, bf16, --vae light, dcz, vis, on the checkpoint directory")
+    data, imgs, sparse = cli_dataset(root / "data")
+    out = root / "out"
+    argv = [str(data), str(out), "--checkpoint-dir", str(model_dir), "--taesd-dir",
+            str(taesd_dir), "--steps", str(steps), "--log-level", "WARNING"]
+    fed = []  # what the CLI hands the pipeline, per request
+    call = DepthCompletionPipeline.__call__
+
+    def spy(self, images, sparses, *args, **kwargs):
+        fed.append((np.array(images, np.float32), np.array(sparses, np.float32)))
+        return call(self, images, sparses, *args, **kwargs)
+
+    DepthCompletionPipeline.__call__ = spy
+    try:
+        reset_launches()  # just before the CLI run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        totals = predict_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()  # just after
+    finally:
+        DepthCompletionPipeline.__call__ = call
+    frames = totals["frames"]
+    print(f"  {frames} frames in {wall:.2f} s (the checkpoint load included): {totals}")
+    denses = sorted((out / "scene" / "dense").glob("*.dcz"))
+    if len(denses) != CLI_FRAMES or frames != CLI_FRAMES:
+        raise AssertionError(f"(a) {len(denses)} dense files, {frames} frames written")
+    dense = [codecs.load_array(p) for p in denses]
+    for p, d in zip(denses, dense):
+        if d.shape != (h, w, 1) or d.dtype != np.float32 or not np.isfinite(d).all() \
+                or d.min() < 0.0 or d.max() > 120.0:
+            raise AssertionError(f"(a) {p.name}: {d.shape} {d.dtype} [{d.min()}, {d.max()}]")
+    grid_w = int(512 * (3 * w + 8) / (h + 4))
+    for p in sorted((out / "scene" / "vis").glob("*_vis.jpg")):
+        if image.image_size(p) != (grid_w, 512):
+            raise AssertionError(f"(b) {p.name}: {image.image_size(p)} != {(grid_w, 512)}")
+    if len(list((out / "scene" / "vis").glob("*_vis.jpg"))) != CLI_FRAMES:
+        raise AssertionError("(b) vis grids missing")
+    bundle = load_bundle(model_dir, "tiny", taesd_dir, torch.bfloat16, device=DEV)
+    eh, ew = latent_size(CLI_FRAME, 768, bundle.vae.downsample_factor)
+    one = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                            (eh, ew), steps)
+    print(f"  launches {counts}")
+    if counts != {k: CLI_FRAMES * n for k, n in one.items()}:
+        raise AssertionError(f"(c) kernel launches {counts} != {CLI_FRAMES} x {one}")
+
+    want_imgs = imgs.astype(np.float32)
+    want_sparse = 120.0 * (sparse[..., None].astype(np.float32) / 255.0)
+    if len(fed) != CLI_FRAMES or any(x.shape != (1, h, w, 3) or y.shape != (1, h, w, 1)
+                                     for x, y in fed):
+        raise AssertionError(f"(d) the pipeline was fed {[(x.shape, y.shape) for x, y in fed]}")
+    err_img = max(float(np.abs(x[0] - want_imgs[f]).max()) for f, (x, _) in enumerate(fed))
+    err_sparse = max(float(np.abs(y[0] - want_sparse[f]).max()) for f, (_, y) in enumerate(fed))
+    print(f"  (d) the CLI's pipeline inputs against the generated arrays: image max "
+          f"{err_img:.3e}, sparse max {err_sparse:.3e} m")
+    check("cli pipeline input: image", err_img, CLI_INPUT_LIMIT)
+    check("cli pipeline input: sparse depth", err_sparse, CLI_INPUT_LIMIT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct, _ = DepthCompletionPipeline(bundle)(
+        want_imgs[:1], want_sparse[:1], max_depth=120.0, steps=steps, norm="const",
+        resolution=768)
+    torch.cuda.synchronize()
+    t_direct = time.perf_counter() - t0
+    diff = (dense[0] - direct[0].float().cpu().numpy()) / 120.0
+    rms, worst = float(np.sqrt(np.mean(diff**2))), float(np.abs(diff).max())
+    print(f"  (d) frame 0 against the direct call ({t_direct:.2f} s): rms {rms:.3e}, max "
+          f"{worst:.3e} of the 120 m range")
+    check("cli frame 0 vs the direct pipeline call (rms)", rms, CLI_LIMITS[0], "rms/120 m")
+    check("cli frame 0 vs the direct pipeline call (max)", worst, CLI_LIMITS[1], "max/120 m")
+
+    reset_launches()
+    again = predict_cli.main([*argv, "--resume", "true"])
+    resumed = launches()
+    if again["frames"] != 0 or any(resumed.values()):
+        raise AssertionError(f"resume ran {again['frames']} frames, launches {resumed}")
+    print("  --resume true: 0 frames, 0 launches")
+    results = analyze_cli.main([str(data), str(out), "--log-level", "WARNING"])
+    mae, rmse = results["overall"]["mae"], results["overall"]["rmse"]
+    if not (math.isfinite(mae) and math.isfinite(rmse)) or len(results["binned"]) != 12:
+        raise AssertionError(f"analyze: {results['overall']}, {len(results['binned'])} bins")
+    print(f"  analyze: mae {mae:.4f} m, rmse {rmse:.4f} m, 12 bins")
+    return {
+        "frames": frames, "steps": steps, "wall_s_per_frame": wall / frames,
+        "direct_call_s": t_direct,
+        **{f"time/{k}_s_per_frame": totals[f"time_{k}"] / frames for k in ("io", "infer", "vis")},
+        "png_decode_ms_per_frame": 1e3 * totals["time_decode"] / frames,
+        "jpeg_encode_ms_per_frame": 1e3 * totals["time_jpeg"] / frames,
+        "dense_bytes_per_frame": totals["dense_bytes"] / frames,
+        "analyze_mae": mae, "cli_vs_direct_rms": rms, "cli_vs_direct_max": worst,
+        "card": card(),
+    }
 
 
 def main() -> int:
@@ -1376,15 +1542,19 @@ def main() -> int:
 
     counts: dict[str, int] = {}
     ring_launches: dict[str, int] = {}  # kernel launches on the native (ring) path
-    for path in PATHS:
-        # the TAESD path runs on the bundle read back from a checkpoint
-        loaded = checkpoint_bundle() if path.vae_kind == "tiny" and not path.ring_size else None
-        path_counts = guided_path(path, args.steps, loaded)
-        del loaded
-        for k, n in path_counts.items():
-            counts[k] = counts.get(k, 0) + n
-        if path.ring_size:
-            ring_launches = path_counts
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoint_") as tmp:
+        # the TAESD path runs on the bundle read back from a checkpoint, the
+        # CLI phase on the same directory
+        loaded, model_dir, taesd_dir = checkpoint_bundle(Path(tmp))
+        for path in PATHS:
+            taesd_path = path.vae_kind == "tiny" and not path.ring_size
+            path_counts = guided_path(path, args.steps, loaded if taesd_path else None)
+            loaded = None  # each path's peak memory its own
+            for k, n in path_counts.items():
+                counts[k] = counts.get(k, 0) + n
+            if path.ring_size:
+                ring_launches = path_counts
+        cli = cli_phase(model_dir, taesd_dir, Path(tmp), args.steps)
     if FAILURES:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
@@ -1421,6 +1591,7 @@ def main() -> int:
         })
     print(json.dumps({"probes": probes}))
     print(json.dumps({"composites": composites}))
+    print(json.dumps({"cli": cli}))
     # how a wrapper that runs more than one kernel counts its launches
     launch_notes = {"flash_bwd_d512": "one per call of dct_flash_bwd_d512, which runs three "
                                       "kernels: the di pre-pass, dk/dv, then dq"}

@@ -1,0 +1,88 @@
+"""Array codecs, PyTorch-port counterpart of
+``depth_completion_tpu.io.codecs``: ``.npy`` / ``.npz`` (under ``arr_0``)
+and ``.dcz`` (``io/dcz.py``), with threaded batch loaders. Arrays may be
+numpy arrays or tensors; floats other than float32/float64 (bfloat16,
+float16) are upcast to float32 on save. ``.bl2`` (blosc2's frame format)
+raises ``NotImplementedError``: its codec waits for a later slice
+(ROADMAP queue 1, item 5b).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from depth_completion_tpu_torch.io.dcz import load_dcz, save_dcz
+
+NPARRAY_EXTS = [".npy", ".npz", ".bl2", ".dcz"]
+_BL2 = ".bl2 arrays (blosc2) are not ported yet: use dcz, npy or npz (ROADMAP queue 1, item 5b)"
+
+
+def is_array_path(path: Path) -> bool:
+    return path.is_file() and path.suffix in NPARRAY_EXTS
+
+
+def _as_numpy(x: Any) -> np.ndarray:
+    """A host float32/float64 (or non-float) array: tensors are moved to
+    the host, narrower floats upcast to float32."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.is_floating_point() and x.dtype not in (torch.float32, torch.float64):
+            x = x.float()
+        return x.cpu().numpy()
+    x = np.asarray(x)
+    if x.dtype.kind == "f" and x.dtype not in (np.float32, np.float64):
+        x = x.astype(np.float32)
+    return x
+
+
+def load_array(path: Path) -> np.ndarray:
+    """Load ``.npy`` / ``.npz`` / ``.dcz``."""
+    path = Path(path)
+    if not is_array_path(path):
+        raise ValueError(
+            f"Invalid extension: {path.suffix} (must be one of {NPARRAY_EXTS})"
+        )
+    if path.suffix == ".bl2":
+        raise NotImplementedError(f"{path}: {_BL2}")
+    if path.suffix == ".dcz":
+        return load_dcz(path)
+    if path.suffix == ".npz":
+        return np.load(path)["arr_0"]
+    return np.load(path)
+
+
+def save_array(x: Any, path: Path, compress: str | None = None) -> None:
+    """Save with the JAX package's extension/compression contract."""
+    path = Path(path)
+    expected = {None: ".npy", "npy": ".npy", "npz": ".npz", "bl2": ".bl2", "dcz": ".dcz"}
+    if compress not in expected:
+        raise ValueError(f"Unknown compression: {compress}")
+    if path.suffix != expected[compress]:
+        raise ValueError(
+            f"Invalid extension: {path.suffix} (must be {expected[compress]})"
+        )
+    if compress == "bl2":
+        raise NotImplementedError(_BL2)
+    x = _as_numpy(x)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if compress == "npz":
+        np.savez_compressed(path, x)
+    elif compress == "dcz":
+        save_dcz(x, path)
+    else:
+        np.save(path, x)
+
+
+def load_arrays(paths: list[Path], num_threads: int = 1) -> list[np.ndarray]:
+    """Order-preserving threaded batch load."""
+    if not paths:
+        return []
+    if num_threads == 1:
+        return [load_array(p) for p in paths]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=num_threads) as ex:
+        return list(ex.map(load_array, paths))

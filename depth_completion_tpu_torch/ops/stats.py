@@ -1,5 +1,7 @@
-"""Masked statistics, PyTorch counterpart of ``depth_completion_tpu.ops.stats``
-(the part the slice runs: ``masked_minmax`` and ``masked_quantile``)."""
+"""Masked statistics, PyTorch counterpart of ``depth_completion_tpu.ops.stats``:
+``masked_minmax`` and ``masked_quantile`` (the sampler's normalisation),
+``masked_mae`` and ``masked_rmse`` (the analyzer's scorer). ``kld_stdnorm``
+waits with the KLD penalty (ROADMAP queue 1)."""
 
 from __future__ import annotations
 
@@ -30,3 +32,23 @@ def masked_quantile(x: torch.Tensor, mask: torch.Tensor, qs) -> torch.Tensor:
     lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
     frac = pos - lo.float()
     return sorted_x.gather(-1, lo) * (1.0 - frac) + sorted_x.gather(-1, hi) * frac
+
+
+def masked_mae(preds: torch.Tensor, targets: torch.Tensor,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean absolute error over the masked entries (fp32)."""
+    err = (preds.float() - targets.float()).abs()
+    if mask is None:
+        return err.mean()
+    m = mask.float()
+    return (err * m).sum() / m.sum().clamp(min=1.0)
+
+
+def masked_rmse(preds: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Root mean squared error over the masked entries (fp32)."""
+    err = (preds.float() - targets.float()).square()
+    if mask is None:
+        return err.mean().sqrt()
+    m = mask.float()
+    return ((err * m).sum() / m.sum().clamp(min=1.0)).sqrt()

@@ -40,6 +40,7 @@ from typing import Any
 
 import torch
 
+from depth_completion_tpu_torch.core import prng
 from depth_completion_tpu_torch.guidance.affine import (
     affine_to_metric_closed_form,
     affine_to_metric_learned,
@@ -188,8 +189,13 @@ def _affine_to_metric(affines, dn: DepthNormalization, affine_params, closed_for
     return affine_to_metric_learned(affines, dn.sparses_normed, dn.masks, scale, shift)
 
 
-def _prepare(bundle, images, sparses, cfg, pred_latents_prev, generator, init_noise=None):
-    """No-grad preprocessing: noise, image latents, normalisation state."""
+def _prepare(bundle, images, sparses, cfg, pred_latents_prev, init_noise=None):
+    """No-grad preprocessing: noise, image latents, normalisation state.
+
+    Without ``init_noise`` the noise is JAX's for ``cfg.seed``
+    (``PRNGKey(seed)``, a split, ``normal`` of the second key), drawn on
+    the host in float32 and copied to the device: one seed gives the same
+    starting latent on both sides, on any device."""
     n = images.shape[0]
     imgs_proc, padding, orig_res = preprocess_images(images, cfg.resolution, cfg.interp_mode)
     img_latents = bundle.vae.encode(imgs_proc.to(bundle.dtype))  # [N, EH, EW, 4]
@@ -198,7 +204,8 @@ def _prepare(bundle, images, sparses, cfg, pred_latents_prev, generator, init_no
         pred_latents = init_noise.float()
     else:
         # one noise draw shared across the batch
-        noise = torch.randn((1, eh, ew, 4), generator=generator, device=images.device)
+        _, noise_key = prng.split(prng.PRNGKey(cfg.seed))
+        noise = torch.from_numpy(prng.normal(noise_key, (1, eh, ew, 4))).to(images.device)
         pred_latents = noise.expand(n, -1, -1, -1)
     if pred_latents_prev is not None:
         pred_latents = cfg.beta * pred_latents + (1.0 - cfg.beta) * pred_latents_prev.float()
@@ -280,9 +287,8 @@ def guided_sample(
     closed_form = cfg.resolved_closed_form()
     n = images.shape[0]
     sched = make_schedule(cfg.ddim)
-    generator = torch.Generator(device=images.device).manual_seed(cfg.seed)
     img_latents, pred_latents, dn, padding, orig_res = _prepare(
-        bundle, images, sparses, cfg, pred_latents_prev, generator, init_noise
+        bundle, images, sparses, cfg, pred_latents_prev, init_noise
     )
     ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
     attention_fn = attention if cfg.flash_attention == "off" else flash_attention

@@ -63,6 +63,9 @@
 #                 its own partial norms, not the sample's
 #   F25_loader_transpose the port's checkpoint loader transposes conv
 #                 kernels (OIHW → HWIO) as the JAX package's converter does
+#   F26_cli_depth_scale the CLI's to_depth scales the sparse PNG's bytes by
+#                 255/max_sparse_depth in place of max_sparse_depth/255
+#   F27_png_bgr   the PNG decoder hands RGB images over in BGR order
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -176,4 +179,7 @@ run_fault F24_epilogue_own_norms depth_completion_tpu_torch/csrc/guidance_epilog
   's|const float2 p = lane < CLUSTER ?|const float2 p = lane == rank ?|'
 run_fault F25_loader_transpose depth_completion_tpu_torch/models/weights.py \
   's|^        leaf = "kernel"$|&\n        if kind == "conv":\n            value = value.permute(2, 3, 1, 0)|'
+run_fault F26_cli_depth_scale depth_completion_tpu_torch/io/image.py \
+  's|(max_distance \* (imgs.astype(dtype)\[..., 0\] / 255.0))|(255.0 / max_distance * imgs.astype(dtype)[..., 0])|'
+run_fault F27_png_bgr depth_completion_tpu_torch/io/png.py 's|^    return img$|    return img[..., ::-1]|'
 exit $status

@@ -1,0 +1,272 @@
+"""The port's ``cli.predict`` and ``cli.analyze`` against the JAX package's
+click CLIs: the parsed options for a matrix of argv, both CLIs end to end
+on one HF-layout checkpoint directory and one dataset, the analyzer's
+``results_all.json``, ``--resume`` (per frame and the temporal carry), and
+the flags whose path is not ported.
+
+Geometry: the tiny UNet, KL VAE and text tower (``--vae original``), a
+3-frame 48x64 dataset, ``--steps 2 --res 64 --precision fp32 --batch-size
+2``: the JAX CLI pads its second batch, the port's runs one row. Both
+samplers run the fused epilogue (``DCT_EPILOGUE=on`` on the JAX side), as
+tests/test_torch_checkpoint.py's end-to-end request does.
+"""
+
+import json
+
+import click
+import numpy as np
+import pytest
+import torch
+
+from depth_completion_tpu.cli.analyze import main as j_analyze
+from depth_completion_tpu.cli.predict import main as j_predict
+from depth_completion_tpu.io import codecs as jcodecs
+from depth_completion_tpu.io.image import save_img_array as j_save_img
+from depth_completion_tpu_torch.cli import analyze, predict
+from depth_completion_tpu_torch.io import codecs
+
+from tests.test_torch_checkpoint import _write_tiny_kl_checkpoint
+
+TINY = ["--steps", "2", "--res", "64", "--precision", "fp32", "--batch-size", "2",
+        "--compress", "dcz", "--vae", "original", "--model", "original"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _dataset(root, n=3):
+    ds = root / "scene"
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        img = rng.integers(1, 255, size=(48, 64, 3)).astype(np.uint8)
+        j_save_img(img, ds / "image" / f"{i:05d}.png")
+        sparse = np.zeros((48, 64, 3), np.uint8)
+        mask = rng.random((48, 64)) < 0.05
+        sparse[mask, 0] = rng.integers(10, 250, mask.sum()).astype(np.uint8)
+        sparse[..., 1] = rng.integers(0, 255, (48, 64))  # ignored: depth is channel 0
+        j_save_img(sparse, ds / "sparse" / f"{i:05d}.png")
+    return root
+
+
+PREDICT_ARGV = [
+    [],
+    *[["--vis", w] for w in ("1", "true", "T", "Yes", "y", "ON", "0", "False", "f", "NO",
+                             "n", "off")],
+    ["-vr", "512", "-1"],
+    ["--vis-res", "256", "320", "--save-dense", "false"],
+    ["-vo", "image,foo,dense", "--loss-funcs", "l1,bogus,edge"],
+    ["--percentile", "0.05,0.95", "--norm", "percentile", "--projection", "log", "--inv", "t"],
+    ["--percentile", ""],
+    ["-n", "7", "-r", "512", "-p", "fp32", "-c", "npz", "-bs", "3", "--beta", "0.5",
+     "--use-prev-latent", "yes", "--opt", "sgd", "--lr-latent", "0.1", "--lr-scaling", "0.2",
+     "--min-depth", "0.5", "--max-depth", "80", "--max-sparse-depth", "90",
+     "--compile-effort", "-1.0", "--compile-graph", "on", "--compile-mode", "default",
+     "--shard-index", "1", "--num-shards", "2", "--resume", "1", "--ensemble", "3",
+     "--ensemble-reduce", "aligned-mean", "--ensemble-uncertainty", "y", "--mesh-model", "2",
+     "--native-res", "1", "--fast-guidance", "1", "--multihost", "0", "--model", "lcm",
+     "--checkpoint-dir", "ckpt", "--taesd-dir", "taesd", "--log", "x.log",
+     "--log-level", "DEBUG", "--profile-dir", "prof", "--kld", "y", "--kld-mode", "strict",
+     "--kld-weight", "0.3", "--use-segmask", "1", "--closed-form", "1", "--train-latents",
+     "0", "--train-method", "per-input", "--train-steps", "4", "--interp-mode", "nearest"],
+]
+PREDICT_BAD = [
+    ["--steps", "0"], ["--res", "-3"], ["--max-depth", "0"], ["--lr-latent", "0"],
+    ["--min-depth", "-1"], ["--compile-effort", "1.5"], ["--compile-effort", "-2"],
+    ["--shard-index", "-1"], ["--percentile", "a,b"], ["--vis", "maybe"],
+    ["--model", "foo"], ["--compress", "zip"], ["-vr", "512"], ["--batch-size", "1.5"],
+]
+
+
+@pytest.mark.parametrize("argv", PREDICT_ARGV, ids=lambda a: " ".join(a)[:40] or "defaults")
+def test_predict_options_match_click(tmp_path, argv):
+    argv = [str(tmp_path), str(tmp_path / "out"), *argv]
+    want = j_predict.make_context("predict", list(argv)).params
+    _, got = predict.parse_args(list(argv))
+    assert got.pop("device") == "cuda"
+    assert got == want
+
+
+@pytest.mark.parametrize("argv", PREDICT_BAD, ids=lambda a: " ".join(a))
+def test_predict_bad_options_fail_on_both_sides(tmp_path, argv):
+    argv = [str(tmp_path), str(tmp_path / "out"), *argv]
+    with pytest.raises(click.UsageError):
+        j_predict.make_context("predict", list(argv))
+    with pytest.raises(SystemExit) as e:
+        predict.parse_args(list(argv))
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--metrics", "mae,foo", "--calc-binned-scores", "F", "--bin-size", "2.5"],
+    ["-bs", "4", "-nt", "2", "--accel", "off", "--gt-dir", "groundtruth", "--gt-format",
+     "png8", "--min-depth", "1", "--max-depth", "80", "--max-sparse-depth", "85",
+     "--log-level", "WARNING", "--log", "a.log"],
+], ids=["defaults", "metrics", "all"])
+def test_analyze_options_match_click(tmp_path, argv):
+    argv = [str(tmp_path), str(tmp_path), *argv]
+    want = j_analyze.make_context("analyze", list(argv)).params
+    got = vars(analyze.build_parser().parse_args(list(argv)))
+    assert got.pop("device") == "cuda"
+    assert got == want
+    for bad in (["--bin-size", "0"], ["-bs", "0"], ["--gt-format", "exr"]):
+        with pytest.raises(click.UsageError):
+            j_analyze.make_context("analyze", [*argv, *bad])
+        with pytest.raises(SystemExit):
+            analyze.build_parser().parse_args([*argv, *bad])
+    with pytest.raises(click.UsageError):
+        j_analyze.make_context("analyze", [str(tmp_path / "missing"), str(tmp_path)])
+    with pytest.raises(SystemExit):
+        analyze.build_parser().parse_args([str(tmp_path / "missing"), str(tmp_path)])
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ckpt")
+    _write_tiny_kl_checkpoint(root)
+    return root
+
+
+def _dense(out, fmt="dcz", reader=codecs.load_array):
+    return np.stack([reader(p) for p in sorted((out / "scene" / "dense").glob(f"*.{fmt}"))])
+
+
+def test_both_clis_on_one_checkpoint(tmp_path, checkpoint, monkeypatch):
+    """Both predict CLIs on one checkpoint directory and dataset: dense maps
+    of (48, 64, 1) within the KL path's tolerance (relative to the 120 m
+    range: sound readings rms 1.5e-7, max 7.0e-7; the port with a
+    UNet-detached gradient, ``--fast-guidance``, rms 1.0e-2, max 5.8e-2;
+    limits rms 1e-5, max 1e-4), each side's dcz read by the other, three vis
+    grids each; then both analyze CLIs on each side's outputs: the same
+    ``results_all.json`` to 1e-6 through each one's accelerated scorer,
+    and exactly through the host path."""
+    monkeypatch.setenv("DCT_EPILOGUE", "on")
+    data = _dataset(tmp_path / "data")
+    argv = [*TINY, "--checkpoint-dir", str(checkpoint)]
+    with pytest.raises(SystemExit) as e:
+        j_predict([str(data), str(tmp_path / "jax"), *argv], standalone_mode=True)
+    assert e.value.code in (0, None)
+    totals = predict.main([str(data), str(tmp_path / "port"), *argv, "--device", "cpu"])
+    assert totals["frames"] == 3 and totals["dense_bytes"] > 0
+
+    d_port, d_jax = _dense(tmp_path / "port"), _dense(tmp_path / "jax")
+    assert d_port.shape == d_jax.shape == (3, 48, 64, 1) and d_port.dtype == np.float32
+    np.testing.assert_array_equal(_dense(tmp_path / "jax", reader=jcodecs.load_array), d_jax)
+    np.testing.assert_array_equal(_dense(tmp_path / "port", reader=jcodecs.load_array), d_port)
+    diff = (d_port - d_jax) / 120.0
+    rms = float(np.sqrt(np.mean(diff**2)))
+    assert rms < 1e-5 and np.abs(diff).max() < 1e-4, (rms, np.abs(diff).max())
+    for side in ("jax", "port"):
+        assert len(list((tmp_path / side / "scene" / "vis").glob("*_vis.jpg"))) == 3
+
+    for accel, tol in (("true", 1e-6), ("false", 0.0)):
+        for side in ("port", "jax"):
+            out = tmp_path / side
+            with pytest.raises(SystemExit) as e:
+                j_analyze([str(data), str(out), "--accel", accel], standalone_mode=True)
+            assert e.value.code in (0, None)
+            want = json.loads((out / "results_all.json").read_text())
+            got = analyze.main([str(data), str(out), "--accel", accel, "--device", "cpu"])
+            assert json.loads((out / "results_all.json").read_text()) == json.loads(
+                json.dumps(got))
+            assert len(got["binned"]) == 12 and np.isfinite(got["overall"]["mae"])
+            _assert_results_close(got, want, tol)
+
+
+def _assert_results_close(got, want, tol):
+    assert got.keys() == want.keys()
+    for m, v in want["overall"].items():
+        np.testing.assert_allclose(got["overall"][m], v, rtol=tol, atol=tol)
+    for g, w in zip(got["binned"], want["binned"], strict=True):
+        assert list(g["range"]) == list(w["range"])
+        np.testing.assert_allclose(g["percentage"], w["percentage"], rtol=tol, atol=tol)
+        for m, v in w["metrics"].items():
+            np.testing.assert_allclose(g["metrics"][m], v, rtol=tol, atol=tol)
+
+
+def test_resume_skips_done_frames(tmp_path, monkeypatch):
+    """--resume runs only the frames whose dense file is missing;
+    --profile-dir writes a Chrome trace of the first batch; a shard runs
+    every num_shards-th frame."""
+    monkeypatch.setenv("DCT_RANDOM_MODEL_SIZE", "tiny")
+    data = _dataset(tmp_path / "data")
+    out = tmp_path / "out"
+    argv = [str(data), str(out), "--model", "random", "--steps", "1", "--res", "64",
+            "--precision", "fp32", "--compress", "npy", "--vis", "false", "--device", "cpu"]
+    assert predict.main([*argv, "--profile-dir", str(tmp_path / "prof")])["frames"] == 3
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    first = _dense(out, "npy")
+    (out / "scene" / "dense" / "00001.npy").unlink()
+    assert predict.main([*argv, "--resume", "true"])["frames"] == 1
+    np.testing.assert_array_equal(_dense(out, "npy"), first)
+    assert predict.main([*argv, "--resume", "true"])["frames"] == 0
+    shard = tmp_path / "shard"
+    assert predict.main([str(data), str(shard), *argv[2:], "--num-shards", "2",
+                         "--shard-index", "1"])["frames"] == 1
+    assert [p.name for p in (shard / "scene" / "dense").iterdir()] == ["00001.npy"]
+
+
+def test_temporal_resume_restores_the_carry(tmp_path, monkeypatch):
+    """--use-prev-latent writes latent_state.npz after every frame; a
+    resumed run skips the frames done and starts from their latents: frame
+    2 of a run resumed after frames 0-1 equals frame 2 of one run over all
+    three."""
+    monkeypatch.setenv("DCT_RANDOM_MODEL_SIZE", "tiny")
+    data = _dataset(tmp_path / "data")
+    opts = ["--model", "random", "--steps", "1", "--res", "64", "--precision", "fp32",
+            "--compress", "npy", "--vis", "false", "--use-prev-latent", "true",
+            "--device", "cpu"]
+    assert predict.main([str(data), str(tmp_path / "full"), *opts])["frames"] == 3
+    full = _dense(tmp_path / "full", "npy")
+    state = np.load(tmp_path / "full" / "scene" / "latent_state.npz")
+    assert str(state["frame_name"]) == "00002.png" and state["latents"].shape[0] == 1
+
+    part = tmp_path / "part"
+    last = data / "scene"
+    hidden = {sub: (last / sub / "00002.png").read_bytes() for sub in ("image", "sparse")}
+    for sub in hidden:
+        (last / sub / "00002.png").unlink()
+    assert predict.main([str(data), str(part), *opts])["frames"] == 2
+    for sub, raw in hidden.items():
+        (last / sub / "00002.png").write_bytes(raw)
+    assert predict.main([str(data), str(part), *opts, "--resume", "true"])["frames"] == 1
+    np.testing.assert_array_equal(_dense(part, "npy"), full)
+    # without the carry frame 2 comes out otherwise
+    (part / "scene" / "latent_state.npz").unlink()
+    (part / "scene" / "dense" / "00002.npy").unlink()
+    for sub in ("image", "sparse"):
+        for i in (0, 1):
+            (last / sub / f"{i:05d}.png").unlink()
+    predict.main([str(data), str(part), *opts])
+    assert not np.array_equal(_dense(part, "npy")[2], full[2])
+
+
+@pytest.mark.parametrize("flag,message", [
+    (["--model", "lcm"], "--model lcm"),
+    (["--train-method", "per-input"], "--train-method per-input"),
+    (["--kld", "true"], "--kld true"),
+    (["--ensemble", "2"], "--ensemble > 1"),
+    (["--multihost", "true"], "--multihost true"),
+    (["--mesh-model", "2"], "--mesh-model > 1"),
+    (["--compress", "bl2"], "--compress bl2"),
+])
+def test_unported_flags_raise(tmp_path, flag, message):
+    data = _dataset(tmp_path / "data", n=1)
+    with pytest.raises(NotImplementedError, match=f"{message} is not ported.*ROADMAP queue 1, item"):
+        predict.main([str(data), str(tmp_path / "out"), "--device", "cpu", *flag])
+
+
+def test_native_res_and_device_errors(tmp_path):
+    data = _dataset(tmp_path / "data", n=1)
+    with pytest.raises(SystemExit) as e:
+        predict.main([str(data), str(tmp_path / "out"), "--device", "cpu", "--native-res", "1"])
+    assert e.value.code == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            predict.main([str(data), str(tmp_path / "out")])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            analyze.main([str(data), str(data)])

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no optax, nothing of the JAX package, and
 none of the packages the card's machine lacks (safetensors, transformers,
-click, cv2)."""
+click, cv2, tqdm, matplotlib, PIL, blosc2, ml_dtypes, loguru); nor does it
+name the JAX package's native codec (``native/``, ``dcz_codec.so``)."""
 
 import ast
 import os
@@ -15,14 +16,14 @@ SMOKE = os.path.join(REPO, "chip_smoke.py")
 PROFILE = os.path.join(REPO, "scripts", "profile_torch_step.py")
 KERNEL_AB = os.path.join(REPO, "scripts", "kernel_ab.py")
 FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu", "safetensors", "transformers",
-             "click", "cv2")
+             "click", "cv2", "tqdm", "matplotlib", "PIL", "blosc2", "ml_dtypes", "loguru")
 
 
-def _port_files():
+def _port_files(exts=(".py",)):
     out = [SMOKE, PROFILE, KERNEL_AB]
     for root, dirs, names in os.walk(PORT):
         dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
-        out.extend(os.path.join(root, n) for n in names if n.endswith(".py"))
+        out.extend(os.path.join(root, n) for n in names if n.endswith(exts))
     return out
 
 
@@ -45,14 +46,29 @@ def test_no_forbidden_imports():
     assert bad == []
 
 
+def test_no_port_file_names_the_native_codec():
+    """The port builds its own codec from ``csrc/dcz_codec.cpp``; no source
+    of it opens or builds anything under ``native/``."""
+    bad = []
+    for path in _port_files((".py", ".cpp", ".cu", ".cuh")):
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if "native/" in line or "dcz_codec.so" in line or '"native"' in line:
+                    bad.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
+    assert bad == []
+
+
 def test_import_leaves_jax_unloaded():
-    # modules loaded by the import itself (an interpreter's site hooks may
-    # preload others before it)
+    # modules loaded by the import itself, beyond those torch loads (an
+    # interpreter's site hooks may preload others, and torch.hub imports
+    # tqdm where it is installed)
     code = (
-        "import sys; before = set(sys.modules); "
+        "import sys, numpy, torch; before = set(sys.modules); "
         "import depth_completion_tpu_torch.pipeline.pipeline, "
         "depth_completion_tpu_torch.models.weights, "
-        "depth_completion_tpu_torch.models.bundle; "
+        "depth_completion_tpu_torch.models.bundle, "
+        "depth_completion_tpu_torch.cli.predict, depth_completion_tpu_torch.cli.analyze, "
+        "depth_completion_tpu_torch.io, depth_completion_tpu_torch.viz; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -110,7 +110,7 @@ def test_one_guided_step_matches_jax(bundles, inputs):
     tcfg = TS.SamplerConfig(steps=5, resolution=64, closed_form=False, max_depth=10.0)
     images, sp = torch.from_numpy(imgs), torch.from_numpy(sparses)
     img_lat, lat0, tdn, padding, orig_res = TS._prepare(
-        tbundle, images, sp, tcfg, None, None, init_noise=torch.from_numpy(noise))
+        tbundle, images, sp, tcfg, None, init_noise=torch.from_numpy(noise))
     lat = lat0.clone().requires_grad_(True)
     aff = [torch.ones((N, 1, 1, 1), requires_grad=True), torch.zeros((N, 1, 1, 1), requires_grad=True)]
     losses_t, _, grads_t = TS.guided_step_grads(
