@@ -49,12 +49,21 @@
    times one request's, frame 0 against the pipeline called directly on
    the same weights and arrays; ``--resume true`` then launches nothing,
    and the analyze CLI scores the outputs;
-5. prints ``{"probes": [...]}`` (each probe's readings and verdict),
+5. runs the sampler's other modes on that checkpoint's bundle (at 480x640,
+   500 points, res 768; ``modes_phase``): UNet rematerialisation (one
+   guided step at batch 8 with and without, and at batch 1: the bytes
+   ``remat_unet="auto"`` uses), a 5-member ensemble (aligned median,
+   uncertainty), LCM through ``cli.predict --model lcm`` against the same
+   request through the plain versions, per-input training with its own
+   reference step, and a guided path with the strict KLD penalty; every
+   request's launches counted from 0 against its mode's;
+6. prints ``{"probes": [...]}`` (each probe's readings and verdict),
    ``{"composites": [...]}`` (the ring's passes: their times, errors
    and bound, and the ring step launches on the native path),
    ``{"cli": {...}}`` (the CLI's seconds per frame and their split, PNG
    decode and JPEG encode ms per frame, dense bytes, analyze MAE),
-   ``{"kernels": [...]}`` (one entry per CUDA kernel; a probe kernel's
+   ``{"modes": {...}}`` (per mode: seconds per request, launches, peak
+   GiB, the check readings, the card), ``{"kernels": [...]}`` (one entry per CUDA kernel; a probe kernel's
    launches are its probe's, and every guided path must launch it 0
    times) and, last,
    ``{"ok": true, "device": ...}``.
@@ -69,6 +78,7 @@ TF32 (both flags set False) so the plain versions are true fp32 references.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -117,6 +127,7 @@ from depth_completion_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from depth_completion_tpu_torch.ops import guidance_epilogue as ge  # noqa: E402
 from depth_completion_tpu_torch.ops import ring_attention as ra  # noqa: E402
 from depth_completion_tpu_torch.ops.resize import latent_size  # noqa: E402
+from depth_completion_tpu_torch.parallel import ensemble as TE  # noqa: E402
 from depth_completion_tpu_torch.pipeline import sampler as S  # noqa: E402
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline  # noqa: E402
 from depth_completion_tpu_torch.probes import card, time_ms  # noqa: E402
@@ -163,6 +174,15 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> t
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def max_rel(a, b) -> float:
+    """The largest |a - b| / |b| (|b| floored at 1e-12)."""
+    return float(((a.float() - b.float()).abs() / b.float().abs().clamp(min=1e-12)).max())
+
+
+def cos(a, b) -> float:
+    return float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
 
 
 def check(name: str, err: float, tol: float, what: str = "max_abs_err") -> None:
@@ -891,13 +911,21 @@ def probe_phase() -> tuple[list, list]:
 # ---------------------------------------------------------------------------
 
 def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
-                      ring_size: int | None = None) -> dict:
-    """Kernel launches one guided request implies (JAX package routing:
+                      ring_size: int | None = None, mode: str = "per-step",
+                      train_steps: int = 0) -> dict:
+    """Kernel launches one request implies (JAX package routing:
     with a ring, UNet self-attention whose length divides the ring size
     takes the ring, which launches one ring step kernel per visiting block;
     other self-attention with S >= 768 and head dim 64 or 512 takes a flash
     kernel; every stride-1 3x3 conv of a decoder, and of the KL encoder,
-    takes the conv kernel)."""
+    takes the conv kernel). The batch does not count: every kernel takes it
+    in one launch. ``mode``: "per-step" (a guided request: per step a UNet
+    forward and backward, a decode forward and backward, the epilogue);
+    "per-input" (``steps`` UNet forwards, then ``train_steps`` decode
+    forward and backward passes); "forward" (no training, LCM or DDIM:
+    ``steps`` UNet forwards); "step" and "step-remat" (one guided step's
+    forward and backward alone, no encode or final decode; with remat every
+    flash forward of the UNet's checkpointed stages runs twice)."""
     eh, ew = latent_hw
     attn = []  # (sequence length, head dim, attention layers) per UNet stage and the mid block
     last = len(unet_cfg.block_out_channels) - 1
@@ -907,15 +935,16 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
             h, w = (h + 1) // 2, (w + 1) // 2
         d = unet_cfg.block_out_channels[i] // unet_cfg.num_heads[i]
         if unet_cfg.attention_stages[i]:
-            attn.append((h * w, d, 2 * unet_cfg.layers_per_block + 1))
+            attn.append((h * w, d, 2 * unet_cfg.layers_per_block + 1, True))
         if i == last:
-            attn.append((h * w, d, 1))  # the mid block's transformer
-    flash_per_unet = ring_per_unet = 0
-    for s, d, layers in attn:
+            attn.append((h * w, d, 1, False))  # the mid block's transformer: not checkpointed
+    flash_per_unet = ring_per_unet = flash_in_stages = 0
+    for s, d, layers, in_stage in attn:
         if ring_size and s % ring_size == 0:
             ring_per_unet += layers
         elif s >= 768 and d == 64:
             flash_per_unet += layers
+            flash_in_stages += layers if in_stage else 0
     if vae_kind == "tiny":
         convs_per_decode = 3 * sum(vae_cfg.decoder_blocks) + len(vae_cfg.decoder_blocks) - 1
         convs_per_encode = mid_attn = 0  # TAESD: plain encoder convs, no attention
@@ -924,18 +953,23 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
         convs_per_decode = 4 + 2 * stages * (layers + 1)  # mid: 2 ResNets; 2 convs each
         convs_per_encode = 4 + 2 * stages * layers
         mid_attn = int(eh * ew >= 768)  # one head at d = the widest stage
+    step = mode in ("step", "step-remat")
+    unet_fwd = 1 if step else steps
+    unet_bwd = {"per-step": steps, "step": 1, "step-remat": 1}.get(mode, 0)
+    dec_bwd = train_steps if mode == "per-input" else unet_bwd
+    whole = 0 if step else 1  # a whole request: the encode and the final decode
     return {
-        "flash_fwd": flash_per_unet * steps,
-        "flash_bwd": flash_per_unet * steps,
+        "flash_fwd": flash_per_unet * unet_fwd + (flash_in_stages if mode == "step-remat" else 0),
+        "flash_bwd": flash_per_unet * unet_bwd,
         # one ring step launch per visiting block, forward and backward
-        "flash_fwd_ring": (ring_size or 0) * ring_per_unet * steps,
-        "flash_bwd_ring": (ring_size or 0) * ring_per_unet * steps,
-        # one encode, a decode per step, the final decode
-        "flash_fwd_d512": mid_attn * (steps + 2),
-        "flash_bwd_d512": mid_attn * steps,
-        # per step: forward and dx of every decoder conv; the encode; the final decode
-        "conv3x3": 2 * convs_per_decode * steps + convs_per_encode + convs_per_decode,
-        "guidance_epilogue": steps,
+        "flash_fwd_ring": (ring_size or 0) * ring_per_unet * unet_fwd,
+        "flash_bwd_ring": (ring_size or 0) * ring_per_unet * unet_bwd,
+        "flash_fwd_d512": mid_attn * (dec_bwd + 2 * whole),
+        "flash_bwd_d512": mid_attn * dec_bwd,
+        # forward and dx of every decoder conv per trained decode; the
+        # encode; the final decode
+        "conv3x3": 2 * convs_per_decode * dec_bwd + (convs_per_encode + convs_per_decode) * whole,
+        "guidance_epilogue": steps if mode == "per-step" else 0,
         **{name: 0 for name in PROBE_KERNELS},  # no path launches a probe kernel
     }
 
@@ -1029,9 +1063,11 @@ def encode_check(bundle, bundle32, images) -> None:
 
 
 def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 768,
-                         ring=None) -> None:
-    """One guided step (t = the first timestep) on the path's inputs, for
-    each of ``REF_SEEDS`` (the initial noise), three ways: the run under
+                         ring=None, options=(), per_input: bool = False,
+                         label: str = "reference step") -> dict:
+    """One guided step (t = the first timestep) on the path's inputs, with
+    the path's sampler ``options``, for each of ``REF_SEEDS`` (the initial
+    noise), three ways: the run under
     test, its bf16 reference, and the plain versions on an fp32 copy of the
     bundle. Without a ring, the run under test goes through the kernels and
     its reference through the plain versions; with ``ring``, the run under
@@ -1047,13 +1083,25 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
     round differently read cosines of 0.98-0.99 to each other), so it is
     held against the fp32 run: the tested run's cosine to it may fall short
     of the reference's by at most the path's cosine-gap limit.
+
+    ``per_input``: one per-input training step in place of the guided step
+    (``S.per_input_grads``: the loss of the latent's own decode, unclamped;
+    no UNet), at the latent 4 DDIM steps from the seed's noise give (through
+    the kernels, shared by the three runs), held to ``PER_INPUT_LIMITS``.
+    → the largest reading of each comparison over the seeds.
     """
-    cfg = S.SamplerConfig(steps=50, resolution=resolution, norm="const", closed_form=False)
+    cfg = S.SamplerConfig(steps=50, resolution=resolution, norm="const", closed_form=False,
+                          **dict(options))
     sched = S.make_schedule(cfg.ddim)
     t = int(S.make_timesteps(cfg.ddim, cfg.steps)[0])
     kernels = (bundle, fa.flash_attention, fa.flash_attention, c3.conv3x3_fused)
     fp32 = (bundle32, plain_attention, plain_attention, _plain_conv3x3_fused)
-    if ring is None:
+    if per_input:
+        limits = PER_INPUT_LIMITS
+        modes = {"kernel": kernels,
+                 "plain": (bundle, plain_attention, plain_attention, _plain_conv3x3_fused),
+                 "fp32": fp32}
+    elif ring is None:
         limits = REF_LIMITS[bundle.vae.kind]
         modes = {"kernel": kernels,
                  "plain": (bundle, plain_attention, plain_attention, _plain_conv3x3_fused),
@@ -1064,39 +1112,46 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
         modes = {"ring": (bundle, ring_attention) + kernels[2:], "no ring": kernels, "fp32": fp32}
     test, ref, _ = modes
     loss_lim, aff_lim, cos_lim = limits
-
-    def cos(a, b):
-        return float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
-
+    worst = {"loss_rel": 0.0, "affine_rel": 0.0, "cos_gap": -1.0}
     for seed in REF_SEEDS:
         img_lat, lat0, dn, padding, orig_res = S._prepare(
             bundle, images, sparses, dataclasses.replace(cfg, seed=seed), None)
+        if per_input:
+            with torch.no_grad():
+                lat0 = S._ddim_denoise(S._Denoiser(bundle, img_lat, fa.flash_attention), sched,
+                                       dataclasses.replace(cfg, steps=4), lat0)
         results = []
         for bnd, unet_attention, attention_fn, conv_fn in modes.values():
             lat = lat0.clone().requires_grad_(True)
             aff = [torch.ones((1, 1, 1, 1), device=DEV).requires_grad_(True),
                    torch.zeros((1, 1, 1, 1), device=DEV).requires_grad_(True)]
-            losses, _, grads = S.guided_step_grads(
-                S._Denoiser(bnd, img_lat.to(bnd.dtype), unet_attention),
-                functools.partial(S.decode_prediction, bnd, conv_fn=conv_fn,
-                                  attention_fn=attention_fn),
-                sched, cfg, dn, images, orig_res, padding, False, lat, aff, t)
+            decode = functools.partial(S.decode_prediction, bnd, conv_fn=conv_fn,
+                                       attention_fn=attention_fn)
+            if per_input:
+                losses, grads = S.per_input_grads(decode, cfg, dn, images, orig_res, padding,
+                                                  False, lat, aff)
+            else:
+                losses, _, grads = S.guided_step_grads(
+                    S._Denoiser(bnd, img_lat.to(bnd.dtype), unet_attention), decode,
+                    sched, cfg, dn, images, orig_res, padding, False, lat, aff, t)
             results.append((losses, grads))
         (lk, gk), (lp, gp), (l32, g32) = results
-        rel_loss = float(((lk - lp).abs() / lp.abs()).max())
-        rel32 = [float(((x - l32).abs() / l32.abs()).max()) for x in (lk, lp)]
-        rel_aff = max(float(((a - b).abs() / b.abs().clamp(min=1e-12)).max())
-                      for a, b in zip(gk[1:], gp[1:]))
+        rel_loss = max_rel(lk, lp)
+        rel32 = [max_rel(x, l32) for x in (lk, lp)]
+        rel_aff = max(max_rel(a, b) for a, b in zip(gk[1:], gp[1:]))
         cos_kp, cos_k32, cos_p32 = cos(gk[0], gp[0]), cos(gk[0], g32[0]), cos(gp[0], g32[0])
-        print(f"  reference step seed={seed} t={t}: loss {lk.tolist()} vs {ref} {lp.tolist()}; "
+        worst = {"loss_rel": max(worst["loss_rel"], rel_loss),
+                 "affine_rel": max(worst["affine_rel"], rel_aff),
+                 "cos_gap": max(worst["cos_gap"], cos_p32 - cos_k32)}
+        print(f"  {label} seed={seed} t={t}: loss {lk.tolist()} vs {ref} {lp.tolist()}; "
               f"latent-grad cosine {test}-{ref} {cos_kp:.5f}, {test}-fp32 {cos_k32:.5f}, "
               f"{ref}-fp32 {cos_p32:.5f}; loss rel to fp32: {test} {rel32[0]:.2e}, "
               f"{ref} {rel32[1]:.2e}")
-        check(f"reference step seed={seed} loss ({test} vs {ref})", rel_loss, loss_lim, "rel_err")
-        check(f"reference step seed={seed} affine grads ({test} vs {ref})", rel_aff, aff_lim,
-              "rel_err")
-        check(f"reference step seed={seed} latent grad ({test} vs {ref})", cos_p32 - cos_k32,
+        check(f"{label} seed={seed} loss ({test} vs {ref})", rel_loss, loss_lim, "rel_err")
+        check(f"{label} seed={seed} affine grads ({test} vs {ref})", rel_aff, aff_lim, "rel_err")
+        check(f"{label} seed={seed} latent grad ({test} vs {ref})", cos_p32 - cos_k32,
               cos_lim, f"cos({ref},fp32)-cos({test},fp32)")
+    return worst
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1108,6 +1163,7 @@ class GuidedPath:
     points: int = 500
     resolution: int = 768
     ring_size: int | None = None  # native-resolution mode: LocalRing(ring_size)
+    options: tuple = ()  # further sampler options, (name, value) pairs
 
 
 PATHS = (
@@ -1118,15 +1174,44 @@ PATHS = (
 )
 
 
-def guided_path(path: GuidedPath, steps: int, bundle=None) -> dict:
+def path_inputs(frame: tuple[int, int], points: int, batch: int = 1, seed: int = 0):
+    """``batch`` random RGB frames (0..255) and sparse maps of ``points``
+    depths in [2, 80] m each, on the host: [B, H, W, 3], [B, H, W, 1]."""
+    h, w = frame
+    rng = torch.Generator(device="cpu").manual_seed(seed)
+    images = torch.rand((batch, h, w, 3), generator=rng) * 255.0
+    sparses = torch.zeros((batch, h * w))
+    for b in range(batch):
+        idx = torch.randperm(h * w, generator=rng)[:points]
+        sparses[b, idx] = 2.0 + 78.0 * torch.rand(points, generator=rng)
+    return images, sparses.reshape(batch, h, w, 1)
+
+
+def check_request(dense, lat, shape, latent_shape) -> tuple[float, float]:
+    """A request's outputs: the shapes, finite, metric depth inside [0, 120]
+    m; → the depth range."""
+    if tuple(dense.shape) != shape or (lat is not None and tuple(lat.shape) != latent_shape):
+        raise AssertionError(f"bad output shapes {tuple(dense.shape)} "
+                             f"{None if lat is None else tuple(lat.shape)}")
+    if not (torch.isfinite(dense).all() and (lat is None or torch.isfinite(lat).all())):
+        raise AssertionError("non-finite output")
+    lo, hi = float(dense.min()), float(dense.max())
+    if not (0.0 <= lo <= hi <= 120.0):
+        raise AssertionError(f"dense depth outside the metric range [0, 120]: [{lo}, {hi}]")
+    return lo, hi
+
+
+def guided_path(path: GuidedPath, steps: int, bundle=None) -> tuple[dict, dict]:
     """Two guided requests through the pipeline on ``bundle`` (default: the
     seeded random bundle), launch counts checked per request; then the
-    reference step. → the path's launch counts."""
+    reference step. → (the path's launch counts, its readings: seconds per
+    request, peak GiB, the reference step's largest readings)."""
     h, w = path.frame
     ring = ra.LocalRing(path.ring_size) if path.ring_size else None
+    options = dict(path.options)
     print(f"guided path: MARIGOLD_UNET_CONFIG + {path.label} bf16, 2 requests x {steps} "
           f"guided steps, {h}x{w} frame, {path.points} sparse points, res {path.resolution}, "
-          "norm=const, learned affine")
+          f"norm=const, learned affine{''.join(f', {k}={v}' for k, v in options.items())}")
     if bundle is None:
         t0 = time.perf_counter()
         bundle = make_random_bundle(
@@ -1138,16 +1223,11 @@ def guided_path(path: GuidedPath, steps: int, bundle=None) -> dict:
         print(f"  bundle built in {time.perf_counter() - t0:.1f} s")
     pipe = DepthCompletionPipeline(bundle)
     eh, ew = latent_size(path.frame, path.resolution, bundle.vae.downsample_factor)
-    rng = torch.Generator(device="cpu").manual_seed(0)
-    images = torch.rand((1, h, w, 3), generator=rng) * 255.0
-    sparses = torch.zeros((1, h * w))
-    idx = torch.randperm(h * w, generator=rng)[:path.points]
-    sparses[0, idx] = 2.0 + 78.0 * torch.rand(path.points, generator=rng)
-    sparses = sparses.reshape(1, h, w, 1)
+    images, sparses = path_inputs(path.frame, path.points)
     expected = expected_launches(registry.MARIGOLD_UNET_CONFIG, path.vae_kind, path.vae_config,
                                  (eh, ew), steps, path.ring_size)
 
-    prev, before = None, {}
+    prev, before, seconds, peaks = None, {}, [], []
     reset_launches()  # just before the path: two requests
     for req in range(2):
         torch.cuda.reset_peak_memory_stats()
@@ -1155,22 +1235,16 @@ def guided_path(path: GuidedPath, steps: int, bundle=None) -> dict:
         t0 = time.perf_counter()
         dense, lat = pipe(images, sparses, max_depth=120.0, steps=steps, norm="const",
                           closed_form=False, pred_latents_prev=prev,
-                          resolution=path.resolution, ring_mesh=ring)
+                          resolution=path.resolution, ring_mesh=ring, **options)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        seconds.append(time.perf_counter() - t0)
         now = launches()
         counts = {k: now[k] - before.get(k, 0) for k in now}
         before = now
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"  request {req}: {dt:.2f} s, {dt / steps:.3f} s/step (incl. encode and final "
-              f"decode), peak memory {peak:.2f} GiB, launches {counts}")
-        if tuple(dense.shape) != (1, h, w, 1) or tuple(lat.shape) != (1, eh, ew, 4):
-            raise AssertionError(f"bad output shapes {tuple(dense.shape)} {tuple(lat.shape)}")
-        if not (torch.isfinite(dense).all() and torch.isfinite(lat).all()):
-            raise AssertionError("non-finite output")
-        lo, hi = float(dense.min()), float(dense.max())
-        if not (0.0 <= lo <= hi <= 120.0):
-            raise AssertionError(f"dense depth outside the metric range [0, 120]: [{lo}, {hi}]")
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        print(f"  request {req}: {seconds[-1]:.2f} s, {seconds[-1] / steps:.3f} s/step (incl. "
+              f"encode and final decode), peak memory {peaks[-1]:.2f} GiB, launches {counts}")
+        lo, hi = check_request(dense, lat, (1, h, w, 1), (1, eh, ew, 4))
         print(f"  request {req}: dense depth range [{lo:.3f}, {hi:.3f}] m")
         if counts != expected:
             raise AssertionError(f"kernel launches {counts} != expected {expected}")
@@ -1181,8 +1255,10 @@ def guided_path(path: GuidedPath, steps: int, bundle=None) -> dict:
     bundle32 = fp32_bundle(bundle)
     if path.vae_kind == "kl":
         encode_check(bundle, bundle32, images.to(DEV))
-    reference_step_check(bundle, bundle32, images.to(DEV), sparses.to(DEV), path.resolution, ring)
-    return totals
+    ref = reference_step_check(
+        bundle, bundle32, images.to(DEV), sparses.to(DEV), path.resolution, ring, path.options,
+        label="reference step" + "".join(f" {k}={v}" for k, v in options.items()))
+    return totals, {"s_per_request": seconds, "peak_gib": max(peaks), "reference_step": ref}
 
 
 # The config JSONs of an HF-layout Marigold checkpoint (the fields the
@@ -1309,24 +1385,43 @@ CLI_INPUT_LIMIT = 1e-5
 CLI_FRAMES, CLI_FRAME, CLI_POINTS = 3, (480, 640), 500
 
 
-def cli_dataset(root: Path, seed: int = 0):
+def cli_dataset(root: Path, seed: int = 0, frames: int = CLI_FRAMES):
     """``scene/image/*.png`` (random RGB) and ``scene/sparse/*.png`` (8-bit
     grey, ~500 points of 1..255 = 120·v/255 m), written with the port's
     PNG writer. → (the dataset root, the generated images and sparse
     bytes, [F, H, W, 3] and [F, H, W] uint8)."""
     rng = np.random.default_rng(seed)
     h, w = CLI_FRAME
-    imgs = rng.integers(0, 256, (CLI_FRAMES, h, w, 3), dtype=np.uint8)
-    sparse = np.zeros((CLI_FRAMES, h * w), np.uint8)
-    for f in range(CLI_FRAMES):
+    imgs = rng.integers(0, 256, (frames, h, w, 3), dtype=np.uint8)
+    sparse = np.zeros((frames, h * w), np.uint8)
+    for f in range(frames):
         idx = rng.choice(h * w, CLI_POINTS, replace=False)
         sparse[f, idx] = rng.integers(1, 256, CLI_POINTS)
-    sparse = sparse.reshape(CLI_FRAMES, h, w)
+    sparse = sparse.reshape(frames, h, w)
     for sub, arrays in (("image", imgs), ("sparse", sparse)):
         (root / "scene" / sub).mkdir(parents=True)
         for f, arr in enumerate(arrays):
             png.write_png(arr, root / "scene" / sub / f"{f:05d}.png")
     return root, imgs, sparse
+
+
+@contextlib.contextmanager
+def spy_pipeline():
+    """Records what the CLI hands ``DepthCompletionPipeline``, per request:
+    (images, sparses) as float32 arrays, and the call's other arguments
+    (positional, keyword)."""
+    fed = []
+    call = DepthCompletionPipeline.__call__
+
+    def spy(self, images, sparses, *args, **kwargs):
+        fed.append((np.array(images, np.float32), np.array(sparses, np.float32), args, kwargs))
+        return call(self, images, sparses, *args, **kwargs)
+
+    DepthCompletionPipeline.__call__ = spy
+    try:
+        yield fed
+    finally:
+        DepthCompletionPipeline.__call__ = call
 
 
 def cli_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
@@ -1350,15 +1445,7 @@ def cli_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
     out = root / "out"
     argv = [str(data), str(out), "--checkpoint-dir", str(model_dir), "--taesd-dir",
             str(taesd_dir), "--steps", str(steps), "--log-level", "WARNING"]
-    fed = []  # what the CLI hands the pipeline, per request
-    call = DepthCompletionPipeline.__call__
-
-    def spy(self, images, sparses, *args, **kwargs):
-        fed.append((np.array(images, np.float32), np.array(sparses, np.float32)))
-        return call(self, images, sparses, *args, **kwargs)
-
-    DepthCompletionPipeline.__call__ = spy
-    try:
+    with spy_pipeline() as fed:
         reset_launches()  # just before the CLI run
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1366,8 +1453,6 @@ def cli_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches()  # just after
-    finally:
-        DepthCompletionPipeline.__call__ = call
     frames = totals["frames"]
     print(f"  {frames} frames in {wall:.2f} s (the checkpoint load included): {totals}")
     denses = sorted((out / "scene" / "dense").glob("*.dcz"))
@@ -1395,10 +1480,11 @@ def cli_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
     want_imgs = imgs.astype(np.float32)
     want_sparse = 120.0 * (sparse[..., None].astype(np.float32) / 255.0)
     if len(fed) != CLI_FRAMES or any(x.shape != (1, h, w, 3) or y.shape != (1, h, w, 1)
-                                     for x, y in fed):
-        raise AssertionError(f"(d) the pipeline was fed {[(x.shape, y.shape) for x, y in fed]}")
-    err_img = max(float(np.abs(x[0] - want_imgs[f]).max()) for f, (x, _) in enumerate(fed))
-    err_sparse = max(float(np.abs(y[0] - want_sparse[f]).max()) for f, (_, y) in enumerate(fed))
+                                     for x, y, *_ in fed):
+        raise AssertionError(f"(d) the pipeline was fed {[(x[0].shape, x[1].shape) for x in fed]}")
+    err_img = max(float(np.abs(x[0] - want_imgs[f]).max()) for f, (x, *_) in enumerate(fed))
+    err_sparse = max(float(np.abs(y[0] - want_sparse[f]).max())
+                     for f, (_, y, *_) in enumerate(fed))
     print(f"  (d) the CLI's pipeline inputs against the generated arrays: image max "
           f"{err_img:.3e}, sparse max {err_sparse:.3e} m")
     check("cli pipeline input: image", err_img, CLI_INPUT_LIMIT)
@@ -1438,6 +1524,253 @@ def cli_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
         "analyze_mae": mae, "cli_vs_direct_rms": rms, "cli_vs_direct_max": worst,
         "card": card(),
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the sampler's other modes
+# ---------------------------------------------------------------------------
+
+# Per-input training step (``reference_step_check(per_input=True)``), as
+# REF_LIMITS: (loss rel, affine-grad rel, latent-grad cosine gap). Sound
+# readings over the seeds (NVIDIA H100 80GB HBM3, 700 W): loss rel <=
+# 1.5e-6, affine rel <= 6.7e-3 (the unclamped decode's affine gradient sums
+# every pixel's bf16 difference), cosine gap <= 2.3e-3 (PERF.md, PR 10).
+PER_INPUT_LIMITS = (2e-5, 3e-2, 1e-2)
+# LCM through the CLI against the same request through the plain versions
+# (forward only: 4 UNet forwards, the decode), rms and max over the 120 m
+# range: sound 5.0e-4 and 6.0e-3 (same card), limits 10x.
+LCM_LIMITS = (5e-3, 6e-2)
+# Remat against no remat, one guided step at batch 8: the losses (the same
+# forward, rel), the affine grads (rel) and 1 - the latent grads' cosine
+# (flash_bwd's dq atomics make two backward runs differ).
+REMAT_LIMITS = (1e-6, REF_LIMITS["tiny"][1], REF_LIMITS["tiny"][2])
+# The E=4 median of the ensemble's first four members against numpy's
+# (which averages the two middle ones), m
+MEDIAN_LIMIT = 1e-4
+MODES_TRAIN_STEPS, LCM_STEPS, ENSEMBLE_SIZE, REMAT_BATCH = 10, 4, 5, 8
+
+
+@contextlib.contextmanager
+def plain_decode():
+    """The sampler's decodes through the plain conv and attention."""
+    decode = S.decode_prediction
+    S.decode_prediction = functools.partial(decode, conv_fn=_plain_conv3x3_fused,
+                                            attention_fn=plain_attention)
+    try:
+        yield
+    finally:
+        S.decode_prediction = decode
+
+
+def _range_diff(a, b) -> tuple[float, float]:
+    """rms and max of (a - b) over the 120 m range."""
+    d = (a.float().cpu() - b.float().cpu()) / 120.0
+    return float(d.square().mean().sqrt()), float(d.abs().max())
+
+
+def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: int = 768) -> dict:
+    """The sampler's other modes at full width on the checkpoint bundle of
+    phase 3a (Marigold UNet, TAESD, the SD2 tower's context; bf16), 480x640
+    frames with 500 points at res 768, norm=const; launches counted from 0
+    for every request and held to ``expected_launches`` of its mode:
+
+    - remat: one guided step at batch 8 with ``remat_unet="on"``, then
+      "off" (and "off" at batch 1): losses, affine and latent grads within
+      ``REMAT_LIMITS``, peak memory lower with remat; the peaks at batch 1
+      and 8 give the bytes per latent pixel and the fixed bytes of
+      ``remat_unet="auto"``;
+    - ensemble: E=5, aligned-median, uncertainty: finite, MAD >= 0, every
+      reduced pixel one aligned member's value (odd E), the median of the
+      first four members against numpy's (``MEDIAN_LIMIT``), member 0
+      against the plain batch-1 request on the same seed (``CLI_LIMITS``);
+    - LCM: ``cli.predict --model lcm`` on the checkpoint directory, 4 steps,
+      one frame, against the same request through the plain versions
+      (``LCM_LIMITS``; that request launches no kernel);
+    - per-input: ``train_method="per-input"``, ``train_steps=10``, learned
+      affine; then one per-input step held as the reference step is
+      (``PER_INPUT_LIMITS``);
+    - KLD: a guided path with ``kld=True, kld_mode="strict"`` (two
+      requests with the carry, the reference step with the penalty, the
+      TAESD limits).
+
+    → the ``modes`` line."""
+    frame, points = CLI_FRAME, CLI_POINTS
+    h, w = frame
+    bundle = load_bundle(model_dir, "tiny", taesd_dir, torch.bfloat16, device=DEV)
+    eh, ew = latent_size(frame, res, bundle.vae.downsample_factor)
+    images, sparses = path_inputs(frame, points)
+    pipe = DepthCompletionPipeline(bundle)
+    modes: dict[str, dict] = {}
+
+    def expect(mode, n_steps, **kw):
+        return expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                                 (eh, ew), n_steps, mode=mode, **kw)
+
+    def counted(label, expected, fn):
+        """``fn()`` with the launches counted from 0 and held to
+        ``expected``; → (its result, seconds, peak GiB, launches)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # just before
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launches()  # just after
+        reset_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        used = {k: n for k, n in counts.items() if n}
+        print(f"  {label}: {dt:.2f} s, peak memory {peak:.2f} GiB, launches {used}")
+        if counts != expected:
+            raise AssertionError(f"{label}: kernel launches {counts} != expected {expected}")
+        return out, dt, peak, used
+
+    def request(label, expected, **options):
+        return counted(label, expected, lambda: pipe(
+            images, sparses, max_depth=120.0, norm="const", resolution=res, **options))
+
+    # remat: one guided step, first, with nothing but the bundle alive
+    print(f"modes: remat, one guided step at batch {REMAT_BATCH} and 1, {h}x{w}, res {res}")
+    cfg = S.SamplerConfig(steps=steps, resolution=res, norm="const", closed_form=False)
+    sched = S.make_schedule(cfg.ddim)
+    t = int(S.make_timesteps(cfg.ddim, cfg.steps)[0])
+    imgs_b, sps_b = path_inputs(frame, points, batch=REMAT_BATCH, seed=1)
+
+    def guided_step(n, remat):
+        """The step twice (the first call at a new batch size sets up the
+        libraries' plans and workspaces); → the second's (losses, grads,
+        seconds, peak GiB, launches)."""
+        imgs, sps = imgs_b[:n].to(DEV), sps_b[:n].to(DEV)
+        img_lat, lat0, dn, padding, orig_res = S._prepare(bundle, imgs, sps, cfg, None)
+        for _ in range(2):
+            lat = lat0.clone().requires_grad_(True)
+            aff = [torch.ones((n, 1, 1, 1), device=DEV).requires_grad_(True),
+                   torch.zeros((n, 1, 1, 1), device=DEV).requires_grad_(True)]
+            (losses, _, grads), dt, peak, used = counted(
+                f"batch {n} remat {'on' if remat else 'off'}", expect(
+                    "step-remat" if remat else "step", 1),
+                lambda: S.guided_step_grads(
+                    S._Denoiser(bundle, img_lat, fa.flash_attention, remat),
+                    functools.partial(S.decode_prediction, bundle), sched, cfg, dn, imgs,
+                    orig_res, padding, False, lat, aff, t))
+        return losses, grads, dt, peak, used
+
+    on = guided_step(REMAT_BATCH, True)
+    off = guided_step(REMAT_BATCH, False)
+    one = guided_step(1, False)
+    loss_rel = max_rel(on[0], off[0])
+    aff_rel = max(max_rel(a, b) for a, b in zip(on[1][1:], off[1][1:]))
+    cos_gap = 1.0 - cos(on[1][0], off[1][0])
+    check("remat losses (on vs off)", loss_rel, REMAT_LIMITS[0], "rel_err")
+    check("remat affine grads (on vs off)", aff_rel, REMAT_LIMITS[1], "rel_err")
+    check("remat latent grad (on vs off)", cos_gap, REMAT_LIMITS[2], "1-cos")
+    check("remat peak memory below no remat", on[3] - off[3], -1e-3, "GiB(on) - GiB(off)")
+    pixels = eh * ew
+    per_pixel = (off[3] - one[3]) * 2**30 / ((REMAT_BATCH - 1) * pixels)
+    fixed = one[3] * 2**30 - per_pixel * pixels
+    total = torch.cuda.get_device_properties(DEV).total_memory
+    auto = {n: S.resolve_remat(cfg, n, (eh, ew), DEV) for n in (1, 8, 16, 32, 64)}
+    print(f"  remat: peak {on[3]:.2f} GiB on, {off[3]:.2f} off (batch {REMAT_BATCH}); "
+          f"{one[3]:.2f} at batch 1; measured {per_pixel:.0f} bytes per latent pixel + "
+          f"{fixed:.0f} fixed (sampler.py: {S.REMAT_BYTES_PER_LATENT_PIXEL} + "
+          f"{S.REMAT_FIXED_BYTES}); card memory {total}; \"auto\" on at batch {auto}")
+    modes["remat"] = {
+        "batch": REMAT_BATCH, "s_per_step": {"on": on[2], "off": off[2], "off_batch1": one[2]},
+        "launches": {"on": on[4], "off": off[4]},
+        "peak_gib": {"on": on[3], "off": off[3], "off_batch1": one[3]},
+        "checks": {"loss_rel": loss_rel, "affine_rel": aff_rel, "latent_1_minus_cos": cos_gap},
+        "bytes_per_latent_pixel": per_pixel, "fixed_bytes": fixed, "total_memory": total,
+        "auto_on_at_batch": {str(n): v for n, v in auto.items()}, "card": card(),
+    }
+    del on, off, one, imgs_b, sps_b
+
+    # ensemble
+    print(f"modes: ensemble E={ENSEMBLE_SIZE}, aligned-median, uncertainty, {steps} steps")
+    (denses, members, mad), dt, peak, used = request(
+        "ensemble", expect("per-step", steps), steps=steps, closed_form=False,
+        ensemble_size=ENSEMBLE_SIZE, ensemble_reduce="aligned-median", ensemble_uncertainty=True)
+    check_request(denses, None, (1, h, w, 1), None)
+    if tuple(members.shape) != (1, ENSEMBLE_SIZE, h, w, 1) or not torch.isfinite(members).all():
+        raise AssertionError(f"ensemble members {tuple(members.shape)}")
+    if tuple(mad.shape) != (1, h, w, 1) or not torch.isfinite(mad).all() or mad.min() < 0:
+        raise AssertionError(f"ensemble MAD {tuple(mad.shape)} min {float(mad.min())}")
+    aligned = TE.align_members(members)
+    odd_gap = float((aligned - denses[:, None]).abs().amin(dim=1).max())
+    check("ensemble median is an aligned member's value (odd E)", odd_gap, 0.0, "max min|diff|")
+    four = members[:, :4]
+    even_err = float(np.abs(TE.reduce_members(four, "median")[0].cpu().numpy()
+                            - np.median(four.cpu().numpy(), axis=1)).max())
+    check("ensemble median of 4 members vs numpy", even_err, MEDIAN_LIMIT, "max|diff| m")
+    plain, _ = pipe(images, sparses, max_depth=120.0, norm="const", resolution=res, steps=steps,
+                    closed_form=False)
+    m0_rms, m0_max = _range_diff(members[0, 0], plain[0])
+    spread = float(members.std(dim=1).mean())
+    print(f"  ensemble: member 0 vs the batch-1 request rms {m0_rms:.3e} max {m0_max:.3e} of "
+          f"120 m; member spread (std) {spread:.3f} m; MAD mean {float(mad.mean()):.3f} m")
+    check("ensemble member 0 vs the batch-1 request (rms)", m0_rms, CLI_LIMITS[0], "rms/120 m")
+    check("ensemble member 0 vs the batch-1 request (max)", m0_max, CLI_LIMITS[1], "max/120 m")
+    modes["ensemble"] = {
+        "ensemble_size": ENSEMBLE_SIZE, "steps": steps, "s_per_request": dt, "launches": used,
+        "peak_gib": peak, "checks": {"odd_median_gap": odd_gap, "median4_err": even_err,
+                                     "member0_rms": m0_rms, "member0_max": m0_max},
+        "member_std_m": spread, "card": card(),
+    }
+    del denses, members, mad, aligned, plain
+
+    # LCM through the CLI
+    print(f"modes: LCM, cli.predict --model lcm, {LCM_STEPS} steps, 1 frame")
+    data, _, _ = cli_dataset(root / "lcm_data", seed=1, frames=1)
+    out_dir = root / "lcm_out"
+    argv = [str(data), str(out_dir), "--checkpoint-dir", str(model_dir), "--taesd-dir",
+            str(taesd_dir), "--model", "lcm", "--steps", str(LCM_STEPS), "--res", str(res),
+            "--vis", "false",
+            "--log-level", "WARNING"]
+    with spy_pipeline() as fed:
+        totals, dt, peak, used = counted("lcm (cli)", expect("forward", LCM_STEPS),
+                                         lambda: predict_cli.main(argv))
+    dense = codecs.load_array(out_dir / "scene" / "dense" / "00000.dcz")
+    check_request(torch.from_numpy(dense)[None], None, (1, h, w, 1), None)
+    (x, y, args, kwargs), = fed
+    if (kwargs["scheduler"], kwargs["train_latents"], kwargs["closed_form"]) != ("lcm", False,
+                                                                               True):
+        raise AssertionError(f"lcm: the CLI asked for {kwargs}")
+    with plain_decode():
+        (plain, _), _, _, _ = counted(
+            "lcm (plain versions)", {k: 0 for k in launches()},
+            lambda: DepthCompletionPipeline(bundle)(
+                x, y, *args, **{**kwargs, "flash_attention": "off"}))
+    lcm_rms, lcm_max = _range_diff(torch.from_numpy(dense), plain[0])
+    print(f"  lcm: kernels vs plain versions rms {lcm_rms:.3e} max {lcm_max:.3e} of 120 m")
+    check("lcm dense vs the plain versions (rms)", lcm_rms, LCM_LIMITS[0], "rms/120 m")
+    check("lcm dense vs the plain versions (max)", lcm_max, LCM_LIMITS[1], "max/120 m")
+    modes["lcm"] = {
+        "steps": LCM_STEPS, "s_per_request": totals["time_infer"], "wall_s": dt,
+        "launches": used, "peak_gib": peak, "checks": {"rms": lcm_rms, "max": lcm_max},
+        "card": card(),
+    }
+
+    # per-input
+    print(f"modes: per-input, {steps} steps + {MODES_TRAIN_STEPS} train steps")
+    (dense, lat), dt, peak, used = request(
+        "per-input", expect("per-input", steps, train_steps=MODES_TRAIN_STEPS), steps=steps,
+        closed_form=False, train_method="per-input", train_steps=MODES_TRAIN_STEPS)
+    check_request(dense, lat, (1, h, w, 1), (1, eh, ew, 4))
+    bundle32 = fp32_bundle(bundle)
+    ref = reference_step_check(bundle, bundle32, images.to(DEV), sparses.to(DEV), res,
+                               per_input=True, label="per-input step")
+    del bundle32
+    modes["per-input"] = {"steps": steps, "train_steps": MODES_TRAIN_STEPS, "s_per_request": dt,
+                          "launches": used, "peak_gib": peak, "checks": ref, "card": card()}
+
+    # KLD: a guided path with the penalty
+    kld = GuidedPath("TAESD_CONFIG, kld strict", "tiny", registry.TAESD_CONFIG, frame, points,
+                     res, options=(("kld", True), ("kld_mode", "strict")))
+    counts, info = guided_path(kld, steps, bundle)
+    modes["kld"] = {"steps": steps, "s_per_request": info["s_per_request"],
+                    "launches": {k: n // 2 for k, n in counts.items() if n},
+                    "peak_gib": info["peak_gib"], "checks": info["reference_step"],
+                    "card": card()}
+    return modes
 
 
 def main() -> int:
@@ -1548,13 +1881,14 @@ def main() -> int:
         loaded, model_dir, taesd_dir = checkpoint_bundle(Path(tmp))
         for path in PATHS:
             taesd_path = path.vae_kind == "tiny" and not path.ring_size
-            path_counts = guided_path(path, args.steps, loaded if taesd_path else None)
+            path_counts, _ = guided_path(path, args.steps, loaded if taesd_path else None)
             loaded = None  # each path's peak memory its own
             for k, n in path_counts.items():
                 counts[k] = counts.get(k, 0) + n
             if path.ring_size:
                 ring_launches = path_counts
         cli = cli_phase(model_dir, taesd_dir, Path(tmp), args.steps)
+        modes = modes_phase(model_dir, taesd_dir, Path(tmp), args.steps)
     if FAILURES:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
@@ -1592,6 +1926,7 @@ def main() -> int:
     print(json.dumps({"probes": probes}))
     print(json.dumps({"composites": composites}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"modes": modes}))
     # how a wrapper that runs more than one kernel counts its launches
     launch_notes = {"flash_bwd_d512": "one per call of dct_flash_bwd_d512, which runs three "
                                       "kernels: the di pre-pass, dk/dv, then dq"}

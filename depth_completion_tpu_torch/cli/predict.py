@@ -8,11 +8,15 @@ uses click); one more flag, ``--device {cuda,cpu}`` (default ``cuda``),
 the counterpart of the JAX CLI honouring ``JAX_PLATFORMS``. With no GPU and
 no ``--device cpu`` the command exits with the device error.
 
+- ``--model lcm`` loads the checkpoint directory as ``original`` does and
+  samples with the LCM scheduler (latent training off, closed-form affine).
+  ``--ensemble N`` runs N members per frame as one batch; with
+  ``--ensemble-uncertainty true`` the member MAD map is written under
+  ``uncertainty/`` beside ``dense/``, in the dense map's format.
 - Flags whose path is not ported raise ``NotImplementedError`` naming the
-  ROADMAP item: ``--model lcm``, ``--train-method per-input``, ``--kld
-  true``, ``--ensemble`` > 1, ``--multihost true``, ``--mesh-model`` > 1,
-  ``--compress bl2``. ``--native-res true`` needs a data axis of two or
-  more devices, as in JAX: on one card it is a usage error.
+  ROADMAP item: ``--multihost true``, ``--mesh-model`` > 1, ``--compress
+  bl2``. ``--native-res true`` needs a data axis of two or more devices, as
+  in JAX: on one card it is a usage error.
 - ``--compile-graph``, ``--compile-mode`` and ``--compile-effort`` are
   accepted and logged as no-ops (PyTorch runs eagerly).
 - ``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the first
@@ -83,8 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("src_root", type=existing_dir)
     p.add_argument("dst_root", type=Path)
     p.add_argument("--model", choices=["original", "lcm", "random"], default="original",
-                   help="Marigold model family (lcm is not ported yet); random: random "
-                   "weights, smoke tests only.")
+                   help="Marigold model family; random: random weights, smoke tests only.")
     p.add_argument("--checkpoint-dir", type=Path, default=None,
                    help="Local HF-layout checkpoint directory (unet/, vae/, text_encoder/). "
                    "Required unless --model=random.")
@@ -134,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-scaling", type=_POS_FLOAT, default=0.005,
                    help="Learning rate for scale/shift parameters.")
     p.add_argument("--kld", type=str2bool, default=False,
-                   help="KL-divergence penalty toward N(0,1) (not ported yet).")
+                   help="KL-divergence penalty toward N(0,1).")
     p.add_argument("--kld-mode", choices=["simple", "strict"], default="simple",
                    help="KL divergence mode.")
     p.add_argument("--kld-weight", type=_POS_FLOAT, default=0.1, help="KL penalty weight.")
@@ -153,7 +156,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-latents", type=str2bool, default=True,
                    help="Optimize latents during sampling.")
     p.add_argument("--train-method", choices=["per-step", "per-input"], default="per-step",
-                   help="Latent training method (per-input is not ported yet).")
+                   help="Latent training method.")
     p.add_argument("--train-steps", type=_POS_INT, default=10,
                    help="Optimization steps for --train-method=per-input.")
     p.add_argument("--resume", type=str2bool, default=False,
@@ -163,7 +166,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-shards", type=_POS_INT, default=1,
                    help="Total number of workers sharding the frame list.")
     p.add_argument("--ensemble", type=_POS_INT, default=1,
-                   help="Ensemble members per frame (> 1 is not ported yet).")
+                   help="Ensemble members per frame.")
     p.add_argument("--ensemble-reduce",
                    choices=["median", "mean", "aligned-median", "aligned-mean"],
                    default="median", help="Ensemble reduction.")
@@ -296,10 +299,6 @@ def run_predict(
             raise ValueError(msg)
         parser.error(msg)
     for what, hit, item in (
-        ("--model lcm", model == "lcm", "item 6"),
-        ("--train-method per-input", train_method == "per-input", "item 6"),
-        ("--kld true", kld, "item 6"),
-        ("--ensemble > 1", ensemble > 1, "item 7"),
         ("--multihost true", multihost, "item 8"),
         ("--mesh-model > 1", mesh_model > 1, "item 8"),
         ("--compress bl2", compress == "bl2", "item 5b"),
@@ -315,6 +314,7 @@ def run_predict(
     # ----- model initialization -------------------------------------------
     bundle = init_bundle(model, checkpoint_dir, taesd_dir, vae, precision, dev)
     pipe = DepthCompletionPipeline(bundle)
+    scheduler = "lcm" if model == "lcm" else "ddim"
     logger.info(f"Device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                                     if dev.type == "cuda" else ""))
     if dev.type == "cuda":
@@ -529,7 +529,7 @@ def run_predict(
                     profiler = torch.profiler.profile(activities=activities)
                 stime_infer = time.perf_counter()
                 with profiler:
-                    denses, latents = pipe(
+                    out = pipe(
                         batch_imgs,
                         batch_sparses,
                         max_depth,
@@ -553,9 +553,15 @@ def run_predict(
                         train_latents=train_latents,
                         train_method=train_method,
                         train_steps=train_steps,
+                        scheduler=scheduler,
+                        ensemble_size=ensemble,
+                        ensemble_reduce=ensemble_reduce,
+                        ensemble_uncertainty=ensemble_uncertainty,
                         detach_unet_grad=fast_guidance,
                     )
+                    denses, latents = out[0], out[1]
                     denses_np = denses.float().cpu().numpy()
+                    uncs_np = out[2].float().cpu().numpy() if len(out) == 3 else None
                 if isinstance(profiler, torch.profiler.profile):
                     profile_dir.mkdir(parents=True, exist_ok=True)
                     profiler.export_chrome_trace(str(profile_dir / "trace.json"))
@@ -573,9 +579,9 @@ def run_predict(
                 totals["time_infer"] += postfix["time/infer"]
 
                 time_vis = 0.0
-                for dense, sparse, sparse_path, img, img_path in zip(
+                for fi, (dense, sparse, sparse_path, img, img_path) in enumerate(zip(
                     denses_np, batch_sparses, b_sparse_paths, batch_imgs, b_img_paths
-                ):
+                )):
                     if has_nan(dense):
                         logger.error("NaN values found in dense depth map (skipped)")
                         continue
@@ -588,6 +594,10 @@ def run_predict(
                         save_path = save_dir / sparse_path.with_suffix(f".{compress}").name
                         save_array(dense, save_path, compress=compress)
                         totals["dense_bytes"] += save_path.stat().st_size
+                        if uncs_np is not None:
+                            unc_dir = (out_dir / "uncertainty"
+                                       / sparse_path.relative_to(sparse_dir)).parent
+                            save_array(uncs_np[fi], unc_dir / save_path.name, compress=compress)
                         time_io += time.perf_counter() - stime
                     if vis:
                         stime = time.perf_counter()

@@ -11,6 +11,8 @@ second, and ``random_bits`` at 32 bits is the xor of the two hashed words.
 - ``PRNGKey(seed)``: key ``(0, seed mod 2**32)`` (64-bit mode off: the
   seed is cut to 32 bits, its high word is 0).
 - ``split(key, num)``: ``[num, 2]`` keys, bit for bit.
+- ``fold_in(key, data)``: the key hashed with the counter pair ``(0,
+  data)`` (``data`` cut to 32 bits), bit for bit.
 - ``random_bits(key, shape)``: uint32 words, bit for bit.
 - ``uniform(key, shape, lo, hi)``: the top 23 bits of each word OR-ed
   into the exponent of 1.0, minus 1.0, scaled to ``[lo, hi)``, then
@@ -78,6 +80,13 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     """``jax.random.split(key, num)``'s raw keys: uint32 ``[num, 2]``."""
     b0, b1 = threefry2x32(key, *_iota_2x32((num,)))
     return np.stack([b0, b1], axis=-1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``'s raw key: uint32 ``[2]``."""
+    b0, b1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.concatenate([b0, b1])
 
 
 def random_bits(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:

@@ -1,13 +1,15 @@
 """Per-sample guidance losses, PyTorch counterpart of
 ``depth_completion_tpu.guidance.losses``: l1 / l2 masked anchor losses,
 edge (prediction gradient vs gray-image gradient) and smooth (total
-variation). The KLD latent penalty is a later slice."""
+variation), and the KLD penalty of the latent toward N(0, 1)."""
 
 from __future__ import annotations
 
 from collections.abc import Sequence
 
 import torch
+
+from depth_completion_tpu_torch.ops.stats import kld_stdnorm
 
 SUPPORTED_LOSS_FUNCS = ("l1", "l2", "edge", "smooth")
 _LUMA = (0.299, 0.587, 0.114)  # Rec. 601
@@ -29,12 +31,17 @@ def compute_loss(
     loss_funcs: Sequence[str],
     images: torch.Tensor | None = None,
     kld: bool = False,
+    kld_weight: float = 0.1,
+    kld_mode: str = "simple",
+    pred_latents: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Combined per-sample loss → [N] float32 (NHWC inputs)."""
+    """Combined per-sample loss → [N] float32 (NHWC inputs); with ``kld``,
+    plus ``kld_weight`` times each sample's ``kld_stdnorm`` of
+    ``pred_latents``."""
     if len(loss_funcs) == 0:
         raise ValueError("loss_funcs must contain at least one loss function")
-    if kld:
-        raise NotImplementedError("the KLD latent penalty is not ported yet (ROADMAP queue 1)")
+    if kld and pred_latents is None:
+        raise ValueError("pred_latents must be provided when kld is enabled")
     d, s, m = denses.float(), sparses.float(), masks.float()
     num_valid = torch.clamp(m.sum(dim=(1, 2, 3)), min=1.0)
     total = torch.zeros(d.shape[0], dtype=torch.float32, device=d.device)
@@ -60,4 +67,6 @@ def compute_loss(
             total = total + (d[:, :, :-1] - d[:, :, 1:]).abs().mean(dim=(1, 2, 3))
         else:
             raise ValueError(f"Unknown loss function: {loss_func}")
+    if kld:
+        total = total + kld_weight * kld_stdnorm(pred_latents, reduction="none", mode=kld_mode)
     return total

@@ -10,6 +10,14 @@ Activations are NHWC throughout; convs run on their channels-last NCHW view
 (``layers.conv2d``). Self-attention goes through ``attention_fn`` — the seam
 where ``ops.flash_attention`` (the Hopper kernel) drops in.
 
+With ``remat`` each down stage and each up stage runs under
+``torch.utils.checkpoint`` (non-reentrant) when autograd records: its
+activations are recomputed in the backward instead of kept, as the JAX
+package's ``jax.checkpoint`` does; ``conv_in``, the mid block and
+``conv_out`` stay outside. The skips an up stage consumes are taken off
+the list before the stage and passed in, so its recompute reads the same
+tensors.
+
 The GEGLU gate uses the tanh-approximate GELU: the JAX package calls
 ``jax.nn.gelu``, whose default is ``approximate=True`` (diffusers' SD2 UNet
 uses the exact GELU; see ROADMAP.md "Faults").
@@ -17,10 +25,12 @@ uses the exact GELU; see ROADMAP.md "Faults").
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from depth_completion_tpu_torch.models.layers import (
     attention,
@@ -77,6 +87,48 @@ def _transformer(p, x, ctx, num_heads, cfg: UNetConfig, attention_fn: AttentionF
     return hidden.reshape(n, h, w, c) + x
 
 
+def _down_stage(stage, h, temb, ctx, stage_idx: int, cfg: UNetConfig,
+                attention_fn: AttentionFn) -> tuple[torch.Tensor, ...]:
+    """One down stage → (h, *the skips it adds)."""
+    skips = []
+    for j, res_p in enumerate(stage["resnets"]):
+        h = _resnet(res_p, h, temb, cfg)
+        if cfg.attention_stages[stage_idx]:
+            h = _transformer(
+                stage["attentions"][j], h, ctx, cfg.num_heads[stage_idx], cfg, attention_fn
+            )
+        skips.append(h)
+    if "downsampler" in stage:
+        h = conv2d(stage["downsampler"], h, stride=2, padding=1)
+        skips.append(h)
+    return (h, *skips)
+
+
+def _up_stage(stage, h, stage_skips, up_target, temb, ctx, stage_idx: int, cfg: UNetConfig,
+              attention_fn: AttentionFn) -> torch.Tensor:
+    """One up stage; resnet j consumes ``stage_skips[j]`` (newest first).
+    ``up_target``: the (H, W) the upsampler must produce, the next stage's
+    skip size (odd down-path sizes, e.g. KITTI's 28→14→7→4 latent, are not
+    plain 2x)."""
+    for j, res_p in enumerate(stage["resnets"]):
+        h = _resnet(res_p, torch.cat([h, stage_skips[j]], dim=-1), temb, cfg)
+        if cfg.attention_stages[stage_idx]:
+            h = _transformer(
+                stage["attentions"][j], h, ctx, cfg.num_heads[stage_idx], cfg, attention_fn
+            )
+    if "upsampler" in stage:
+        if up_target == (h.shape[1] * 2, h.shape[2] * 2):
+            h = upsample_nearest_2x(h)
+        else:
+            h = resize_nearest(h, up_target)
+        h = conv2d(stage["upsampler"], h)
+    return h
+
+
+def _direct(fn, *args):
+    return fn(*args)
+
+
 def apply_unet(
     params,
     sample: torch.Tensor,
@@ -86,12 +138,8 @@ def apply_unet(
     attention_fn: AttentionFn = attention,
     remat: bool = False,
 ) -> torch.Tensor:
-    """UNet forward: [N,EH,EW,Cin], scalar/[N] t, [N,S,D] context → [N,EH,EW,4]."""
-    if remat:
-        raise NotImplementedError(
-            "UNet rematerialisation is not ported (ROADMAP queue 1: remaining "
-            "modes); batch <= 2 fits an 80 GB card without it"
-        )
+    """UNet forward: [N,EH,EW,Cin], scalar/[N] t, [N,S,D] context → [N,EH,EW,4].
+    ``remat``: recompute each down and up stage in the backward."""
     cfg = config
     n = sample.shape[0]
     t = torch.as_tensor(timestep, device=sample.device)
@@ -102,20 +150,15 @@ def apply_unet(
     temb = linear(params["time_embedding"]["linear_2"], silu(temb))
     ctx = encoder_hidden_states.to(sample.dtype)
     n_stages = len(cfg.block_out_channels)
+    run = _direct
+    if remat and torch.is_grad_enabled():
+        run = functools.partial(checkpoint, use_reentrant=False)
 
     h = conv2d(params["conv_in"], sample)
     skips = [h]
     for i, stage in enumerate(params["down_blocks"]):
-        for j, res_p in enumerate(stage["resnets"]):
-            h = _resnet(res_p, h, temb, cfg)
-            if cfg.attention_stages[i]:
-                h = _transformer(
-                    stage["attentions"][j], h, ctx, cfg.num_heads[i], cfg, attention_fn
-                )
-            skips.append(h)
-        if "downsampler" in stage:
-            h = conv2d(stage["downsampler"], h, stride=2, padding=1)
-            skips.append(h)
+        h, *new_skips = run(_down_stage, stage, h, temb, ctx, i, cfg, attention_fn)
+        skips.extend(new_skips)
 
     mid = params["mid_block"]
     h = _resnet(mid["resnets"][0], h, temb, cfg)
@@ -123,22 +166,10 @@ def apply_unet(
     h = _resnet(mid["resnets"][1], h, temb, cfg)
 
     for i, stage in enumerate(params["up_blocks"]):
-        stage_idx = n_stages - 1 - i
-        for j, res_p in enumerate(stage["resnets"]):
-            h = _resnet(res_p, torch.cat([h, skips.pop()], dim=-1), temb, cfg)
-            if cfg.attention_stages[stage_idx]:
-                h = _transformer(
-                    stage["attentions"][j], h, ctx, cfg.num_heads[stage_idx], cfg, attention_fn
-                )
-        if "upsampler" in stage:
-            # the next stage's skip fixes the size (odd down-path sizes, e.g.
-            # KITTI's 28→14→7→4 latent, are not plain 2x)
-            th, tw = skips[-1].shape[1:3]
-            if (th, tw) == (h.shape[1] * 2, h.shape[2] * 2):
-                h = upsample_nearest_2x(h)
-            else:
-                h = resize_nearest(h, (th, tw))
-            h = conv2d(stage["upsampler"], h)
+        stage_skips = [skips.pop() for _ in stage["resnets"]]
+        up_target = tuple(skips[-1].shape[1:3]) if skips else None
+        h = run(_up_stage, stage, h, stage_skips, up_target, temb, ctx, n_stages - 1 - i, cfg,
+                attention_fn)
 
     h = group_norm(params["conv_norm_out"], h, cfg.norm_groups, cfg.norm_eps)
     return conv2d(params["conv_out"], silu(h))

@@ -1,7 +1,7 @@
 """Masked statistics, PyTorch counterpart of ``depth_completion_tpu.ops.stats``:
 ``masked_minmax`` and ``masked_quantile`` (the sampler's normalisation),
-``masked_mae`` and ``masked_rmse`` (the analyzer's scorer). ``kld_stdnorm``
-waits with the KLD penalty (ROADMAP queue 1)."""
+``masked_mae`` and ``masked_rmse`` (the analyzer's scorer), ``kld_stdnorm``
+(the guidance's KLD penalty)."""
 
 from __future__ import annotations
 
@@ -32,6 +32,30 @@ def masked_quantile(x: torch.Tensor, mask: torch.Tensor, qs) -> torch.Tensor:
     lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
     frac = pos - lo.float()
     return sorted_x.gather(-1, lo) * (1.0 - frac) + sorted_x.gather(-1, hi) * frac
+
+
+def kld_stdnorm(x: torch.Tensor, reduction: str = "mean", mode: str = "simple") -> torch.Tensor:
+    """KL divergence of ``x`` (flattened per sample) from N(0, 1), fp32:
+    ``simple`` is mean(x²); ``strict`` is 0.5·(μ² + σ² − log(σ² + eps) − 1)
+    with the biased variance and eps float32's. ``reduction``: ``mean``,
+    ``sum`` over the samples, or ``none`` (one value per sample)."""
+    flat = x.reshape(x.shape[0], -1).float()
+    if mode == "simple":
+        dist = flat.square().mean(dim=-1)
+    elif mode == "strict":
+        mu = flat.mean(dim=-1)
+        var = flat.var(dim=-1, correction=0)
+        eps = torch.finfo(torch.float32).eps
+        dist = 0.5 * (mu.square() + var - torch.log(var + eps) - 1.0)
+    else:
+        raise ValueError(f"Unknown mode: {mode}")
+    if reduction == "mean":
+        return dist.mean()
+    if reduction == "sum":
+        return dist.sum()
+    if reduction == "none":
+        return dist
+    raise ValueError(f"Unknown reduction: {reduction}")
 
 
 def masked_mae(preds: torch.Tensor, targets: torch.Tensor,

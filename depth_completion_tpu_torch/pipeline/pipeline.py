@@ -4,8 +4,9 @@
 Host-side validation (shapes, the empty-sparse and degenerate-range errors,
 the temporal-carry shape check), config assembly, then ``guided_sample`` on
 the bundle's device. Arrays are NHWC; inputs may be numpy arrays or
-tensors, outputs are tensors on the bundle's device. Ensembles are a later
-slice; PyTorch runs eagerly, so there is no program cache to port.
+tensors, outputs are tensors on the bundle's device. ``ensemble_size`` > 1 runs
+``parallel.ensemble.ensemble_sample``. PyTorch runs eagerly, so there is no
+program cache to port.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from depth_completion_tpu_torch.models.bundle import ModelBundle
 from depth_completion_tpu_torch.ops.resize import latent_size
+from depth_completion_tpu_torch.parallel.ensemble import ensemble_sample
 from depth_completion_tpu_torch.pipeline.sampler import SamplerConfig, guided_sample
 
 
@@ -34,7 +36,10 @@ class DepthCompletionPipeline:
 
     ``images``: [N,H,W,3] raw RGB (0..255); ``sparses``: [N,H,W,1] metric
     depth with 0 at missing points. Returns metric [N,H,W,1] dense depth and
-    the final latents for temporal carry.
+    the final latents for temporal carry. With ``ensemble_size`` > 1 the
+    second output is the member denses [N,E,H,W,1] in place of the latents,
+    and with ``ensemble_uncertainty=True`` a third, the member MAD
+    [N,H,W,1], is appended.
     """
 
     def __init__(self, bundle: ModelBundle):
@@ -48,7 +53,7 @@ class DepthCompletionPipeline:
         min_depth: float = 0.0,
         pred_latents_prev: Any | None = None,
         **config_overrides: Any,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+    ) -> tuple[torch.Tensor, ...]:
         device = self.bundle.device
         images = _as_tensor(images, device)
         sparses = _as_tensor(sparses, device)
@@ -86,10 +91,9 @@ class DepthCompletionPipeline:
         if lr is not None:
             config_overrides["lr_latent"], config_overrides["lr_scaling"] = lr
         ensemble_size = int(config_overrides.pop("ensemble_size", 1))
-        for key in ("ensemble_reduce", "ensemble_mesh", "ensemble_uncertainty"):
-            config_overrides.pop(key, None)
-        if ensemble_size > 1:
-            raise NotImplementedError("ensembles are not ported yet (ROADMAP queue 1)")
+        ensemble_reduce = config_overrides.pop("ensemble_reduce", "median")
+        ensemble_mesh = config_overrides.pop("ensemble_mesh", None)
+        ensemble_uncertainty = bool(config_overrides.pop("ensemble_uncertainty", False))
         if "ddim" not in config_overrides and self.bundle.ddim_config is not None:
             config_overrides["ddim"] = self.bundle.ddim_config
 
@@ -129,4 +133,10 @@ class DepthCompletionPipeline:
                     f"{tuple(pred_latents_prev.shape)}"
                 )
 
+        if ensemble_size > 1:
+            if pred_latents_prev is not None:
+                raise ValueError("temporal latent carry is not supported with ensembling")
+            return ensemble_sample(self.bundle, images, sparses, cfg, ensemble_size,
+                                   ensemble_reduce, mesh=ensemble_mesh,
+                                   return_uncertainty=ensemble_uncertainty)
         return guided_sample(self.bundle, images, sparses, cfg, pred_latents_prev)

@@ -27,9 +27,15 @@ divides the ring size, whatever its length (JAX ``sampler.py:357-370``);
 cross-attention, the other self-attention calls and the VAE keep the base
 attention.
 
-Also ported: the no-training DDIM branch and the final decode. Per-input
-training, LCM, the KLD penalty and UNet rematerialisation raise
-``NotImplementedError`` (ROADMAP queue 1).
+Also ported: the no-training DDIM branch, the LCM branch (no training;
+JAX's threefry key chain for the re-noise), per-input training (a no-grad
+DDIM denoise, then ``train_steps`` optimizer steps on the latent and the
+affine through the unclamped decode of the latent itself), the KLD penalty,
+UNet rematerialisation (``remat_unet``) and the final decode.
+
+Per-input training deliberately departs from the original PyTorch
+Marigold-DC, whose optimizer holds a stale latent so that only the affine
+trains: here the latent trains too, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -77,9 +83,19 @@ from depth_completion_tpu_torch.sched.ddim import (
     pred_epsilon,
     pred_original,
 )
-from depth_completion_tpu_torch.sched.lcm import LCMConfig
+from depth_completion_tpu_torch.sched.lcm import LCMConfig, lcm_step, make_lcm_timesteps
 
 EPSILON = 1e-7
+
+# remat_unet="auto": rematerialise when one per-step guided step's peak
+# device memory, n·EH·EW latent pixels times the bytes per latent pixel plus
+# the fixed bytes, would exceed 90% of the card's memory. Measured by
+# chip_smoke.py phase 5 (peak of one guided step at batch 1 and 8, remat
+# off, Marigold UNet + TAESD, bf16, 72x96 latents: 4.15 and 21.12 GiB) on
+# an NVIDIA H100 80GB HBM3 at 700 W: on from batch 29 at 72x96 there.
+REMAT_BYTES_PER_LATENT_PIXEL = 376_579
+REMAT_FIXED_BYTES = 1_855_386_405
+REMAT_MEMORY_SHARE = 0.9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +127,10 @@ class SamplerConfig:
     scheduler: str = "ddim"  # "ddim" | "lcm"
     ddim: DDIMConfig = DDIMConfig()
     lcm: LCMConfig = LCMConfig()
-    # "auto" and "off" run without rematerialisation (not needed at the
-    # batch sizes one 80 GB card serves); "on" is not ported.
+    # rematerialise the UNet's down and up stages in the guidance backward:
+    # "on"/True, "off"/False, or "auto" (on a CUDA card: on when the step's
+    # estimated peak memory passes REMAT_MEMORY_SHARE of the card's; on the
+    # CPU: off)
     remat_unet: str | bool = "auto"
     # "auto" / "on": ops.flash_attention (the Hopper kernel on CUDA);
     # "off": the plain layers.attention.
@@ -151,20 +169,26 @@ class SamplerConfig:
         self.resolved_closed_form()
 
 
-def _check_ported(cfg: SamplerConfig) -> None:
-    unported = {
-        "scheduler='lcm'": cfg.scheduler == "lcm",
-        "train_method='per-input'": cfg.train_latents and cfg.train_method == "per-input",
-        "kld=True": cfg.kld,
-        "remat_unet='on'": cfg.remat_unet in ("on", True),
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1)")
+def _check_options(cfg: SamplerConfig) -> None:
     if cfg.remat_unet not in ("auto", "on", "off", True, False):
         raise ValueError(f"remat_unet must be 'auto'/'on'/'off' or bool, got {cfg.remat_unet!r}")
     if cfg.flash_attention not in ("auto", "on", "off"):
         raise ValueError(f"flash_attention must be 'auto'/'on'/'off', got {cfg.flash_attention!r}")
+
+
+def resolve_remat(cfg: SamplerConfig, n: int, latent_hw: tuple[int, int],
+                  device: torch.device) -> bool:
+    """``cfg.remat_unet`` for a batch of ``n`` latents of ``latent_hw`` on
+    ``device`` ("auto": the card's memory against the measured per-step
+    peak; always off on the CPU)."""
+    if cfg.remat_unet == "auto":
+        if device.type != "cuda":
+            return False
+        need = n * latent_hw[0] * latent_hw[1] * REMAT_BYTES_PER_LATENT_PIXEL + REMAT_FIXED_BYTES
+        return need > REMAT_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
+    if isinstance(cfg.remat_unet, bool):
+        return cfg.remat_unet
+    return cfg.remat_unet == "on"
 
 
 def decode_prediction(bundle: ModelBundle, latents: torch.Tensor,
@@ -217,14 +241,19 @@ def _prepare(bundle, images, sparses, cfg, pred_latents_prev, init_noise=None):
 
 
 def guidance_loss(decode, cfg, dn, images, orig_res, padding, closed_form,
-                  latents_for_decode, affine_params, clamp=True):
-    """Per-sample guidance losses on a decoded latent → [N]."""
+                  latents_for_decode, affine_params, pred_latents, clamp=True):
+    """Per-sample guidance losses on a decoded latent → [N]; the KLD
+    penalty, with ``cfg.kld``, is taken on ``pred_latents``. ``clamp``: the
+    per-step branch clips the metric prediction to [0, 1] before the loss,
+    the per-input branch does not."""
     denses = latent_to_affine(decode, latents_for_decode, orig_res, padding, cfg.interp_mode)
     denses = _affine_to_metric(denses, dn, affine_params, closed_form)
     if clamp:
         denses = torch.clamp(denses, 0.0, 1.0)
     denses = renormalize_to_guidance(denses, dn, cfg.projection, cfg.inv)
-    return compute_loss(denses, dn.sparses_normed, dn.masks, cfg.loss_funcs, images=images)
+    return compute_loss(denses, dn.sparses_normed, dn.masks, cfg.loss_funcs, images=images,
+                        kld=cfg.kld, kld_weight=cfg.kld_weight, kld_mode=cfg.kld_mode,
+                        pred_latents=pred_latents)
 
 
 def ring_or_base(ring, base, q, k, v, num_heads):
@@ -237,19 +266,21 @@ def ring_or_base(ring, base, q, k, v, num_heads):
 
 class _Denoiser:
     """ε̂ = UNet(img_latents ⊕ latent, t, context) in the model dtype, with
-    ``attention_fn`` running the UNet's attention."""
+    ``attention_fn`` running the UNet's attention and ``remat`` its stages
+    rematerialised in the backward."""
 
-    def __init__(self, bundle: ModelBundle, img_latents: torch.Tensor, attention_fn):
+    def __init__(self, bundle: ModelBundle, img_latents: torch.Tensor, attention_fn,
+                 remat: bool = False):
         self.bundle, self.img_latents = bundle, img_latents
         n = img_latents.shape[0]
         self.ctx = bundle.text_context.expand(n, -1, -1)
-        self.attention_fn = attention_fn
+        self.attention_fn, self.remat = attention_fn, remat
 
     def __call__(self, latents: torch.Tensor, t: int) -> torch.Tensor:
         x = torch.cat([self.img_latents, latents.to(self.img_latents.dtype)], dim=-1)
         return apply_unet(
             self.bundle.unet_params, x, t, self.ctx, self.bundle.unet_config,
-            attention_fn=self.attention_fn,
+            attention_fn=self.attention_fn, remat=self.remat,
         )
 
 
@@ -262,7 +293,7 @@ def guided_step_grads(denoise, decode, sched, cfg, dn, images, orig_res, padding
         out = denoise(latents, t)
         x0 = pred_original(sched, out.detach() if cfg.detach_unet_grad else out, t, latents)
         losses = guidance_loss(
-            decode, cfg, dn, images, orig_res, padding, closed_form, x0, affine_params
+            decode, cfg, dn, images, orig_res, padding, closed_form, x0, affine_params, latents
         )
         grads = torch.autograd.grad(losses.sum(), [latents, *affine_params])
     return losses.detach(), out.detach(), grads
@@ -283,42 +314,48 @@ def guided_sample(
     the bundle's device.
     """
     cfg.validate()
-    _check_ported(cfg)
+    _check_options(cfg)
     closed_form = cfg.resolved_closed_form()
     n = images.shape[0]
     sched = make_schedule(cfg.ddim)
     img_latents, pred_latents, dn, padding, orig_res = _prepare(
         bundle, images, sparses, cfg, pred_latents_prev, init_noise
     )
-    ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
+    remat = resolve_remat(cfg, n, tuple(img_latents.shape[1:3]), images.device)
     attention_fn = attention if cfg.flash_attention == "off" else flash_attention
     unet_attention = attention_fn if cfg.ring_mesh is None else functools.partial(
         ring_or_base, cfg.ring_mesh, attention_fn)
-    denoise = _Denoiser(bundle, img_latents, unet_attention)
+    denoise = _Denoiser(bundle, img_latents, unet_attention, remat)
     decode = functools.partial(decode_prediction, bundle, attention_fn=attention_fn)
 
     affine_params: list[torch.Tensor] = []
-    if not cfg.train_latents:
-        lat = pred_latents
-        for t in ts:
-            lat, _ = ddim_step(sched, denoise(lat, t), t, lat, cfg.steps)
-        final_latents = lat
+    if not (cfg.train_latents and cfg.scheduler != "lcm"):
+        if cfg.scheduler == "lcm":
+            final_latents = _lcm_denoise(denoise, sched, cfg, pred_latents)
+        else:
+            final_latents = _ddim_denoise(denoise, sched, cfg, pred_latents)
     else:
-        latents = pred_latents.clone().requires_grad_(True)
         if not closed_form:
             dev = images.device
             affine_params = [
                 torch.ones((n, 1, 1, 1), device=dev).requires_grad_(True),
                 torch.zeros((n, 1, 1, 1), device=dev).requires_grad_(True),
             ]
-        step = functools.partial(
-            guided_step_grads, denoise, decode, sched, cfg, dn, images, orig_res, padding,
-            closed_form, latents, affine_params,
-        )
-        if cfg.opt == "adam" and epilogue_supported(sched):
-            _fused_adam_steps(step, sched, cfg, ts, latents, affine_params)
+        if cfg.train_method == "per-input":
+            latents = _ddim_denoise(denoise, sched, cfg, pred_latents).requires_grad_(True)
+            _per_input_steps(decode, cfg, dn, images, orig_res, padding, closed_form,
+                             latents, affine_params)
         else:
-            _eager_steps(step, sched, cfg, ts, latents, affine_params)
+            latents = pred_latents.clone().requires_grad_(True)
+            step = functools.partial(
+                guided_step_grads, denoise, decode, sched, cfg, dn, images, orig_res, padding,
+                closed_form, latents, affine_params,
+            )
+            ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
+            if cfg.opt == "adam" and epilogue_supported(sched):
+                _fused_adam_steps(step, sched, cfg, ts, latents, affine_params)
+            else:
+                _eager_steps(step, sched, cfg, ts, latents, affine_params)
         final_latents = latents.detach()
 
     denses_affine = latent_to_affine(decode, final_latents, orig_res, padding, cfg.interp_mode)
@@ -326,6 +363,53 @@ def guided_sample(
         _affine_to_metric(denses_affine, dn, affine_params, closed_form), 0.0, 1.0
     )
     return denormalize_depth(denses_normed, dn), final_latents
+
+
+def _ddim_denoise(denoise, sched, cfg, lat):
+    """Plain η=0 DDIM over the trailing timesteps, no guidance."""
+    for t in make_timesteps(cfg.ddim, cfg.steps):
+        lat, _ = ddim_step(sched, denoise(lat, int(t)), int(t), lat, cfg.steps)
+    return lat
+
+
+def _lcm_denoise(denoise, sched, cfg, lat):
+    """The LCM steps. The key chain is JAX's: the carry starts from the
+    first key of ``split(PRNGKey(seed))`` (the second drew the initial
+    noise); each step splits it and re-noises with the second key."""
+    ts = [int(t) for t in make_lcm_timesteps(cfg.ddim.num_train_timesteps, cfg.steps, cfg.lcm)]
+    key = prng.split(prng.PRNGKey(cfg.seed))[0]
+    for i, t in enumerate(ts):
+        key, sub = prng.split(key)
+        last = i == len(ts) - 1
+        lat, _ = lcm_step(sched, denoise(lat, t), t, -1 if last else ts[i + 1], lat, sub,
+                          last, cfg.lcm)
+    return lat
+
+
+def per_input_grads(decode, cfg, dn, images, orig_res, padding, closed_form, latents,
+                    affine_params):
+    """One per-input training step's forward and backward: the guidance
+    loss of the latent's own decode, unclamped (no Tweedie preview, no
+    UNet) → (per-sample losses [N], grads w.r.t. [latents, *affine_params])."""
+    with torch.enable_grad():
+        losses = guidance_loss(decode, cfg, dn, images, orig_res, padding, closed_form,
+                               latents, affine_params, latents, clamp=False)
+        grads = torch.autograd.grad(losses.sum(), [latents, *affine_params])
+    return losses.detach(), grads
+
+
+def _per_input_steps(decode, cfg, dn, images, orig_res, padding, closed_form, latents,
+                     affine_params):
+    """``cfg.train_steps`` optimizer steps (``make_optimizer``: the latent
+    and the affine together) on the raw per-input gradients (no ε-norm
+    rescale)."""
+    opt = make_optimizer(cfg.opt, latents, affine_params, cfg.lr_latent, cfg.lr_scaling)
+    for _ in range(cfg.train_steps):
+        _, grads = per_input_grads(decode, cfg, dn, images, orig_res, padding, closed_form,
+                                   latents, affine_params)
+        for p, g in zip([latents, *affine_params], grads):
+            p.grad = g
+        opt.step()
 
 
 def _fused_adam_steps(step, sched, cfg, ts, latents, affine_params):

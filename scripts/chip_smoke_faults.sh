@@ -66,6 +66,13 @@
 #   F26_cli_depth_scale the CLI's to_depth scales the sparse PNG's bytes by
 #                 255/max_sparse_depth in place of max_sparse_depth/255
 #   F27_png_bgr   the PNG decoder hands RGB images over in BGR order
+#   F28_conv_dx_nomask the conv Function's dx (every decoder backward, the
+#                 per-input steps' too) takes no ReLU mask
+#   F29_remat_skips_detached the UNet's up stages take their skips detached
+#                 when rematerialised (the forward unchanged, no gradient
+#                 into the down path through the skips)
+#   F30_ensemble_lower_median the ensemble's median takes the lower middle
+#                 member at an even count (torch.median's rule)
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -182,4 +189,10 @@ run_fault F25_loader_transpose depth_completion_tpu_torch/models/weights.py \
 run_fault F26_cli_depth_scale depth_completion_tpu_torch/io/image.py \
   's|(max_distance \* (imgs.astype(dtype)\[..., 0\] / 255.0))|(255.0 / max_distance * imgs.astype(dtype)[..., 0])|'
 run_fault F27_png_bgr depth_completion_tpu_torch/io/png.py 's|^    return img$|    return img[..., ::-1]|'
+run_fault F28_conv_dx_nomask depth_completion_tpu_torch/ops/conv3x3.py \
+  's|out = conv3x3_call(dy, kf, mask=y, emit_masked=need_masked)|out = conv3x3_call(dy, kf, mask=torch.ones_like(y), emit_masked=need_masked)|'
+run_fault F29_remat_skips_detached depth_completion_tpu_torch/models/unet.py \
+  's|h = run(_up_stage, stage, h, stage_skips, up_target,|h = run(_up_stage, stage, h, [x.detach() for x in stage_skips] if run is not _direct else stage_skips, up_target,|'
+run_fault F30_ensemble_lower_median depth_completion_tpu_torch/parallel/ensemble.py \
+  's|mid = (s.narrow(dim, (e - 1) // 2, 1) + s.narrow(dim, e // 2, 1)) \* 0.5|mid = s.narrow(dim, (e - 1) // 2, 1)|'
 exit $status

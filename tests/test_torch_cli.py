@@ -1,8 +1,9 @@
 """The port's ``cli.predict`` and ``cli.analyze`` against the JAX package's
 click CLIs: the parsed options for a matrix of argv, both CLIs end to end
 on one HF-layout checkpoint directory and one dataset, the analyzer's
-``results_all.json``, ``--resume`` (per frame and the temporal carry), and
-the flags whose path is not ported.
+``results_all.json``, ``--resume`` (per frame and the temporal carry), the
+sampler's modes (per-input, KLD, ensembles, ``--model lcm``), and the flags
+whose path is not ported.
 
 Geometry: the tiny UNet, KL VAE and text tower (``--vae original``), a
 3-frame 48x64 dataset, ``--steps 2 --res 64 --precision fp32 --batch-size
@@ -245,11 +246,54 @@ def test_temporal_resume_restores_the_carry(tmp_path, monkeypatch):
     assert not np.array_equal(_dense(part, "npy")[2], full[2])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--train-method", "per-input", "--train-steps", "2", "--closed-form", "false"],
+    ["--kld", "true", "--kld-mode", "strict", "--kld-weight", "0.3"],
+    ["--ensemble", "3", "--ensemble-uncertainty", "true", "--ensemble-reduce", "aligned-median"],
+], ids=["per-input", "kld", "ensemble"])
+def test_sampler_modes_run(tmp_path, monkeypatch, flags):
+    """Per-input training, the KLD penalty and a 3-member ensemble with its
+    uncertainty through ``cli.predict`` on the tiny random bundle: finite
+    (48, 64, 1) dense maps for every frame, and for the ensemble an
+    uncertainty map (>= 0) beside each under ``uncertainty/``."""
+    monkeypatch.setenv("DCT_RANDOM_MODEL_SIZE", "tiny")
+    data = _dataset(tmp_path / "data", n=2)
+    out = tmp_path / "out"
+    totals = predict.main([str(data), str(out), "--model", "random", "--steps", "1", "--res",
+                           "64", "--precision", "fp32", "--compress", "npy", "--vis", "false",
+                           "--device", "cpu", *flags])
+    dense = _dense(out, "npy")
+    assert totals["frames"] == 2 and dense.shape == (2, 48, 64, 1) and np.isfinite(dense).all()
+    uncs = sorted((out / "scene" / "uncertainty").glob("*.npy"))
+    assert len(uncs) == (2 if "--ensemble" in flags else 0)
+    for p in uncs:
+        unc = codecs.load_array(p)
+        assert unc.shape == (48, 64, 1) and np.isfinite(unc).all() and (unc >= 0).all()
+
+
+def test_lcm_model_runs(tmp_path, checkpoint, monkeypatch):
+    """``--model lcm`` loads the checkpoint directory as ``original`` does
+    and samples with the LCM scheduler (training forced off, closed-form
+    affine): finite dense maps, and the scheduler the pipeline got."""
+    seen = []
+    call = predict.DepthCompletionPipeline.__call__
+
+    def spy(self, *args, **kwargs):
+        seen.append((kwargs["scheduler"], kwargs["train_latents"], kwargs["closed_form"]))
+        return call(self, *args, **kwargs)
+
+    monkeypatch.setattr(predict.DepthCompletionPipeline, "__call__", spy)
+    data = _dataset(tmp_path / "data", n=1)
+    out = tmp_path / "out"
+    argv = [*TINY, "--checkpoint-dir", str(checkpoint), "--model", "lcm", "--steps", "3",
+            "--compress", "npy", "--vis", "false", "--device", "cpu"]
+    assert predict.main([str(data), str(out), *argv])["frames"] == 1
+    dense = _dense(out, "npy")
+    assert dense.shape == (1, 48, 64, 1) and np.isfinite(dense).all()
+    assert seen == [("lcm", False, True)]
+
+
 @pytest.mark.parametrize("flag,message", [
-    (["--model", "lcm"], "--model lcm"),
-    (["--train-method", "per-input"], "--train-method per-input"),
-    (["--kld", "true"], "--kld true"),
-    (["--ensemble", "2"], "--ensemble > 1"),
     (["--multihost", "true"], "--multihost true"),
     (["--mesh-model", "2"], "--mesh-model > 1"),
     (["--compress", "bl2"], "--compress bl2"),

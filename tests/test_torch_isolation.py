@@ -68,7 +68,8 @@ def test_import_leaves_jax_unloaded():
         "depth_completion_tpu_torch.models.weights, "
         "depth_completion_tpu_torch.models.bundle, "
         "depth_completion_tpu_torch.cli.predict, depth_completion_tpu_torch.cli.analyze, "
-        "depth_completion_tpu_torch.io, depth_completion_tpu_torch.viz; "
+        "depth_completion_tpu_torch.io, depth_completion_tpu_torch.viz, "
+        "depth_completion_tpu_torch.parallel.ensemble; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

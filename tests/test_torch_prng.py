@@ -70,6 +70,19 @@ def test_bits_uniform_normal(seed, shape):
         ulp.max(), (ulp > 0).mean())
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_bit_exact(seed):
+    """``fold_in`` of the sampler's noise key (the ensemble's member keys)
+    and of a raw seed key, for member indices and data at the 32-bit edges."""
+    for key, pkey in ((jax.random.split(jax.random.PRNGKey(seed))[1],
+                       prng.split(prng.PRNGKey(seed))[1]),
+                      (jax.random.PRNGKey(seed), prng.PRNGKey(seed))):
+        for data in (0, 1, 2, 4, 7, 2**31 + 3, 2**32 - 1):
+            np.testing.assert_array_equal(
+                prng.fold_in(pkey, data),
+                np.asarray(jax.random.key_data(jax.random.fold_in(key, data))))
+
+
 def test_erfinv_edges():
     x = np.array([-1.0, 0.0, 1.0, 0.5, -0.999], np.float32)
     got = prng.erfinv(x)
