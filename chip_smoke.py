@@ -51,19 +51,36 @@
    and the analyze CLI scores the outputs;
 5. runs the sampler's other modes on that checkpoint's bundle (at 480x640,
    500 points, res 768; ``modes_phase``): UNet rematerialisation (one
-   guided step at batch 8 with and without, and at batch 1: the bytes
-   ``remat_unet="auto"`` uses), a 5-member ensemble (aligned median,
-   uncertainty), LCM through ``cli.predict --model lcm`` against the same
-   request through the plain versions, per-input training with its own
-   reference step, and a guided path with the strict KLD penalty; every
+   guided step at batch 8 and 1 with and without; the same with the KL
+   decoder on the same UNet at batch 1, 2 and 4: the bytes per latent
+   pixel and fixed bytes of ``sampler.STEP_PEAK_BYTES``, which must cover
+   each peak; a KL batch one above the largest that fits is refused before
+   any kernel launches), a 5-member ensemble (aligned median,
+   uncertainty), fast guidance (``detach_unet_grad``: no ``flash_bwd``
+   launch, its peak below the guided request's), LCM through
+   ``cli.predict --model lcm`` against the same request through the plain
+   versions, per-input training with its own reference step, a guided path
+   with the strict KLD penalty, and the reference step on a bundle whose
+   self-attention q and k are scaled until the softmax is peaked (kernels
+   against the plain versions; the ring against one flash call); every
    request's launches counted from 0 against its mode's;
-6. prints ``{"probes": [...]}`` (each probe's readings and verdict),
+6. runs the serving engine through ``cli.serve.run_serve`` on that
+   checkpoint directory (``serve_phase``: 480x640 frames over HTTP from
+   client threads, at most 10 steps): the warmup's signatures, concurrent
+   requests coalesced into one batch and padded with row 0, a session's
+   carry, the error codes, each batch's launches, and every served row
+   against a direct pipeline call; then 8 closed-loop clients;
+7. prints ``{"probes": [...]}`` (each probe's readings and verdict),
    ``{"composites": [...]}`` (the ring's passes: their times, errors
    and bound, and the ring step launches on the native path),
    ``{"cli": {...}}`` (the CLI's seconds per frame and their split, PNG
    decode and JPEG encode ms per frame, dense bytes, analyze MAE),
    ``{"modes": {...}}`` (per mode: seconds per request, launches, peak
-   GiB, the check readings, the card), ``{"kernels": [...]}`` (one entry per CUDA kernel; a probe kernel's
+   GiB, the check readings, the card), ``{"serve": {...}}`` (warmup
+   seconds per signature, the first request's latency, requests/s, p50 and
+   p95 latency, s/step at batch 1 and 4, the device gap between batches,
+   peak GiB, the card), ``{"kernels": [...]}`` (one entry per CUDA
+   kernel, its launches over phases 3 and 6; a probe kernel's
    launches are its probe's, and every guided path must launch it 0
    times) and, last,
    ``{"ok": true, "device": ...}``.
@@ -81,11 +98,14 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import http.client
+import io
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -108,6 +128,7 @@ import numpy as np  # noqa: E402
 from depth_completion_tpu_torch import _build  # noqa: E402
 from depth_completion_tpu_torch.cli import analyze as analyze_cli  # noqa: E402
 from depth_completion_tpu_torch.cli import predict as predict_cli  # noqa: E402
+from depth_completion_tpu_torch.cli import serve as serve_cli  # noqa: E402
 from depth_completion_tpu_torch.guidance.optim import make_optimizer  # noqa: E402
 from depth_completion_tpu_torch.io import codecs, image, png  # noqa: E402
 from depth_completion_tpu_torch.models import (  # noqa: E402
@@ -921,11 +942,14 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
     takes the conv kernel). The batch does not count: every kernel takes it
     in one launch. ``mode``: "per-step" (a guided request: per step a UNet
     forward and backward, a decode forward and backward, the epilogue);
-    "per-input" (``steps`` UNet forwards, then ``train_steps`` decode
-    forward and backward passes); "forward" (no training, LCM or DDIM:
-    ``steps`` UNet forwards); "step" and "step-remat" (one guided step's
-    forward and backward alone, no encode or final decode; with remat every
-    flash forward of the UNet's checkpointed stages runs twice)."""
+    "fast_guidance" (a guided request whose UNet output is detached: per
+    step a UNet forward without a graph, no UNet backward, a decode forward
+    and backward, the epilogue); "per-input" (``steps`` UNet forwards, then
+    ``train_steps`` decode forward and backward passes); "forward" (no
+    training, LCM or DDIM: ``steps`` UNet forwards); "step" and
+    "step-remat" (one guided step's forward and backward alone, no encode
+    or final decode; with remat every flash forward of the UNet's
+    checkpointed stages runs twice)."""
     eh, ew = latent_hw
     attn = []  # (sequence length, head dim, attention layers) per UNet stage and the mid block
     last = len(unet_cfg.block_out_channels) - 1
@@ -956,7 +980,7 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
     step = mode in ("step", "step-remat")
     unet_fwd = 1 if step else steps
     unet_bwd = {"per-step": steps, "step": 1, "step-remat": 1}.get(mode, 0)
-    dec_bwd = train_steps if mode == "per-input" else unet_bwd
+    dec_bwd = {"per-input": train_steps, "fast_guidance": steps}.get(mode, unet_bwd)
     whole = 0 if step else 1  # a whole request: the encode and the final decode
     return {
         "flash_fwd": flash_per_unet * unet_fwd + (flash_in_stages if mode == "step-remat" else 0),
@@ -969,7 +993,7 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
         # forward and dx of every decoder conv per trained decode; the
         # encode; the final decode
         "conv3x3": 2 * convs_per_decode * dec_bwd + (convs_per_encode + convs_per_decode) * whole,
-        "guidance_epilogue": steps if mode == "per-step" else 0,
+        "guidance_epilogue": steps if mode in ("per-step", "fast_guidance") else 0,
         **{name: 0 for name in PROBE_KERNELS},  # no path launches a probe kernel
     }
 
@@ -1064,7 +1088,7 @@ def encode_check(bundle, bundle32, images) -> None:
 
 def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 768,
                          ring=None, options=(), per_input: bool = False,
-                         label: str = "reference step") -> dict:
+                         label: str = "reference step", limits=None) -> dict:
     """One guided step (t = the first timestep) on the path's inputs, with
     the path's sampler ``options``, for each of ``REF_SEEDS`` (the initial
     noise), three ways: the run under
@@ -1088,6 +1112,7 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
     (``S.per_input_grads``: the loss of the latent's own decode, unclamped;
     no UNet), at the latent 4 DDIM steps from the seed's noise give (through
     the kernels, shared by the three runs), held to ``PER_INPUT_LIMITS``.
+    ``limits`` replaces the path's limits (the peaked-softmax steps).
     → the largest reading of each comparison over the seeds.
     """
     cfg = S.SamplerConfig(steps=50, resolution=resolution, norm="const", closed_form=False,
@@ -1097,21 +1122,21 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
     kernels = (bundle, fa.flash_attention, fa.flash_attention, c3.conv3x3_fused)
     fp32 = (bundle32, plain_attention, plain_attention, _plain_conv3x3_fused)
     if per_input:
-        limits = PER_INPUT_LIMITS
+        path_limits = PER_INPUT_LIMITS
         modes = {"kernel": kernels,
                  "plain": (bundle, plain_attention, plain_attention, _plain_conv3x3_fused),
                  "fp32": fp32}
     elif ring is None:
-        limits = REF_LIMITS[bundle.vae.kind]
+        path_limits = REF_LIMITS[bundle.vae.kind]
         modes = {"kernel": kernels,
                  "plain": (bundle, plain_attention, plain_attention, _plain_conv3x3_fused),
                  "fp32": fp32}
     else:
-        limits = RING_LIMITS
+        path_limits = RING_LIMITS
         ring_attention = functools.partial(S.ring_or_base, ring, fa.flash_attention)
         modes = {"ring": (bundle, ring_attention) + kernels[2:], "no ring": kernels, "fp32": fp32}
     test, ref, _ = modes
-    loss_lim, aff_lim, cos_lim = limits
+    loss_lim, aff_lim, cos_lim = path_limits if limits is None else limits
     worst = {"loss_rel": 0.0, "affine_rel": 0.0, "cos_gap": -1.0}
     for seed in REF_SEEDS:
         img_lat, lat0, dn, padding, orig_res = S._prepare(
@@ -1548,6 +1573,31 @@ REMAT_LIMITS = (1e-6, REF_LIMITS["tiny"][1], REF_LIMITS["tiny"][2])
 # (which averages the two middle ones), m
 MEDIAN_LIMIT = 1e-4
 MODES_TRAIN_STEPS, LCM_STEPS, ENSEMBLE_SIZE, REMAT_BATCH = 10, 4, 5, 8
+KL_REMAT_BATCHES = (1, 2, 4)
+# sampler.STEP_PEAK_BYTES against this card: each measured peak at most
+# this share above the committed estimate (the constants come from one
+# such run; another card, CUDA release or PyTorch version moves the
+# workspace a little)
+STEP_PEAK_COVER = 1.05
+# The peaked-softmax reference steps: the UNet's self-attention q and k
+# projections scaled by PEAK_QK_SCALE each, so that a score's spread grows
+# by its square (random weights: scores with a std of ~1/3, a near-uniform
+# softmax over thousands of keys: a mean largest probability of 4.5e-4 in
+# stage 0; scaled, 0.38); as REF_LIMITS, (loss rel, affine-grad rel,
+# latent-grad cosine gap), kernels against the plain versions at the TAESD
+# path's frames, and the ring against one flash call at the native path's.
+# Sound readings over the seeds in three runs (NVIDIA H100 80GB HBM3, 700 W):
+# loss rel <= 4.7e-6, affine rel <= 1.3e-3; cosine gap <= 2.0e-4 (kernels)
+# and <= 1.3e-3 (ring). Under the planted faults of
+# scripts/chip_smoke_faults.sh the least cosine gap over the seeds reads,
+# kernels / ring: F2 (the backward skips key block 1) 1.1e-2 / 3.0e-2, F3
+# (its dq drops block 1) 5.2e-3 / 1.1e-2, F20 (ds without di) 0.93 / -,
+# F22 (the ring stores dk|dv over the travelling buffer) - / 0.28: the
+# cosine-gap limits sit 10x and 3.8x above the sound readings and at least
+# 2.3x below each of these (PERF.md, Findings).
+PEAK_QK_SCALE = 4.0
+PEAKED_LIMITS = (2e-5, 1e-2, 2e-3)
+PEAKED_RING_LIMITS = (2e-5, 1e-2, 5e-3)
 
 
 @contextlib.contextmanager
@@ -1566,6 +1616,69 @@ def _range_diff(a, b) -> tuple[float, float]:
     """rms and max of (a - b) over the 120 m range."""
     d = (a.float().cpu() - b.float().cpu()) / 120.0
     return float(d.square().mean().sqrt()), float(d.abs().max())
+
+
+def peaked_bundle(bundle):
+    """``bundle`` with the q and k projections of every UNet self-attention
+    scaled by ``PEAK_QK_SCALE`` (the other leaves shared)."""
+    def scaled(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: scaled(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [scaled(v, path + (i,)) for i, v in enumerate(tree)]
+        if "attn1" in path and path[-2:] in (("to_q", "kernel"), ("to_k", "kernel")):
+            return tree * PEAK_QK_SCALE
+        return tree
+
+    return dataclasses.replace(bundle, unet_params=scaled(bundle.unet_params))
+
+
+def softmax_peak(bundle, images, sparses, resolution: int) -> float:
+    """The mean, over 256 query rows of head 0, of the largest softmax
+    probability in the UNet's first long self-attention (one forward at the
+    first timestep, seed 2024's noise)."""
+    cfg = S.SamplerConfig(resolution=resolution, norm="const")
+    t = int(S.make_timesteps(cfg.ddim, cfg.steps)[0])
+    img_lat, lat0, _, _, _ = S._prepare(bundle, images, sparses, cfg, None)
+    stats = []
+
+    def attention(q, k, v, heads):
+        if not stats and q.shape[1] == k.shape[1] >= 768:
+            d = q.shape[-1] // heads
+            qs = q[0, :: q.shape[1] // 256, :d].float()
+            p = (qs @ k[0, :, :d].float().T / math.sqrt(d)).softmax(-1)
+            stats.append(float(p.amax(-1).mean()))
+        return fa.flash_attention(q, k, v, heads)
+
+    with torch.no_grad():
+        S._Denoiser(bundle, img_lat, attention)(lat0, t)
+    return stats[0]
+
+
+def peaked_reference_steps(bundle, images, sparses) -> dict:
+    """The reference step on ``peaked_bundle(bundle)``, where the attention
+    backward matters to the gradient: kernels against the plain versions on
+    the TAESD path's frames (``PEAKED_LIMITS``), and the ring (``LocalRing(4)``)
+    against one flash call per layer on the native path's 352x1216 frames
+    at res 1216 (``PEAKED_RING_LIMITS``). → the readings."""
+    peaked = peaked_bundle(bundle)
+    native = next(p for p in PATHS if p.ring_size)
+    n_images, n_sparses = path_inputs(native.frame, native.points)
+    images, sparses = images.to(DEV), sparses.to(DEV)
+    n_images, n_sparses = n_images.to(DEV), n_sparses.to(DEV)
+    peak = {"random": softmax_peak(bundle, images, sparses, 768),
+            "scaled": softmax_peak(peaked, images, sparses, 768)}
+    print(f"modes: peaked softmax (self-attention q, k x{PEAK_QK_SCALE}): mean largest "
+          f"probability {peak['scaled']:.4f} (random weights: {peak['random']:.3e}) over 256 "
+          "queries of the first stage-0 layer")
+    peaked32 = fp32_bundle(peaked)
+    ref = reference_step_check(peaked, peaked32, images, sparses, label="peaked reference step",
+                               limits=PEAKED_LIMITS)
+    ring = reference_step_check(peaked, peaked32, n_images, n_sparses, native.resolution,
+                                ra.LocalRing(native.ring_size), label="peaked ring reference step",
+                                limits=PEAKED_RING_LIMITS)
+    return {"qk_scale": PEAK_QK_SCALE, "mean_max_p": peak, "reference_step": ref,
+            "ring_reference_step": ring, "card": card()}
 
 
 def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: int = 768) -> dict:
@@ -1636,28 +1749,31 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
     t = int(S.make_timesteps(cfg.ddim, cfg.steps)[0])
     imgs_b, sps_b = path_inputs(frame, points, batch=REMAT_BATCH, seed=1)
 
-    def guided_step(n, remat):
+    def guided_step(n, remat, bnd=bundle, vae_cfg=registry.TAESD_CONFIG):
         """The step twice (the first call at a new batch size sets up the
         libraries' plans and workspaces); → the second's (losses, grads,
         seconds, peak GiB, launches)."""
+        kind = bnd.vae.kind
         imgs, sps = imgs_b[:n].to(DEV), sps_b[:n].to(DEV)
-        img_lat, lat0, dn, padding, orig_res = S._prepare(bundle, imgs, sps, cfg, None)
+        img_lat, lat0, dn, padding, orig_res = S._prepare(bnd, imgs, sps, cfg, None)
         for _ in range(2):
             lat = lat0.clone().requires_grad_(True)
             aff = [torch.ones((n, 1, 1, 1), device=DEV).requires_grad_(True),
                    torch.zeros((n, 1, 1, 1), device=DEV).requires_grad_(True)]
             (losses, _, grads), dt, peak, used = counted(
-                f"batch {n} remat {'on' if remat else 'off'}", expect(
-                    "step-remat" if remat else "step", 1),
+                f"{kind} batch {n} remat {'on' if remat else 'off'}", expected_launches(
+                    registry.MARIGOLD_UNET_CONFIG, kind, vae_cfg, (eh, ew), 1,
+                    mode="step-remat" if remat else "step"),
                 lambda: S.guided_step_grads(
-                    S._Denoiser(bundle, img_lat, fa.flash_attention, remat),
-                    functools.partial(S.decode_prediction, bundle), sched, cfg, dn, imgs,
+                    S._Denoiser(bnd, img_lat, fa.flash_attention, remat),
+                    functools.partial(S.decode_prediction, bnd), sched, cfg, dn, imgs,
                     orig_res, padding, False, lat, aff, t))
         return losses, grads, dt, peak, used
 
     on = guided_step(REMAT_BATCH, True)
     off = guided_step(REMAT_BATCH, False)
     one = guided_step(1, False)
+    one_on = guided_step(1, True)
     loss_rel = max_rel(on[0], off[0])
     aff_rel = max(max_rel(a, b) for a, b in zip(on[1][1:], off[1][1:]))
     cos_gap = 1.0 - cos(on[1][0], off[1][0])
@@ -1665,24 +1781,75 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
     check("remat affine grads (on vs off)", aff_rel, REMAT_LIMITS[1], "rel_err")
     check("remat latent grad (on vs off)", cos_gap, REMAT_LIMITS[2], "1-cos")
     check("remat peak memory below no remat", on[3] - off[3], -1e-3, "GiB(on) - GiB(off)")
+    # peak bytes per (VAE kind, remat): batch → GiB; the KL VAE's decoder
+    # on the same UNet weights (the bundle's, shared), its own random VAE
+    peaks = {("tiny", False): {1: one[3], REMAT_BATCH: off[3]},
+             ("tiny", True): {1: one_on[3], REMAT_BATCH: on[3]}}
+    remat_s = {"tiny": {"on": on[2], "off": off[2], "off_batch1": one[2], "on_batch1": one_on[2]}}
+    del on, off, one, one_on
+    kl_small = make_random_bundle(seed=0, unet_config=registry.TINY_UNET_CONFIG,
+                                  vae_config=registry.SD_VAE_CONFIG, dtype=torch.bfloat16,
+                                  device=DEV, vae_kind="kl")
+    kl = dataclasses.replace(bundle, vae=kl_small.vae)
+    del kl_small
+    print(f"modes: remat, the KL VAE: one guided step at batch {KL_REMAT_BATCHES}")
+    for n in KL_REMAT_BATCHES:
+        for remat in (False, True):
+            r = guided_step(n, remat, kl, registry.SD_VAE_CONFIG)
+            peaks.setdefault(("kl", remat), {})[n] = r[3]
+            remat_s.setdefault("kl", {})[f"{'on' if remat else 'off'}_batch{n}"] = r[2]
+            del r
     pixels = eh * ew
-    per_pixel = (off[3] - one[3]) * 2**30 / ((REMAT_BATCH - 1) * pixels)
-    fixed = one[3] * 2**30 - per_pixel * pixels
+    measured = {}  # (kind, remat) → (bytes per latent pixel, fixed bytes), through the end points
+    for (kind, remat), by_n in peaks.items():
+        lo, hi = min(by_n), max(by_n)
+        per_pixel = (by_n[hi] - by_n[lo]) * 2**30 / ((hi - lo) * pixels)
+        measured[(kind, remat)] = (per_pixel, by_n[lo] * 2**30 - lo * per_pixel * pixels)
+        for n, gib in by_n.items():
+            est = S.step_peak_bytes(kind, remat, n, (eh, ew))
+            print(f"  {kind} remat {'on' if remat else 'off'} batch {n}: peak {gib:.3f} GiB, "
+                  f"sampler.py's estimate {est / 2**30:.3f} GiB")
+            check(f"remat {kind} {'on' if remat else 'off'} batch {n}: the estimate covers the "
+                  "peak", gib * 2**30 / est, STEP_PEAK_COVER, "peak/estimate")
     total = torch.cuda.get_device_properties(DEV).total_memory
-    auto = {n: S.resolve_remat(cfg, n, (eh, ew), DEV) for n in (1, 8, 16, 32, 64)}
-    print(f"  remat: peak {on[3]:.2f} GiB on, {off[3]:.2f} off (batch {REMAT_BATCH}); "
-          f"{one[3]:.2f} at batch 1; measured {per_pixel:.0f} bytes per latent pixel + "
-          f"{fixed:.0f} fixed (sampler.py: {S.REMAT_BYTES_PER_LATENT_PIXEL} + "
-          f"{S.REMAT_FIXED_BYTES}); card memory {total}; \"auto\" on at batch {auto}")
+    kl_hw = latent_size(frame, res, kl.vae.downsample_factor)
+    limit = S.largest_batch("kl", kl_hw, DEV)
+    imgs_x, sps_x = path_inputs(frame, points, batch=limit + 1, seed=2)
+
+    def refused():
+        try:
+            DepthCompletionPipeline(kl)(imgs_x, sps_x, max_depth=120.0, norm="const",
+                                        resolution=res, steps=steps, closed_form=False)
+        except ValueError as exc:
+            return str(exc)
+        raise AssertionError(f"a KL batch of {limit + 1} was not refused")
+
+    message, _, _, _ = counted(f"kl batch {limit + 1} (one above the limit)",
+                               {k: 0 for k in launches()}, refused)
+    print(f"  refused: {message}")
+    if not message.endswith(f"the largest batch that fits at this geometry is {limit}"):
+        raise AssertionError(f"the KL batch limit's error does not name {limit}: {message}")
+    del kl, imgs_x, sps_x
+    auto = {kind: {n: S.resolve_remat(cfg, n, (eh, ew), DEV, kind) for n in (1, 2, 4, 8, 16, 32)}
+            for kind in ("tiny", "kl")}
+    for (kind, remat), (per_pixel, fixed) in measured.items():
+        print(f"  remat {kind} {'on' if remat else 'off'}: measured {per_pixel:.0f} bytes per "
+              f"latent pixel + {fixed:.0f} fixed (sampler.py: "
+              f"{S.STEP_PEAK_BYTES[(kind, remat)]})")
+    print(f"  card memory {total}; \"auto\" on at batch {auto}; the largest KL batch that fits "
+          f"at {kl_hw[0]}x{kl_hw[1]}: {limit}")
     modes["remat"] = {
-        "batch": REMAT_BATCH, "s_per_step": {"on": on[2], "off": off[2], "off_batch1": one[2]},
-        "launches": {"on": on[4], "off": off[4]},
-        "peak_gib": {"on": on[3], "off": off[3], "off_batch1": one[3]},
+        "batch": REMAT_BATCH, "s_per_step": remat_s,
+        "peak_gib": {f"{kind} {'on' if remat else 'off'}": {str(n): g for n, g in by_n.items()}
+                     for (kind, remat), by_n in peaks.items()},
         "checks": {"loss_rel": loss_rel, "affine_rel": aff_rel, "latent_1_minus_cos": cos_gap},
-        "bytes_per_latent_pixel": per_pixel, "fixed_bytes": fixed, "total_memory": total,
-        "auto_on_at_batch": {str(n): v for n, v in auto.items()}, "card": card(),
+        "bytes_per_latent_pixel_and_fixed": {f"{kind} {'on' if remat else 'off'}": list(v)
+                                             for (kind, remat), v in measured.items()},
+        "total_memory": total, "kl_batch_limit": limit,
+        "auto_on_at_batch": {kind: {str(n): v for n, v in a.items()} for kind, a in auto.items()},
+        "card": card(),
     }
-    del on, off, one, imgs_b, sps_b
+    del imgs_b, sps_b
 
     # ensemble
     print(f"modes: ensemble E={ENSEMBLE_SIZE}, aligned-median, uncertainty, {steps} steps")
@@ -1701,8 +1868,8 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
     even_err = float(np.abs(TE.reduce_members(four, "median")[0].cpu().numpy()
                             - np.median(four.cpu().numpy(), axis=1)).max())
     check("ensemble median of 4 members vs numpy", even_err, MEDIAN_LIMIT, "max|diff| m")
-    plain, _ = pipe(images, sparses, max_depth=120.0, norm="const", resolution=res, steps=steps,
-                    closed_form=False)
+    (plain, _), guided_dt, guided_peak, _ = request(
+        "guided (batch 1)", expect("per-step", steps), steps=steps, closed_form=False)
     m0_rms, m0_max = _range_diff(members[0, 0], plain[0])
     spread = float(members.std(dim=1).mean())
     print(f"  ensemble: member 0 vs the batch-1 request rms {m0_rms:.3e} max {m0_max:.3e} of "
@@ -1715,7 +1882,26 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
                                      "member0_rms": m0_rms, "member0_max": m0_max},
         "member_std_m": spread, "card": card(),
     }
-    del denses, members, mad, aligned, plain
+    del denses, members, mad, aligned
+
+    # fast guidance: the UNet's output detached, no graph through it
+    print(f"modes: fast guidance (detach_unet_grad), {steps} steps")
+    (fast, _), dt, peak, used = request(
+        "fast guidance", expect("fast_guidance", steps), steps=steps, closed_form=False,
+        detach_unet_grad=True)
+    check_request(fast, None, (1, h, w, 1), None)
+    fast_rms, fast_max = _range_diff(fast[0], plain[0])
+    print(f"  fast guidance: {dt / steps:.3f} s/step against {guided_dt / steps:.3f} guided; peak "
+          f"{peak:.2f} GiB against {guided_peak:.2f}; dense vs the guided request rms "
+          f"{fast_rms:.3e} max {fast_max:.3e} of 120 m")
+    check("fast guidance peak below the guided request's", peak - guided_peak, -1e-3,
+          "GiB(fast) - GiB(guided)")
+    modes["fast_guidance"] = {
+        "steps": steps, "s_per_request": dt, "guided_s_per_request": guided_dt,
+        "launches": used, "peak_gib": peak, "guided_peak_gib": guided_peak,
+        "dense_vs_guided": {"rms": fast_rms, "max": fast_max}, "card": card(),
+    }
+    del fast, plain
 
     # LCM through the CLI
     print(f"modes: LCM, cli.predict --model lcm, {LCM_STEPS} steps, 1 frame")
@@ -1770,7 +1956,332 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
                     "launches": {k: n // 2 for k, n in counts.items() if n},
                     "peak_gib": info["peak_gib"], "checks": info["reference_step"],
                     "card": card()}
+    modes["peaked"] = peaked_reference_steps(bundle, images, sparses)
     return modes
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the serving engine behind the serve CLI and its HTTP server
+# ---------------------------------------------------------------------------
+
+SERVE_MAX_STEPS, SERVE_CLIENTS, SERVE_REQUESTS = 10, 8, 24
+# checks (b) and (c) widen the engine's batching window so that concurrent
+# posts coalesce whatever the HTTP threads' timing (seconds)
+SERVE_COALESCE_S = 2.0
+
+
+class ServedBatches:
+    """The engine's pipe, recording each batch it runs (on the compute
+    thread): its size, whether it carried a latent, CUDA events before and
+    after (device time per batch and the idle gap between batches, without
+    a synchronisation), the kernel launches inside it, and, while
+    ``keep`` is set, its inputs and dense output."""
+
+    def __init__(self, pipe):
+        self.pipe, self.bundle = pipe, pipe.bundle
+        self.batches: list[dict] = []
+        self.keep = False
+
+    def __call__(self, images, sparses, **kwargs):
+        before = launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dense, lat = self.pipe(images, sparses, **kwargs)
+        end.record()
+        now = launches()
+        rec = {"n": images.shape[0], "carry": "pred_latents_prev" in kwargs, "start": start,
+               "end": end, "launches": {k: now[k] - before[k] for k in now}}
+        if self.keep:
+            rec.update(images=np.array(images), sparses=np.array(sparses), dense=dense)
+        self.batches.append(rec)
+        return dense, lat
+
+
+def _http(srv, method: str, path: str, body: bytes | None = None):
+    """(status, body, headers, seconds) of one request to ``srv``."""
+    host, port = srv.server_address
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=body)
+    resp = conn.getresponse()
+    data = resp.read()
+    dt = time.perf_counter() - t0
+    conn.close()
+    return resp.status, data, dict(resp.getheaders()), dt
+
+
+def _npz(image, sparse) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, image=image, sparse=sparse)
+    return buf.getvalue()
+
+
+def _dense(data: bytes) -> np.ndarray:
+    return np.load(io.BytesIO(data))
+
+
+def _post_all(srv, frames, path="/v1/complete"):
+    """POST every frame at once, one client thread each; → the responses
+    in frame order."""
+    out = [None] * len(frames)
+
+    def post(i):
+        out[i] = _http(srv, "POST", path, _npz(*frames[i]))
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(frames))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if any(r is None or r[0] != 200 for r in out):
+        raise AssertionError(f"serve: a request failed: {[r and (r[0], r[1][:200]) for r in out]}")
+    return out
+
+
+def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dict]:
+    """The serve CLI in process (``cli.serve.run_serve(serve_forever=False,
+    port=0, max_batch=4, warmup=["480x640"])``) on the checkpoint directory
+    of phase 3a, at ``min(steps, 10)`` steps per request, its HTTP server in
+    a thread and clients in threads, frames of 480x640 with 500 points:
+
+    - (a) warmup runs 3 signatures (buckets 1 and 4, and the carry);
+    - (b) four concurrent distinct frames make one batch (stats: batches
+      +1, batched_rows +4, padded_rows +0); each response is its frame's
+      row of the batch the engine ran, bit for bit, and within
+      ``CLI_LIMITS`` of a direct batch-1 ``pipe(...)`` call on its frame;
+    - (c) three concurrent frames make one batch with padded_rows +1; the
+      batch the engine ran is the three frames and a copy of the first,
+      exactly, each response its own row, and the rows agree with a direct
+      call on that padded batch;
+    - (d) a session of 3 frames: frame 2 against a direct call carrying
+      frame 1's latents; then the reset endpoint drops the session;
+    - (e) 400 on a bad payload, 404 on an unknown path, 422 on an empty
+      sparse map;
+    - (f) each batch's kernel launches equal one request's.
+
+    Between (e) and (f), 8 closed-loop clients send 24 requests: requests/s,
+    p50 and p95 latency, s/step at batch 1 and 4 and the device gap between
+    consecutive batches (CUDA events), peak GiB. The launches are counted
+    from 0 before the first live request and read after the last; the
+    direct calls of (b)-(d) run after that. → (the ``serve`` line, the
+    served traffic's launches)."""
+    n_steps = min(steps, SERVE_MAX_STEPS)
+    frame, points = CLI_FRAME, CLI_POINTS
+    h, w = frame
+    print(f"serve: cli.serve on the checkpoint directory, {n_steps} steps, --max-batch 4, "
+          f"--warmup {h}x{w}, port 0")
+    params = vars(serve_cli.build_parser().parse_args([
+        "--checkpoint-dir", str(model_dir), "--taesd-dir", str(taesd_dir),
+        "--steps", str(n_steps), "--max-batch", "4", "--warmup", f"{h}x{w}", "--port", "0",
+        "--log-level", "WARNING"]))
+    warm = []
+    call = DepthCompletionPipeline.__call__
+
+    def timed(self, images, sparses, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = call(self, images, sparses, *args, **kwargs)
+        torch.cuda.synchronize()
+        warm.append((np.shape(images)[0], "pred_latents_prev" in kwargs, time.perf_counter() - t0))
+        return result
+
+    def frames(seed, n):
+        imgs, sps = path_inputs(frame, points, batch=n, seed=seed)
+        return [(imgs[i].numpy(), sps[i].numpy()) for i in range(n)]
+
+    fb, fc, fd, load = frames(11, 4), frames(12, 3), frames(13, 3), frames(14, SERVE_CLIENTS)
+    torch.cuda.reset_peak_memory_stats()
+    DepthCompletionPipeline.__call__ = timed
+    try:
+        t0 = time.perf_counter()
+        engine, httpd = serve_cli.run_serve(**params, serve_forever=False)
+        t_start = time.perf_counter() - t0
+    finally:
+        DepthCompletionPipeline.__call__ = call
+    served = ServedBatches(engine.pipe)
+    engine.pipe = served
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        print(f"  run_serve {t_start:.2f} s (load and warmup); warmup signatures "
+              f"(batch, carry, s): {warm}")
+        if [(n, c) for n, c, _ in warm] != [(1, False), (4, False), (1, True)]:
+            raise AssertionError(f"(a) warmup ran {warm}")
+        reset_launches()  # just before the served traffic
+        status, data, _, first_s = _http(httpd, "POST", "/v1/complete", _npz(*frames(10, 1)[0]))
+        if status != 200 or _dense(data).shape != (h, w, 1):
+            raise AssertionError(f"first request: {status} {data[:200]}")
+        print(f"  first live request: {first_s:.3f} s")
+
+        # (b) and (c): concurrent frames in one batch
+        engine.max_delay_ms, delay = SERVE_COALESCE_S * 1e3, engine.max_delay_ms
+        moved, ran = [], []
+        served.keep = True
+        for fs in (fb, fc):
+            before = engine.stats()
+            answers = _post_all(httpd, fs)
+            after = engine.stats()
+            moved.append(({k: after[k] - before[k] for k in ("batches", "batched_rows",
+                                                            "padded_rows")},
+                          [int(r[2]["X-DCT-Batch-Size"]) for r in answers],
+                          [_dense(r[1]) for r in answers]))
+            ran.append(served.batches[-1])
+        served.keep = False
+        engine.max_delay_ms = delay
+        for (m, sizes, _), n in zip(moved, (4, 3)):
+            print(f"  ({'b' if n == 4 else 'c'}) {n} concurrent frames: {m}, batch sizes {sizes}")
+            if m != {"batches": 1, "batched_rows": n, "padded_rows": 4 - n} or sizes != [n] * n:
+                raise AssertionError(f"{n} concurrent frames did not make one batch of 4")
+
+        # (d) a session of three frames, then its reset
+        got_d, carried = [], []
+        for img, sp in fd:
+            status, data, _, _ = _http(httpd, "POST", "/v1/complete?session=cam0", _npz(img, sp))
+            if status != 200:
+                raise AssertionError(f"(d) session frame: {status} {data[:200]}")
+            got_d.append(_dense(data))
+            carried.append(engine._sessions["cam0"][0])
+        status, data, _, _ = _http(httpd, "POST", "/v1/session/cam0/reset")
+        print(f"  (d) reset: {status} {data.decode()}")
+        if status != 200 or json.loads(data) != {"session": "cam0", "dropped": True} \
+                or "cam0" in engine._sessions:
+            raise AssertionError(f"(d) reset: {status} {data}")
+
+        # (e) the error codes
+        img, sp = fd[0]
+        codes = {"bad payload": _http(httpd, "POST", "/v1/complete", b"not an npz")[0],
+                 "unknown path": _http(httpd, "GET", "/v1/nope")[0],
+                 "empty sparse": _http(httpd, "POST", "/v1/complete",
+                                       _npz(img, np.zeros_like(sp)))[0]}
+        print(f"  (e) {codes}")
+        if codes != {"bad payload": 400, "unknown path": 404, "empty sparse": 422}:
+            raise AssertionError(f"(e) status codes {codes}")
+
+        # throughput: closed-loop clients
+        first_traffic = len(served.batches)
+        lats, left, lock = [], [SERVE_REQUESTS], threading.Lock()
+
+        def client(i):
+            while True:
+                with lock:
+                    if left[0] <= 0:
+                        return
+                    left[0] -= 1
+                status, data, _, dt = _http(httpd, "POST", "/v1/complete", _npz(*load[i]))
+                if status != 200:
+                    raise AssertionError(f"throughput request: {status} {data[:200]}")
+                with lock:
+                    lats.append(dt)
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(900)
+        span = time.perf_counter() - t0
+        if len(lats) != SERVE_REQUESTS:
+            raise AssertionError(f"throughput: {len(lats)} of {SERVE_REQUESTS} requests answered")
+        torch.cuda.synchronize()
+        counts = launches()  # just after the served traffic
+        reset_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.shutdown()
+        thread.join(10)
+
+    # (f) every batch launched one request's kernels
+    eh, ew = latent_size(frame, 768, served.bundle.vae.downsample_factor)
+    one = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                            (eh, ew), n_steps)
+    bad = [(i, b["n"], b["launches"]) for i, b in enumerate(served.batches)
+           if b["launches"] != one]
+    print(f"  (f) {len(served.batches)} batches, each against {one}: {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"(f) batch launches differ: {bad[:3]}")
+    if {k: sum(b["launches"][k] for b in served.batches) for k in one} != counts:
+        raise AssertionError(f"serve: launches {counts} outside the engine's batches")
+
+    # the served rows against direct calls of the same pipeline (after the
+    # traffic: these launches are comparisons)
+    pipe, kw = served.pipe, dict(engine.call_kwargs)
+
+    def direct(fs, **extra):
+        return pipe(np.stack([f[0] for f in fs]), np.stack([f[1] for f in fs]), **kw, **extra)[0]
+
+    def worst(pairs):
+        errs = [_range_diff(torch.from_numpy(np.asarray(a)), b) for a, b in pairs]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    # the batches' rows in arrival order: which frame each row holds; each
+    # response must be its own frame's row of the batch the engine ran, bit
+    # for bit (at random weights and few steps two frames' dense maps differ
+    # by ~1e-4 of the range, inside the numerical limits below)
+    orders = []
+    for (_, _, got), fs, r, name in zip(moved, (fb, fc), ran, "bc"):
+        order = [int(np.argmin([np.abs(r["sparses"][j] - f[1]).max() for f in fs]))
+                 for j in range(len(fs))]
+        if sorted(order) != list(range(len(fs))):
+            raise AssertionError(f"({name}) the batch's rows hold frames {order}")
+        rows = r["dense"].cpu().numpy()
+        check(f"serve ({name}) each response is its own row of the batch (exact)",
+              max(float(np.abs(got[i] - rows[order.index(i)]).max()) for i in range(len(fs))),
+              0.0, "max|diff|")
+        orders.append(order)
+    readings = {}
+    readings["b"] = worst((moved[0][2][i], direct([f])[0]) for i, f in enumerate(fb))
+    order, ran_c = orders[1], ran[1]
+    padded = [fc[i] for i in order] + [fc[order[0]]]
+    pad_err = max(float(np.abs(ran_c["images"] - np.stack([f[0] for f in padded])).max()),
+                  float(np.abs(ran_c["sparses"] - np.stack([f[1] for f in padded])).max()))
+    print(f"  (c) the batch's rows hold frames {order} and a copy of its row 0: max|diff| "
+          f"{pad_err:.3e}")
+    check("serve (c) the padded batch is the frames and a copy of row 0", pad_err, 0.0,
+          "max|diff|")
+    ref = direct(padded)
+    readings["c"] = worst([*((moved[1][2][i], ref[order.index(i)]) for i in range(3)),
+                           (ran_c["dense"][3].cpu().numpy(), ref[3])])
+    readings["d"] = worst([(got_d[1], direct(fd[1:2], pred_latents_prev=carried[0])[0])])
+    no_carry = worst([(got_d[1], direct(fd[1:2])[0])])
+    for name, what in (("b", "rows vs direct batch-1 calls"),
+                       ("c", "rows vs the direct call on the padded batch"),
+                       ("d", "session frame 2 vs the direct call with frame 1's latents")):
+        rms, mx = readings[name]
+        print(f"  ({name}) {what}: rms {rms:.3e}, max {mx:.3e} of 120 m")
+        check(f"serve ({name}) {what} (rms)", rms, CLI_LIMITS[0], "rms/120 m")
+        check(f"serve ({name}) {what} (max)", mx, CLI_LIMITS[1], "max/120 m")
+    print(f"  (d) session frame 2 against the direct call without the carry: rms "
+          f"{no_carry[0]:.3e}, max {no_carry[1]:.3e}")
+
+    lats.sort()
+    per_step = {}
+    for b in served.batches:
+        per_step.setdefault(b["n"], []).append(b["start"].elapsed_time(b["end"]) / 1e3 / n_steps)
+    traffic = served.batches[first_traffic:]
+    gaps = sorted(a["end"].elapsed_time(b["start"]) for a, b in zip(traffic, traffic[1:]))
+    line = {
+        "steps": n_steps, "max_batch": engine.max_batch,
+        "warmup_s": [{"batch": n, "carry": c, "s": dt} for n, c, dt in warm],
+        "run_serve_s": t_start, "first_request_s": first_s,
+        "clients": SERVE_CLIENTS, "requests": len(lats), "requests_per_s": len(lats) / span,
+        "latency_s_p50": lats[len(lats) // 2], "latency_s_p95": lats[int(len(lats) * 0.95)],
+        "batches": [b["n"] for b in traffic],
+        "s_per_step": {f"batch{n}": sorted(v)[len(v) // 2] for n, v in sorted(per_step.items())},
+        "device_gap_ms": {"median": gaps[len(gaps) // 2], "max": gaps[-1], "n": len(gaps)}
+        if gaps else None,
+        "peak_gib": peak,
+        "checks": {**{f"{k}_{m}": v for k, (r, x) in readings.items()
+                      for m, v in (("rms", r), ("max", x))}, "c_pad_err": pad_err},
+        "card": card(),
+    }
+    print(f"  throughput: {len(lats)} requests from {SERVE_CLIENTS} clients in {span:.2f} s: "
+          f"{line['requests_per_s']:.3f} req/s, p50 {line['latency_s_p50']:.3f} s, p95 "
+          f"{line['latency_s_p95']:.3f} s; batches {line['batches']}; s/step "
+          f"{line['s_per_step']}; device gap between batches {line['device_gap_ms']} ms; "
+          f"peak {peak:.2f} GiB")
+    return line, counts
 
 
 def main() -> int:
@@ -1889,6 +2400,9 @@ def main() -> int:
                 ring_launches = path_counts
         cli = cli_phase(model_dir, taesd_dir, Path(tmp), args.steps)
         modes = modes_phase(model_dir, taesd_dir, Path(tmp), args.steps)
+        serve, serve_counts = serve_phase(model_dir, taesd_dir, args.steps)
+        for k, n in serve_counts.items():
+            counts[k] = counts.get(k, 0) + n
     if FAILURES:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
@@ -1927,6 +2441,7 @@ def main() -> int:
     print(json.dumps({"composites": composites}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"modes": modes}))
+    print(json.dumps({"serve": serve}))
     # how a wrapper that runs more than one kernel counts its launches
     launch_notes = {"flash_bwd_d512": "one per call of dct_flash_bwd_d512, which runs three "
                                       "kernels: the di pre-pass, dk/dv, then dq"}

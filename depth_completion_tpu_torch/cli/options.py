@@ -47,9 +47,8 @@ def comma_separated(type_: type = str, n: int | None = None) -> Callable[[str], 
 
 
 def number_range(type_: type, min: float | None = None, max: float | None = None,
-                 min_open: bool = False) -> Callable[[str], Any]:
-    """click's ``IntRange`` / ``FloatRange`` (no clamping; the CLIs' ranges
-    are closed above)."""
+                 min_open: bool = False, max_open: bool = False) -> Callable[[str], Any]:
+    """click's ``IntRange`` / ``FloatRange`` (no clamping)."""
 
     def parse(value: str) -> Any:
         try:
@@ -58,10 +57,10 @@ def number_range(type_: type, min: float | None = None, max: float | None = None
             raise argparse.ArgumentTypeError(
                 f"{value!r} is not a valid {type_.__name__}") from None
         low = min is not None and (x <= min if min_open else x < min)
-        high = max is not None and x > max
+        high = max is not None and (x >= max if max_open else x > max)
         if low or high:
             lo = "" if min is None else f"{min}{'<' if min_open else '<='}"
-            hi = "" if max is None else f"<={max}"
+            hi = "" if max is None else f"{'<' if max_open else '<='}{max}"
             raise argparse.ArgumentTypeError(f"{value} is not in the range {lo}x{hi}")
         return x
 

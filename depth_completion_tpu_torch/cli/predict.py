@@ -49,7 +49,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from depth_completion_tpu_torch.cli.common import coerce_guidance_options, init_bundle
+from depth_completion_tpu_torch.cli.common import (
+    coerce_guidance_options,
+    init_bundle,
+    not_ported,
+)
 from depth_completion_tpu_torch.cli.options import (
     comma_separated,
     existing_dir,
@@ -195,11 +199,6 @@ def parse_args(argv: list[str] | None = None) -> tuple[argparse.ArgumentParser, 
     return parser, params
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"(ROADMAP queue 1, {item})")
-
-
 def main(argv: list[str] | None = None) -> dict[str, Any]:
     parser, params = parse_args(argv)
     return run_predict(parser=parser, **params)
@@ -299,12 +298,12 @@ def run_predict(
             raise ValueError(msg)
         parser.error(msg)
     for what, hit, item in (
-        ("--multihost true", multihost, "item 8"),
-        ("--mesh-model > 1", mesh_model > 1, "item 8"),
-        ("--compress bl2", compress == "bl2", "item 5b"),
+        ("--multihost true", multihost, "item 5"),
+        ("--mesh-model > 1", mesh_model > 1, "item 5"),
+        ("--compress bl2", compress == "bl2", "item 4b"),
     ):
         if hit:
-            raise _not_ported(what, item)
+            raise not_ported(what, item)
     if compile_graph or compile_effort is not None:
         logger.info(
             f"--compile-graph/--compile-mode={compile_mode}/--compile-effort={compile_effort} "

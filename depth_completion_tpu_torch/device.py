@@ -1,7 +1,9 @@
-"""Device policy: CUDA unless the caller asks for the CPU, never a fallback."""
+"""Device policy: CUDA unless the caller asks for the CPU, never a fallback;
+and host arrays' upload."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +23,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. To a card it goes through pinned memory
+    without waiting: a copy from pageable memory would synchronise the
+    stream, holding the host until the work queued before it has run."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -4,7 +4,7 @@ and ``.dcz`` (``io/dcz.py``), with threaded batch loaders. Arrays may be
 numpy arrays or tensors; floats other than float32/float64 (bfloat16,
 float16) are upcast to float32 on save. ``.bl2`` (blosc2's frame format)
 raises ``NotImplementedError``: its codec waits for a later slice
-(ROADMAP queue 1, item 5b).
+(ROADMAP queue 1, item 4b).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from depth_completion_tpu_torch.io.dcz import load_dcz, save_dcz
 
 NPARRAY_EXTS = [".npy", ".npz", ".bl2", ".dcz"]
-_BL2 = ".bl2 arrays (blosc2) are not ported yet: use dcz, npy or npz (ROADMAP queue 1, item 5b)"
+_BL2 = ".bl2 arrays (blosc2) are not ported yet: use dcz, npy or npz (ROADMAP queue 1, item 4b)"
 
 
 def is_array_path(path: Path) -> bool:

@@ -10,7 +10,7 @@ through ``io/jpeg.py``), keeping cv2's contract:
   rounding), ``mode=None`` keeps cv2's channel order (BGR for 3 or 4
   channels); an all-zero image or a file that is not an image gives
   ``None``. A JPEG (or other non-PNG) input raises ``NotImplementedError``:
-  decoding it waits for a later slice (ROADMAP queue 1, item 5a).
+  decoding it waits for a later slice (ROADMAP queue 1, item 4a).
 - ``image_size``: header sniffing (PNG/JPEG/GIF/BMP), a copy.
 - ``save_img_array``: ``.png`` through ``io/png.py``, ``.jpg``/``.jpeg``
   through ``io/jpeg.py`` (quality 95, 4:2:0, as cv2 writes them).
@@ -90,7 +90,7 @@ def load_img_array(path: Path, mode: str | None = None) -> np.ndarray | None:
         if f.read(8) != SIGNATURE:
             raise NotImplementedError(
                 f"{path}: only PNG inputs can be decoded yet; JPEG (and other) input "
-                "decoding waits for a later slice (ROADMAP queue 1, item 5a)")
+                "decoding waits for a later slice (ROADMAP queue 1, item 4a)")
     img = read_png(path)
     if img.ndim == 3:  # cv2's order: BGR(A)
         img = img[..., [2, 1, 0, 3][: img.shape[2]]]

@@ -14,7 +14,7 @@ the file's channel order (RGB, not cv2's BGR):
   checked.
 
 An Adam7-interlaced file or a bit depth below 8 raises ``ValueError``
-naming the file (ROADMAP queue 1, item 5d: cv2 reads both).
+naming the file (ROADMAP queue 1, item 4c: cv2 reads both).
 
 ``write_png`` writes 8-bit grey, RGB and RGBA and 16-bit grey, rows
 filtered "Up", deflated by ``zlib``.
@@ -69,10 +69,10 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise ValueError(f"{name}: PNG without IHDR or IDAT")
     w, h, depth, color, _, _, interlace = ihdr
     if interlace:
-        raise ValueError(f"{name}: Adam7-interlaced PNG is not supported yet (ROADMAP queue 1, item 5d)")
+        raise ValueError(f"{name}: Adam7-interlaced PNG is not supported yet (ROADMAP queue 1, item 4c)")
     if depth not in (8, 16) or color not in _CHANNELS or (color == 3 and depth != 8):
         raise ValueError(f"{name}: PNG bit depth {depth} with colour type {color} is not "
-                         "supported yet (ROADMAP queue 1, item 5d)")
+                         "supported yet (ROADMAP queue 1, item 4c)")
     ch = _CHANNELS[color]
     bpp = ch * depth // 8
     stride = w * bpp

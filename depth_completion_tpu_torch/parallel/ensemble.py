@@ -18,7 +18,7 @@ The medians average the two middle values at an even member count, as
 ``jnp.median`` does (``torch.median`` returns the lower one).
 
 One card only: ``mesh`` (a JAX sharding mesh in the JAX package) must be
-None; spreading members over devices is ROADMAP queue 1 item 8.
+None; spreading members over devices is ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from depth_completion_tpu_torch.core import prng
+from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.guidance.affine import compute_affine_params
 from depth_completion_tpu_torch.models.bundle import ModelBundle
 from depth_completion_tpu_torch.ops.resize import latent_size
@@ -87,11 +88,11 @@ def ensemble_sample(bundle: ModelBundle, images: torch.Tensor, sparses: torch.Te
         raise ValueError(f"Unknown ensemble reduce: {reduce} (choose from {ENSEMBLE_REDUCES})")
     if mesh is not None:
         raise NotImplementedError("ensembles run on one card: mesh must be None (spreading "
-                                  "members over devices is ROADMAP queue 1 item 8)")
+                                  "members over devices is ROADMAP queue 1 item 5)")
     n, h, w, _ = images.shape
     e = ensemble_size
     eh, ew = latent_size((h, w), cfg.resolution, bundle.vae.downsample_factor)
-    noise = torch.from_numpy(member_noise(cfg.seed, e, (eh, ew))).to(images.device)
+    noise = upload(member_noise(cfg.seed, e, (eh, ew)), images.device)
     denses_flat, _ = guided_sample(
         bundle, images.repeat_interleave(e, dim=0), sparses.repeat_interleave(e, dim=0), cfg,
         init_noise=noise.repeat(n, 1, 1, 1),

@@ -16,16 +16,27 @@ from typing import Any
 import numpy as np
 import torch
 
+from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.models.bundle import ModelBundle
 from depth_completion_tpu_torch.ops.resize import latent_size
 from depth_completion_tpu_torch.parallel.ensemble import ensemble_sample
 from depth_completion_tpu_torch.pipeline.sampler import SamplerConfig, guided_sample
 
 
-def _as_tensor(x: Any, device: torch.device) -> torch.Tensor:
+def _host(x: Any) -> np.ndarray | torch.Tensor:
+    """``x`` as a float32 numpy array where it lives on the host; a tensor
+    already on a device stays as it is."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            return x
+        x = x.detach().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _as_tensor(x: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    return upload(x, device)
 
 
 class DepthCompletionPipeline:
@@ -55,13 +66,13 @@ class DepthCompletionPipeline:
         **config_overrides: Any,
     ) -> tuple[torch.Tensor, ...]:
         device = self.bundle.device
-        images = _as_tensor(images, device)
-        sparses = _as_tensor(sparses, device)
-        if sparses.dim() == 3:
+        # the checks read the host arrays, before the upload
+        images, sparses = _host(images), _host(sparses)
+        if sparses.ndim == 3:
             sparses = sparses[..., None]
         if (
-            images.dim() != 4
-            or sparses.dim() != 4
+            images.ndim != 4
+            or sparses.ndim != 4
             or images.shape[0] != sparses.shape[0]
             or images.shape[1:3] != sparses.shape[1:3]
             or sparses.shape[-1] != 1
@@ -71,7 +82,7 @@ class DepthCompletionPipeline:
                 f"batch and spatial dims, got {tuple(images.shape)} / {tuple(sparses.shape)}"
             )
 
-        sp_np = sparses.cpu().numpy()
+        sp_np = sparses if isinstance(sparses, np.ndarray) else sparses.cpu().numpy()
         rows_valid = (sp_np > 0).any(axis=(1, 2, 3))
         if not rows_valid.all():
             raise ValueError(
@@ -119,8 +130,9 @@ class DepthCompletionPipeline:
                         "norm='const' or provide varied sparse points."
                     )
 
+        images, sparses = _as_tensor(images, device), _as_tensor(sparses, device)
         if pred_latents_prev is not None:
-            pred_latents_prev = _as_tensor(pred_latents_prev, device)
+            pred_latents_prev = _as_tensor(_host(pred_latents_prev), device)
             eh, ew = latent_size(
                 (int(images.shape[1]), int(images.shape[2])),
                 cfg.resolution,

@@ -31,7 +31,9 @@ Also ported: the no-training DDIM branch, the LCM branch (no training;
 JAX's threefry key chain for the re-noise), per-input training (a no-grad
 DDIM denoise, then ``train_steps`` optimizer steps on the latent and the
 affine through the unclamped decode of the latent itself), the KLD penalty,
-UNet rematerialisation (``remat_unet``) and the final decode.
+UNet rematerialisation (``remat_unet``), fast guidance (``detach_unet_grad``:
+the UNet runs without a graph, as JAX's ``stop_gradient`` lets XLA drop its
+activations) and the final decode.
 
 Per-input training deliberately departs from the original PyTorch
 Marigold-DC, whose optimizer holds a stale latent so that only the affine
@@ -47,6 +49,7 @@ from typing import Any
 import torch
 
 from depth_completion_tpu_torch.core import prng
+from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.guidance.affine import (
     affine_to_metric_closed_form,
     affine_to_metric_learned,
@@ -72,7 +75,7 @@ from depth_completion_tpu_torch.ops.guidance_epilogue import (
     guidance_epilogue,
 )
 from depth_completion_tpu_torch.ops.guidance_epilogue import supported as epilogue_supported
-from depth_completion_tpu_torch.ops.resize import resize_antialias, unpad
+from depth_completion_tpu_torch.ops.resize import latent_size, resize_antialias, unpad
 from depth_completion_tpu_torch.ops.ring_attention import ring_attention
 from depth_completion_tpu_torch.pipeline.preprocess import preprocess_images
 from depth_completion_tpu_torch.sched.ddim import (
@@ -87,14 +90,26 @@ from depth_completion_tpu_torch.sched.lcm import LCMConfig, lcm_step, make_lcm_t
 
 EPSILON = 1e-7
 
-# remat_unet="auto": rematerialise when one per-step guided step's peak
-# device memory, n·EH·EW latent pixels times the bytes per latent pixel plus
-# the fixed bytes, would exceed 90% of the card's memory. Measured by
-# chip_smoke.py phase 5 (peak of one guided step at batch 1 and 8, remat
-# off, Marigold UNet + TAESD, bf16, 72x96 latents: 4.15 and 21.12 GiB) on
-# an NVIDIA H100 80GB HBM3 at 700 W: on from batch 29 at 72x96 there.
-REMAT_BYTES_PER_LATENT_PIXEL = 376_579
-REMAT_FIXED_BYTES = 1_855_386_405
+# One per-step guided step's peak device memory, per VAE kind and UNet
+# remat setting, as n·EH·EW latent pixels times the bytes per latent pixel
+# plus the fixed bytes (the weights, the decode's workspace). Measured by
+# chip_smoke.py phase 5 (the peaks of one guided step, Marigold UNet, bf16,
+# 72x96 latents, through batch 1 and 8 with TAESD, 1 and 4 with the KL VAE;
+# batch 2 within 0.3% of the line) on an NVIDIA H100 80GB HBM3 at 700 W:
+# TAESD 4.13 / 21.09 GiB at batch 1 / 8 (2.41 / 7.40 with remat), KL 14.60 /
+# 52.83 at batch 1 / 4 (12.86 / 45.90). The KL decoder is not
+# rematerialised: its full-resolution activations dominate that path's
+# bytes per pixel with and without, so the largest KL batch that fits an
+# 80 GB card at 72x96 is 6.
+STEP_PEAK_BYTES = {  # (vae kind, remat) → (bytes per latent pixel, fixed bytes)
+    ("tiny", False): (376_312, 1_833_996_288),
+    ("tiny", True): (110_756, 1_822_760_448),
+    ("kl", False): (1_979_392, 1_994_747_221),
+    ("kl", True): (1_710_515, 1_987_920_213),
+}
+# remat_unet="auto" turns remat on where the step without it would pass
+# this share of the card's memory; a batch that passes it even with remat
+# is refused before the first kernel.
 REMAT_MEMORY_SHARE = 0.9
 
 
@@ -176,16 +191,54 @@ def _check_options(cfg: SamplerConfig) -> None:
         raise ValueError(f"flash_attention must be 'auto'/'on'/'off', got {cfg.flash_attention!r}")
 
 
+def card_memory_bytes(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def step_peak_bytes(vae_kind: str, remat: bool, n: int, latent_hw: tuple[int, int]) -> int:
+    """Estimated peak device bytes of one per-step guided step at batch ``n``
+    (``STEP_PEAK_BYTES``)."""
+    per_pixel, fixed = STEP_PEAK_BYTES[(vae_kind, remat)]
+    return n * latent_hw[0] * latent_hw[1] * per_pixel + fixed
+
+
+def largest_batch(vae_kind: str, latent_hw: tuple[int, int], device: torch.device) -> int:
+    """The largest per-step guided batch whose estimated peak, with UNet
+    remat, stays within ``REMAT_MEMORY_SHARE`` of the card's memory."""
+    per_pixel, fixed = STEP_PEAK_BYTES[(vae_kind, True)]
+    budget = REMAT_MEMORY_SHARE * card_memory_bytes(device)
+    return max(0, int((budget - fixed) // (latent_hw[0] * latent_hw[1] * per_pixel)))
+
+
+def check_batch_fits(vae_kind: str, n: int, latent_hw: tuple[int, int],
+                     device: torch.device) -> None:
+    """Raise a ``ValueError`` naming the largest batch that fits where a
+    per-step guided batch of ``n`` would not fit on the card even with UNet
+    remat; nothing to check on the CPU."""
+    if device.type != "cuda":
+        return
+    limit = largest_batch(vae_kind, latent_hw, device)
+    if n > limit:
+        need = step_peak_bytes(vae_kind, True, n, latent_hw)
+        raise ValueError(
+            f"a guided batch of {n} at {latent_hw[0]}x{latent_hw[1]} latents with the "
+            f"{vae_kind!r} VAE needs about {need / 2**30:.1f} GiB even with UNet remat, more "
+            f"than {REMAT_MEMORY_SHARE:.0%} of the card's "
+            f"{card_memory_bytes(device) / 2**30:.1f} GiB; the largest batch that fits at "
+            f"this geometry is {limit}")
+
+
 def resolve_remat(cfg: SamplerConfig, n: int, latent_hw: tuple[int, int],
-                  device: torch.device) -> bool:
+                  device: torch.device, vae_kind: str = "tiny") -> bool:
     """``cfg.remat_unet`` for a batch of ``n`` latents of ``latent_hw`` on
-    ``device`` ("auto": the card's memory against the measured per-step
-    peak; always off on the CPU)."""
+    ``device`` with the ``vae_kind`` decoder ("auto": on where the step's
+    estimated peak without remat passes ``REMAT_MEMORY_SHARE`` of the card's
+    memory; always off on the CPU)."""
     if cfg.remat_unet == "auto":
         if device.type != "cuda":
             return False
-        need = n * latent_hw[0] * latent_hw[1] * REMAT_BYTES_PER_LATENT_PIXEL + REMAT_FIXED_BYTES
-        return need > REMAT_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
+        budget = REMAT_MEMORY_SHARE * card_memory_bytes(device)
+        return step_peak_bytes(vae_kind, False, n, latent_hw) > budget
     if isinstance(cfg.remat_unet, bool):
         return cfg.remat_unet
     return cfg.remat_unet == "on"
@@ -229,7 +282,7 @@ def _prepare(bundle, images, sparses, cfg, pred_latents_prev, init_noise=None):
     else:
         # one noise draw shared across the batch
         _, noise_key = prng.split(prng.PRNGKey(cfg.seed))
-        noise = torch.from_numpy(prng.normal(noise_key, (1, eh, ew, 4))).to(images.device)
+        noise = upload(prng.normal(noise_key, (1, eh, ew, 4)), images.device)
         pred_latents = noise.expand(n, -1, -1, -1)
     if pred_latents_prev is not None:
         pred_latents = cfg.beta * pred_latents + (1.0 - cfg.beta) * pred_latents_prev.float()
@@ -290,8 +343,12 @@ def guided_step_grads(denoise, decode, sched, cfg, dn, images, orig_res, padding
     and the decoder ``decode``: (per-sample losses [N], UNet output, grads
     w.r.t. [latents, *affine_params])."""
     with torch.enable_grad():
-        out = denoise(latents, t)
-        x0 = pred_original(sched, out.detach() if cfg.detach_unet_grad else out, t, latents)
+        # a detached UNet output (fast guidance) needs no graph through the
+        # UNet: the latent's gradient flows through pred_original's own
+        # latent term
+        with torch.set_grad_enabled(not cfg.detach_unet_grad):
+            out = denoise(latents, t)
+        x0 = pred_original(sched, out, t, latents)
         losses = guidance_loss(
             decode, cfg, dn, images, orig_res, padding, closed_form, x0, affine_params, latents
         )
@@ -311,17 +368,25 @@ def guided_sample(
     """Full depth-completion sampling → (metric denses [N,H,W,1], latents).
 
     ``images`` [N,H,W,3] (0..255) and ``sparses`` [N,H,W,1] are tensors on
-    the bundle's device.
+    the bundle's device. A per-step guided batch that would not fit on the
+    card even with UNet remat raises ``ValueError`` (``check_batch_fits``)
+    before the first kernel.
     """
     cfg.validate()
     _check_options(cfg)
     closed_form = cfg.resolved_closed_form()
     n = images.shape[0]
+    latent_hw = latent_size(tuple(images.shape[1:3]), cfg.resolution,
+                            bundle.vae.downsample_factor)
+    unet_backward = (cfg.train_latents and cfg.scheduler != "lcm"
+                     and cfg.train_method == "per-step" and not cfg.detach_unet_grad)
+    if unet_backward:
+        check_batch_fits(bundle.vae.kind, n, latent_hw, images.device)
+    remat = resolve_remat(cfg, n, latent_hw, images.device, bundle.vae.kind)
     sched = make_schedule(cfg.ddim)
     img_latents, pred_latents, dn, padding, orig_res = _prepare(
         bundle, images, sparses, cfg, pred_latents_prev, init_noise
     )
-    remat = resolve_remat(cfg, n, tuple(img_latents.shape[1:3]), images.device)
     attention_fn = attention if cfg.flash_attention == "off" else flash_attention
     unet_attention = attention_fn if cfg.ring_mesh is None else functools.partial(
         ring_or_base, cfg.ring_mesh, attention_fn)

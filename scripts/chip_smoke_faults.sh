@@ -73,6 +73,12 @@
 #                 into the down path through the skips)
 #   F30_ensemble_lower_median the ensemble's median takes the lower middle
 #                 member at an even count (torch.median's rule)
+#   F31_serve_row_shift the serving engine's finisher hands row i's result
+#                 to request i+1 of the batch
+#   F32_fast_guidance_graph fast guidance runs the UNet with a graph again
+#                 (and the gradient through it: flash_bwd launches)
+#   F33_serve_zero_pad the serving engine pads a batch's images with zeros
+#                 where the JAX engine pads with copies of row 0
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -195,4 +201,10 @@ run_fault F29_remat_skips_detached depth_completion_tpu_torch/models/unet.py \
   's|h = run(_up_stage, stage, h, stage_skips, up_target,|h = run(_up_stage, stage, h, [x.detach() for x in stage_skips] if run is not _direct else stage_skips, up_target,|'
 run_fault F30_ensemble_lower_median depth_completion_tpu_torch/parallel/ensemble.py \
   's|mid = (s.narrow(dim, (e - 1) // 2, 1) + s.narrow(dim, e // 2, 1)) \* 0.5|mid = s.narrow(dim, (e - 1) // 2, 1)|'
+run_fault F31_serve_row_shift depth_completion_tpu_torch/serving/engine.py \
+  's|r._result = denses\[i\]|r._result = denses[i - 1]|'
+run_fault F32_fast_guidance_graph depth_completion_tpu_torch/pipeline/sampler.py \
+  's|with torch.set_grad_enabled(not cfg.detach_unet_grad):|with torch.set_grad_enabled(True):|'
+run_fault F33_serve_zero_pad depth_completion_tpu_torch/serving/engine.py \
+  's|images = np.concatenate(\[images, images\[:1\].repeat(pad, 0)\])|images = np.concatenate([images, np.zeros_like(images[:1]).repeat(pad, 0)])|'
 exit $status

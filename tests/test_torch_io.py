@@ -149,7 +149,7 @@ def test_image_size_matches_jax(tmp_path):
 def test_jpeg_input_raises(tmp_path):
     p = tmp_path / "frame.jpg"
     cv2.imwrite(str(p), np.full((8, 8, 3), 100, np.uint8))
-    with pytest.raises(NotImplementedError, match="frame.jpg.*ROADMAP queue 1, item 5a"):
+    with pytest.raises(NotImplementedError, match="frame.jpg.*ROADMAP queue 1, item 4a"):
         image.load_img_array(p, "RGB")
 
 
@@ -238,7 +238,7 @@ def test_npy_npz_and_upcast(tmp_path):
     np.testing.assert_array_equal(got, t.float().numpy())
     codecs.save_array(x.astype(np.float16), tmp_path / "f16.npy", compress="npy")
     assert codecs.load_array(tmp_path / "f16.npy").dtype == np.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b"):
         codecs.save_array(x, tmp_path / "a.bl2", compress="bl2")
     with pytest.raises(ValueError, match="Invalid extension"):
         codecs.save_array(x, tmp_path / "a.npy", compress="dcz")

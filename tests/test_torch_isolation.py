@@ -15,12 +15,13 @@ PORT = os.path.join(REPO, "depth_completion_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 PROFILE = os.path.join(REPO, "scripts", "profile_torch_step.py")
 KERNEL_AB = os.path.join(REPO, "scripts", "kernel_ab.py")
+BENCH_SERVE = os.path.join(REPO, "scripts", "bench_serve_torch.py")
 FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu", "safetensors", "transformers",
              "click", "cv2", "tqdm", "matplotlib", "PIL", "blosc2", "ml_dtypes", "loguru")
 
 
 def _port_files(exts=(".py",)):
-    out = [SMOKE, PROFILE, KERNEL_AB]
+    out = [SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE]
     for root, dirs, names in os.walk(PORT):
         dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
         out.extend(os.path.join(root, n) for n in names if n.endswith(exts))
@@ -69,7 +70,8 @@ def test_import_leaves_jax_unloaded():
         "depth_completion_tpu_torch.models.bundle, "
         "depth_completion_tpu_torch.cli.predict, depth_completion_tpu_torch.cli.analyze, "
         "depth_completion_tpu_torch.io, depth_completion_tpu_torch.viz, "
-        "depth_completion_tpu_torch.parallel.ensemble; "
+        "depth_completion_tpu_torch.parallel.ensemble, depth_completion_tpu_torch.serving, "
+        "depth_completion_tpu_torch.serving.server, depth_completion_tpu_torch.cli.serve; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -80,6 +82,6 @@ def test_import_leaves_jax_unloaded():
 
 
 def test_quality_gates_clean():
-    targets = [PORT, SMOKE, PROFILE, KERNEL_AB]
+    targets = [PORT, SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE]
     assert _undefined_names(targets) == []
     assert _ast_lint(targets) == []
