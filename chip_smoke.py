@@ -130,7 +130,7 @@ from depth_completion_tpu_torch.cli import analyze as analyze_cli  # noqa: E402
 from depth_completion_tpu_torch.cli import predict as predict_cli  # noqa: E402
 from depth_completion_tpu_torch.cli import serve as serve_cli  # noqa: E402
 from depth_completion_tpu_torch.guidance.optim import make_optimizer  # noqa: E402
-from depth_completion_tpu_torch.io import codecs, image, png  # noqa: E402
+from depth_completion_tpu_torch.io import bl2, codecs, image, jpeg, png  # noqa: E402
 from depth_completion_tpu_torch.models import (  # noqa: E402
     clip_text,
     registry,
@@ -1433,14 +1433,17 @@ def cli_dataset(root: Path, seed: int = 0, frames: int = CLI_FRAMES):
 @contextlib.contextmanager
 def spy_pipeline():
     """Records what the CLI hands ``DepthCompletionPipeline``, per request:
-    (images, sparses) as float32 arrays, and the call's other arguments
-    (positional, keyword)."""
+    (images, sparses) as float32 arrays, the call's other arguments
+    (positional, keyword), and the dense maps it returned (float32 on the
+    host, as the CLI saves them)."""
     fed = []
     call = DepthCompletionPipeline.__call__
 
     def spy(self, images, sparses, *args, **kwargs):
-        fed.append((np.array(images, np.float32), np.array(sparses, np.float32), args, kwargs))
-        return call(self, images, sparses, *args, **kwargs)
+        entry = (np.array(images, np.float32), np.array(sparses, np.float32), args, kwargs)
+        out = call(self, images, sparses, *args, **kwargs)
+        fed.append((*entry, out[0].float().cpu().numpy()))
+        return out
 
     DepthCompletionPipeline.__call__ = spy
     try:
@@ -1549,6 +1552,192 @@ def cli_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
         "analyze_mae": mae, "cli_vs_direct_rms": rms, "cli_vs_direct_max": worst,
         "card": card(),
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the host IO of the main path (JPEG frames in, .bl2 dense maps out)
+# ---------------------------------------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_io"
+# Round trip of the phase's frames through the port's JPEG encoder (q95,
+# 4:2:0) and decoder: sinusoid scenes with seeded noise (sigma 6) read
+# 33.26-33.27 dB at 480x640 and 352x1216 (the decode is bit-exact to
+# libjpeg-turbo, so the figure is the host's on any machine); a swapped
+# channel order or a colour conversion off by its scale reads under 20 dB.
+JPEG_PSNR_LIMIT = 32.0
+HOST_IO_REPEATS = 10
+
+
+def host_frames(seed: int, n: int, hw: tuple[int, int]) -> np.ndarray:
+    """[n, H, W, 3] uint8 scenes: three sinusoids with seeded phases, plus
+    seeded noise."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for _ in range(n):
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        img = np.stack([127 + 100 * np.sin(xx / (23 + 7 * c) + yy / (31 + 5 * c) + ph[c])
+                        for c in range(3)], -1)
+        out.append(np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10 * math.log10(255.0**2 / mse) if mse else math.inf
+
+
+def host_cpu() -> str:
+    """The host CPU's model name as the kernel reports it, and the count."""
+    import os
+    import platform
+
+    model = platform.processor() or "unknown"
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    return f"{model} ({os.cpu_count()} CPUs)"
+
+
+def zstd_library() -> str:
+    """The libzstd the ``.bl2`` codec loaded: its path (from the process's
+    mappings) and version."""
+    version = bl2.zstd_version()
+    path = "libzstd.so.1"
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/self/maps").read_text().splitlines():
+            if "libzstd" in line:
+                path = line.split()[-1]
+                break
+    return f"{path} {version}"
+
+
+def median_ms(fn, reps: int = HOST_IO_REPEATS) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def host_io_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
+    """The port's host IO on the main path: (a) every committed image
+    fixture (``tests/data/torch_io/``: JPEG, PNG, GIF, BMP) decodes
+    bit-exact to the cv2 decode recorded beside it, through this machine's
+    g++ build of ``csrc/jpeg_decode.cpp``; then the predict CLI in process
+    with its defaults and ``--compress bl2`` on the checkpoint directory
+    of phase 3a over 3 frames of 480x640 written as JPEG by the port's
+    encoder (q95, 4:2:0), with sparse PNGs of 500 points: (b) the frames
+    it hands the pipeline equal ``load_img_array(path, "RGB")`` of each
+    JPEG exactly, and lie within the encoder's round trip of the generated
+    frames (``JPEG_PSNR_LIMIT``); (c) each dense ``.bl2`` loads back
+    bit-identical to the map the pipeline returned for that frame; (d) the
+    run's kernel launches are three times one request's; (e) host timings:
+    JPEG decode ms per 480x640 and per 352x1216 frame, ``.bl2`` save and
+    load ms and the compression ratio of one dense map, with the host CPU
+    model and the libzstd loaded. → the ``host_io`` line."""
+    names = sorted(p for p in FIXTURES.glob("*") if p.suffix != ".npy")
+    if len(names) < 50:
+        raise AssertionError(f"(a) {len(names)} image fixtures under {FIXTURES}")
+    differ = []
+    for p in names:
+        want = np.load(p.with_suffix(".npy"))
+        got = image.decode_image(p.read_bytes(), p.name)
+        if got.shape != want.shape or got.dtype != want.dtype or not np.array_equal(got, want):
+            differ.append(p.name)
+    print(f"host io: (a) {len(names) - len(differ)} of {len(names)} fixtures bit-exact"
+          + (f"; differ: {differ}" if differ else ""))
+    check("host io (a) fixtures decoded bit-exact (files differing)", len(differ), 0, "files")
+
+    h, w = CLI_FRAME
+    data = root / "data_jpeg"
+    frames = host_frames(1, CLI_FRAMES, CLI_FRAME)
+    rng = np.random.default_rng(1)
+    for sub in ("image", "sparse"):
+        (data / "scene" / sub).mkdir(parents=True)
+    for f in range(CLI_FRAMES):
+        jpeg.write_jpeg(frames[f], data / "scene" / "image" / f"{f:05d}.jpg")
+        sparse = np.zeros(h * w, np.uint8)
+        sparse[rng.choice(h * w, CLI_POINTS, replace=False)] = rng.integers(1, 256, CLI_POINTS)
+        png.write_png(sparse.reshape(h, w), data / "scene" / "sparse" / f"{f:05d}.png")
+    out = root / "out_jpeg"
+    argv = [str(data), str(out), "--checkpoint-dir", str(model_dir), "--taesd-dir",
+            str(taesd_dir), "--steps", str(steps), "--compress", "bl2", "--log-level", "WARNING"]
+    print(f"host io: predict over {CLI_FRAMES} JPEG frames of {h}x{w} ({CLI_POINTS} points), "
+          f"{steps} steps, res 768, bf16, --vae light, --compress bl2")
+    with spy_pipeline() as fed:
+        reset_launches()  # just before the CLI run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        totals = predict_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()  # just after
+    print(f"  {totals['frames']} frames in {wall:.2f} s: {totals}")
+    jpgs = sorted((data / "scene" / "image").glob("*.jpg"))
+    denses = sorted((out / "scene" / "dense").glob("*.bl2"))
+    if totals["frames"] != CLI_FRAMES or len(fed) != CLI_FRAMES or len(denses) != CLI_FRAMES:
+        raise AssertionError(f"{totals['frames']} frames, {len(fed)} requests, "
+                             f"{len(denses)} .bl2 files")
+
+    bundle = load_bundle(model_dir, "tiny", taesd_dir, torch.bfloat16, device=DEV)
+    eh, ew = latent_size(CLI_FRAME, 768, bundle.vae.downsample_factor)
+    one = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                            (eh, ew), steps)
+    del bundle
+    print(f"  (d) launches {counts}")
+    if counts != {k: CLI_FRAMES * n for k, n in one.items()}:
+        raise AssertionError(f"(d) kernel launches {counts} != {CLI_FRAMES} x {one}")
+
+    input_err, psnrs = 0.0, []
+    for f, (p, entry) in enumerate(zip(jpgs, fed)):
+        decoded = image.load_img_array(p, "RGB")
+        input_err = max(input_err, float(np.abs(entry[0][0] - decoded.astype(np.float32)).max()))
+        psnrs.append(psnr(decoded, frames[f]))
+    print(f"  (b) pipeline input vs load_img_array: max {input_err:.3e}; round trip "
+          f"{min(psnrs):.2f}-{max(psnrs):.2f} dB (limit {JPEG_PSNR_LIMIT} dB)")
+    check("host io (b) pipeline input vs load_img_array of the JPEG", input_err, 0.0)
+    check("host io (b) JPEG round trip of the generated frames (dB below the limit)",
+          max(0.0, JPEG_PSNR_LIMIT - min(psnrs)), 0.0, "dB")
+
+    differ_maps = []  # compared byte for byte: a garbled map may hold NaNs
+    for p, entry in zip(denses, fed):
+        got, want = codecs.load_array(p), entry[4][0]
+        if got.shape != want.shape or got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            differ_maps.append(f"{p.name}: {got.shape} {got.dtype}")
+    print(f"  (c) dense .bl2 loaded back against the pipeline's maps: "
+          f"{CLI_FRAMES - len(differ_maps)} of {CLI_FRAMES} bit-identical"
+          + (f"; differ: {differ_maps}" if differ_maps else ""))
+    check("host io (c) dense .bl2 bit-identical to the pipeline's map (maps differing)",
+          len(differ_maps), 0, "maps")
+
+    data_640 = jpgs[0].read_bytes()
+    wide = jpeg.encode_jpeg(host_frames(2, 1, (352, 1216))[0])
+    dense = fed[0][4][0]
+    tmp = root / "bl2_timing.bl2"
+    save_ms = median_ms(lambda: codecs.save_array(dense, tmp, compress="bl2"))
+    load_ms = median_ms(lambda: codecs.load_array(tmp))
+    result = {
+        "frames": totals["frames"], "wall_s_per_frame": wall / totals["frames"],
+        "fixtures": len(names), "fixtures_differing": len(differ),
+        "input_max_err": input_err, "jpeg_psnr_db": min(psnrs),
+        "bl2_maps_differing": len(differ_maps),
+        "jpeg_decode_ms_480x640": median_ms(lambda: jpeg.decode_jpeg(data_640)),
+        "jpeg_decode_ms_352x1216": median_ms(lambda: jpeg.decode_jpeg(wide)),
+        "image_decode_ms_per_frame_cli": 1e3 * totals["time_decode"] / totals["frames"],
+        "bl2_save_ms": save_ms, "bl2_load_ms": load_ms,
+        "bl2_ratio": dense.nbytes / tmp.stat().st_size, "bl2_bytes": tmp.stat().st_size,
+        "libzstd": zstd_library(), "host_cpu": host_cpu(), "card": card(),
+    }
+    print(f"  (e) JPEG decode {result['jpeg_decode_ms_480x640']:.2f} ms (480x640), "
+          f"{result['jpeg_decode_ms_352x1216']:.2f} ms (352x1216); .bl2 save "
+          f"{save_ms:.2f} ms, load {load_ms:.2f} ms, ratio {result['bl2_ratio']:.3f}; "
+          f"{result['libzstd']}; host {result['host_cpu']}; {result['card']}")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1916,7 +2105,7 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
                                          lambda: predict_cli.main(argv))
     dense = codecs.load_array(out_dir / "scene" / "dense" / "00000.dcz")
     check_request(torch.from_numpy(dense)[None], None, (1, h, w, 1), None)
-    (x, y, args, kwargs), = fed
+    (x, y, args, kwargs, _), = fed
     if (kwargs["scheduler"], kwargs["train_latents"], kwargs["closed_form"]) != ("lcm", False,
                                                                                True):
         raise AssertionError(f"lcm: the CLI asked for {kwargs}")
@@ -2399,6 +2588,7 @@ def main() -> int:
             if path.ring_size:
                 ring_launches = path_counts
         cli = cli_phase(model_dir, taesd_dir, Path(tmp), args.steps)
+        host_io = host_io_phase(model_dir, taesd_dir, Path(tmp), args.steps)
         modes = modes_phase(model_dir, taesd_dir, Path(tmp), args.steps)
         serve, serve_counts = serve_phase(model_dir, taesd_dir, args.steps)
         for k, n in serve_counts.items():
@@ -2440,6 +2630,7 @@ def main() -> int:
     print(json.dumps({"probes": probes}))
     print(json.dumps({"composites": composites}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"host_io": host_io}))
     print(json.dumps({"modes": modes}))
     print(json.dumps({"serve": serve}))
     # how a wrapper that runs more than one kernel counts its launches

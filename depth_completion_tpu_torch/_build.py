@@ -7,8 +7,9 @@ of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source or header rebuilds and an unchanged one loads at once. Nothing is built at import time: a machine without
 ``nvcc`` imports the package and runs its CPU paths.
 
-The host codecs (``csrc/<name>.cpp``: the dcz array codec, the PNG
-unfiltering loop) are built the same way with ``g++``, by ``load`` at their
+The host codecs (``csrc/<name>.cpp``: the dcz array codec with the
+``.bl2`` chunk primitives, the PNG unfiltering loop, the JPEG decoder) are
+built the same way with ``g++``, by ``load`` at their
 first use, on any machine; with no ``g++`` they raise.
 """
 
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention", "conv3x3", "guidance_epilogue", "probe_mma", "probe_block_step",
            "probe_flash_twostream")
-HOST_SOURCES = ("dcz_codec", "png_unfilter")
+HOST_SOURCES = ("dcz_codec", "png_unfilter", "jpeg_decode")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

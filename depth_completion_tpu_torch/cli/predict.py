@@ -14,8 +14,9 @@ no ``--device cpu`` the command exits with the device error.
   ``--ensemble-uncertainty true`` the member MAD map is written under
   ``uncertainty/`` beside ``dense/``, in the dense map's format.
 - Flags whose path is not ported raise ``NotImplementedError`` naming the
-  ROADMAP item: ``--multihost true``, ``--mesh-model`` > 1, ``--compress
-  bl2``. ``--native-res true`` needs a data axis of two or more devices, as
+  ROADMAP item: ``--multihost true``, ``--mesh-model`` > 1. Inputs may be
+  PNG, JPEG, GIF or BMP frames; ``--compress bl2`` writes blosc2 frames
+  through the port's own codec (``io/bl2.py``). ``--native-res true`` needs a data axis of two or more devices, as
   in JAX: on one card it is a usage error.
 - ``--compile-graph``, ``--compile-mode`` and ``--compile-effort`` are
   accepted and logged as no-ops (PyTorch runs eagerly).
@@ -32,7 +33,7 @@ no ``--device cpu`` the command exits with the device error.
   and latents come back to the host.
 
 ``main(argv)`` returns the run's totals (frames, seconds of IO, inference,
-visualisation, PNG decode and JPEG encode, dense bytes written).
+visualisation, image decode and JPEG encode, dense bytes written).
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--precision", choices=["bf16", "fp32"], default="bf16",
                    help="Data precision for inference.")
     p.add_argument("-c", "--compress", choices=["npz", "bl2", "npy", "dcz"], default="dcz",
-                   help="Array format of the dense depth (bl2 is not ported yet).")
+                   help="Array format of the dense depth.")
     p.add_argument("--compile-graph", type=str2bool, default=False,
                    help="Accepted for compatibility; a no-op (eager PyTorch).")
     p.add_argument("--compile-mode", choices=["max-autotune", "reduce-overhead", "default"],
@@ -298,9 +299,8 @@ def run_predict(
             raise ValueError(msg)
         parser.error(msg)
     for what, hit, item in (
-        ("--multihost true", multihost, "item 5"),
-        ("--mesh-model > 1", mesh_model > 1, "item 5"),
-        ("--compress bl2", compress == "bl2", "item 4b"),
+        ("--multihost true", multihost, "item 4"),
+        ("--mesh-model > 1", mesh_model > 1, "item 4"),
     ):
         if hit:
             raise not_ported(what, item)

@@ -4,8 +4,9 @@
 // magic, dtype, shape, CRC32), the same stream the JAX package writes:
 //
 //   1. byte-plane shuffle: for element size E, gather byte k of every
-//      element into plane k. Float depth maps have highly redundant
-//      exponent/high-mantissa planes, which LZ4 then collapses.
+//      element into plane k (an array's bytes are whole elements).
+//      Float depth maps have highly redundant exponent/high-mantissa
+//      planes, which LZ4 then collapses.
 //   2. LZ4 block compression (greedy hash-chain matcher, standard LZ4
 //      block format: token | literals | 2-byte LE offset | match length).
 //
@@ -15,6 +16,19 @@
 //                       uint8_t* dst, size_t dst_cap)
 //   long   dcz_decompress(const uint8_t* src, size_t n,
 //                         uint8_t* dst, size_t dst_n, size_t elem_size)
+//
+// and the primitives of the .bl2 chunk layer (io/bl2.py walks the blosc
+// containers and calls zstd and zlib itself):
+//   long bl2_lz4_compress(src, n, dst, dst_cap)      raw LZ4 block; 0: no fit
+//   long bl2_lz4_decompress(src, n, dst, dst_n)      LZ4 and LZ4HC blocks
+//   long bl2_blosclz_decompress(src, n, dst, dst_n)  blosc's FastLZ variant
+//   void bl2_shuffle(src, dst, n, typesize)          the byte shuffle above;
+//   void bl2_unshuffle(src, dst, n, typesize)        a block's tail past its
+//                                                    whole elements copied
+//   void bl2_bitunshuffle(src, dst, n, typesize, blosc2)
+//     the bit transpose of the bitshuffle filter over the whole elements
+//     (blosc2: the largest multiple of 8 of them; blosc1: all of them, or
+//     none unless their count is a multiple of 8), the rest copied.
 
 #include <cstdint>
 #include <cstring>
@@ -37,33 +51,24 @@ inline uint32_t read32(const uint8_t* p) {
 }
 
 // ---------------------------------------------------------------------------
-// byte-plane shuffle
+// byte-plane shuffle (dcz's and blosc's): byte k of every whole element
+// into plane k; the bytes after the last whole element stay in place
 // ---------------------------------------------------------------------------
 
-void shuffle(const uint8_t* src, uint8_t* dst, size_t n, size_t esize) {
-  if (esize <= 1 || n % esize != 0) {
+void shuffle_planes(const uint8_t* src, uint8_t* dst, size_t n, size_t esize, bool forward) {
+  const size_t count = esize > 1 ? n / esize : 0;
+  if (count == 0) {
     std::memcpy(dst, src, n);
     return;
   }
-  const size_t count = n / esize;
-  for (size_t k = 0; k < esize; ++k) {
-    const uint8_t* s = src + k;
-    uint8_t* d = dst + k * count;
-    for (size_t i = 0; i < count; ++i) d[i] = s[i * esize];
-  }
-}
-
-void unshuffle(const uint8_t* src, uint8_t* dst, size_t n, size_t esize) {
-  if (esize <= 1 || n % esize != 0) {
-    std::memcpy(dst, src, n);
-    return;
-  }
-  const size_t count = n / esize;
-  for (size_t k = 0; k < esize; ++k) {
-    const uint8_t* s = src + k * count;
-    uint8_t* d = dst + k;
-    for (size_t i = 0; i < count; ++i) d[i * esize] = s[i];
-  }
+  for (size_t k = 0; k < esize; ++k)
+    for (size_t i = 0; i < count; ++i) {
+      if (forward)
+        dst[k * count + i] = src[i * esize + k];
+      else
+        dst[i * esize + k] = src[k * count + i];
+    }
+  std::memcpy(dst + count * esize, src + count * esize, n - count * esize);
 }
 
 // ---------------------------------------------------------------------------
@@ -185,9 +190,106 @@ long lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst,
   return static_cast<long>(op - dst);
 }
 
+// blosclz (c-blosc's FastLZ derivative): a literal run of ctrl+1 bytes
+// for ctrl < 32, else a match of (ctrl >> 5) + 2 bytes (7 adds the bytes
+// that follow, while they are 255) at distance ((ctrl & 31) << 8) + the
+// next byte + 1; a distance byte of 255 under a high part of 31 means a
+// 16-bit distance follows, beyond 8191. The first control byte is a
+// literal run (its top three bits mark the FastLZ level).
+long blosclz_decompress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_n) {
+  constexpr size_t kMaxDistance = 8191;
+  if (n == 0) return 0;
+  const uint8_t* ip = src;
+  const uint8_t* const iend = src + n;
+  uint8_t* op = dst;
+  uint8_t* const oend = dst + dst_n;
+  uint32_t ctrl = *ip++ & 31u;
+  for (;;) {
+    if (ctrl >= 32) {
+      size_t len = (ctrl >> 5) - 1;
+      size_t ofs = (ctrl & 31u) << 8;
+      if (len == 6) {
+        uint8_t code;
+        do {
+          if (ip + 1 >= iend) return -1;
+          code = *ip++;
+          len += code;
+        } while (code == 255);
+      } else if (ip + 1 >= iend) {
+        return -1;
+      }
+      const uint8_t code = *ip++;
+      len += 3;
+      size_t dist = ofs + code;
+      if (code == 255 && ofs == (31u << 8)) {
+        if (ip + 1 >= iend) return -1;
+        dist = ((static_cast<size_t>(ip[0]) << 8) | ip[1]) + kMaxDistance;
+        ip += 2;
+      }
+      dist += 1;
+      if (static_cast<size_t>(oend - op) < len || static_cast<size_t>(op - dst) < dist) return -1;
+      const uint8_t* ref = op - dist;
+      for (size_t i = 0; i < len; ++i) op[i] = ref[i];  // overlap-safe
+      op += len;
+    } else {
+      const size_t run = ctrl + 1;
+      if (static_cast<size_t>(oend - op) < run || static_cast<size_t>(iend - ip) < run) return -1;
+      std::memcpy(op, ip, run);
+      op += run;
+      ip += run;
+    }
+    if (ip >= iend) break;
+    ctrl = *ip++;
+  }
+  return static_cast<long>(op - dst);
+}
+
 }  // namespace
 
 extern "C" {
+
+long bl2_lz4_compress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_cap) {
+  return static_cast<long>(lz4_compress(src, n, dst, dst_cap));
+}
+
+long bl2_lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_n) {
+  return lz4_decompress(src, n, dst, dst_n);
+}
+
+long bl2_blosclz_decompress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_n) {
+  return blosclz_decompress(src, n, dst, dst_n);
+}
+
+void bl2_shuffle(const uint8_t* src, uint8_t* dst, size_t n, size_t typesize) {
+  shuffle_planes(src, dst, n, typesize, true);
+}
+
+void bl2_unshuffle(const uint8_t* src, uint8_t* dst, size_t n, size_t typesize) {
+  shuffle_planes(src, dst, n, typesize, false);
+}
+
+// The bitshuffle filter's rows: byte k, bit b of every element, 8 elements
+// to a byte (element 8j+i in bit i of byte j), one row after another.
+void bl2_bitunshuffle(const uint8_t* src, uint8_t* dst, size_t n, size_t typesize, int blosc2) {
+  size_t count = typesize ? n / typesize : 0;
+  if (blosc2)
+    count -= count % 8;
+  else if (count % 8)
+    count = 0;
+  const size_t row = count / 8;
+  std::memset(dst, 0, count * typesize);
+  for (size_t k = 0; k < typesize; ++k)
+    for (size_t b = 0; b < 8; ++b) {
+      const uint8_t* in = src + (k * 8 + b) * row;
+      for (size_t j = 0; j < row; ++j) {
+        const uint8_t v = in[j];
+        if (!v) continue;
+        for (size_t i = 0; i < 8; ++i)
+          if ((v >> i) & 1) dst[(8 * j + i) * typesize + k] |= static_cast<uint8_t>(1u << b);
+      }
+    }
+  std::memcpy(dst + count * typesize, src + count * typesize, n - count * typesize);
+}
 
 size_t dcz_compress_bound(size_t n) {
   return n + n / 255 + 64;
@@ -196,7 +298,7 @@ size_t dcz_compress_bound(size_t n) {
 long dcz_compress(const uint8_t* src, size_t n, size_t elem_size,
                   uint8_t* dst, size_t dst_cap) {
   std::vector<uint8_t> shuffled(n);
-  shuffle(src, shuffled.data(), n, elem_size);
+  shuffle_planes(src, shuffled.data(), n, elem_size, true);
   size_t out = lz4_compress(shuffled.data(), n, dst, dst_cap);
   if (out == 0 && n > 0) return -1;
   return static_cast<long>(out);
@@ -207,7 +309,7 @@ long dcz_decompress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_n,
   std::vector<uint8_t> shuffled(dst_n);
   long out = lz4_decompress(src, n, shuffled.data(), dst_n);
   if (out < 0 || static_cast<size_t>(out) != dst_n) return -1;
-  unshuffle(shuffled.data(), dst, dst_n, elem_size);
+  shuffle_planes(shuffled.data(), dst, dst_n, elem_size, false);
   return out;
 }
 

@@ -1,5 +1,5 @@
-"""Host IO of the PyTorch port: datasets, images (PNG in and out, JPEG out)
-and arrays (npy, npz, dcz)."""
+"""Host IO of the PyTorch port: datasets, images (PNG, JPEG, GIF and BMP
+in; PNG and JPEG out) and arrays (npy, npz, bl2, dcz)."""
 
 from depth_completion_tpu_torch.io.codecs import (
     NPARRAY_EXTS,

@@ -1,10 +1,9 @@
 """Array codecs, PyTorch-port counterpart of
-``depth_completion_tpu.io.codecs``: ``.npy`` / ``.npz`` (under ``arr_0``)
-and ``.dcz`` (``io/dcz.py``), with threaded batch loaders. Arrays may be
-numpy arrays or tensors; floats other than float32/float64 (bfloat16,
-float16) are upcast to float32 on save. ``.bl2`` (blosc2's frame format)
-raises ``NotImplementedError``: its codec waits for a later slice
-(ROADMAP queue 1, item 4b).
+``depth_completion_tpu.io.codecs``: ``.npy`` / ``.npz`` (under ``arr_0``),
+``.bl2`` (blosc2's contiguous frame, ``io/bl2.py``) and ``.dcz``
+(``io/dcz.py``), with threaded batch loaders. Arrays may be numpy arrays or
+tensors; floats other than float32/float64 (bfloat16, float16) are upcast
+to float32 on save.
 """
 
 from __future__ import annotations
@@ -16,10 +15,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from depth_completion_tpu_torch.io.bl2 import load_bl2, save_bl2
 from depth_completion_tpu_torch.io.dcz import load_dcz, save_dcz
 
 NPARRAY_EXTS = [".npy", ".npz", ".bl2", ".dcz"]
-_BL2 = ".bl2 arrays (blosc2) are not ported yet: use dcz, npy or npz (ROADMAP queue 1, item 4b)"
 
 
 def is_array_path(path: Path) -> bool:
@@ -41,14 +40,14 @@ def _as_numpy(x: Any) -> np.ndarray:
 
 
 def load_array(path: Path) -> np.ndarray:
-    """Load ``.npy`` / ``.npz`` / ``.dcz``."""
+    """Load ``.npy`` / ``.npz`` / ``.bl2`` / ``.dcz``."""
     path = Path(path)
     if not is_array_path(path):
         raise ValueError(
             f"Invalid extension: {path.suffix} (must be one of {NPARRAY_EXTS})"
         )
     if path.suffix == ".bl2":
-        raise NotImplementedError(f"{path}: {_BL2}")
+        return load_bl2(path)
     if path.suffix == ".dcz":
         return load_dcz(path)
     if path.suffix == ".npz":
@@ -56,21 +55,25 @@ def load_array(path: Path) -> np.ndarray:
     return np.load(path)
 
 
-def save_array(x: Any, path: Path, compress: str | None = None) -> None:
-    """Save with the JAX package's extension/compression contract."""
+def save_array(x: Any, path: Path, compress: str | None = None, bl2_codec: str = "zstd") -> None:
+    """Save with the JAX package's extension/compression contract.
+    ``bl2_codec`` is the ``.bl2`` writer's codec: "zstd" (what the JAX
+    package writes; needs the system libzstd) or "lz4" (the port's own)."""
     path = Path(path)
     expected = {None: ".npy", "npy": ".npy", "npz": ".npz", "bl2": ".bl2", "dcz": ".dcz"}
     if compress not in expected:
         raise ValueError(f"Unknown compression: {compress}")
+    if bl2_codec != "zstd" and compress != "bl2":
+        raise ValueError(f"bl2_codec={bl2_codec!r} is for compress='bl2', not {compress!r}")
     if path.suffix != expected[compress]:
         raise ValueError(
             f"Invalid extension: {path.suffix} (must be {expected[compress]})"
         )
-    if compress == "bl2":
-        raise NotImplementedError(_BL2)
     x = _as_numpy(x)
     path.parent.mkdir(parents=True, exist_ok=True)
-    if compress == "npz":
+    if compress == "bl2":
+        save_bl2(x, path, codec=bl2_codec)
+    elif compress == "npz":
         np.savez_compressed(path, x)
     elif compress == "dcz":
         save_dcz(x, path)

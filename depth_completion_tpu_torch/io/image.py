@@ -1,16 +1,18 @@
 """Host-side image IO, PyTorch-port counterpart of
 ``depth_completion_tpu.io.image`` (which decodes with OpenCV; the port's
-machines have no ``cv2``, so PNG goes through ``io/png.py`` and JPEG out
-through ``io/jpeg.py``), keeping cv2's contract:
+machines have no ``cv2``, so it decodes with its own ``io/png.py``,
+``io/jpeg.py``, ``io/gif.py`` and ``io/bmp.py``), keeping cv2's contract:
 
-- ``load_img_array``: a PNG decoded as ``cv2.imread(IMREAD_UNCHANGED)``
-  would decode it, then the JAX package's conversions: RGB out for
-  ``mode="RGB"`` (grey replicated, alpha dropped), ``mode="L"`` from colour
-  by cv2's fixed-point BGR2GRAY (4899/9617/1868, ``>> 14`` with
-  rounding), ``mode=None`` keeps cv2's channel order (BGR for 3 or 4
-  channels); an all-zero image or a file that is not an image gives
-  ``None``. A JPEG (or other non-PNG) input raises ``NotImplementedError``:
-  decoding it waits for a later slice (ROADMAP queue 1, item 4a).
+- ``load_img_array``: the file decoded as ``cv2.imread(IMREAD_UNCHANGED)``
+  would decode it, chosen by its signature (PNG, JPEG, GIF or BMP), then
+  the JAX package's conversions: RGB out for ``mode="RGB"`` (grey
+  replicated, alpha dropped), ``mode="L"`` from colour by OpenCV 5's
+  fixed-point BGR2GRAY (9798/19235/3735, ``>> 15`` with rounding),
+  ``mode=None`` keeps cv2's channel order (BGR for 3 or 4 channels); an
+  all-zero image, a file that is not an image or a corrupt one gives
+  ``None``. A well-formed variant that cv2 reads and the port does not
+  (arithmetic-coded, lossless, 12-bit or CMYK JPEG, compressed BMP)
+  raises ``UnsupportedImage``.
 - ``image_size``: header sniffing (PNG/JPEG/GIF/BMP), a copy.
 - ``save_img_array``: ``.png`` through ``io/png.py``, ``.jpg``/``.jpeg``
   through ``io/jpeg.py`` (quality 95, 4:2:0, as cv2 writes them).
@@ -25,8 +27,10 @@ from pathlib import Path
 
 import numpy as np
 
-from depth_completion_tpu_torch.io.jpeg import write_jpeg
-from depth_completion_tpu_torch.io.png import SIGNATURE, read_png, write_png
+from depth_completion_tpu_torch.io.bmp import decode_bmp
+from depth_completion_tpu_torch.io.gif import decode_gif
+from depth_completion_tpu_torch.io.jpeg import UnsupportedImage, decode_jpeg, write_jpeg
+from depth_completion_tpu_torch.io.png import SIGNATURE, decode_png, write_png
 
 def image_size(path: Path) -> tuple[int, int]:
     """(width, height) from file headers; (-1, -1) if not a known image."""
@@ -76,9 +80,28 @@ def is_img_file(path: Path) -> bool:
 
 
 def _bgr_to_gray(img: np.ndarray) -> np.ndarray:
-    """cv2's ``COLOR_BGR2GRAY`` (fixed point, 14 fractional bits, rounded)."""
+    """cv2's ``COLOR_BGR2GRAY`` for 8 and 16 bits (OpenCV 5: fixed point,
+    15 fractional bits, rounded)."""
     b, g, r = (img[..., i].astype(np.int64) for i in range(3))
-    return ((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14).astype(img.dtype)
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(img.dtype)
+
+
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Image bytes → what ``cv2.imread(IMREAD_UNCHANGED)`` gives for a file
+    holding them: grey
+    [H,W] or BGR(A) [H,W,C], uint8 (uint16 for a 16-bit PNG). Raises
+    ``ValueError`` for a corrupt or unknown file, ``UnsupportedImage`` for
+    a variant the port does not read."""
+    if data[:8] == SIGNATURE:
+        img = decode_png(data, name)
+        return img[..., [2, 1, 0, 3][: img.shape[2]]] if img.ndim == 3 else img
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data, name)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif(data, name)
+    if data[:2] == b"BM":
+        return decode_bmp(data, name)
+    raise ValueError(f"{name}: not a PNG, JPEG, GIF or BMP file")
 
 
 def load_img_array(path: Path, mode: str | None = None) -> np.ndarray | None:
@@ -86,14 +109,12 @@ def load_img_array(path: Path, mode: str | None = None) -> np.ndarray | None:
     path = Path(path)
     if not is_img_file(path):
         return None
-    with open(path, "rb") as f:
-        if f.read(8) != SIGNATURE:
-            raise NotImplementedError(
-                f"{path}: only PNG inputs can be decoded yet; JPEG (and other) input "
-                "decoding waits for a later slice (ROADMAP queue 1, item 4a)")
-    img = read_png(path)
-    if img.ndim == 3:  # cv2's order: BGR(A)
-        img = img[..., [2, 1, 0, 3][: img.shape[2]]]
+    try:
+        img = decode_image(path.read_bytes(), str(path))
+    except UnsupportedImage:
+        raise
+    except ValueError:
+        return None  # cv2.imread's None for a file it cannot decode
     if mode is None:
         if img.ndim == 3 and img.shape[2] == 3:
             mode = "RGB"

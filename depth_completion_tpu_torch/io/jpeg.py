@@ -1,6 +1,20 @@
-"""Baseline JFIF encoder in numpy, to OpenCV's defaults: quality 95 (the
-Annex K tables scaled as libjpeg scales them), 4:2:0 chroma, the standard
-Huffman tables of Annex K.3, one scan, no restart markers.
+"""JPEG codec of the port.
+
+``decode_jpeg``: what ``cv2.imread(path, IMREAD_UNCHANGED)`` gives (libjpeg-turbo with its defaults), sample for sample: BGR [H,W,3] or
+grey [H,W]; baseline, extended and progressive Huffman frames, 8-bit, 1 or
+3 components, any integral sampling, restart markers; EXIF orientation is
+not applied. The decoder is host C++ (``csrc/jpeg_decode.cpp``, built with
+g++ at first use). Arithmetic coding, lossless and hierarchical frames,
+12-bit samples and CMYK/YCCK raise ``UnsupportedImage`` naming the SOF or
+the component count; a file that is not a JPEG, or is corrupt, raises
+``ValueError``. A file cut short decodes as libjpeg decodes a file that
+ends early (grey where the data ran out), except that a progressive file
+cut before its low-frequency scans is not block-smoothed.
+
+``encode_jpeg`` / ``write_jpeg``: a baseline JFIF encoder in numpy, to
+OpenCV's defaults: quality 95 (the Annex K tables scaled as libjpeg scales
+them), 4:2:0 chroma, the standard Huffman tables of Annex K.3, one scan, no
+restart markers.
 
 Vectorised over the whole image: the 8x8 DCT is one matrix product over
 all blocks, the zero runs, size categories and Huffman codes are arrays
@@ -12,10 +26,20 @@ seconds.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import struct
 from pathlib import Path
 
 import numpy as np
+
+from depth_completion_tpu_torch import _build
+
+
+class UnsupportedImage(ValueError):
+    """A well-formed image in a variant the port's decoders do not read
+    (cv2 reads it): raised, never taken for a corrupt file."""
+
 
 QUALITY = 95  # cv2.imwrite's default (IMWRITE_JPEG_QUALITY)
 _Q_LUMA = np.array([
@@ -226,3 +250,38 @@ def encode_jpeg(img: np.ndarray) -> bytes:
 
 def write_jpeg(img: np.ndarray, path: Path) -> None:
     Path(path).write_bytes(encode_jpeg(img))
+
+
+@functools.cache
+def _decode_lib() -> ctypes.CDLL:
+    """The decoder, built at first use; signatures declared once."""
+    lib = _build.load("jpeg_decode")
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                ctypes.c_char_p, ctypes.c_size_t]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
+                                ctypes.c_char_p, ctypes.c_size_t]
+    return lib
+
+
+def _raise(rc: int, err: ctypes.Array, name: str) -> None:
+    msg = f"{name}: {err.value.decode(errors='replace')}"
+    raise (UnsupportedImage if rc == 2 else ValueError)(msg)
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """JPEG bytes → uint8 BGR [H,W,3] or grey [H,W] (see the module note)."""
+    lib = _decode_lib()
+    err = ctypes.create_string_buffer(256)
+    info = np.zeros(3, np.int32)
+    rc = lib.jpeg_header(data, len(data), info.ctypes.data, err, len(err))
+    if rc:
+        _raise(rc, err, name)
+    h, w, ch = (int(v) for v in info)
+    out = np.empty((h, w, ch) if ch == 3 else (h, w), np.uint8)
+    rc = lib.jpeg_decode(data, len(data), out.ctypes.data, out.size, err, len(err))
+    if rc:
+        _raise(rc, err, name)
+    return out
+

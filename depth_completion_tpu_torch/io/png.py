@@ -8,13 +8,12 @@ the file's channel order (RGB, not cv2's BGR):
   ``tRNS`` chunk), 4 (grey+alpha → [G,G,G,A]) and 6 (RGBA); an RGB image
   with a ``tRNS`` key colour gains an alpha channel (0 at the key), a grey
   one ignores it, as cv2 does;
-- bit depths 8 and 16 (uint8 / uint16; 16-bit grey is KITTI-DC's ground
-  truth), any number of ``IDAT`` chunks, all five filter types (the serial
-  per-row loop is host C++, ``csrc/png_unfilter.cpp``), every chunk's CRC
-  checked.
-
-An Adam7-interlaced file or a bit depth below 8 raises ``ValueError``
-naming the file (ROADMAP queue 1, item 4c: cv2 reads both).
+- bit depths 1, 2, 4 (grey, scaled to 0-255 as libpng's
+  ``png_set_expand_gray_1_2_4_to_8`` scales them, and palette), 8 and 16
+  (uint8 / uint16; 16-bit grey is KITTI-DC's ground truth), any number of
+  ``IDAT`` chunks, all five filter types (the serial per-row loop is host
+  C++, ``csrc/png_unfilter.cpp``), Adam7 interlacing (each pass unfiltered
+  on its own, then scattered into the frame), every chunk's CRC checked.
 
 ``write_png`` writes 8-bit grey, RGB and RGBA and 16-bit grey, rows
 filtered "Up", deflated by ``zlib``.
@@ -33,6 +32,10 @@ from depth_completion_tpu_torch import _build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (row start, column start, row step, column step) of each pass
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1))
 
 
 def _unfilter_lib() -> ctypes.CDLL:
@@ -51,8 +54,9 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     while pos + 12 <= len(data):
         length, ctype = struct.unpack_from(">I4s", data, pos)
         body = data[pos + 8: pos + 8 + length]
-        (crc,) = struct.unpack_from(">I", data, pos + 8 + length)
-        if len(body) != length or zlib.crc32(ctype + body) != crc:
+        crc = data[pos + 8 + length: pos + 12 + length]
+        if len(body) != length or len(crc) != 4 \
+                or zlib.crc32(ctype + body) != int.from_bytes(crc, "big"):
             raise ValueError(f"{name}: corrupt PNG chunk {ctype!r}")
         pos += 12 + length
         if ctype == b"IHDR":
@@ -68,30 +72,35 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if ihdr is None or not idat:
         raise ValueError(f"{name}: PNG without IHDR or IDAT")
     w, h, depth, color, _, _, interlace = ihdr
-    if interlace:
-        raise ValueError(f"{name}: Adam7-interlaced PNG is not supported yet (ROADMAP queue 1, item 4c)")
-    if depth not in (8, 16) or color not in _CHANNELS or (color == 3 and depth != 8):
-        raise ValueError(f"{name}: PNG bit depth {depth} with colour type {color} is not "
-                         "supported yet (ROADMAP queue 1, item 4c)")
+    if color not in _CHANNELS or depth not in _DEPTHS[color] or interlace > 1:
+        raise ValueError(f"{name}: invalid PNG header (bit depth {depth}, colour type {color}, "
+                         f"interlace {interlace})")
     ch = _CHANNELS[color]
-    bpp = ch * depth // 8
-    stride = w * bpp
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * (stride + 1):
-        raise ValueError(f"{name}: truncated PNG image data")
-    out = np.empty(h * stride, np.uint8)
-    rc = _unfilter_lib().png_unfilter(raw, h, stride, bpp, out.ctypes.data)
-    if rc != 0:
-        raise ValueError(f"{name}: bad PNG filter type in row {-1 - rc}")
-    img = (out.view(">u2").astype(np.uint16) if depth == 16 else out).reshape(h, w, ch)
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{name}: corrupt PNG image data ({e})") from None
+    if not interlace:
+        img, _ = _unfilter(raw, 0, h, w, ch, depth, name)
+    else:
+        img = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for r0, c0, dr, dc in ADAM7:
+            ph, pw = -(-(h - r0) // dr), -(-(w - c0) // dc)
+            if ph > 0 and pw > 0:
+                img[r0::dr, c0::dc], pos = _unfilter(raw, pos, ph, pw, ch, depth, name)
+    if depth < 8 and color == 0:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
     if color == 3:
         if palette is None:
             raise ValueError(f"{name}: palette PNG without PLTE")
-        lut = palette
+        # libpng's 256-entry tables: black, opaque past the file's entries
+        lut = np.zeros((256, 3), np.uint8)
+        lut[: len(palette)] = palette[:256]
         if trns is not None:
-            alpha = np.full((len(palette), 1), 255, np.uint8)
-            alpha[: len(trns), 0] = np.frombuffer(trns, np.uint8)[: len(palette)]
-            lut = np.concatenate([palette, alpha], axis=1)
+            alpha = np.full((256, 1), 255, np.uint8)
+            alpha[: min(len(trns), len(palette)), 0] = np.frombuffer(trns, np.uint8)[: len(palette)]
+            lut = np.concatenate([lut, alpha], axis=1)
         return lut[img[..., 0]]
     if color == 0:
         return img[..., 0]
@@ -102,6 +111,28 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         alpha = np.where((img == key).all(axis=-1), 0, np.iinfo(img.dtype).max)
         return np.concatenate([img, alpha[..., None].astype(img.dtype)], axis=-1)
     return img
+
+
+def _unfilter(raw: bytes, pos: int, h: int, w: int, ch: int, depth: int,
+              name: str) -> tuple[np.ndarray, int]:
+    """The [h, w, ch] samples of one filtered image (or Adam7 pass) that
+    starts at ``raw[pos]``, and the offset after it."""
+    bpp = max(1, ch * depth // 8)
+    stride = -(-w * ch * depth // 8)
+    end = pos + h * (stride + 1)
+    if len(raw) < end:
+        raise ValueError(f"{name}: truncated PNG image data")
+    out = np.empty(h * stride, np.uint8)
+    rc = _unfilter_lib().png_unfilter(raw[pos:end], h, stride, bpp, out.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"{name}: bad PNG filter type in row {-1 - rc}")
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w, ch), end
+    if depth == 8:
+        return out.reshape(h, w, ch), end
+    bits = np.unpackbits(out.reshape(h, stride), axis=1)[:, : w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[..., None], end
 
 
 def read_png(path: Path) -> np.ndarray:

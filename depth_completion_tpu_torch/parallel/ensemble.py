@@ -18,7 +18,7 @@ The medians average the two middle values at an even member count, as
 ``jnp.median`` does (``torch.median`` returns the lower one).
 
 One card only: ``mesh`` (a JAX sharding mesh in the JAX package) must be
-None; spreading members over devices is ROADMAP queue 1 item 5.
+None; spreading members over devices is ROADMAP queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ def ensemble_sample(bundle: ModelBundle, images: torch.Tensor, sparses: torch.Te
         raise ValueError(f"Unknown ensemble reduce: {reduce} (choose from {ENSEMBLE_REDUCES})")
     if mesh is not None:
         raise NotImplementedError("ensembles run on one card: mesh must be None (spreading "
-                                  "members over devices is ROADMAP queue 1 item 5)")
+                                  "members over devices is ROADMAP queue 1 item 4)")
     n, h, w, _ = images.shape
     e = ensemble_size
     eh, ew = latent_size((h, w), cfg.resolution, bundle.vae.downsample_factor)

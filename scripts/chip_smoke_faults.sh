@@ -79,6 +79,13 @@
 #                 (and the gradient through it: flash_bwd launches)
 #   F33_serve_zero_pad the serving engine pads a batch's images with zeros
 #                 where the JAX engine pads with copies of row 0
+#   F34_idct_round the JPEG decoder's second IDCT pass shifts without its
+#                 rounding term
+#   F35_h2v2_replicate the JPEG decoder upsamples h2v2 chroma by
+#                 replication instead of the triangle filter
+#   F36_bl2_unshuffle_ts1 the .bl2 reader unshuffles with typesize 1
+#   F37_bl2_shape_reversed the .bl2 writer records the shape reversed in
+#                 __pack_tensor__
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -118,6 +125,8 @@ run_fault() {  # name, then (file, sed expression) pairs
   if [ $check = 0 ]; then
     cp -r chip_smoke.py depth_completion_tpu_torch "$d"/
     rm -rf "$d/depth_completion_tpu_torch/_build"
+    mkdir -p "$d/tests/data"
+    cp -r tests/data/torch_io "$d/tests/data/"  # the host IO phase's fixtures
   fi
   while [ $# -gt 0 ]; do
     local before
@@ -207,4 +216,12 @@ run_fault F32_fast_guidance_graph depth_completion_tpu_torch/pipeline/sampler.py
   's|with torch.set_grad_enabled(not cfg.detach_unet_grad):|with torch.set_grad_enabled(True):|'
 run_fault F33_serve_zero_pad depth_completion_tpu_torch/serving/engine.py \
   's|images = np.concatenate(\[images, images\[:1\].repeat(pad, 0)\])|images = np.concatenate([images, np.zeros_like(images[:1]).repeat(pad, 0)])|'
+run_fault F34_idct_round depth_completion_tpu_torch/csrc/jpeg_decode.cpp \
+  's|sat16(descale(res\[c\], kConstBits + kPass1Bits + 3))|sat16(res[c] >> (kConstBits + kPass1Bits + 3))|'
+run_fault F35_h2v2_replicate depth_completion_tpu_torch/csrc/jpeg_decode.cpp \
+  's#} else if (fy == 2 \&\& (fx == 1 || fancy_h)) {#} else if (fy == 2 \&\& fx == 1) {#'
+run_fault F36_bl2_unshuffle_ts1 depth_completion_tpu_torch/io/bl2.py \
+  's|lib.bl2_unshuffle(block, dst, bsize, typesize)|lib.bl2_unshuffle(block, dst, bsize, 1)|'
+run_fault F37_bl2_shape_reversed depth_completion_tpu_torch/io/bl2.py \
+  's|\["numpy", \[int(s) for s in x.shape\], x.dtype.str\]|["numpy", [int(s) for s in x.shape[::-1]], x.dtype.str]|'
 exit $status

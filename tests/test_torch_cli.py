@@ -25,6 +25,7 @@ from depth_completion_tpu.io import codecs as jcodecs
 from depth_completion_tpu.io.image import save_img_array as j_save_img
 from depth_completion_tpu_torch.cli import analyze, predict
 from depth_completion_tpu_torch.io import codecs
+from depth_completion_tpu_torch.io import image as codecs_image
 
 from tests.test_torch_checkpoint import _write_tiny_kl_checkpoint
 
@@ -178,6 +179,46 @@ def test_both_clis_on_one_checkpoint(tmp_path, checkpoint, monkeypatch):
             _assert_results_close(got, want, tol)
 
 
+def test_both_clis_on_jpeg_frames_with_bl2(tmp_path, checkpoint, monkeypatch):
+    """JPEG frames in (the port's encoder, decoded by cv2 on the JAX side
+    and by the port's decoder), ``--compress bl2`` out (``--compress bl2``
+    raised before the port had a codec): dense maps within the tolerance
+    of ``test_both_clis_on_one_checkpoint`` (rms 1e-5, max 1e-4 of 120 m),
+    each side's ``.bl2`` read by the other, and the analyze CLI's
+    ``--gt-format array`` reading the JAX side's ``.bl2`` maps."""
+    from depth_completion_tpu_torch.io.jpeg import write_jpeg
+
+    monkeypatch.setenv("DCT_EPILOGUE", "on")
+    data = _dataset(tmp_path / "data", n=2)
+    for p in sorted((data / "scene" / "image").glob("*.png")):
+        write_jpeg(codecs_image.load_img_array(p, "RGB"), p.with_suffix(".jpg"))
+        p.unlink()
+    argv = [*TINY[:-6], "--compress", "bl2", "--vae", "original", "--model", "original",
+            "--checkpoint-dir", str(checkpoint)]
+    with pytest.raises(SystemExit) as e:
+        j_predict([str(data), str(tmp_path / "jax"), *argv], standalone_mode=True)
+    assert e.value.code in (0, None)
+    assert predict.main([str(data), str(tmp_path / "port"), *argv, "--device", "cpu"])[
+        "frames"] == 2
+    d_port, d_jax = _dense(tmp_path / "port", "bl2"), _dense(tmp_path / "jax", "bl2")
+    assert d_port.shape == d_jax.shape == (2, 48, 64, 1) and d_port.dtype == np.float32
+    np.testing.assert_array_equal(_dense(tmp_path / "port", "bl2", jcodecs.load_array), d_port)
+    np.testing.assert_array_equal(_dense(tmp_path / "jax", "bl2", codecs.load_array), d_jax)
+    diff = (d_port - d_jax) / 120.0
+    rms = float(np.sqrt(np.mean(diff**2)))
+    assert rms < 1e-5 and np.abs(diff).max() < 1e-4, (rms, np.abs(diff).max())
+    # the JAX side's dense maps as array ground truth for the port's analyzer
+    gt = data / "scene" / "gt"
+    gt.mkdir()
+    for p in sorted((tmp_path / "jax" / "scene" / "dense").glob("*.bl2")):
+        (gt / p.name).write_bytes(p.read_bytes())
+    got = analyze.main([str(data), str(tmp_path / "port"), "--gt-dir", "gt", "--gt-format",
+                        "array", "--device", "cpu"])
+    valid = d_jax > 0
+    assert got["overall"]["mae"] == pytest.approx(
+        float(np.abs(d_port - d_jax)[valid].mean()), rel=1e-3, abs=1e-6)
+
+
 def _assert_results_close(got, want, tol):
     assert got.keys() == want.keys()
     for m, v in want["overall"].items():
@@ -296,7 +337,6 @@ def test_lcm_model_runs(tmp_path, checkpoint, monkeypatch):
 @pytest.mark.parametrize("flag,message", [
     (["--multihost", "true"], "--multihost true"),
     (["--mesh-model", "2"], "--mesh-model > 1"),
-    (["--compress", "bl2"], "--compress bl2"),
 ])
 def test_unported_flags_raise(tmp_path, flag, message):
     data = _dataset(tmp_path / "data", n=1)

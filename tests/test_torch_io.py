@@ -2,8 +2,9 @@
 the PNG codec against ``cv2.imread(IMREAD_UNCHANGED)`` for files written by
 cv2 and PIL, ``load_img_array`` / ``image_size`` / ``to_segmask`` /
 ``load_segmap`` against JAX's, the JPEG encoder through cv2's decoder, the
-dcz container byte for byte both ways, npy/npz, the Spectral LUT and the
-grid resize against cv2's ``INTER_LINEAR``.
+dcz container byte for byte both ways, npy/npz/bl2, the Spectral LUT and
+the grid resize against cv2's ``INTER_LINEAR``, and the port's ``utils``
+name for name against JAX's.
 """
 
 import zlib
@@ -14,12 +15,14 @@ import torch
 import cv2
 from PIL import Image
 
+from depth_completion_tpu import utils as jutils
 from depth_completion_tpu import viz as jviz
 from depth_completion_tpu.io import codecs as jcodecs
 from depth_completion_tpu.io import csvio as jcsvio
 from depth_completion_tpu.io import image as jimage
-from depth_completion_tpu_torch import viz
+from depth_completion_tpu_torch import utils, viz
 from depth_completion_tpu_torch.io import codecs, csvio, image, jpeg, png
+from scripts.make_torch_io_fixtures import write_png
 
 SIZES = ((5, 7), (33, 17), (48, 64))
 
@@ -90,19 +93,36 @@ def test_png_writer_round_trips(tmp_path, h, w):
 
 
 def test_png_unsupported_raise_naming_the_file(tmp_path):
+    """Adam7 and 1-bit PNGs, which raised before, decode as cv2 decodes
+    them; a PNG header no decoder accepts (bit depth 3), a corrupt chunk
+    and a stream whose interlace byte lies raise naming the file, and
+    ``load_img_array`` gives None for them, as cv2 does."""
     rng = np.random.default_rng(2)
-    # the IHDR's interlace byte set to 1 (Adam7), its CRC made anew
-    data = bytearray(png.encode_png(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)))
-    data[28] = 1
-    data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
-    inter = tmp_path / "interlaced.png"
-    inter.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="interlaced.png: Adam7"):
-        png.read_png(inter)
+    rgb = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
     onebit = tmp_path / "onebit.png"
     Image.fromarray(rng.integers(0, 256, (16, 16), dtype=np.uint8)).convert("1").save(onebit)
-    with pytest.raises(ValueError, match="onebit.png: PNG bit depth 1"):
-        image.load_img_array(onebit)
+    interlaced = tmp_path / "interlaced.png"
+    write_png(interlaced, rgb, 2, 8, interlace=True)
+    for path in (onebit, interlaced):
+        np.testing.assert_array_equal(png.read_png(path), _cv2_rgb(path))
+        np.testing.assert_array_equal(image.load_img_array(path), jimage.load_img_array(path))
+    # the IHDR's interlace byte set to 1 on a non-interlaced stream, its CRC made anew
+    data = bytearray(png.encode_png(rgb))
+    data[28] = 1
+    data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
+    liar = tmp_path / "liar.png"
+    liar.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="liar.png: "):
+        png.read_png(liar)
+    assert image.load_img_array(liar) is None
+    data = bytearray(png.encode_png(rgb))
+    data[24] = 3  # bit depth 3
+    data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
+    bad = tmp_path / "depth3.png"
+    bad.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="depth3.png: invalid PNG header.*bit depth 3"):
+        png.read_png(bad)
+    assert image.load_img_array(bad) is None
     data = bytearray(png.encode_png(np.ones((4, 4), np.uint8)))
     data[40] ^= 0xFF  # inside the IDAT chunk
     with pytest.raises(ValueError, match="corrupt PNG chunk"):
@@ -147,9 +167,18 @@ def test_image_size_matches_jax(tmp_path):
 
 
 def test_jpeg_input_raises(tmp_path):
+    """A JPEG input, which raised before the port had a decoder, now
+    decodes as the JAX package decodes it (tests/test_torch_jpeg.py holds
+    the decoder to cv2 in detail); an arithmetic-coded one raises naming
+    its SOF."""
     p = tmp_path / "frame.jpg"
     cv2.imwrite(str(p), np.full((8, 8, 3), 100, np.uint8))
-    with pytest.raises(NotImplementedError, match="frame.jpg.*ROADMAP queue 1, item 4a"):
+    np.testing.assert_array_equal(image.load_img_array(p, "RGB"), jimage.load_img_array(p, "RGB"))
+    data = bytearray(p.read_bytes())
+    i = data.index(b"\xff\xc0")
+    data[i + 1] = 0xC9
+    p.write_bytes(bytes(data))
+    with pytest.raises(jpeg.UnsupportedImage, match=r"frame.jpg: arithmetic-coded JPEG \(SOF9\)"):
         image.load_img_array(p, "RGB")
 
 
@@ -238,8 +267,8 @@ def test_npy_npz_and_upcast(tmp_path):
     np.testing.assert_array_equal(got, t.float().numpy())
     codecs.save_array(x.astype(np.float16), tmp_path / "f16.npy", compress="npy")
     assert codecs.load_array(tmp_path / "f16.npy").dtype == np.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b"):
-        codecs.save_array(x, tmp_path / "a.bl2", compress="bl2")
+    codecs.save_array(x, tmp_path / "a.bl2", compress="bl2")  # raised before the bl2 codec
+    np.testing.assert_array_equal(jcodecs.load_array(tmp_path / "a.bl2"), x)
     with pytest.raises(ValueError, match="Invalid extension"):
         codecs.save_array(x, tmp_path / "a.npy", compress="dcz")
 
@@ -285,3 +314,55 @@ def test_segmap_and_segmask_match_jax(tmp_path):
 def test_has_nan_takes_tensors():
     assert viz.has_nan(torch.tensor([1.0, float("nan")]))
     assert not viz.has_nan(np.zeros(3))
+
+
+def test_utils_names_match_jax(tmp_path):
+    """Every public name of JAX's ``utils`` exists in the port's and agrees
+    on a seeded input."""
+    assert set(utils.__all__) == set(jutils.__all__)
+    for name in jutils.__all__:
+        assert hasattr(utils, name), name
+    rng = np.random.default_rng(11)
+    preds, targets = rng.uniform(0, 80, (2, 9, 11, 1)), rng.uniform(0, 80, (2, 9, 11, 1))
+    masks = rng.random((2, 9, 11, 1)) < 0.4
+    for fn in ("mae", "rmse"):
+        assert getattr(utils, fn)(preds, targets, masks) == pytest.approx(
+            getattr(jutils, fn)(preds, targets, masks), rel=1e-12)
+        assert getattr(utils, fn)(preds, targets) == pytest.approx(
+            getattr(jutils, fn)(preds, targets), rel=1e-12)
+    assert utils.EPSILON == jutils.EPSILON
+    assert utils.filterout([1, 2, 3], [True, False, True]) == jutils.filterout(
+        [1, 2, 3], [True, False, True]) == [1, 3]
+    with pytest.raises(ValueError):
+        utils.filterout([1], [])
+    assert utils.CommaSeparated(int, 3)("1,2,3") == jutils.CommaSeparated(int, 3).convert(
+        "1,2,3", None, None) == [1, 2, 3]
+    assert utils.CommaSeparated(float).convert("0.5,2") == [0.5, 2.0]
+    np.testing.assert_array_equal(utils.calc_bins(0.0, 120.0, 10.0),
+                                  jutils.calc_bins(0.0, 120.0, 10.0))
+    x = rng.normal(size=(3, 40)).astype(np.float32)
+    m = rng.random((3, 40)) < 0.6
+    for got, want in zip(utils.masked_minmax(torch.from_numpy(x), torch.from_numpy(m)),
+                         jutils.masked_minmax(x, m)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(
+        utils.masked_quantile(torch.from_numpy(x), torch.from_numpy(m), [0.1, 0.5, 0.9]).numpy(),
+        np.asarray(jutils.masked_quantile(x, m, np.asarray([0.1, 0.5, 0.9], np.float32))),
+        rtol=1e-6, atol=1e-6)
+    for mode in ("simple", "strict"):
+        np.testing.assert_allclose(utils.kld_stdnorm(torch.from_numpy(x), mode=mode).numpy(),
+                                   np.asarray(jutils.kld_stdnorm(x, mode=mode)), rtol=1e-6)
+    d = rng.uniform(0, 120, (1, 6, 7, 1)).astype(np.float32)
+    np.testing.assert_array_equal(utils.visualize_depth(d, 120.0), jutils.visualize_depth(d, 120.0))
+    assert utils.has_nan(np.array([np.nan])) and jutils.has_nan(np.array([np.nan]))
+    img = rng.integers(1, 255, (9, 11, 3), dtype=np.uint8)
+    utils.save_img_array(img, tmp_path / "a.png")
+    np.testing.assert_array_equal(utils.load_img_array(tmp_path / "a.png"),
+                                  jutils.load_img_array(tmp_path / "a.png"))
+    assert utils.image_size(tmp_path / "a.png") == jutils.image_size(tmp_path / "a.png")
+    utils.save_array(d, tmp_path / "d.bl2", compress="bl2")
+    np.testing.assert_array_equal(jutils.load_array(tmp_path / "d.bl2"), d)
+    assert utils.NPARRAY_EXTS == jutils.NPARRAY_EXTS
+    for name in ("DATASET_DIR_NAME_IMAGE", "DATASET_DIR_NAME_SEGMASK", "DATASET_DIR_NAME_SPARSE",
+                 "RESULT_DIR_NAME_DENSE", "RESULT_DIR_NAME_VIS"):
+        assert getattr(utils, name) == getattr(jutils, name)

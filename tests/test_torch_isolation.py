@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no optax, nothing of the JAX package, and
 none of the packages the card's machine lacks (safetensors, transformers,
 click, cv2, tqdm, matplotlib, PIL, blosc2, ml_dtypes, loguru); nor does it
-name the JAX package's native codec (``native/``, ``dcz_codec.so``)."""
+name the JAX package's native codec (``native/``, ``dcz_codec.so``) or the
+system c-blosc library the JAX package's ``.bl2`` codec loads."""
 
 import ast
 import os
@@ -59,6 +60,18 @@ def test_no_port_file_names_the_native_codec():
     assert bad == []
 
 
+def test_no_port_file_names_libblosc():
+    """The port's ``.bl2`` codec carries the blosc containers itself: no
+    source of it loads or names the c-blosc shared library."""
+    bad = []
+    for path in _port_files((".py", ".cpp", ".cu", ".cuh")):
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if "libblosc" in line or 'find_library("blosc")' in line:
+                    bad.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
+    assert bad == []
+
+
 def test_import_leaves_jax_unloaded():
     # modules loaded by the import itself, beyond those torch loads (an
     # interpreter's site hooks may preload others, and torch.hub imports
@@ -69,7 +82,8 @@ def test_import_leaves_jax_unloaded():
         "depth_completion_tpu_torch.models.weights, "
         "depth_completion_tpu_torch.models.bundle, "
         "depth_completion_tpu_torch.cli.predict, depth_completion_tpu_torch.cli.analyze, "
-        "depth_completion_tpu_torch.io, depth_completion_tpu_torch.viz, "
+        "depth_completion_tpu_torch.io, depth_completion_tpu_torch.io.bl2, "
+        "depth_completion_tpu_torch.utils, depth_completion_tpu_torch.viz, "
         "depth_completion_tpu_torch.parallel.ensemble, depth_completion_tpu_torch.serving, "
         "depth_completion_tpu_torch.serving.server, depth_completion_tpu_torch.cli.serve; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
