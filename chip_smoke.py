@@ -41,7 +41,19 @@
    fp32; and holds one guided step's losses and gradients, for a few noise
    seeds (JAX's noise for each seed), against the same step run through the
    plain versions (for the ring: through the flash kernels without the
-   ring), and the latent gradient against an fp32 run;
+   ring), and the latent gradient against an fp32 run. The pipeline runs
+   every guided step as a replay of one captured CUDA graph per signature
+   (``pipeline.programs``; the first request runs step 0 eagerly, captures,
+   replays the rest), and each replay adds the launches its capture
+   recorded to the counts: (a) the graph's request against two requests
+   through the pipeline's eager twin (the spread of two eager runs), over
+   the latent, the dense map and the latent's Adam v; (b) ms per step eager
+   and graph (CUDA events), device ms, busy share and launches per step
+   (``torch.profiler``), capture and instantiation ms, pool growth, peaks;
+   (c) the launches recorded at capture against one step's; (d) the
+   graph one step at a time against the eager step from the same state,
+   at step indices 0, 1, N/2 and N-1 (a fixed limit at any step count),
+   after a request has reset the program's state exactly;
 4. runs the predict CLI (``depth_completion_tpu_torch.cli.predict``) in
    process with its defaults on the checkpoint directory of step 3 over a
    3-frame 480x640 PNG dataset written with the port's PNG writer: dense
@@ -55,7 +67,9 @@
    decoder on the same UNet at batch 1, 2 and 4: the bytes per latent
    pixel and fixed bytes of ``sampler.STEP_PEAK_BYTES``, which must cover
    each peak; a KL batch one above the largest that fits is refused before
-   any kernel launches), a 5-member ensemble (aligned median,
+   any kernel launches; then a 4-step request at batch 8 with and without
+   remat, each through its own step program: ms per replayed step, capture,
+   pool growth; the KL decoder's batch 1 and 4 programs in one pool), a 5-member ensemble (its program's readings too; aligned median,
    uncertainty), fast guidance (``detach_unet_grad``: no ``flash_bwd``
    launch, its peak below the guided request's), LCM through
    ``cli.predict --model lcm`` against the same request through the plain
@@ -69,18 +83,24 @@
    client threads, at most 10 steps): the warmup's signatures, concurrent
    requests coalesced into one batch and padded with row 0, a session's
    carry, the error codes, each batch's launches, and every served row
-   against a direct pipeline call; then 8 closed-loop clients;
+   against a direct pipeline call; then 8 closed-loop clients; then the
+   tiers: ``run_serve`` with ``--warmup-tiered --max-programs 4`` serving
+   its first batch on the eager twin and later ones on the graphs as each
+   signature is promoted, and ``max_programs=1`` over two geometries,
+   whose evicted program's requests run on the eager twin;
 7. prints ``{"probes": [...]}`` (each probe's readings and verdict),
    ``{"composites": [...]}`` (the ring's passes: their times, errors
    and bound, and the ring step launches on the native path),
+   ``{"graphs": {...}}`` (phase 3's (a)-(d) per path, the card),
    ``{"cli": {...}}`` (the CLI's seconds per frame and their split, PNG
    decode and JPEG encode ms per frame, dense bytes, analyze MAE),
    ``{"modes": {...}}`` (per mode: seconds per request, launches, peak
    GiB, the check readings, the card), ``{"serve": {...}}`` (warmup
    seconds per signature, the first request's latency, requests/s, p50 and
    p95 latency, s/step at batch 1 and 4, the device gap between batches,
-   peak GiB, the card), ``{"kernels": [...]}`` (one entry per CUDA
-   kernel, its launches over phases 3 and 6; a probe kernel's
+   peak GiB, the step programs, the tiers' calls and promotion times, the
+   card), ``{"kernels": [...]}`` (one entry per CUDA
+   kernel, its launches over phases 3 and 6, replays included; a probe kernel's
    launches are its probe's, and every guided path must launch it 0
    times) and, last,
    ``{"ok": true, "device": ...}``.
@@ -98,6 +118,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import http.client
 import io
 import json
@@ -660,12 +681,16 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
     native path, 128x128 at res 1024: more than the kernel's cluster holds
     in registers), against its plain twin and against the eager chain it
     replaces, from Adam state after three steps (bias corrections and the
-    moments all in play)."""
+    moments all in play); the scalars are row 3 of the 50-step table on the
+    card, read at a step index on the card."""
     ptype = "v_prediction" if v_pred else "epsilon"
     sched = S.make_schedule(S.DDIMConfig(prediction_type=ptype))
     steps, count, lr = 50, 3, 0.05
-    t = int(S.make_timesteps(sched.config, steps)[count])
-    sc = ge.epilogue_scalars(sched, t, steps, count)
+    ts = S.make_timesteps(sched.config, steps)
+    t = int(ts[count])
+    # every step's row on the card, read at step index ``count``
+    table = ge.epilogue_table(sched, ts, steps, DEV)
+    idx = torch.full((1,), count, dtype=torch.int64, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(4242 + n + 10 * int(v_pred) + latent_hw[1])
     shape = (n, *latent_hw, 4)
 
@@ -678,8 +703,8 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
     v = m * m + 0.1 * torch.rand(shape, generator=gen, device=DEV)
     print(f"guidance epilogue N={n} {tuple(shape[1:])} {ptype} t={t} count={count}")
     got = [x.clone() for x in (lat, m, v)]
-    ge.guidance_epilogue(got[0], g, out, got[1], got[2], sc, lr=lr, v_pred=v_pred)
-    ref = ge.guidance_epilogue_plain(lat, g, out, m, v, sc, lr=lr, v_pred=v_pred)
+    ge.guidance_epilogue(got[0], g, out, got[1], got[2], table, idx, lr=lr, v_pred=v_pred)
+    ref = ge.guidance_epilogue_plain(lat, g, out, m, v, table, idx, lr=lr, v_pred=v_pred)
     p, opt, chain = _eager_chain(sched, lat, m, v, count, lr)
     chain(g, out, t)
     st = opt.state[p]
@@ -699,9 +724,9 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
     if not timed:
         return res
     res["ms"] = time_ms(lambda: ge.guidance_epilogue(
-        got[0], g, out, got[1], got[2], sc, lr=lr, v_pred=v_pred), reps, 10)
+        got[0], g, out, got[1], got[2], table, idx, lr=lr, v_pred=v_pred), reps, 10)
     res["plain_ms"] = time_ms(lambda: ge.guidance_epilogue_plain(
-        lat, g, out, m, v, sc, lr=lr, v_pred=v_pred), reps, 10)
+        lat, g, out, m, v, table, idx, lr=lr, v_pred=v_pred), reps, 10)
     res["library_ms"] = time_ms(lambda: chain(g, out, t), reps, 10)
     k = g.numel()
     # reads lat, g, m, v (fp32) and out (bf16); writes lat, m, v; ~26 fp32
@@ -933,7 +958,7 @@ def probe_phase() -> tuple[list, list]:
 
 def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
                       ring_size: int | None = None, mode: str = "per-step",
-                      train_steps: int = 0) -> dict:
+                      train_steps: int = 0, remat: bool = False) -> dict:
     """Kernel launches one request implies (JAX package routing:
     with a ring, UNet self-attention whose length divides the ring size
     takes the ring, which launches one ring step kernel per visiting block;
@@ -949,7 +974,8 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
     training, LCM or DDIM: ``steps`` UNet forwards); "step" and
     "step-remat" (one guided step's forward and backward alone, no encode
     or final decode; with remat every flash forward of the UNet's
-    checkpointed stages runs twice)."""
+    checkpointed stages runs twice). ``remat``: the same second forward in
+    every guided step of a request."""
     eh, ew = latent_hw
     attn = []  # (sequence length, head dim, attention layers) per UNet stage and the mid block
     last = len(unet_cfg.block_out_channels) - 1
@@ -978,12 +1004,13 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
         convs_per_encode = 4 + 2 * stages * layers
         mid_attn = int(eh * ew >= 768)  # one head at d = the widest stage
     step = mode in ("step", "step-remat")
+    remat = remat or mode == "step-remat"
     unet_fwd = 1 if step else steps
     unet_bwd = {"per-step": steps, "step": 1, "step-remat": 1}.get(mode, 0)
     dec_bwd = {"per-input": train_steps, "fast_guidance": steps}.get(mode, unet_bwd)
     whole = 0 if step else 1  # a whole request: the encode and the final decode
     return {
-        "flash_fwd": flash_per_unet * unet_fwd + (flash_in_stages if mode == "step-remat" else 0),
+        "flash_fwd": flash_per_unet * unet_fwd + (flash_in_stages * unet_bwd if remat else 0),
         "flash_bwd": flash_per_unet * unet_bwd,
         # one ring step launch per visiting block, forward and backward
         "flash_fwd_ring": (ring_size or 0) * ring_per_unet * unet_fwd,
@@ -1226,6 +1253,203 @@ def check_request(dense, lat, shape, latent_shape) -> tuple[float, float]:
     return lo, hi
 
 
+# Phase 3 (a): the pipeline's graph against its eager twin on the same
+# inputs, each comparison max|diff| / max|twin| over the final latent, the
+# dense map and the latent's Adam v. flash_bwd's float4 dq atomics make two
+# eager runs differ, and the guidance's eps-norm rescale carries that through
+# the steps, so the graph is held to GRAPH_SPREAD_FACTOR times the spread of
+# two twin requests, or GRAPH_FLOOR where the spread is smaller. A request
+# that finds the previous request's Adam v in its buffers reads O(1) on v
+# (v keeps 0.999^50 = 95% of it over 50 steps).
+GRAPH_SPREAD_FACTOR, GRAPH_FLOOR = 4.0, 1e-3
+GRAPH_TIMING_STEPS = 10  # (b): steps timed back to back, eager and graph
+# Phase 3 (d): one step at a time from one state, the graph's replay against
+# the eager step, at step indices 0, 1, N/2 and N-1, whatever the steps: the
+# spread of two eager steps from one state does not grow with the steps, so
+# these limits are fixed. Each reading is ||graph - eager|| / ||eager|| (L2)
+# over the latent, Adam m, Adam v and the affine: an element whose gradient
+# flips sign between two runs moves the latent by 2 lr at the first step,
+# which a max-norm would read as O(lr / max|latent|) and an L2 norm spreads
+# over the tensor. Readings at 50 steps on the four guided paths (H100 80GB
+# HBM3, 700 W), sound / the step index not advanced before a replay: latent
+# <= 5.2e-3 / >= 2.2e-2, Adam m and v <= 1.06e-2 / >= 0.23, the affine 0
+# (its gradient takes no atomics) / >= 1.7e-3.
+STEP_LIMITS = {"latent": 1.5e-2, "adam_m": 5e-2, "adam_v": 5e-2, "affine": 1e-3}
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def profile_step(run) -> dict:
+    """Device ms (kernels, memsets and copies), device launches and the
+    host's launch calls (runtime calls named ``cu*Launch*``) of ``run()``
+    under ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_us, device_launches, host_calls = 0.0, 0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(evt, "self_device_time_total", None)
+            t = getattr(evt, "self_cuda_time_total", 0.0) if t is None else t
+            if t > 0:
+                dev_us += t
+                device_launches += evt.count
+        elif evt.key.startswith("cu") and "Launch" in evt.key:
+            host_calls += evt.count
+    return {"device_ms": dev_us / 1e3, "device_launches": device_launches,
+            "host_launch_calls": host_calls}
+
+
+@torch.no_grad()
+def step_timing(program, eager: bool, steps: int = GRAPH_TIMING_STEPS) -> dict:
+    """One step of ``program`` at a time (``step_eager``, or ``replay`` of
+    its graph) at step indices 0, 1, ... (modulo its steps): ms per step by
+    CUDA events over ``steps`` of them back to back (the host's pace where
+    it is slower than the card), then one more under the profiler: device
+    ms, device-busy share, launches."""
+    step = program.step_eager if eager else program.replay
+
+    def run(k):
+        step(k % program.steps)
+
+    run(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(steps):
+        run(k)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    prof = profile_step(lambda: run(steps // 2))
+    return {"s_per_step": ms / 1e3, **prof, "busy_share": prof["device_ms"] / ms}
+
+
+def _step_state(program) -> tuple:
+    """The step program's state buffers: what one step reads and writes."""
+    return (program.latents, program.m, program.v, *program.affine, *program.affine_m,
+            *program.affine_v)
+
+
+def _step_groups(state) -> dict:
+    """The latent, Adam m, Adam v and the affine's parameters of a state."""
+    latents, m, v, *rest = state
+    n_aff = len(rest) // 3
+    out = {"latent": latents, "adam_m": m, "adam_v": v}
+    if n_aff:
+        out["affine"] = torch.cat([p.flatten() for p in rest[:n_aff]])
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+@torch.no_grad()
+def stepwise_check(label: str, graph, twin) -> dict:
+    """Phase 3 (d): the graph one step at a time against its eager twin.
+    The graph program loads the twin's request inputs as a request does, and
+    its state must then be the initial one exactly (the latent's and the
+    affine's Adam moments zero, the affine (1, 0)). Then, at step indices 0,
+    1, N/2 and N-1, each from the graph program's current state: the twin
+    program takes that state and runs ``step_eager(k)`` twice (the eager
+    spread), the graph runs ``replay(k)``; each held to ``STEP_LIMITS``.
+    → the readings."""
+    graph.load(twin.img_latents, twin.latents, twin.dn, twin.images)
+    initial = max([float(graph.m.abs().max()), float(graph.v.abs().max())]
+                  + [float((p - init).abs().max()) for p, init in zip(graph.affine, (1.0, 0.0))]
+                  + [float(b.abs().max()) for b in (*graph.affine_m, *graph.affine_v)])
+    check(f"{label}: a request resets the step state", initial, 0.0, "max|state - initial|")
+    readings = {"reset_err": initial, "steps": {}}
+    n = graph.steps
+    for k in sorted({0, 1, n // 2, n - 1} & set(range(n))):
+        start = [t.clone() for t in _step_state(graph)]
+        runs = []
+        for _ in range(2):
+            for dst, src in zip(_step_state(twin), start):
+                dst.copy_(src)
+            twin.step_eager(k)
+            runs.append(_step_groups([t.clone() for t in _step_state(twin)]))
+        graph.replay(k)
+        got = _step_groups(_step_state(graph))
+        row = {}
+        for what, ref in runs[0].items():
+            diff, spread = _rel_l2(got[what], ref), _rel_l2(runs[1][what], ref)
+            row[what] = {"graph_vs_eager": diff, "eager_spread": spread,
+                         "max_rel": _rel(got[what], ref)}
+            check(f"{label}: step {k} graph vs eager ({what}; eager vs eager {spread:.3e})",
+                  diff, STEP_LIMITS[what], "||diff||/||eager||")
+        readings["steps"][k] = row
+    torch.cuda.synchronize()
+    return readings
+
+
+def graph_check(path: GuidedPath, pipe, images, sparses, kwargs: dict, latent_hw) -> dict:
+    """Phase 3's graph checks on the path's pipeline, after its two
+    requests: (a) two requests through ``pipe.twin()`` (fresh programs, every
+    step eager) and one through the pipeline's graph on the same inputs,
+    held as ``GRAPH_SPREAD_FACTOR`` says; (b) eager and graph timing
+    (``step_timing``), the capture's ms, its instantiation's ms, the pool's
+    growth and each request's peak; (c) the capture's launch delta against
+    one step's launches; (d) ``stepwise_check``. → the readings."""
+    h, w = path.frame
+    eh, ew = latent_hw
+    runs, readings = {}, {"requests": {}}
+    for name in ("twin 1", "twin 2", "graph"):
+        target = pipe if name == "graph" else pipe.twin()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dense, lat = target(images, sparses, **kwargs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        program = target.programs.find(images.shape)
+        check_request(dense, lat, (1, h, w, 1), (1, eh, ew, 4))
+        runs[name] = (lat, dense, program.v.clone(), program)
+        readings["requests"][name] = {"s": dt, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out = {}
+    for i, what in enumerate(("latent", "dense", "adam_v")):
+        spread = _rel(runs["twin 2"][i], runs["twin 1"][i])
+        diff = _rel(runs["graph"][i], runs["twin 1"][i])
+        limit = max(GRAPH_SPREAD_FACTOR * spread, GRAPH_FLOOR)
+        out[what] = {"graph_vs_twin": diff, "twin_spread": spread, "limit": limit}
+        print(f"  (a) {what}: graph vs eager twin {diff:.3e}, twin vs twin {spread:.3e} "
+              f"(max|diff|/max|twin|; limit {limit:.3e})")
+        check(f"{path.label}: graph vs eager twin ({what})", diff, limit, "max|diff|/max|twin|")
+    readings["graph_vs_twin"] = out
+    graph, twin = runs["graph"][3], runs["twin 1"][3]
+    per_step = expected_launches(registry.MARIGOLD_UNET_CONFIG, path.vae_kind, path.vae_config,
+                                 (eh, ew), 1, path.ring_size,
+                                 mode="step-remat" if graph.remat else "step")
+    per_step["guidance_epilogue"] += 1  # the step's epilogue, which "step" leaves out
+    want = {k: n for k, n in per_step.items() if n}
+    print(f"  (c) launches recorded at capture, added at every replay: {graph.launch_delta}")
+    if graph.launch_delta != want:
+        raise AssertionError(f"{path.label}: the capture's launches {graph.launch_delta} != "
+                             f"one step's {want}")
+    readings["launch_delta"] = graph.launch_delta
+    readings["stepwise"] = stepwise_check(path.label, graph, twin)
+    readings["eager"] = step_timing(twin, eager=True)
+    readings["graph"] = {**step_timing(graph, eager=False), **graph.stats}
+    reset_launches()  # the timing's launches are no path's
+    for kind in ("eager", "graph"):
+        r = readings[kind]
+        print(f"  (b) {kind}: {r['s_per_step'] * 1e3:.2f} ms/step (CUDA events over "
+              f"{GRAPH_TIMING_STEPS} steps), device {r['device_ms']:.2f} ms/step, busy "
+              f"{r['busy_share']:.1%}, {r['device_launches']} device launches and "
+              f"{r['host_launch_calls']} host launch calls per step")
+    g = readings["graph"]
+    print(f"  (b) capture {g['capture_ms']:.1f} ms, instantiate {g['instantiate_ms']:.1f} ms, "
+          f"pool growth {g['pool_growth_bytes'] / 2**30:.2f} GiB; request s and peak GiB "
+          f"{readings['requests']}")
+    readings["card"] = card()
+    return readings
+
+
 def guided_path(path: GuidedPath, steps: int, bundle=None) -> tuple[dict, dict]:
     """Two guided requests through the pipeline on ``bundle`` (default: the
     seeded random bundle), launch counts checked per request; then the
@@ -1277,13 +1501,24 @@ def guided_path(path: GuidedPath, steps: int, bundle=None) -> tuple[dict, dict]:
     totals = launches()  # read just after the path
     print(f"  path launches (2 requests): {totals}")
     reset_launches()
+    program = pipe.programs.find(images.shape)
+    print(f"  step program: captured at request 0 in {program.stats['capture_ms']:.1f} ms, "
+          f"instantiated in {program.stats['instantiate_ms']:.1f} ms, pool growth "
+          f"{program.stats['pool_growth_bytes'] / 2**30:.2f} GiB")
+    graphs = graph_check(path, pipe, images, sparses, dict(
+        max_depth=120.0, steps=steps, norm="const", closed_form=False,
+        resolution=path.resolution, ring_mesh=ring, **options), (eh, ew))
+    del pipe, program
+    gc.collect()
+    torch.cuda.empty_cache()
     bundle32 = fp32_bundle(bundle)
     if path.vae_kind == "kl":
         encode_check(bundle, bundle32, images.to(DEV))
     ref = reference_step_check(
         bundle, bundle32, images.to(DEV), sparses.to(DEV), path.resolution, ring, path.options,
         label="reference step" + "".join(f" {k}={v}" for k, v in options.items()))
-    return totals, {"s_per_request": seconds, "peak_gib": max(peaks), "reference_step": ref}
+    return totals, {"s_per_request": seconds, "peak_gib": max(peaks), "reference_step": ref,
+                    "graph": graphs}
 
 
 # The config JSONs of an HF-layout Marigold checkpoint (the fields the
@@ -1762,6 +1997,8 @@ REMAT_LIMITS = (1e-6, REF_LIMITS["tiny"][1], REF_LIMITS["tiny"][2])
 # (which averages the two middle ones), m
 MEDIAN_LIMIT = 1e-4
 MODES_TRAIN_STEPS, LCM_STEPS, ENSEMBLE_SIZE, REMAT_BATCH = 10, 4, 5, 8
+# remat through the step programs: a request of this many steps at batch 8
+REMAT_PROGRAM_STEPS = 4
 KL_REMAT_BATCHES = (1, 2, 4)
 # sampler.STEP_PEAK_BYTES against this card: each measured peak at most
 # this share above the committed estimate (the constants come from one
@@ -1988,6 +2225,31 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
             peaks.setdefault(("kl", remat), {})[n] = r[3]
             remat_s.setdefault("kl", {})[f"{'on' if remat else 'off'}_batch{n}"] = r[2]
             del r
+    # the serving buckets 1 and 4 with the KL decoder, each its own step
+    # program, sharing one pipeline's graph pool
+    print(f"modes: the KL decoder's buckets 1 and 4 through their step programs, one pool, "
+          f"{REMAT_PROGRAM_STEPS} steps")
+    kl_pipe, kl_buckets = DepthCompletionPipeline(kl), {}
+    for n in (1, 4):
+        imgs_k, sps_k = path_inputs(frame, points, batch=n, seed=3)
+        (dense, _), dt, peak, _ = counted(
+            f"kl program batch {n}", expected_launches(
+                registry.MARIGOLD_UNET_CONFIG, "kl", registry.SD_VAE_CONFIG, (eh, ew),
+                REMAT_PROGRAM_STEPS),
+            lambda: kl_pipe(imgs_k, sps_k, max_depth=120.0, norm="const", resolution=res,
+                            steps=REMAT_PROGRAM_STEPS, closed_form=False, remat_unet="off"))
+        check_request(dense, None, (n, h, w, 1), None)
+        kl_buckets[n] = {"s_per_request": dt, "peak_gib": peak, **kl_pipe.programs.find(imgs_k.shape).stats}
+        print(f"  kl program batch {n}: pool growth "
+              f"{kl_buckets[n]['pool_growth_bytes'] / 2**30:.2f} GiB, capture "
+              f"{kl_buckets[n]['capture_ms']:.0f} ms")
+    reserved = torch.cuda.max_memory_reserved() / 2**30  # since batch 4's request began
+    print(f"  kl buckets 1 and 4 in one pool: most reserved {reserved:.2f} GiB of the card's "
+          f"{torch.cuda.get_device_properties(DEV).total_memory / 2**30:.2f}")
+    kl_buckets["max_reserved_gib"] = reserved
+    del kl_pipe, imgs_k, sps_k, dense
+    gc.collect()
+    torch.cuda.empty_cache()
     pixels = eh * ew
     measured = {}  # (kind, remat) → (bytes per latent pixel, fixed bytes), through the end points
     for (kind, remat), by_n in peaks.items():
@@ -2038,7 +2300,36 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
         "auto_on_at_batch": {kind: {str(n): v for n, v in a.items()} for kind, a in auto.items()},
         "card": card(),
     }
-    del imgs_b, sps_b
+
+    # remat through the step programs: a request at batch 8, with and
+    # without, each its own program in one pipeline (one pool)
+    print(f"modes: remat through the step programs, batch {REMAT_BATCH}, "
+          f"{REMAT_PROGRAM_STEPS} steps")
+    rpipe = DepthCompletionPipeline(bundle)
+    programs = {}
+    for remat in ("on", "off"):
+        (dense, lat), dt, peak, _ = counted(
+            f"program batch {REMAT_BATCH} remat {remat}",
+            expect("per-step", REMAT_PROGRAM_STEPS, remat=remat == "on"),
+            lambda: rpipe(imgs_b, sps_b, max_depth=120.0, norm="const", resolution=res,
+                          steps=REMAT_PROGRAM_STEPS, closed_form=False, remat_unet=remat))
+        check_request(dense, lat, (REMAT_BATCH, h, w, 1), (REMAT_BATCH, eh, ew, 4))
+        program = rpipe.programs.find(imgs_b.shape)  # the request just run
+        if program.remat != (remat == "on"):
+            raise AssertionError(f"remat {remat}: the program's remat is {program.remat}")
+        timing = step_timing(program, eager=False, steps=REMAT_PROGRAM_STEPS)
+        reset_launches()
+        programs[remat] = {"s_per_request": dt, "peak_gib": peak, **program.stats, **timing}
+        print(f"  program remat {remat}: {timing['s_per_step']:.3f} s/step replayed (one eager "
+              f"step: {remat_s['tiny'][remat]:.3f} s), device {timing['device_ms']:.1f} ms/step, "
+              f"busy {timing['busy_share']:.1%}; capture {program.stats['capture_ms']:.0f} ms, "
+              f"instantiate {program.stats['instantiate_ms']:.0f} ms, pool growth "
+              f"{program.stats['pool_growth_bytes'] / 2**30:.2f} GiB; request peak {peak:.2f} GiB")
+    modes["remat"]["programs"] = programs
+    modes["remat"]["kl_bucket_programs"] = kl_buckets
+    del imgs_b, sps_b, rpipe, program, dense, lat
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ensemble
     print(f"modes: ensemble E={ENSEMBLE_SIZE}, aligned-median, uncertainty, {steps} steps")
@@ -2046,6 +2337,14 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
         "ensemble", expect("per-step", steps), steps=steps, closed_form=False,
         ensemble_size=ENSEMBLE_SIZE, ensemble_reduce="aligned-median", ensemble_uncertainty=True)
     check_request(denses, None, (1, h, w, 1), None)
+    program = pipe.programs.find((ENSEMBLE_SIZE, h, w, 3))  # the E members' batch
+    ens_program = {**program.stats, **step_timing(program, eager=False)}
+    reset_launches()
+    print(f"  ensemble program: batch {program.latents.shape[0]}, "
+          f"{ens_program['s_per_step']:.3f} s/step replayed, device "
+          f"{ens_program['device_ms']:.1f} ms/step, capture {ens_program['capture_ms']:.0f} ms, "
+          f"pool growth {ens_program['pool_growth_bytes'] / 2**30:.2f} GiB")
+    del program
     if tuple(members.shape) != (1, ENSEMBLE_SIZE, h, w, 1) or not torch.isfinite(members).all():
         raise AssertionError(f"ensemble members {tuple(members.shape)}")
     if tuple(mad.shape) != (1, h, w, 1) or not torch.isfinite(mad).all() or mad.min() < 0:
@@ -2069,7 +2368,7 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
         "ensemble_size": ENSEMBLE_SIZE, "steps": steps, "s_per_request": dt, "launches": used,
         "peak_gib": peak, "checks": {"odd_median_gap": odd_gap, "median4_err": even_err,
                                      "member0_rms": m0_rms, "member0_max": m0_max},
-        "member_std_m": spread, "card": card(),
+        "member_std_m": spread, "program": ens_program, "card": card(),
     }
     del denses, members, mad, aligned
 
@@ -2144,7 +2443,7 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
     modes["kld"] = {"steps": steps, "s_per_request": info["s_per_request"],
                     "launches": {k: n // 2 for k, n in counts.items() if n},
                     "peak_gib": info["peak_gib"], "checks": info["reference_step"],
-                    "card": card()}
+                    "graph": info["graph"], "card": card()}
     modes["peaked"] = peaked_reference_steps(bundle, images, sparses)
     return modes
 
@@ -2227,13 +2526,141 @@ def _post_all(srv, frames, path="/v1/complete"):
     return out
 
 
+class TierLog:
+    """A pipe that records, per call, its tier, the batch and the seconds
+    since ``t0``; other attributes are the wrapped pipeline's."""
+
+    def __init__(self, pipe, tier: str, log: list, t0: float):
+        self.pipe, self.tier, self.log, self.t0 = pipe, tier, log, t0
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, images, sparses, **kwargs):
+        out = self.pipe(images, sparses, **kwargs)
+        self.log.append((self.tier, int(np.shape(images)[0]), time.perf_counter() - self.t0))
+        return out
+
+
+def _wait(engine, done, timeout_s: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not done(engine.stats()):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve: timed out waiting; stats {engine.stats()}")
+        time.sleep(0.05)
+
+
+def tiered_phase(model_dir: Path, taesd_dir: Path, n_steps: int, bundle, call_kwargs: dict,
+                 frame: tuple[int, int], points: int) -> dict:
+    """Phase 6's tiers:
+
+    - (g) ``cli.serve.run_serve`` with ``--warmup-tiered --max-programs 4
+      --max-batch 4`` on the checkpoint directory: warmup returns with tier
+      0 (the eager twin) active; four concurrent frames right after it run
+      as one batch on tier 0 (bucket 4 is promoted after bucket 1); once
+      both signatures are promoted (each capture timed from the warmup's
+      end), four more and a single frame run on the graphs and tier 0 is
+      gone;
+    - (h) an engine on the served bundle with ``max_programs=1`` over two
+      geometries (480x640 and 240x320, ``max_batch=1``): promoting the
+      second evicts the first; a request of the first geometry then runs
+      on tier 0 (the eviction-aware dispatch), without a capture, and one
+      of the second on its graph.
+    → the readings."""
+    from depth_completion_tpu_torch.serving import ServeRequest, ServingEngine
+
+    h, w = frame
+    out = {}
+
+    def frames(seed, n, hw=frame):
+        imgs, sps = path_inputs(hw, points, batch=n, seed=seed)
+        return [(imgs[i].numpy(), sps[i].numpy()) for i in range(n)]
+
+    # (g) through the serve CLI
+    params = vars(serve_cli.build_parser().parse_args([
+        "--checkpoint-dir", str(model_dir), "--taesd-dir", str(taesd_dir),
+        "--steps", str(n_steps), "--max-batch", "4", "--warmup", f"{h}x{w}", "--warmup-tiered",
+        "--max-programs", "4", "--max-delay-ms", str(SERVE_COALESCE_S * 1e3), "--port", "0",
+        "--log-level", "WARNING"]))
+    log, t0 = [], time.perf_counter()
+    engine, httpd = serve_cli.run_serve(**params, serve_forever=False)
+    try:
+        warm_s = time.perf_counter() - t0
+        with engine._tier_lock:  # record which tier serves each call from here on
+            tier0_after_warmup = engine._tier0_pipe is not None
+            if tier0_after_warmup:
+                engine._tier0_pipe = TierLog(engine._tier0_pipe, "tier0", log, t0)
+        engine.pipe = TierLog(engine.pipe, "graph", log, t0)
+        first = [engine.submit(ServeRequest(image=i, sparse=s)) for i, s in frames(21, 4)]
+        for r in first:
+            r.wait(600)
+        _wait(engine, lambda st: "tier0_active" not in st)
+        later = [engine.submit(ServeRequest(image=i, sparse=s)) for i, s in frames(22, 4)]
+        for r in later:
+            r.wait(600)
+        engine.complete(*frames(23, 1)[0], timeout=600)
+        st = engine.stats()
+        batches = [(t, n) for t, n, _ in log]
+        print(f"  (g) run_serve --warmup-tiered --max-programs 4: {warm_s:.2f} s (load and warmup "
+              f"on tier 0), tier 0 active after it: {tier0_after_warmup}; calls after it (tier, "
+              f"batch; the graph calls of the promotions included): {batches}; promotions "
+              f"{st['tier_promotions']}; programs {st['compiled_programs']}")
+        first4 = next((b for b in batches if b[1] == 4), None)
+        if not tier0_after_warmup or first4 != ("tier0", 4) \
+                or [r._batch_size for r in first] != [4] * 4 \
+                or batches[-2:] != [("graph", 4), ("graph", 1)] \
+                or engine.pipe.max_programs != 4 or len(st["tier_promotions"]) != 2:
+            raise AssertionError(f"(g) tiers: {tier0_after_warmup}, {batches}, {st}")
+        out["g"] = {"run_serve_s": warm_s, "calls": [list(e) for e in log],
+                    "promotions": st["tier_promotions"]}
+    finally:
+        httpd.server_close()
+        engine.shutdown()
+    del engine, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (h) max_programs=1 over two geometries
+    log, t0 = [], time.perf_counter()
+    small = (h // 2, w // 2)
+    pipe = DepthCompletionPipeline(bundle, max_programs=1)
+    engine = ServingEngine(TierLog(pipe, "graph", log, t0), call_kwargs, max_batch=1)
+    engine._make_tier0_pipe = lambda effort: TierLog(pipe.twin(), "tier0", log, t0)
+    try:
+        engine.warmup([frame, small], tiered=True)
+        warm_s = time.perf_counter() - t0
+        _wait(engine, lambda st: len(st["tier_promotions"]) == 2)
+        keys = [k[1] for k in pipe.program_keys()]
+        before = len(log)
+        engine.complete(*frames(24, 1)[0], timeout=600)  # the evicted geometry
+        engine.complete(*frames(25, 1, small)[0], timeout=600)
+        calls = [(t, n) for t, n, _ in log[before:]]
+        after = [k[1] for k in pipe.program_keys()]
+        st = engine.stats()
+        print(f"  (h) max_programs=1: warmup {warm_s:.2f} s on tier 0; promotions "
+              f"{st['tier_promotions']}; live programs {keys}; {h}x{w} then "
+              f"{small[0]}x{small[1]} ran on {calls}; live after {after}")
+        if keys != [(1, *small, 3)] or calls != [("tier0", 1), ("graph", 1)] or after != keys:
+            raise AssertionError(f"(h) eviction-aware dispatch: {keys} {calls} {after}")
+        out["h"] = {"warmup_s": warm_s, "calls": [list(e) for e in log],
+                    "promotions": st["tier_promotions"]}
+    finally:
+        engine.shutdown()
+    del engine, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()  # the tiers' launches are no count of the served traffic's
+    return out
+
+
 def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dict]:
     """The serve CLI in process (``cli.serve.run_serve(serve_forever=False,
     port=0, max_batch=4, warmup=["480x640"])``) on the checkpoint directory
     of phase 3a, at ``min(steps, 10)`` steps per request, its HTTP server in
     a thread and clients in threads, frames of 480x640 with 500 points:
 
-    - (a) warmup runs 3 signatures (buckets 1 and 4, and the carry);
+    - (a) warmup runs 3 signatures (buckets 1 and 4, and the carry) and
+      captures two step programs (the carry replays bucket 1's);
     - (b) four concurrent distinct frames make one batch (stats: batches
       +1, batched_rows +4, padded_rows +0); each response is its frame's
       row of the batch the engine ran, bit for bit, and within
@@ -2246,7 +2673,9 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
       frame 1's latents; then the reset endpoint drops the session;
     - (e) 400 on a bad payload, 404 on an unknown path, 422 on an empty
       sparse map;
-    - (f) each batch's kernel launches equal one request's.
+    - (f) each batch's kernel launches equal one request's (the graphs'
+      replays counted);
+    - (g), (h): the tiers (``tiered_phase``).
 
     Between (e) and (f), 8 closed-loop clients send 24 requests: requests/s,
     p50 and p95 latency, s/step at batch 1 and 4 and the device gap between
@@ -2294,8 +2723,11 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
     try:
         print(f"  run_serve {t_start:.2f} s (load and warmup); warmup signatures "
               f"(batch, carry, s): {warm}")
-        if [(n, c) for n, c, _ in warm] != [(1, False), (4, False), (1, True)]:
-            raise AssertionError(f"(a) warmup ran {warm}")
+        warmed = [k[1] for k in served.pipe.program_keys()]
+        print(f"  (a) step programs captured at warmup (batch, h, w, c): {warmed}")
+        if [(n, c) for n, c, _ in warm] != [(1, False), (4, False), (1, True)] \
+                or sorted(warmed) != [(1, h, w, 3), (4, h, w, 3)]:
+            raise AssertionError(f"(a) warmup ran {warm}, captured {warmed}")
         reset_launches()  # just before the served traffic
         status, data, _, first_s = _http(httpd, "POST", "/v1/complete", _npz(*frames(10, 1)[0]))
         if status != 200 or _dense(data).shape != (h, w, 1):
@@ -2443,6 +2875,10 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
         check(f"serve ({name}) {what} (max)", mx, CLI_LIMITS[1], "max/120 m")
     print(f"  (d) session frame 2 against the direct call without the carry: rms "
           f"{no_carry[0]:.3e}, max {no_carry[1]:.3e}")
+    programs = [k[1] for k in pipe.program_keys()]
+    print(f"  the served pipeline's step programs (batch, h, w, c): {programs}")
+    del pipe
+    tiers = tiered_phase(model_dir, taesd_dir, n_steps, served.bundle, kw, frame, points)
 
     lats.sort()
     per_step = {}
@@ -2460,7 +2896,7 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
         "s_per_step": {f"batch{n}": sorted(v)[len(v) // 2] for n, v in sorted(per_step.items())},
         "device_gap_ms": {"median": gaps[len(gaps) // 2], "max": gaps[-1], "n": len(gaps)}
         if gaps else None,
-        "peak_gib": peak,
+        "peak_gib": peak, "programs": programs, "tiers": tiers,
         "checks": {**{f"{k}_{m}": v for k, (r, x) in readings.items()
                       for m, v in (("rms", r), ("max", x))}, "c_pad_err": pad_err},
         "card": card(),
@@ -2575,13 +3011,15 @@ def main() -> int:
 
     counts: dict[str, int] = {}
     ring_launches: dict[str, int] = {}  # kernel launches on the native (ring) path
+    graphs: dict[str, dict] = {}  # each path's graph readings (phase 3 (a)-(c))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoint_") as tmp:
         # the TAESD path runs on the bundle read back from a checkpoint, the
         # CLI phase on the same directory
         loaded, model_dir, taesd_dir = checkpoint_bundle(Path(tmp))
         for path in PATHS:
             taesd_path = path.vae_kind == "tiny" and not path.ring_size
-            path_counts, _ = guided_path(path, args.steps, loaded if taesd_path else None)
+            path_counts, info = guided_path(path, args.steps, loaded if taesd_path else None)
+            graphs[path.label] = info["graph"]
             loaded = None  # each path's peak memory its own
             for k, n in path_counts.items():
                 counts[k] = counts.get(k, 0) + n
@@ -2629,6 +3067,7 @@ def main() -> int:
         })
     print(json.dumps({"probes": probes}))
     print(json.dumps({"composites": composites}))
+    print(json.dumps({"graphs": graphs}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"host_io": host_io}))
     print(json.dumps({"modes": modes}))

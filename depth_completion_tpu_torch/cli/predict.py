@@ -19,7 +19,9 @@ no ``--device cpu`` the command exits with the device error.
   through the port's own codec (``io/bl2.py``). ``--native-res true`` needs a data axis of two or more devices, as
   in JAX: on one card it is a usage error.
 - ``--compile-graph``, ``--compile-mode`` and ``--compile-effort`` are
-  accepted and logged as no-ops (PyTorch runs eagerly).
+  accepted and logged as no-ops, as in the JAX CLI: on the card the guided
+  step is always captured, one CUDA graph per signature, and replayed at
+  every DDIM step (``pipeline.programs``).
 - ``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the first
   batch; the device-memory high-water mark is
   ``torch.cuda.max_memory_allocated``.
@@ -28,9 +30,10 @@ no ``--device cpu`` the command exits with the device error.
   and the temporal ``latent_state.npz`` carry), a two-batch prefetch
   thread, the NaN skip, ``dense/<stem>.<compress>`` and
   ``vis/<stem>_vis.jpg`` grids; a progress line through the logger in
-  place of tqdm. The last batch is not padded to ``--batch-size`` (eager
-  PyTorch has no static shapes), and only a batch's finished dense maps
-  and latents come back to the host.
+  place of tqdm. The last batch is not padded to ``--batch-size`` (a
+  smaller last batch is one more signature: its own step program and
+  capture), and only a batch's finished dense maps and latents come back
+  to the host.
 
 ``main(argv)`` returns the run's totals (frames, seconds of IO, inference,
 visualisation, image decode and JPEG encode, dense bytes written).
@@ -307,7 +310,8 @@ def run_predict(
     if compile_graph or compile_effort is not None:
         logger.info(
             f"--compile-graph/--compile-mode={compile_mode}/--compile-effort={compile_effort} "
-            "noted: the port runs eagerly; the flags are no-ops"
+            "noted: the flags are no-ops; on the card the guided step is always captured "
+            "as a CUDA graph per signature and replayed"
         )
 
     # ----- model initialization -------------------------------------------

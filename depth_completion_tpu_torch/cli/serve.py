@@ -12,11 +12,14 @@ JAX CLI uses click); one more flag, ``--device {cuda,cpu}`` (default
 ``cuda``): with no GPU and no ``--device cpu`` the command exits with the
 device error. The sampler config is fixed for the server's lifetime.
 
-- ``--tier-effort``, ``--max-programs`` and ``--warmup-parallel`` tune
-  XLA's compiler and program cache: accepted and logged as no-ops (the
-  port runs eagerly; warmup runs its signatures one after another).
-- ``--warmup-tiered`` raises ``NotImplementedError`` naming the ROADMAP
-  item.
+- ``--max-programs`` bounds the pipeline's live step programs (one
+  captured CUDA graph of the guided step per signature, LRU order).
+- ``--warmup-tiered`` opens for traffic after every signature ran on the
+  eager step (tier 0), then captures each signature's graph on the compute
+  thread between batches (``ServingEngine.warmup(tiered=True)``).
+- ``--tier-effort`` (XLA's compile effort) and ``--warmup-parallel`` > 1
+  are accepted and logged as no-ops: there is one capture form, and
+  warmup runs its signatures one after another on one card.
 - A ``--max-batch`` bucket that the card cannot hold even with UNet remat
   fails at warmup with the sampler's error naming the largest batch that
   fits (``sampler.check_batch_fits``), not on live traffic.
@@ -31,11 +34,7 @@ import sys
 from pathlib import Path
 from typing import Any
 
-from depth_completion_tpu_torch.cli.common import (
-    coerce_guidance_options,
-    init_bundle,
-    not_ported,
-)
+from depth_completion_tpu_torch.cli.common import coerce_guidance_options, init_bundle
 from depth_completion_tpu_torch.cli.options import comma_separated, number_range, str2bool
 from depth_completion_tpu_torch.logger import LOG_LEVELS, logger
 
@@ -186,12 +185,9 @@ def run_serve(
 
     logger.configure(level=log_level, log_path=log)
     dev = resolve_device(device)
-    if warmup_tiered:
-        raise not_ported("--warmup-tiered", "item 2")
-    if warmup_parallel > 1 or tier_effort != -1.0 or max_programs is not None:
-        logger.info(f"--warmup-parallel={warmup_parallel}/--tier-effort={tier_effort}/"
-                    f"--max-programs={max_programs} noted: the port runs eagerly; the flags "
-                    "are no-ops")
+    if warmup_parallel > 1 or tier_effort != -1.0:
+        logger.info(f"--warmup-parallel={warmup_parallel}/--tier-effort={tier_effort} noted: "
+                    "one capture form, one card; the flags are no-ops")
     geoms = [_parse_geometry(g) for g in warmup] if warmup else []
 
     loss_funcs, norm, train_latents, closed_form = coerce_guidance_options(
@@ -207,7 +203,7 @@ def run_serve(
     from depth_completion_tpu_torch.serving.server import make_server
 
     bundle = init_bundle(model, checkpoint_dir, taesd_dir, vae, precision, dev)
-    pipe = DepthCompletionPipeline(bundle)
+    pipe = DepthCompletionPipeline(bundle, max_programs=max_programs)
     logger.info(f"Device: {dev}")
 
     call_kwargs: dict[str, Any] = dict(
@@ -241,13 +237,15 @@ def run_serve(
         batch_buckets=tuple(batch_buckets) if batch_buckets else None,
     )
     if geoms:
-        logger.info(f"Warming up {len(geoms)} geometries: {geoms}")
+        logger.info(f"Warming up {len(geoms)} geometries: {geoms} (tiered={warmup_tiered})")
         try:
-            engine.warmup(geoms)
+            engine.warmup(geoms, parallel=warmup_parallel, tiered=warmup_tiered,
+                          tier_effort=tier_effort)
         except BaseException:
             engine.shutdown()
             raise
-        logger.success("Warmup complete")
+        logger.success("Warmup complete" + (" (tier 0; graphs captured between batches)"
+                                            if warmup_tiered else ""))
 
     httpd = make_server(engine, host=host, port=port)
     bound = httpd.server_address

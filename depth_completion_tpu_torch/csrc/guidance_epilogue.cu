@@ -12,6 +12,12 @@
 // 768: 0.25 us at the card's memory rate, so in practice its launch and
 // how many SMs stream those bytes.
 //
+// The six per-step scalars [sa, s1, sap, s1p, bc1, bc2] come from a device
+// table [steps, 6] at a step index that lives on the device too, so one
+// launch captured in a CUDA graph serves every step: the host advances the
+// index between replays and passes no per-step value. lr, b1, b2 and eps
+// are constant per request and stay arguments.
+//
 // Design: one thread-block cluster per sample (CLUSTER blocks of NT
 // threads, launched with cudaLaunchKernelEx and a cluster-dimension
 // attribute), so a sample's bytes stream through CLUSTER SMs and not one.
@@ -54,6 +60,17 @@ static_assert(VPT * CLUSTER * NT == HELD, "HELD must split evenly over the clust
 struct Step {
   float sa, s1, sap, s1p, bc1, bc2, lr, b1, b2, eps;
 };
+
+struct Adam {
+  float lr, b1, b2, eps;
+};
+
+// this step's row of the table: [sa, s1, sap, s1p, bc1, bc2]
+__device__ __forceinline__ Step load_step(const float* __restrict__ table,
+                                          const long long* __restrict__ step, Adam a) {
+  const float* row = table + 6 * *step;
+  return Step{row[0], row[1], row[2], row[3], row[4], row[5], a.lr, a.b1, a.b2, a.eps};
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -105,8 +122,11 @@ __device__ __forceinline__ void update4(float4& x, float4 g, float4 o, float4& m
 __global__ void __launch_bounds__(NT)
 guidance_epilogue_kernel(float* __restrict__ lat, const float* __restrict__ g,
                          const void* __restrict__ out, float* __restrict__ m,
-                         float* __restrict__ v, long k4, int out_bf16, int v_pred, Step st) {
+                         float* __restrict__ v, long k4, int out_bf16, int v_pred,
+                         const float* __restrict__ table, const long long* __restrict__ step,
+                         Adam adam) {
   cg::cluster_group cluster = cg::this_cluster();
+  const Step st = load_step(table, step, adam);
   __shared__ float red[2][NW];
   __shared__ float2 part;  // this block's (‖ε̂‖², ‖g‖²) partial
   const int rank = (int)cluster.block_rank();
@@ -192,17 +212,17 @@ guidance_epilogue_kernel(float* __restrict__ lat, const float* __restrict__ g,
 
 }  // namespace
 
-extern "C" int dct_guidance_epilogue(void* lat, const void* g, const void* out, void* m, void* v,
-                                     int n, long k, int out_bf16, int v_pred, float sa, float s1,
-                                     float sap, float s1p, float bc1, float bc2, float lr,
-                                     float b1, float b2, float adam_eps, void* stream) {
+extern "C" int dct_guidance_epilogue_table(void* lat, const void* g, const void* out, void* m,
+                                           void* v, int n, long k, int out_bf16, int v_pred,
+                                           const void* table, const void* step, float lr,
+                                           float b1, float b2, float adam_eps, void* stream) {
   if (n <= 0 || k <= 0 || k % 4) return (int)cudaErrorInvalidValue;
   if (CLUSTER > 8) {
     const cudaError_t e = cudaFuncSetAttribute(
         guidance_epilogue_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
-  const Step st{sa, s1, sap, s1p, bc1, bc2, lr, b1, b2, adam_eps};
+  const Adam adam{lr, b1, b2, adam_eps};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CLUSTER;
@@ -215,9 +235,9 @@ extern "C" int dct_guidance_epilogue(void* lat, const void* g, const void* out, 
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, guidance_epilogue_kernel, (float*)lat,
-                                           (const float*)g, out, (float*)m, (float*)v, k / 4,
-                                           out_bf16, v_pred, st);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, guidance_epilogue_kernel, (float*)lat, (const float*)g, out, (float*)m, (float*)v,
+      k / 4, out_bf16, v_pred, (const float*)table, (const long long*)step, adam);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -139,10 +139,13 @@ def apply_unet(
     remat: bool = False,
 ) -> torch.Tensor:
     """UNet forward: [N,EH,EW,Cin], scalar/[N] t, [N,S,D] context → [N,EH,EW,4].
-    ``remat``: recompute each down and up stage in the backward."""
+    ``remat``: recompute each down and up stage in the backward. A tensor
+    ``timestep`` on the sample's device is read where it lies (the captured
+    guided step passes its table row); a Python int becomes a tensor here."""
     cfg = config
     n = sample.shape[0]
-    t = torch.as_tensor(timestep, device=sample.device)
+    t = timestep if isinstance(timestep, torch.Tensor) else torch.as_tensor(
+        timestep, device=sample.device)
     if t.dim() == 0:
         t = t.expand(n)
     temb = timestep_embedding(t, cfg.block_out_channels[0]).to(sample.dtype)
@@ -152,7 +155,10 @@ def apply_unet(
     n_stages = len(cfg.block_out_channels)
     run = _direct
     if remat and torch.is_grad_enabled():
-        run = functools.partial(checkpoint, use_reentrant=False)
+        # the UNet draws no random numbers (as jax.checkpoint carries no RNG),
+        # so nothing saves and restores the RNG state: reading the CUDA
+        # generator's state is not allowed inside a CUDA graph capture
+        run = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
 
     h = conv2d(params["conv_in"], sample)
     skips = [h]

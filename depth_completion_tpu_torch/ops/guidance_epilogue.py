@@ -20,9 +20,12 @@ launch the card refuses. It needs no padding of the latent to 128 lanes
 and no relayout, which is where the TPU kernel lost its time. The plain
 twin follows ``_epilogue_xla`` (:120).
 
-The six per-step scalars [sa, s1, sap, s1p, bc1, bc2] are Python floats
-computed on the host from the schedule and the step count
-(``epilogue_scalars``), so a step never waits on the device for them.
+The six per-step scalars [sa, s1, sap, s1p, bc1, bc2] are read on the
+device, from a table of every step's row (``epilogue_table``: the float32
+values of ``epilogue_scalars``) at a step index that is a device tensor
+too, so one launch captured in a CUDA graph serves every step of a request
+(``pipeline.sampler.GuidedStepProgram``); lr and Adam's b1, b2 and eps are
+constant per request and stay arguments.
 
 The epilogue updates ``lat``, ``m`` and ``v`` in place (the sampler's latent
 and Adam state); a CPU tensor takes the plain twin and copies its results
@@ -34,9 +37,11 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from depth_completion_tpu_torch import _build
+from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.sched.ddim import DiffusionSchedule, _coeffs
 
 EPSILON = 1e-7  # floor of the gradient norm in the rescale
@@ -52,8 +57,9 @@ def _kernels():
     global _lib
     if _lib is None:
         lib = _build.load("guidance_epilogue")
-        lib.dct_guidance_epilogue.argtypes = [_p] * 5 + [_i, _l, _i, _i] + [_f] * 10 + [_p]
-        lib.dct_guidance_epilogue.restype = _i
+        lib.dct_guidance_epilogue_table.argtypes = [_p] * 5 + [_i, _l, _i, _i, _p, _p] + \
+            [_f] * 4 + [_p]
+        lib.dct_guidance_epilogue_table.restype = _i
         _lib = lib
     return _lib
 
@@ -74,10 +80,21 @@ def epilogue_scalars(sched: DiffusionSchedule, t: int, num_steps: int, count: in
     return sa, s1, sap, s1p, 1.0 / (1.0 - ADAM_B1**tf), 1.0 / (1.0 - ADAM_B2**tf)
 
 
-def guidance_epilogue_plain(lat, g, out, m, v, sc, *, lr: float, v_pred: bool):
-    """The kernel's function in plain PyTorch (fp32) → (new lat, m, v)."""
+def epilogue_table(sched: DiffusionSchedule, timesteps, num_steps: int,
+                   device: torch.device | str = "cpu") -> torch.Tensor:
+    """[steps, 6] float32 on ``device``: row k is ``epilogue_scalars`` of
+    step k (timestep ``timesteps[k]``, Adam count k), each value the float32
+    the kernel took as an argument before."""
+    rows = [epilogue_scalars(sched, int(t), num_steps, k) for k, t in enumerate(timesteps)]
+    return upload(np.array(rows, dtype=np.float32), torch.device(device))
+
+
+def guidance_epilogue_plain(lat, g, out, m, v, table, step, *, lr: float, v_pred: bool):
+    """The kernel's function in plain PyTorch (fp32) → (new lat, m, v), with
+    the scalars from row ``step`` (a one-element integer tensor) of
+    ``table``."""
     b1, b2 = ADAM_B1, ADAM_B2
-    sa, s1, sap, s1p, bc1, bc2 = sc
+    sa, s1, sap, s1p, bc1, bc2 = table.index_select(0, step)[0].unbind(0)
     n = lat.shape[0]
     lat, g, out, m, v = (x.float() for x in (lat, g, out, m, v))
     eps_hat = sa * out + s1 * lat if v_pred else out
@@ -94,13 +111,15 @@ def guidance_epilogue_plain(lat, g, out, m, v, sc, *, lr: float, v_pred: bool):
     return sap * x0 + s1p * eps, m, v
 
 
-def guidance_epilogue(lat, g, out, m, v, sc, *, lr: float, v_pred: bool) -> None:
+def guidance_epilogue(lat, g, out, m, v, table, step, *, lr: float, v_pred: bool) -> None:
     """One step's epilogue over [N, ...] latents, updating ``lat``, ``m`` and
     ``v`` (fp32, contiguous) in place. ``g`` is the latent gradient (fp32),
-    ``out`` the UNet output (bf16 or fp32), ``sc`` from ``epilogue_scalars``."""
+    ``out`` the UNet output (bf16 or fp32); the scalars are row ``step`` (a
+    one-element int64 tensor) of ``table`` (``epilogue_table``), both on the
+    latent's device."""
     if lat.device.type == "cpu":
         for dst, src in zip((lat, m, v), guidance_epilogue_plain(
-                lat, g, out, m, v, sc, lr=lr, v_pred=v_pred)):
+                lat, g, out, m, v, table, step, lr=lr, v_pred=v_pred)):
             dst.copy_(src)
         return
     g, out = g.contiguous(), out.contiguous()
@@ -113,15 +132,20 @@ def guidance_epilogue(lat, g, out, m, v, sc, *, lr: float, v_pred: bool) -> None
             raise ValueError(f"epilogue {name} must be contiguous and 16-byte aligned")
     if out.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"epilogue out must be bfloat16 or float32, got {out.dtype}")
+    if (table.dim() != 2 or table.shape[1] != 6 or table.dtype != torch.float32
+            or not table.is_contiguous() or table.device != lat.device):
+        raise ValueError(f"epilogue table must be [steps, 6] contiguous float32 on {lat.device}, "
+                         f"got {tuple(table.shape)} {table.dtype} on {table.device}")
+    if step.numel() != 1 or step.dtype != torch.int64 or step.device != lat.device:
+        raise ValueError(f"epilogue step must be a one-element int64 tensor on {lat.device}")
     n = lat.shape[0]
     k = lat.numel() // n
     if k % 4:
         raise ValueError(f"epilogue needs a per-sample size divisible by 4, got {k}")
-    status = _kernels().dct_guidance_epilogue(
+    status = _kernels().dct_guidance_epilogue_table(
         lat.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(), v.data_ptr(),
-        n, k, int(out.dtype == torch.bfloat16), int(v_pred),
-        *sc, lr, ADAM_B1, ADAM_B2, ADAM_EPS,
-        torch.cuda.current_stream(lat.device).cuda_stream,
+        n, k, int(out.dtype == torch.bfloat16), int(v_pred), table.data_ptr(), step.data_ptr(),
+        lr, ADAM_B1, ADAM_B2, ADAM_EPS, torch.cuda.current_stream(lat.device).cuda_stream,
     )
     _build.check(status, "guidance_epilogue")
     LAUNCHES["guidance_epilogue"] += 1

@@ -9,12 +9,22 @@ half-pixel centres, its width scaled by ``max(1/scale, 1)`` when
 downsampling, each output's weights normalised by their sum — and applies
 the two matrices as small einsums, so the resize is exact and its gradient
 is the transposed product.
+
+The weight matrices and the nearest resize's indices are built on the host
+once per (in size, out size, method, device) and kept on that device
+(``_device_table``): the guided step resizes every step, and a CUDA graph
+capture allows no copy from the host. The first, eager step of a captured
+program fills the cache before its capture.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
+
+from depth_completion_tpu_torch.device import upload
 
 LATENT_ALIGN = 16  # spatial alignment of the VAE input (8x downsample + UNet /2)
 
@@ -47,6 +57,26 @@ def _weight_matrix(in_size: int, out_size: int, kernel) -> np.ndarray:
     return np.ascontiguousarray(w.T, dtype=f32)
 
 
+_TABLES: dict[tuple, torch.Tensor] = {}
+_TABLES_LOCK = threading.Lock()
+
+
+def _device_table(key: tuple, device: torch.device, build) -> torch.Tensor:
+    """``build()`` (a numpy array) on ``device``, built and uploaded once per
+    (``key``, device) and kept."""
+    key = (*key, str(device))
+    with _TABLES_LOCK:
+        table = _TABLES.get(key)
+        if table is None:
+            table = _TABLES[key] = upload(build(), device)
+    return table
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    pos = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size)
+    return np.floor(pos * (np.float32(1) / np.float32(out_size))).astype(np.int64)
+
+
 def _resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """jax.image's nearest: source index floor((i + 0.5) · in · (1/out)) in
     float32 (the compiled jax program multiplies by the reciprocal)."""
@@ -54,9 +84,9 @@ def _resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
         in_size = x.shape[axis]
         if in_size == out_size:
             continue
-        pos = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size)
-        idx = np.floor(pos * (np.float32(1) / np.float32(out_size))).astype(np.int64)
-        x = x.index_select(axis, torch.from_numpy(idx).to(x.device))
+        idx = _device_table(("nearest", in_size, out_size), x.device,
+                            lambda: _nearest_index(in_size, out_size))
+        x = x.index_select(axis, idx)
     return x
 
 
@@ -70,12 +100,12 @@ def resize_antialias(x: torch.Tensor, size: tuple[int, int], method: str = "bili
     if kernel is None:
         raise ValueError(f"Unknown interpolation method: {method}")
     out = x.float()
-    if out.shape[1] != h:
-        wh = torch.from_numpy(_weight_matrix(out.shape[1], h, kernel)).to(x.device)
-        out = torch.einsum("oh,nhwc->nowc", wh, out)
-    if out.shape[2] != w:
-        ww = torch.from_numpy(_weight_matrix(out.shape[2], w, kernel)).to(x.device)
-        out = torch.einsum("ow,nhwc->nhoc", ww, out)
+    for axis, size_out, spec in ((1, h, "oh,nhwc->nowc"), (2, w, "ow,nhwc->nhoc")):
+        size_in = out.shape[axis]
+        if size_in != size_out:
+            wm = _device_table((method, size_in, size_out), x.device,
+                               lambda: _weight_matrix(size_in, size_out, kernel))
+            out = torch.einsum(spec, wm, out)
     return out.to(x.dtype)
 
 

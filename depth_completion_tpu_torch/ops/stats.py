@@ -13,9 +13,9 @@ def masked_minmax(x: torch.Tensor, mask: torch.Tensor, dim: int = -1):
     Rows with no valid entry give (+inf, -inf) and any_valid False."""
     if x.shape != mask.shape:
         raise ValueError(f"x shape {tuple(x.shape)} != mask shape {tuple(mask.shape)}")
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    mins = torch.where(mask, x, inf).amin(dim=dim)
-    maxs = torch.where(mask, x, -inf).amax(dim=dim)
+    # scalar fills: no host-to-device copy (the captured guided step runs this)
+    mins = torch.where(mask, x, float("inf")).amin(dim=dim)
+    maxs = torch.where(mask, x, float("-inf")).amax(dim=dim)
     return mins, maxs, mask.any(dim=dim)
 
 

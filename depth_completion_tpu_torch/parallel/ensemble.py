@@ -31,6 +31,7 @@ from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.guidance.affine import compute_affine_params
 from depth_completion_tpu_torch.models.bundle import ModelBundle
 from depth_completion_tpu_torch.ops.resize import latent_size
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 from depth_completion_tpu_torch.pipeline.sampler import SamplerConfig, guided_sample
 
 ENSEMBLE_REDUCES = ("median", "mean", "aligned-median", "aligned-mean")
@@ -78,10 +79,12 @@ def member_noise(seed: int, ensemble_size: int, latent_hw: tuple[int, int]) -> n
 
 def ensemble_sample(bundle: ModelBundle, images: torch.Tensor, sparses: torch.Tensor,
                     cfg: SamplerConfig, ensemble_size: int, reduce: str = "median",
-                    mesh=None, return_uncertainty: bool = False) -> tuple[torch.Tensor, ...]:
+                    mesh=None, return_uncertainty: bool = False, *,
+                    programs: ProgramCache) -> tuple[torch.Tensor, ...]:
     """(denses [N,H,W,1], member denses [N,E,H,W,1]) of an E-member
     ensemble; with ``return_uncertainty`` the per-pixel member MAD
-    [N,H,W,1] is appended."""
+    [N,H,W,1] is appended. The N·E rows are one batch signature of
+    ``programs`` (``guided_sample``'s program cache)."""
     if ensemble_size < 1:
         raise ValueError(f"ensemble_size must be >= 1, got {ensemble_size}")
     if reduce not in ENSEMBLE_REDUCES:
@@ -95,7 +98,7 @@ def ensemble_sample(bundle: ModelBundle, images: torch.Tensor, sparses: torch.Te
     noise = upload(member_noise(cfg.seed, e, (eh, ew)), images.device)
     denses_flat, _ = guided_sample(
         bundle, images.repeat_interleave(e, dim=0), sparses.repeat_interleave(e, dim=0), cfg,
-        init_noise=noise.repeat(n, 1, 1, 1),
+        init_noise=noise.repeat(n, 1, 1, 1), programs=programs,
     )
     members = denses_flat.reshape(n, e, h, w, 1)
     denses, mad = reduce_members(members, reduce, return_uncertainty)

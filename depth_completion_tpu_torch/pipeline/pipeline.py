@@ -5,12 +5,20 @@ Host-side validation (shapes, the empty-sparse and degenerate-range errors,
 the temporal-carry shape check), config assembly, then ``guided_sample`` on
 the bundle's device. Arrays are NHWC; inputs may be numpy arrays or
 tensors, outputs are tensors on the bundle's device. ``ensemble_size`` > 1 runs
-``parallel.ensemble.ensemble_sample``. PyTorch runs eagerly, so there is no
-program cache to port.
+``parallel.ensemble.ensemble_sample``.
+
+The program cache is the JAX pipeline's (:70-126, :313-318): every request
+goes through the pipeline's ``programs.ProgramCache``, one
+``GuidedStepProgram`` per signature (on a card, one captured CUDA graph of
+the guided step, replayed at every DDIM step), ``max_programs`` bounding
+the live ones in LRU order, ``program_keys()`` listing them. ``twin()`` is
+the same pipeline with every step run eagerly (the serving engine's tier 0;
+the reference ``chip_smoke.py`` holds the graphs to).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -20,6 +28,7 @@ from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.models.bundle import ModelBundle
 from depth_completion_tpu_torch.ops.resize import latent_size
 from depth_completion_tpu_torch.parallel.ensemble import ensemble_sample
+from depth_completion_tpu_torch.pipeline.programs import EagerTwin, ProgramCache
 from depth_completion_tpu_torch.pipeline.sampler import SamplerConfig, guided_sample
 
 
@@ -53,8 +62,31 @@ class DepthCompletionPipeline:
     [N,H,W,1], is appended.
     """
 
-    def __init__(self, bundle: ModelBundle):
+    def __init__(self, bundle: ModelBundle, max_programs: int | None = None):
+        """``max_programs``: bound the live step programs (their graphs,
+        buffers and share of the graph pool), least recently used first out;
+        None keeps every signature's program, which is right for batch
+        jobs. A long-running server over a mixed-geometry stream passes a
+        bound."""
         self.bundle = bundle
+        self.max_programs = max_programs
+        self.programs = ProgramCache(max_programs)
+
+    def program_keys(self) -> list[tuple]:
+        """Live program signatures, oldest first (diagnostics)."""
+        return self.programs.keys()
+
+    def replace_bundle(self, **changes: Any) -> "DepthCompletionPipeline":
+        return DepthCompletionPipeline(dataclasses.replace(self.bundle, **changes),
+                                       max_programs=self.max_programs)
+
+    def twin(self) -> "DepthCompletionPipeline":
+        """This pipeline's plain twin: the same bundle and ``max_programs``,
+        a program cache of its own whose steps run eagerly
+        (``programs.EagerTwin``)."""
+        twin = DepthCompletionPipeline(self.bundle, max_programs=self.max_programs)
+        twin.programs = EagerTwin(self.max_programs)
+        return twin
 
     def __call__(
         self,
@@ -150,5 +182,7 @@ class DepthCompletionPipeline:
                 raise ValueError("temporal latent carry is not supported with ensembling")
             return ensemble_sample(self.bundle, images, sparses, cfg, ensemble_size,
                                    ensemble_reduce, mesh=ensemble_mesh,
-                                   return_uncertainty=ensemble_uncertainty)
-        return guided_sample(self.bundle, images, sparses, cfg, pred_latents_prev)
+                                   return_uncertainty=ensemble_uncertainty,
+                                   programs=self.programs)
+        return guided_sample(self.bundle, images, sparses, cfg, pred_latents_prev,
+                             programs=self.programs)

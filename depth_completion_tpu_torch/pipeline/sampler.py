@@ -1,8 +1,16 @@
 """The guided sampling loop, PyTorch counterpart of
 ``depth_completion_tpu.pipeline.sampler``.
 
-An eager loop over the DDIM timesteps. Per-step guided training (the main
-path) keeps the JAX package's dataflow exactly:
+The JAX sampler runs its steps as one jit-compiled ``lax.scan``, compiled
+once per signature. Here the per-step guided branch with the fused
+epilogue is a ``GuidedStepProgram`` per signature (held by a
+``programs.ProgramCache``): on a card, one CUDA graph of one step, captured
+at the signature's first request and replayed at every DDIM step; on the
+CPU, the same step run eagerly. Its per-step values (t, the schedule's
+coefficients, the bias corrections) are device tables indexed by a device
+step index, so a replay reads what an eager step took as host floats,
+bit for bit. Every other loop here runs eagerly. Per-step guided training
+(the main path) keeps the JAX package's dataflow exactly:
 
 - ε̂ comes from the UNet applied to the *pre-update* latent; the DDIM step
   is applied to the *post-update* latent with that old ε̂;
@@ -18,8 +26,8 @@ With Adam and v- or ε-prediction without sample clipping (the Marigold
 configuration) the rescale, the latent's Adam update and the DDIM
 transition run as one fused epilogue (``ops.guidance_epilogue``, the Hopper
 kernel on CUDA; JAX ``sampler.py:466-511``), which holds the latent's Adam
-moments; the affine keeps its own ``torch.optim.Adam``. SGD and Adagrad
-run the same math as a chain of eager ops.
+moments; the affine's Adam is ``torch.optim.Adam``'s arithmetic as tensor
+ops. SGD and Adagrad run the same math as a chain of eager ops.
 
 Native-resolution mode (``ring_mesh``, a ring of ``ops.ring_attention``)
 routes the UNet's self-attention through the ring wherever the sequence
@@ -44,8 +52,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
+import threading
+import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from depth_completion_tpu_torch.core import prng
@@ -71,13 +83,19 @@ from depth_completion_tpu_torch.ops.guidance_epilogue import (
     ADAM_B1,
     ADAM_B2,
     ADAM_EPS,
-    epilogue_scalars,
+    epilogue_table,
     guidance_epilogue,
 )
 from depth_completion_tpu_torch.ops.guidance_epilogue import supported as epilogue_supported
 from depth_completion_tpu_torch.ops.resize import latent_size, resize_antialias, unpad
-from depth_completion_tpu_torch.ops.ring_attention import ring_attention
+from depth_completion_tpu_torch.ops.ring_attention import LocalRing, ring_attention
 from depth_completion_tpu_torch.pipeline.preprocess import preprocess_images
+from depth_completion_tpu_torch.pipeline.programs import (
+    ProgramCache,
+    add_launches,
+    launch_counts,
+    program_key,
+)
 from depth_completion_tpu_torch.sched.ddim import (
     DDIMConfig,
     ddim_step,
@@ -85,6 +103,8 @@ from depth_completion_tpu_torch.sched.ddim import (
     make_timesteps,
     pred_epsilon,
     pred_original,
+    pred_original_at,
+    step_tables,
 )
 from depth_completion_tpu_torch.sched.lcm import LCMConfig, lcm_step, make_lcm_timesteps
 
@@ -338,17 +358,20 @@ class _Denoiser:
 
 
 def guided_step_grads(denoise, decode, sched, cfg, dn, images, orig_res, padding,
-                      closed_form, latents, affine_params, t):
+                      closed_form, latents, affine_params, t, coeffs=None):
     """One guided step's forward and backward through the UNet ``denoise``
     and the decoder ``decode``: (per-sample losses [N], UNet output, grads
-    w.r.t. [latents, *affine_params])."""
+    w.r.t. [latents, *affine_params]). ``t`` is a Python int, or with
+    ``coeffs`` (√ᾱ_t, √(1−ᾱ_t) as 0-d tensors) a tensor on the device: a
+    ``step_tables`` row."""
     with torch.enable_grad():
         # a detached UNet output (fast guidance) needs no graph through the
         # UNet: the latent's gradient flows through pred_original's own
         # latent term
         with torch.set_grad_enabled(not cfg.detach_unet_grad):
             out = denoise(latents, t)
-        x0 = pred_original(sched, out, t, latents)
+        x0 = (pred_original(sched, out, t, latents) if coeffs is None
+              else pred_original_at(sched, out, latents, *coeffs))
         losses = guidance_loss(
             decode, cfg, dn, images, orig_res, padding, closed_form, x0, affine_params, latents
         )
@@ -364,13 +387,19 @@ def guided_sample(
     cfg: SamplerConfig,
     pred_latents_prev: torch.Tensor | None = None,
     init_noise: torch.Tensor | None = None,
+    *,
+    programs: ProgramCache,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full depth-completion sampling → (metric denses [N,H,W,1], latents).
 
     ``images`` [N,H,W,3] (0..255) and ``sparses`` [N,H,W,1] are tensors on
     the bundle's device. A per-step guided batch that would not fit on the
     card even with UNet remat raises ``ValueError`` (``check_batch_fits``)
-    before the first kernel.
+    before the first kernel. The per-step branch with the fused epilogue
+    runs through ``programs`` (the caller's cache, e.g. the pipeline's, or
+    a ``programs.EagerTwin``): one ``GuidedStepProgram`` per signature, its
+    steps replayed from one captured CUDA graph on a card and run eagerly
+    on the CPU.
     """
     cfg.validate()
     _check_options(cfg)
@@ -399,13 +428,21 @@ def guided_sample(
             final_latents = _lcm_denoise(denoise, sched, cfg, pred_latents)
         else:
             final_latents = _ddim_denoise(denoise, sched, cfg, pred_latents)
+    elif cfg.train_method == "per-step" and cfg.opt == "adam" and epilogue_supported(sched):
+        program = programs.get(
+            program_key(bundle, images.shape, cfg, remat),
+            lambda: GuidedStepProgram(bundle, cfg, sched, remat, closed_form, img_latents,
+                                      pred_latents, dn, images, orig_res, padding))
+        with program.lock:
+            program.load(img_latents, pred_latents, dn, images)
+            programs.run(program)
+            final_latents = program.latents.clone()
+            affine_params = [p.clone() for p in program.affine]
     else:
         if not closed_form:
-            dev = images.device
-            affine_params = [
-                torch.ones((n, 1, 1, 1), device=dev).requires_grad_(True),
-                torch.zeros((n, 1, 1, 1), device=dev).requires_grad_(True),
-            ]
+            affine_params = _initial_affine(n, images.device)
+            for p in affine_params:
+                p.requires_grad_(True)
         if cfg.train_method == "per-input":
             latents = _ddim_denoise(denoise, sched, cfg, pred_latents).requires_grad_(True)
             _per_input_steps(decode, cfg, dn, images, orig_res, padding, closed_form,
@@ -417,10 +454,7 @@ def guided_sample(
                 closed_form, latents, affine_params,
             )
             ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
-            if cfg.opt == "adam" and epilogue_supported(sched):
-                _fused_adam_steps(step, sched, cfg, ts, latents, affine_params)
-            else:
-                _eager_steps(step, sched, cfg, ts, latents, affine_params)
+            _eager_steps(step, sched, cfg, ts, latents, affine_params)
         final_latents = latents.detach()
 
     denses_affine = latent_to_affine(decode, final_latents, orig_res, padding, cfg.interp_mode)
@@ -477,24 +511,197 @@ def _per_input_steps(decode, cfg, dn, images, orig_res, padding, closed_form, la
         opt.step()
 
 
-def _fused_adam_steps(step, sched, cfg, ts, latents, affine_params):
-    """Per-step guided steps with the fused epilogue (ε-rescale, the latent's
-    Adam update and DDIM in one launch); the affine has its own Adam."""
-    m, v = torch.zeros_like(latents), torch.zeros_like(latents)
-    aff_opt = None
-    if affine_params:
-        aff_opt = torch.optim.Adam(affine_params, lr=cfg.lr_scaling,
-                                   betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
-    v_pred = sched.config.prediction_type == "v_prediction"
-    for count, t in enumerate(ts):
-        _, out, grads = step(t)
-        if aff_opt is not None:
-            for p, gp in zip(affine_params, grads[1:]):
-                p.grad = gp
-            aff_opt.step()
-        guidance_epilogue(latents, grads[0], out, m, v,
-                          epilogue_scalars(sched, t, cfg.steps, count),
-                          lr=cfg.lr_latent, v_pred=v_pred)
+def _initial_affine(n: int, device: torch.device) -> list[torch.Tensor]:
+    """The learned affine's start: scale 1, shift 0 per sample."""
+    return [torch.ones((n, 1, 1, 1), device=device), torch.zeros((n, 1, 1, 1), device=device)]
+
+
+def affine_adam_table(num_steps: int, lr: float, device: torch.device) -> torch.Tensor:
+    """[steps, 2] float32: step k's −lr/(1−b1^(k+1)) and √(1−b2^(k+1)), the
+    values ``torch.optim.Adam`` takes as host floats at its (k+1)-th step."""
+    rows = [(-(lr / (1 - ADAM_B1 ** c)), (1 - ADAM_B2 ** c) ** 0.5)
+            for c in range(1, num_steps + 1)]
+    return upload(np.array(rows, dtype=np.float32), device)
+
+
+_SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+_SIDE_STREAMS_LOCK = threading.Lock()
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """One stream per card for the eager step before every capture: each
+    new stream would keep a cuBLAS workspace of its own for the process's
+    life."""
+    with _SIDE_STREAMS_LOCK:
+        if device not in _SIDE_STREAMS:
+            _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+        return _SIDE_STREAMS[device]
+
+
+class GuidedStepProgram:
+    """One per-step guided step with the fused epilogue (Adam; v- or
+    ε-prediction; no ring or a ``LocalRing``; UNet remat and fast guidance
+    as configured) over fixed buffers: the port's counterpart of the JAX
+    sampler's scan body, compiled once per signature
+    (``depth_completion_tpu/pipeline/sampler.py:490-511``).
+
+    - Buffers, at fixed addresses: the image latents, the latent and its
+      Adam moments, the learned affine and its Adam moments, the
+      ``DepthNormalization`` tensors, the images, the step index and the
+      per-step tables (``step_tables``, ``epilogue_table``,
+      ``affine_adam_table``). ``load`` copies a request's tensors in and
+      resets the state.
+    - ``step()``: one step at the step index, eagerly. It is the graph's
+      plain twin: ``run`` without a cache, the tests and ``chip_smoke.py``
+      call it directly.
+    - ``run(cache)``: one request's steps. On a card, the first request runs
+      step 0 eagerly on a side stream (the kernels build, cuDNN picks its
+      plans, the resize tables fill), captures one step into the cache's
+      graph pool and replays steps 1..N−1; later requests replay all N.
+      Before each replay the host advances the step index with one
+      asynchronous ``fill_``; nothing in a step waits on the device. The
+      step's results land in the buffers (the epilogue and the affine's
+      Adam update them in place), so the graph keeps no live tensor in the
+      pool. On the CPU, without a cache (``programs.EagerTwin``) or with a
+      ``ProcessGroupRing`` (whose collectives stay eager), every step runs
+      eagerly. A failed capture raises.
+
+    Outside the program, eager: the encode and the final decode (once per
+    request), ``_eager_steps`` (SGD, Adagrad), per-input training, LCM and
+    the no-training DDIM branch.
+    """
+
+    def __init__(self, bundle, cfg, sched, remat, closed_form, img_latents, pred_latents, dn,
+                 images, orig_res, padding):
+        dev = images.device
+        self.cfg, self.sched, self.closed_form, self.remat = cfg, sched, closed_form, remat
+        self.orig_res, self.padding = orig_res, padding
+        self.steps = cfg.steps
+        self.v_pred = sched.config.prediction_type == "v_prediction"
+        self.capturable = dev.type == "cuda" and (cfg.ring_mesh is None
+                                                  or isinstance(cfg.ring_mesh, LocalRing))
+        self.lock = threading.Lock()
+        ts = make_timesteps(cfg.ddim, cfg.steps)
+        self.tables = step_tables(sched, ts, cfg.steps, dev)
+        self.epilogue = epilogue_table(sched, ts, cfg.steps, dev)
+        self.affine_adam = affine_adam_table(cfg.steps, cfg.lr_scaling, dev)
+        self.step_index = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.img_latents = torch.empty_like(img_latents)
+        self.latents = torch.empty_like(pred_latents, dtype=torch.float32)
+        self.m, self.v = torch.zeros_like(self.latents), torch.zeros_like(self.latents)
+        n = images.shape[0]
+        self.affine = [] if closed_form else _initial_affine(n, dev)
+        self.affine_m = [torch.zeros_like(p) for p in self.affine]
+        self.affine_v = [torch.zeros_like(p) for p in self.affine]
+        self.dn = DepthNormalization(**{f.name: torch.empty_like(getattr(dn, f.name))
+                                        for f in dataclasses.fields(dn)})
+        self.images = torch.empty_like(images)
+        attention_fn = attention if cfg.flash_attention == "off" else flash_attention
+        unet_attention = attention_fn if cfg.ring_mesh is None else functools.partial(
+            ring_or_base, cfg.ring_mesh, attention_fn)
+        self._denoise = _Denoiser(bundle, self.img_latents, unet_attention, remat)
+        self._decode = functools.partial(decode_prediction, bundle, attention_fn=attention_fn)
+        self.graph = None
+        self.launch_delta: dict[str, int] = {}  # one captured step's kernel launches
+        self.stats: dict[str, Any] = {}  # capture ms, instantiate ms, pool growth
+
+    def load(self, img_latents, pred_latents, dn, images) -> None:
+        """A request's tensors into the buffers, and the state reset."""
+        self.img_latents.copy_(img_latents)
+        self.latents.copy_(pred_latents)
+        self.m.zero_()
+        self.v.zero_()
+        for f in dataclasses.fields(dn):
+            getattr(self.dn, f.name).copy_(getattr(dn, f.name))
+        self.images.copy_(images)
+        for p, init in zip(self.affine, (1.0, 0.0)):
+            p.fill_(init)
+        for buf in (*self.affine_m, *self.affine_v):
+            buf.zero_()
+
+    def step(self) -> None:
+        """One guided step at ``step_index``, eagerly, on the buffers."""
+        # rows by index_select: Python indexing with a 0-d tensor may read it on the host
+        k = self.step_index
+        t = self.tables.t.index_select(0, k).expand(self.images.shape[0])
+        sqrt_a, sqrt_1ma = self.tables.coeffs.index_select(0, k)[0, :2].unbind(0)
+        lat = self.latents.detach().requires_grad_(True)
+        aff = [p.detach().requires_grad_(True) for p in self.affine]
+        _, out, grads = guided_step_grads(
+            self._denoise, self._decode, self.sched, self.cfg, self.dn, self.images,
+            self.orig_res, self.padding, self.closed_form, lat, aff, t, (sqrt_a, sqrt_1ma))
+        if self.affine:
+            # torch.optim.Adam's single-tensor arithmetic, its host floats
+            # read from the table row
+            neg_step_size, bc2_sqrt = self.affine_adam.index_select(0, k)[0].unbind(0)
+            for p, g, m, v in zip(self.affine, grads[1:], self.affine_m, self.affine_v):
+                m.lerp_(g, 1 - ADAM_B1)
+                v.mul_(ADAM_B2).addcmul_(g, g, value=1 - ADAM_B2)
+                p.add_(m * neg_step_size / (v.sqrt() / bc2_sqrt).add_(ADAM_EPS))
+        guidance_epilogue(self.latents, grads[0], out, self.m, self.v, self.epilogue, k,
+                          lr=self.cfg.lr_latent, v_pred=self.v_pred)
+
+    def step_eager(self, k: int) -> None:
+        self.step_index.fill_(k)
+        self.step()
+
+    def replay(self, k: int) -> None:
+        """Step ``k`` through the captured graph."""
+        self.step_index.fill_(k)
+        self.graph.replay()
+        add_launches(self.launch_delta)
+
+    def run(self, cache: ProgramCache | None = None) -> None:
+        """One request's steps (see the class docstring)."""
+        if cache is None or not self.capturable:
+            for k in range(self.steps):
+                self.step_eager(k)
+            return
+        first = 0
+        if self.graph is None:
+            self._capture(cache)
+            first = 1
+        for k in range(first, self.steps):
+            self.replay(k)
+
+    def _capture(self, cache: ProgramCache) -> None:
+        """Step 0 eagerly on a side stream, then one step captured into the
+        cache's pool (PyTorch's whole-network capture recipe)."""
+        dev = self.latents.device
+        cur = torch.cuda.current_stream(dev)
+        side = _side_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.step_eager(0)
+        cur.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, pool=cache.pool()):
+                self.step()
+                t1 = time.perf_counter()
+            t2 = time.perf_counter()
+        finally:
+            # the capture launched nothing: its counts move to the replays
+            # (an aborted capture's counts are dropped)
+            after = launch_counts()
+            delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            add_launches(delta, -1)
+        # cuBLAS keeps a workspace per stream for the process's life; the
+        # capture's lives in the pool (its replays reuse the block), the
+        # side stream's would stay allocated: both are made again on use
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        self.launch_delta = delta
+        self.graph = graph
+        self.stats = {"capture_ms": (t1 - t0) * 1e3, "instantiate_ms": (t2 - t1) * 1e3,
+                      "pool_growth_bytes": torch.cuda.memory_reserved(dev) - reserved}
 
 
 def eager_epilogue(sched, opt, latents, g, out, t: int, num_steps: int) -> None:

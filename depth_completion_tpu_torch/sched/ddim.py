@@ -1,10 +1,17 @@
 """Deterministic (η=0) DDIM over a precomputed ᾱ table, PyTorch counterpart
 of ``depth_completion_tpu.sched.ddim``.
 
-The eager sampling loop walks python-int timesteps, so ᾱ lookups are plain
-indexing; ``alphas_cumprod`` stays float32 whatever the model dtype (the ᾱ
-ratios near t=0 lose precision in bf16). Marigold uses scaled-linear betas
-over 1000 train steps, trailing spacing and v-prediction.
+The eager loops walk python-int timesteps, so ᾱ lookups are plain indexing;
+``alphas_cumprod`` stays float32 whatever the model dtype (the ᾱ ratios
+near t=0 lose precision in bf16). Marigold uses scaled-linear betas over
+1000 train steps, trailing spacing and v-prediction.
+
+The captured guided step (``pipeline.sampler.GuidedStepProgram``) cannot
+freeze per-step floats into its graph: ``step_tables`` gives every step's
+t and coefficients as device tensors, and ``pred_original_at`` /
+``pred_epsilon_at`` take 0-d tensor coefficients (JAX's scan indexes its
+schedule with a traced t in the same way). The float and tensor forms run
+the same float32 arithmetic, so their values are bit-identical.
 """
 
 from __future__ import annotations
@@ -12,6 +19,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from depth_completion_tpu_torch.device import upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +93,40 @@ def _coeffs(sched: DiffusionSchedule, t: int):
     return float(np.sqrt(a)), float(np.sqrt(np.float32(1.0) - a))
 
 
+def prev_timestep(sched: DiffusionSchedule, t: int, num_steps: int) -> int:
+    return t - sched.config.num_train_timesteps // num_steps
+
+
+@dataclasses.dataclass(frozen=True)
+class StepTables:
+    """Per-step schedule rows on a device: ``t`` [S] int64, and ``coeffs``
+    [S, 4] float32 with columns √ᾱ_t, √(1−ᾱ_t), √ᾱ_prev, √(1−ᾱ_prev)."""
+
+    t: torch.Tensor
+    coeffs: torch.Tensor
+
+
+def step_tables(sched: DiffusionSchedule, timesteps, num_steps: int,
+                device: torch.device | str = "cpu") -> StepTables:
+    """Step k's timestep and coefficients (``_coeffs`` at t and at the
+    previous timestep, the same numpy float32 arithmetic, so each value is
+    the host float exactly) as device tensors."""
+    ts = [int(t) for t in timesteps]
+    rows = [(*_coeffs(sched, t), *_coeffs(sched, prev_timestep(sched, t, num_steps)))
+            for t in ts]
+    device = torch.device(device)
+    return StepTables(t=upload(np.array(ts, dtype=np.int64), device),
+                      coeffs=upload(np.array(rows, dtype=np.float32), device))
+
+
 def pred_original(sched: DiffusionSchedule, model_out, t: int, sample):
     """Tweedie x̂₀ for the configured prediction type (differentiable)."""
-    sqrt_a, sqrt_1ma = _coeffs(sched, t)
+    return pred_original_at(sched, model_out, sample, *_coeffs(sched, t))
+
+
+def pred_original_at(sched: DiffusionSchedule, model_out, sample, sqrt_a, sqrt_1ma):
+    """``pred_original`` with the coefficients given (floats, or 0-d float32
+    tensors: a ``step_tables`` row)."""
     x, out = sample.float(), model_out.float()
     ptype = sched.config.prediction_type
     if ptype == "epsilon":
@@ -104,7 +145,11 @@ def pred_original(sched: DiffusionSchedule, model_out, t: int, sample):
 
 def pred_epsilon(sched: DiffusionSchedule, model_out, t: int, sample):
     """ε̂ implied by the model output (the gradient-rescale reference)."""
-    sqrt_a, sqrt_1ma = _coeffs(sched, t)
+    return pred_epsilon_at(sched, model_out, sample, *_coeffs(sched, t))
+
+
+def pred_epsilon_at(sched: DiffusionSchedule, model_out, sample, sqrt_a, sqrt_1ma):
+    """``pred_epsilon`` with the coefficients given (floats or 0-d tensors)."""
     x, out = sample.float(), model_out.float()
     ptype = sched.config.prediction_type
     if ptype == "epsilon":
@@ -120,7 +165,7 @@ def pred_epsilon(sched: DiffusionSchedule, model_out, t: int, sample):
 
 def ddim_step(sched: DiffusionSchedule, model_out, t: int, sample, num_steps: int):
     """One η=0 DDIM step → ``(prev_sample, pred_original_sample)``."""
-    prev_t = t - sched.config.num_train_timesteps // num_steps
+    prev_t = prev_timestep(sched, t, num_steps)
     x0 = pred_original(sched, model_out, t, sample).float()
     eps = pred_epsilon(sched, model_out, t, sample).float()
     sqrt_ap, sqrt_1map = _coeffs(sched, prev_t)

@@ -26,12 +26,28 @@ engine's, with its names.
   CUDA error (an illegal address) fails every later call: the retry fails
   too and the requests resolve with the error; nothing hangs.
 
-The JAX engine's tiered warmup (two compiled tiers per signature,
-``_make_tier0_pipe`` and ``_promote_full_programs``,
-``depth_completion_tpu/serving/engine.py:285-294, :427-496``) and the
-dispatch branch that avoids an LRU-evicted program (:716-747) have no
-counterpart in an eager port: there is no program to compile or evict.
-``warmup(tiered=True)`` raises.
+- Programs: the pipeline keeps one step program per signature (a captured
+  CUDA graph of the guided step on the card, ``pipeline.programs``); the
+  carry shares its geometry's bucket-1 program (the carry only changes the
+  initial latent). ``warmup`` captures each (geometry, bucket) program
+  before traffic.
+- Tiered warmup ("serve first, optimise later", JAX ``engine.py:285-496``):
+  tier 0 is the pipeline's eager twin (``pipe.twin()``), tier 1 its
+  captured graph. ``warmup(tiered=True)`` runs every signature on tier 0
+  and opens for traffic; the compute thread then promotes one signature at
+  a time, between batches (at most one capture between two batches, and
+  back to back while idle), after the batches in flight have reached the
+  host: a capture must not overlap the finisher's copies. Promotion times
+  are in ``stats()["tier_promotions"]``. A capture that still fails after
+  ``promote_retries`` retries is not hidden behind tier 0 (as JAX does):
+  the batches of its signature fail with its error, and the signature is
+  listed in ``stats()["tier_failed"]``.
+- With ``max_programs`` below the warmed signature count, a promoted
+  program can be evicted by a later promotion; dispatch then serves that
+  signature from tier 0 rather than capture again on the compute thread
+  (JAX :716-747), and tier 0 stays while any promoted program is evicted
+  (JAX drops it once all are promoted: its evicted programs recompile for
+  minutes, where a capture here churns the pool).
 """
 
 from __future__ import annotations
@@ -48,6 +64,10 @@ import torch
 
 from depth_completion_tpu_torch.logger import logger
 from depth_completion_tpu_torch.ops.resize import latent_size
+from depth_completion_tpu_torch.pipeline.programs import signature
+
+
+_PROMOTE = object()  # _next_request: promote a signature before the next batch
 
 
 class OverloadedError(RuntimeError):
@@ -188,9 +208,23 @@ class ServingEngine:
             "batched_rows": 0,
             "padded_rows": 0,
             "compiled_geometries": [],
-            "compiled_programs": [],  # (h, w, bucket) triples seen live
         }
         self._latencies: deque[float] = deque(maxlen=512)
+        # tiered warmup: tier-0 pipe, its warmed signatures ((h, w), bucket),
+        # the promoted ones, the promotions still to run (job, failures) and
+        # when each landed (seconds after warmup returned)
+        self._tier_lock = threading.Lock()
+        self._tier0_pipe: Any = None
+        self._tier0_ready: set[tuple] = set()
+        self._full_ready: set[tuple] = set()
+        self._promotions: deque[tuple] = deque()
+        self._promotion_log: list[dict] = []
+        self._failed_promotions: dict[tuple, Exception] = {}
+        self._tiered_at = 0.0
+        self._promoted_last = False  # the compute thread's last act was a promotion
+        # a failed promotion is retried this many times, then the batches of
+        # its signature fail with its error
+        self.promote_retries = 2
         self._warm = False
         self._stop = False
         # pause before the one bounded batch retry (tests shrink it)
@@ -285,6 +319,12 @@ class ServingEngine:
             ServeRequest(image=image, sparse=sparse, session=session)
         ).wait(timeout)
 
+    def _make_tier0_pipe(self, effort: float) -> Any:
+        """Tier 0: the pipeline's eager twin, sharing its bundle (``effort``,
+        JAX's compile effort, has no counterpart: one capture form)."""
+        del effort
+        return self.pipe.twin()
+
     def warmup(
         self,
         geometries: list[tuple[int, int]],
@@ -293,29 +333,30 @@ class ServingEngine:
         tier_effort: float = -1.0,
     ) -> None:
         """Run every (geometry, batch-bucket) signature once, plus the
-        session-carry signature per geometry, one after another, so the
-        first live request pays none of the start-up: the kernels are built
-        (at their first launch), cuDNN has chosen its plans and the caching
-        allocator has grown to the largest bucket. A bucket the card cannot
-        hold raises here (``sampler.check_batch_fits``), not on live
+        session-carry job per geometry, one after another, so the first live
+        request pays none of the start-up: each signature's step program is
+        captured (the carry replays its geometry's bucket-1 program), the
+        kernels are built, cuDNN has chosen its plans. A bucket the card
+        cannot hold raises here (``sampler.check_batch_fits``), not on live
         traffic.
 
-        Calls the pipeline directly: no traffic is flowing yet. ``parallel``
+        Calls the pipeline directly: no traffic is flowing yet.
+        ``tiered=True``: the jobs run on tier 0 (the eager twin) and the
+        engine opens at once; each signature's graph is captured later, on
+        the compute thread between batches (class docstring). ``parallel``
         > 1 runs serially all the same (one card gains nothing from
-        concurrent eager runs); ``tiered=True`` raises (an eager port has
-        no compiled tiers; a captured CUDA graph per signature is the
-        natural second tier, ROADMAP queue 1 item 2); ``tier_effort`` is
-        ignored.
+        concurrent warmup); ``tier_effort`` is ignored (one capture form).
         """
-        if tiered:
-            raise NotImplementedError(
-                "tiered warmup is not ported to the PyTorch package (eager first and a "
-                "captured CUDA graph later is ROADMAP queue 1 item 2)")
         if parallel is not None and parallel > 1:
             logger.info(f"warmup(parallel={parallel}) runs serially: one card gains "
-                        "nothing from concurrent eager runs")
+                        "nothing from concurrent warmup")
+        if tiered:
+            with self._tier_lock:
+                self._tier0_pipe = self._make_tier0_pipe(tier_effort)
+                self._tier0_ready, self._full_ready = set(), set()
+                self._promotion_log, self._failed_promotions = [], {}
         rng = np.random.default_rng(0)
-        jobs: list[tuple[np.ndarray, np.ndarray, np.ndarray | None]] = []
+        jobs: list[tuple[tuple, np.ndarray, np.ndarray, np.ndarray | None]] = []
         resolution = int(self.call_kwargs.get("resolution", 768))
         vae = getattr(getattr(self.pipe, "bundle", None), "vae", None)
         factor = getattr(vae, "downsample_factor", 8)  # only test fakes lack a bundle
@@ -326,19 +367,81 @@ class ServingEngine:
             sparse[h // 2, w // 2, 0] = 1.0
             sparse[h // 4, w // 4, 0] = self.call_kwargs["max_depth"] / 2
             for b in self.batch_buckets:
-                jobs.append((np.repeat(img[None], b, 0), np.repeat(sparse[None], b, 0), None))
-            # the carry signature (sessions run alone, so batch 1 suffices);
-            # zeros are a valid prior latent
+                jobs.append((((h, w), b), np.repeat(img[None], b, 0),
+                             np.repeat(sparse[None], b, 0), None))
+            # the carry job (sessions run alone, so batch 1 suffices); zeros
+            # are a valid prior latent; it shares the bucket-1 signature
             eh, ew = latent_size((h, w), resolution, factor)
-            jobs.append((img[None], sparse[None], np.zeros((1, eh, ew, channels), np.float32)))
-        for images, sparses, carry in jobs:
-            kwargs = dict(self.call_kwargs)
-            if carry is not None:
-                kwargs["pred_latents_prev"] = carry
-            self.pipe(images, sparses, **kwargs)
+            jobs.append((((h, w), 1), img[None], sparse[None],
+                         np.zeros((1, eh, ew, channels), np.float32)))
+        first_pipe = self._tier0_pipe if tiered else self.pipe
+        for job in jobs:
+            self._run_job(first_pipe, job)
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+        if tiered:
+            with self._tier_lock:
+                self._tier0_ready = {job[0] for job in jobs}
+            with self._cv:
+                # one capture per (geometry, bucket): the carry jobs share them
+                self._promotions = deque((job, 0) for job in jobs if job[3] is None)
+                self._tiered_at = time.monotonic()
+                self._cv.notify()
         self._warm = True
+
+    def _run_job(self, pipe: Any, job: tuple) -> None:
+        _, images, sparses, carry = job
+        kwargs = dict(self.call_kwargs)
+        if carry is not None:
+            kwargs["pred_latents_prev"] = carry
+        pipe(images, sparses, **kwargs)
+
+    def _promote_next(self) -> None:
+        """Promote one signature to its captured graph, on the compute
+        thread, once the batches in flight have reached the host."""
+        with self._cv:
+            if not self._promotions:
+                return
+            job, failures = self._promotions.popleft()
+        self._finish.join()  # no finisher copy overlaps the capture
+        try:
+            self._run_job(self.pipe, job)
+            if self._device is not None and self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+        except Exception as exc:
+            exc.__traceback__ = None
+            if failures < self.promote_retries:
+                with self._cv:
+                    self._promotions.append((job, failures + 1))
+            else:
+                logger.error(f"tiered warmup: signature {job[0]} failed promotion "
+                             f"{failures + 1} times; its batches fail: {exc}")
+                with self._tier_lock:
+                    self._failed_promotions[job[0]] = exc
+            return
+        with self._tier_lock:
+            self._full_ready.add(job[0])
+            self._promotion_log.append({"signature": job[0],
+                                        "s": time.monotonic() - self._tiered_at})
+            self._maybe_drop_tier0()
+
+    def _maybe_drop_tier0(self) -> None:
+        """Drop tier 0 once every warmed signature is promoted and its
+        program is live (with ``_tier_lock`` held)."""
+        if self._tier0_pipe is None or not self._full_ready >= self._tier0_ready:
+            return
+        if any(not self._program_alive(key) for key in self._tier0_ready):
+            return
+        self._tier0_pipe = None
+
+    def _program_alive(self, key: tuple) -> bool:
+        """Whether the pipeline's program for signature ``key`` ((h, w),
+        bucket) is live; pipes without a bound keep every program."""
+        return getattr(self.pipe, "max_programs", None) is None or self._has_program(key)
+
+    def _has_program(self, key: tuple) -> bool:
+        (h, w), n = key
+        return any(signature(pk)[:3] == (n, h, w) for pk in self.pipe.program_keys())
 
     @property
     def warm(self) -> bool:
@@ -348,7 +451,6 @@ class ServingEngine:
         with self._lock:
             out = dict(self._stats)
             out["compiled_geometries"] = list(out["compiled_geometries"])
-            out["compiled_programs"] = list(out["compiled_programs"])
             lats = sorted(self._latencies)
             out["sessions_active"] = len(self._sessions)
         if lats:
@@ -361,6 +463,16 @@ class ServingEngine:
             }
         with self._lock:
             out["pending"] = self._pending
+        if hasattr(self.pipe, "program_keys"):
+            keys = self.pipe.program_keys()
+            out["pipe_programs"] = len(keys)
+            out["compiled_programs"] = [(h, w, n) for n, h, w, _ in map(signature, keys)]
+        with self._tier_lock:
+            if self._tier0_pipe is not None:
+                out["tier0_active"] = True
+                out["tier_promoted"] = f"{len(self._full_ready)}/{len(self._tier0_ready)}"
+            out["tier_promotions"] = [dict(p) for p in self._promotion_log]
+            out["tier_failed"] = list(self._failed_promotions)
         return out
 
     def reset_session(self, session: str) -> bool:
@@ -406,11 +518,18 @@ class ServingEngine:
         self._resolve(req, RuntimeError("request cancelled by caller"))
         return True
 
-    def _next_request(self) -> ServeRequest | None:
+    def _next_request(self) -> ServeRequest | None | object:
         """Next request, round-robin across geometry queues; blocks until
-        one is available or shutdown (returns None)."""
+        one is available or shutdown (returns None). With promotions
+        pending it returns ``_PROMOTE`` where one is due: while no request
+        waits, or when the last act was a batch (at most one capture
+        between two batches)."""
         with self._cv:
             while True:
+                queued = any(self._queues.get(k) for k in self._rr)
+                if self._promotions and not self._stop and (
+                        not queued or not self._promoted_last):
+                    return _PROMOTE
                 for _ in range(len(self._rr)):
                     key = self._rr[0]
                     self._rr.rotate(-1)  # next round starts after this key
@@ -458,6 +577,11 @@ class ServingEngine:
             first = self._next_request()
             if first is None:
                 break
+            if first is _PROMOTE:
+                self._promote_next()
+                self._promoted_last = True
+                continue
+            self._promoted_last = False
             if self._reap_cancelled(first):
                 continue
             batch = self._collect_batch(first)
@@ -550,7 +674,23 @@ class ServingEngine:
             if held is not None:
                 kwargs["pred_latents_prev"] = held[0]
 
-        denses, latents = self.pipe(images, sparses, **kwargs)
+        # tiered warmup: a signature not yet promoted, or whose promoted
+        # program the pipeline's LRU has evicted, runs on tier 0
+        key = (geo, n + pad)
+        with self._tier_lock:
+            failed = self._failed_promotions.get(key)
+            if failed is not None:
+                raise RuntimeError(f"the step program of signature {key} failed to capture: "
+                                   f"{type(failed).__name__}: {failed}")
+            tier0 = self._tier0_pipe is not None and key in self._tier0_ready and (
+                key not in self._full_ready or not self._program_alive(key))
+            pipe = self._tier0_pipe if tier0 else self.pipe
+        if pipe is self.pipe and hasattr(pipe, "program_keys") and not self._has_program(key):
+            # a signature's first request captures its graph: not while the
+            # finisher copies an earlier batch
+            self._finish.join()
+
+        denses, latents = pipe(images, sparses, **kwargs)
         if isinstance(denses, torch.Tensor) and denses.is_cuda:
             denses = _HostCopy(denses, n)
 
@@ -584,60 +724,64 @@ class ServingEngine:
         off the compute thread."""
         while True:
             item = self._finish.get()
-            if item is None:
-                break
-            batch, n, pad, geo, denses, session, prev_held = item
             try:
-                denses = _materialize(denses, n)
-            except Exception as exc:  # a device error surfaces here
-                exc.__traceback__ = None
-                # restore the session carry the failed dispatch overwrote,
-                # if it is itself readable, then hand the batch back to the
-                # compute thread for one bounded retry
-                if session is not None:
-                    restored = False
-                    if prev_held is not None:
-                        try:
-                            _to_host(prev_held[0])
-                            restored = True
-                        except Exception:
-                            restored = False
-                    with self._lock:
-                        if restored:
-                            self._sessions[session] = prev_held
-                        else:
-                            self._sessions.pop(session, None)
-                fresh = [r for r in batch if not r._retried]
-                stale = [r for r in batch if r._retried]
-                if self._stop:
-                    stale, fresh = batch, []
-                if stale:
-                    with self._lock:
-                        self._stats["errors"] += len(stale)
-                    for r in stale:
-                        self._resolve(r, exc)
-                if fresh:
-                    for r in fresh:
-                        r._retried = True
-                    with self._lock:
-                        self._stats["retried_batches"] += 1
-                    time.sleep(self.dispatch_retry_backoff_s)
-                    self._requeue_batch(fresh, geo)
-                continue
-            done_at = time.monotonic()
-            with self._lock:
-                self._stats["completed"] += n
-                self._stats["batches"] += 1
-                self._stats["batched_rows"] += n
-                self._stats["padded_rows"] += pad
-                if geo not in self._stats["compiled_geometries"]:
-                    self._stats["compiled_geometries"].append(geo)
-                prog = (geo[0], geo[1], n + pad)
-                if prog not in self._stats["compiled_programs"]:
-                    self._stats["compiled_programs"].append(prog)
-                for r in batch:
-                    self._latencies.append(done_at - r._enqueued_at)
-            for i, r in enumerate(batch):
-                r._result = denses[i]
-                r._batch_size = n
-                self._resolve(r)
+                if item is None:
+                    break
+                self._finish_batch(*item)
+            finally:
+                self._finish.task_done()
+
+    def _finish_batch(self, batch, n, pad, geo, denses, session, prev_held) -> None:
+        """Resolve one dispatched batch's waiters (or hand it back for its
+        retry)."""
+        try:
+            denses = _materialize(denses, n)
+        except Exception as exc:  # a device error surfaces here
+            exc.__traceback__ = None
+            # restore the session carry the failed dispatch overwrote,
+            # if it is itself readable, then hand the batch back to the
+            # compute thread for one bounded retry
+            if session is not None:
+                restored = False
+                if prev_held is not None:
+                    try:
+                        _to_host(prev_held[0])
+                        restored = True
+                    except Exception:
+                        restored = False
+                with self._lock:
+                    if restored:
+                        self._sessions[session] = prev_held
+                    else:
+                        self._sessions.pop(session, None)
+            fresh = [r for r in batch if not r._retried]
+            stale = [r for r in batch if r._retried]
+            if self._stop:
+                stale, fresh = batch, []
+            if stale:
+                with self._lock:
+                    self._stats["errors"] += len(stale)
+                for r in stale:
+                    self._resolve(r, exc)
+            if fresh:
+                for r in fresh:
+                    r._retried = True
+                with self._lock:
+                    self._stats["retried_batches"] += 1
+                time.sleep(self.dispatch_retry_backoff_s)
+                self._requeue_batch(fresh, geo)
+            return
+        done_at = time.monotonic()
+        with self._lock:
+            self._stats["completed"] += n
+            self._stats["batches"] += 1
+            self._stats["batched_rows"] += n
+            self._stats["padded_rows"] += pad
+            if geo not in self._stats["compiled_geometries"]:
+                self._stats["compiled_geometries"].append(geo)
+            for r in batch:
+                self._latencies.append(done_at - r._enqueued_at)
+        for i, r in enumerate(batch):
+            r._result = denses[i]
+            r._batch_size = n
+            self._resolve(r)

@@ -5,8 +5,9 @@
 #     bash scripts/chip_smoke_faults.sh --check-anchors [FAULT ...]
 #
 # Runs chip_smoke.py on the tree as it is, then on a temporary copy of the
-# port with each fault below planted (one sed edit each; --steps 2), or
-# only with the faults named (e.g. F9_kl_skip), and
+# port with each fault below planted (one sed edit each; --steps 2, or
+# --steps $FAULT_STEPS where that is set), or only with the faults named
+# (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
 # the logs show where each limit sits between the sound tree and the
 # faults. A fault run is expected to exit non-zero; the sound run, zero.
@@ -86,6 +87,14 @@
 #   F36_bl2_unshuffle_ts1 the .bl2 reader unshuffles with typesize 1
 #   F37_bl2_shape_reversed the .bl2 writer records the shape reversed in
 #                 __pack_tensor__
+#   F38_step_not_advanced the step program does not advance its step index
+#                 before a replay (every replay runs the step of the last
+#                 eager step)
+#   F39_epilogue_row0 the epilogue kernel reads row 0 of its scalar table
+#                 whatever the step index
+#   F40_replay_uncounted replays add no launches to the wrappers' counts
+#   F41_stale_adam a request does not reset the latent's Adam m and v in
+#                 the step program's buffers
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -147,7 +156,7 @@ run_fault() {  # name, then (file, sed expression) pairs
     echo "$name: edits apply"
     return 0
   fi
-  (cd "$d" && python3 chip_smoke.py --steps 2) > "$out/$name.log" 2>&1
+  (cd "$d" && python3 chip_smoke.py --steps "${FAULT_STEPS:-2}") > "$out/$name.log" 2>&1
   local rc=$?
   echo "$name rc=$rc"
   [ $rc != 0 ] || status=1
@@ -224,4 +233,11 @@ run_fault F36_bl2_unshuffle_ts1 depth_completion_tpu_torch/io/bl2.py \
   's|lib.bl2_unshuffle(block, dst, bsize, typesize)|lib.bl2_unshuffle(block, dst, bsize, 1)|'
 run_fault F37_bl2_shape_reversed depth_completion_tpu_torch/io/bl2.py \
   's|\["numpy", \[int(s) for s in x.shape\], x.dtype.str\]|["numpy", [int(s) for s in x.shape[::-1]], x.dtype.str]|'
+SAMPLER=depth_completion_tpu_torch/pipeline/sampler.py
+run_fault F38_step_not_advanced $SAMPLER \
+  '/def replay(self, k: int)/,/self.graph.replay()/s|self.step_index.fill_(k)|pass|'
+run_fault F39_epilogue_row0 depth_completion_tpu_torch/csrc/guidance_epilogue.cu \
+  's|const float\* row = table + 6 \* \*step;|const float* row = table;|'
+run_fault F40_replay_uncounted $SAMPLER 's|^        add_launches(self.launch_delta)$|        pass|'
+run_fault F41_stale_adam $SAMPLER 's|^        self.m.zero_()$|        pass|; s|^        self.v.zero_()$|        pass|'
 exit $status

@@ -11,8 +11,9 @@ unpacked with ``git archive`` into the git-ignored
 ``csrc/guidance_epilogue.cu`` is compiled with nvcc (this tree's flags)
 into ``depth_completion_tpu_torch/_build/ab/``, loaded with ctypes through
 the C entry points both trees share (``dct_flash_fwd``, ``dct_flash_bwd``,
-``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``, ``dct_conv3x3``,
-``dct_guidance_epilogue``), and timed at the guided paths' shapes: ``reps`` launches
+``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``, ``dct_conv3x3``; the
+epilogue through ``dct_guidance_epilogue_table`` or, in a tree from before
+it, ``dct_guidance_epilogue``), and timed at the guided paths' shapes: ``reps`` launches
 captured in one CUDA graph and replayed, so a time is the kernel's device
 time without the host's launch overhead (``chip_smoke.py`` times through the
 Python wrappers, which at small shapes measures the host). A backward's
@@ -68,6 +69,7 @@ SOURCES = ("flash_attention", "conv3x3", "guidance_epilogue")
 FWD_ARGS = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
 BWD_ARGS = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
 EPILOGUE_ARGS = [_p] * 5 + [_i, _l, _i, _i] + [_f] * 10 + [_p]
+EPILOGUE_TABLE_ARGS = [_p] * 5 + [_i, _l, _i, _i, _p, _p] + [_f] * 4 + [_p]
 # (N, EH, EW): the latent of res 768 at batch 1 and at bench.py's batch 8
 EPILOGUE_CASES = ((1, 72, 96), (8, 72, 96))
 # the other cluster size, built from this tree's source (a text edit)
@@ -129,8 +131,7 @@ def build(tree: Path, tag: str) -> dict:
             lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
             lib.dct_conv3x3.restype = _i
         else:
-            lib.dct_guidance_epilogue.argtypes, lib.dct_guidance_epilogue.restype = \
-                EPILOGUE_ARGS, _i
+            _epilogue_types(lib)
         libs[name] = lib
     return libs
 
@@ -151,8 +152,19 @@ def build_epilogue_variant(cluster: int) -> ctypes.CDLL:
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for the epilogue at cluster {cluster}:\n{proc.stdout}")
     lib = ctypes.CDLL(str(out / "lib.so"))
-    lib.dct_guidance_epilogue.argtypes, lib.dct_guidance_epilogue.restype = EPILOGUE_ARGS, _i
+    _epilogue_types(lib)
     return lib
+
+
+def _epilogue_types(lib) -> None:
+    """The epilogue's entry point: ``dct_guidance_epilogue_table`` (the
+    scalars from a device table at a device step index) or, in a tree from
+    before it, ``dct_guidance_epilogue`` (six host floats)."""
+    if hasattr(lib, "dct_guidance_epilogue_table"):
+        lib.dct_guidance_epilogue_table.argtypes = EPILOGUE_TABLE_ARGS
+        lib.dct_guidance_epilogue_table.restype = _i
+    else:
+        lib.dct_guidance_epilogue.argtypes, lib.dct_guidance_epilogue.restype = EPILOGUE_ARGS, _i
 
 
 def build_variants() -> dict:
@@ -332,12 +344,18 @@ def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
 
 
 def epilogue(lib, lat, g, out, m, v, sc):
-    """One v-prediction step through ``dct_guidance_epilogue``, in place."""
+    """One v-prediction step through the tree's epilogue entry point, in
+    place; ``sc`` = (the six scalars as floats, the same as a one-row device
+    table, a device step index 0)."""
     n = lat.shape[0]
-    status = lib.dct_guidance_epilogue(
-        lat.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(), v.data_ptr(), n,
-        lat.numel() // n, int(out.dtype == torch.bfloat16), 1, *sc, 0.05, ge.ADAM_B1,
-        ge.ADAM_B2, ge.ADAM_EPS, _stream())
+    floats, table, step = sc
+    head = (lat.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(), v.data_ptr(), n,
+            lat.numel() // n, int(out.dtype == torch.bfloat16), 1)
+    tail = (0.05, ge.ADAM_B1, ge.ADAM_B2, ge.ADAM_EPS, _stream())
+    if hasattr(lib, "dct_guidance_epilogue_table"):
+        status = lib.dct_guidance_epilogue_table(*head, table.data_ptr(), step.data_ptr(), *tail)
+    else:
+        status = lib.dct_guidance_epilogue(*head, *floats, *tail)
     _build.check(status, "guidance_epilogue")
 
 
@@ -447,7 +465,9 @@ def main() -> int:
     variant = {"base": build_epilogue_variant(EPILOGUE_VARIANT_CLUSTER), "this": epi_libs["this"]}
     sched = make_schedule()
     t = int(make_timesteps(sched.config, 50)[3])
-    sc = ge.epilogue_scalars(sched, t, 50, 3)
+    floats = ge.epilogue_scalars(sched, t, 50, 3)
+    sc = (floats, torch.tensor([floats], dtype=torch.float32, device="cuda"),
+          torch.zeros(1, dtype=torch.int64, device="cuda"))
     for n, eh, ew in EPILOGUE_CASES:
         shape = (n, eh, ew, 4)
         lat, g, m = (torch.randn(shape, generator=gen, device="cuda") * s for s in (1.0, 1e-3, 0.3))

@@ -5,15 +5,19 @@
 
 Builds the full-width Marigold bundle (random bf16 weights, seed 0) with the
 TAESD decoder (``--vae light``) or the KL VAE at SD widths (``original``), runs
-one warm-up request, then one request of ``--steps`` per-step guided DDIM
+twice: once through the pipeline (its step captured as a CUDA graph and
+replayed) and once through its eager twin (``pipe.twin()``, every step
+eager). Each runs one warm-up request of ``--steps`` (the capture happens
+there), then one request of ``--steps`` per-step guided DDIM
 steps (480x640 frame, 500 sparse points, res 768, norm=const, learned
 affine; with ``--ring P``, native-resolution mode: a 352x1216 frame, 2000
 points, res 1216, the UNet's self-attention on ``LocalRing(P)``) under
-``torch.profiler``. Prints the wall time per step, the
+``torch.profiler``. Prints, for each, the wall time per step, the
 device-busy share of the profiled window, device time and device launches
 (kernels, memsets and copies) per step by kernel family, the port's own
 kernel launches per step (the wrappers' counts), and the top kernels by
-device time; the last line is a JSON summary. Needs a CUDA device; exits 2
+device time; the last line is a JSON summary with a "graph" and an
+"eager" entry. Needs a CUDA device; exits 2
 without one.
 """
 
@@ -124,66 +128,74 @@ def main() -> int:
         2.0 + 78.0 * torch.rand(points, generator=gen)
     sparses = sparses.reshape(1, h, w, 1)
 
-    def request(steps):
-        return pipe(images, sparses, max_depth=120.0, steps=steps, norm="const", closed_form=False,
-                    resolution=res, ring_mesh=ring)
-
-    request(2)  # warm-up: lazy init, cuDNN heuristics, kernel build
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    port_counts = (flash_attention.LAUNCHES, conv3x3.LAUNCHES, guidance_epilogue.LAUNCHES)
-    for counts in port_counts:
-        counts.update({k: 0 for k in counts})
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        request(args.steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
-    kernels: dict[str, tuple[float, int]] = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", 0.0) / 1e3  # us → ms
-        if t > 0:
-            kernels[evt.key] = (t, evt.count)
-    total = sum(t for t, _ in kernels.values())
-    fams: dict[str, float] = {}
-    fam_launches: dict[str, int] = {}
-    for name, (t, n) in kernels.items():
-        fams[family(name)] = fams.get(family(name), 0.0) + t
-        fam_launches[family(name)] = fam_launches.get(family(name), 0) + n
-    launches = sum(fam_launches.values())
-    port = {k: v / args.steps for counts in port_counts for k, v in counts.items() if v}
+    def request(target, steps):
+        return target(images, sparses, max_depth=120.0, steps=steps, norm="const",
+                      closed_form=False, resolution=res, ring_mesh=ring)
 
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     print(smi)
+    port_counts = (flash_attention.LAUNCHES, conv3x3.LAUNCHES, guidance_epilogue.LAUNCHES)
     per = args.steps
-    print(f"--vae {args.vae} --upsample {args.upsample} --ring {args.ring} ({h}x{w}, res {res}): "
-          f"request of {per} guided steps: "
-          f"wall {wall_ms:.1f} ms ({wall_ms / per:.2f} ms/step, incl. encode and final decode); device busy {total:.1f} ms "
-          f"({100 * total / wall_ms:.1f}% of wall); peak memory {peak_gib:.2f} GiB")
-    print(f"device launches per step: {launches / per:.1f} (kernels, memsets and copies)")
-    print(f"port kernel launches per step (wrapper counts): {port}")
-    print("device ms and launches per step by kernel family:")
-    for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:22s} {t / per:9.3f}  ({100 * t / total:.1f}%)  "
-              f"{fam_launches[fam] / per:8.1f} launches")
-    print("top kernels (device ms per step, launches per step):")
-    for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"  {t / per:9.3f}  {n / per:7.1f}  {name[:110]}")
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "vae": args.vae, "upsample": args.upsample,
-        "ring": args.ring, "steps": per,
-        "wall_ms_per_step": wall_ms / per, "device_ms_per_step": total / per,
-        "busy_share": total / wall_ms, "peak_gib": peak_gib,
-        "family_ms_per_step": {k: v / per for k, v in fams.items()},
-        "launches_per_step": launches / per,
-        "family_launches_per_step": {k: v / per for k, v in fam_launches.items()},
-        "port_launches_per_step": port,
-    }))
+    summary = {"device": torch.cuda.get_device_name(0), "card": smi, "vae": args.vae,
+               "upsample": args.upsample, "ring": args.ring, "steps": per}
+    # the pipeline replays its captured step; its twin runs every step eagerly
+    for name, target in (("graph", pipe), ("eager", pipe.twin())):
+        # warm-up at the profiled signature: lazy init, cuDNN heuristics,
+        # kernel build and (graph) the capture, so the profiled request
+        # replays every step
+        request(target, per)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counts in port_counts:
+            counts.update({k: 0 for k in counts})
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            request(target, per)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        kernels: dict[str, tuple[float, int]] = {}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(evt, "self_device_time_total", 0.0) / 1e3  # us → ms
+            if t > 0:
+                kernels[evt.key] = (t, evt.count)
+        total = sum(t for t, _ in kernels.values())
+        fams: dict[str, float] = {}
+        fam_launches: dict[str, int] = {}
+        for kname, (t, n) in kernels.items():
+            fams[family(kname)] = fams.get(family(kname), 0.0) + t
+            fam_launches[family(kname)] = fam_launches.get(family(kname), 0) + n
+        launches = sum(fam_launches.values())
+        port = {k: v / per for counts in port_counts for k, v in counts.items() if v}
+
+        print(f"[{name}] --vae {args.vae} --upsample {args.upsample} --ring {args.ring} "
+              f"({h}x{w}, res {res}): request of {per} guided steps: wall {wall_ms:.1f} ms "
+              f"({wall_ms / per:.2f} ms/step, incl. encode and final decode); device busy "
+              f"{total:.1f} ms ({100 * total / wall_ms:.1f}% of wall); peak memory "
+              f"{peak_gib:.2f} GiB")
+        print(f"[{name}] device launches per step: {launches / per:.1f} (kernels, memsets and "
+              f"copies)")
+        print(f"[{name}] port kernel launches per step (wrapper counts): {port}")
+        print(f"[{name}] device ms and launches per step by kernel family:")
+        for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
+            print(f"  {fam:22s} {t / per:9.3f}  ({100 * t / total:.1f}%)  "
+                  f"{fam_launches[fam] / per:8.1f} launches")
+        print(f"[{name}] top kernels (device ms per step, launches per step):")
+        for kname, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
+            print(f"  {t / per:9.3f}  {n / per:7.1f}  {kname[:110]}")
+        summary[name] = {
+            "wall_ms_per_step": wall_ms / per, "device_ms_per_step": total / per,
+            "busy_share": total / wall_ms, "peak_gib": peak_gib,
+            "family_ms_per_step": {k: v / per for k, v in fams.items()},
+            "launches_per_step": launches / per,
+            "family_launches_per_step": {k: v / per for k, v in fam_launches.items()},
+            "port_launches_per_step": port,
+        }
+    print(json.dumps(summary))
     return 0
 
 

@@ -36,6 +36,7 @@ from depth_completion_tpu_torch.models.bundle import load_bundle, make_random_bu
 from depth_completion_tpu_torch.models.bundle import make_random_params
 from depth_completion_tpu_torch.models.weights import _flatten
 from depth_completion_tpu_torch.pipeline import sampler as TS
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 
 from scripts.make_synthetic_checkpoint import (
     SCHEDULER_CONFIG_JSON,
@@ -376,7 +377,7 @@ def test_load_bundle_matches_jax_end_to_end(tmp_path, monkeypatch):
         JS.SamplerConfig(**kw, ddim=jb.ddim_config), init_noise=jnp.asarray(noise))
     d_t, l_t = TS.guided_sample(tb, torch.from_numpy(imgs), torch.from_numpy(sparses),
                                 TS.SamplerConfig(**kw, ddim=tb.ddim_config),
-                                init_noise=torch.from_numpy(noise))
+                                init_noise=torch.from_numpy(noise), programs=ProgramCache())
     dd, ll = d_t.numpy() - np.asarray(d_j), l_t.numpy() - np.asarray(l_j)
     rms = [float(np.sqrt(np.mean(x ** 2))) for x in (dd, ll)]
     assert rms[0] < 1e-4 and np.abs(dd).max() < 1e-3 and rms[1] < 1e-4, (rms, np.abs(dd).max())

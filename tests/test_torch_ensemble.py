@@ -23,6 +23,7 @@ from depth_completion_tpu_torch.models import registry
 from depth_completion_tpu_torch.models.weights import from_jax_params
 from depth_completion_tpu_torch.parallel import ensemble as TE
 from depth_completion_tpu_torch.pipeline import sampler as TS
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 
 from tests.test_torch_weights import tiny_jax_trees
 
@@ -85,7 +86,7 @@ def test_ensemble_matches_jax(bundles, inputs):
              ensemble_size=3, reduce="aligned-median", return_uncertainty=True)
     got = TE.ensemble_sample(tbundle, torch.from_numpy(imgs), torch.from_numpy(sparses),
                              TS.SamplerConfig(**cfg), 3, "aligned-median",
-                             return_uncertainty=True)
+                             return_uncertainty=True, programs=ProgramCache())
     for name, g, r in zip(("denses", "members", "mad"), got, ref):
         g, r = g.numpy(), np.asarray(r)
         assert g.shape == r.shape, (name, g.shape, r.shape)
@@ -127,9 +128,9 @@ def test_ensemble_of_one_is_the_plain_request(bundles, inputs):
     imgs, sparses = inputs
     cfg = TS.SamplerConfig(steps=2, resolution=64, closed_form=False, max_depth=10.0)
     images, sp = torch.from_numpy(imgs), torch.from_numpy(sparses)
-    denses, members = TE.ensemble_sample(tbundle, images, sp, cfg, 1)
-    plain, _ = TS.guided_sample(tbundle, images, sp, cfg)
+    denses, members = TE.ensemble_sample(tbundle, images, sp, cfg, 1, programs=ProgramCache())
+    plain, _ = TS.guided_sample(tbundle, images, sp, cfg, programs=ProgramCache())
     torch.testing.assert_close(denses, plain, rtol=1e-6, atol=1e-6)
     assert tuple(members.shape) == (N, 1, H, W, 1)
     with pytest.raises(ValueError, match="Unknown ensemble reduce"):
-        TE.ensemble_sample(tbundle, images, sp, cfg, 2, "bogus")
+        TE.ensemble_sample(tbundle, images, sp, cfg, 2, "bogus", programs=ProgramCache())

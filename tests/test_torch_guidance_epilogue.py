@@ -1,6 +1,7 @@
 """The port's fused guidance epilogue (plain twin on the CPU) against the
 JAX package's: its XLA form ``_epilogue_xla``, its Pallas ``_kernel`` run in
-the Pallas interpreter, and its per-step scalars."""
+the Pallas interpreter, and its per-step scalars (read by the port from a
+device table at a step index)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -50,7 +51,8 @@ def test_twin_matches_jax_xla(ptype):
     kw = dict(lr=0.05, b1=0.9, b2=0.999, adam_eps=1e-8, v_pred=ptype == "v_prediction")
     ref = jge._epilogue_xla(*(jnp.asarray(x.reshape(2, -1)) for x in (lat, g, out, m, v)),
                             jnp.asarray(sc, jnp.float32), **kw)
-    got = ge.guidance_epilogue_plain(*(torch.from_numpy(x) for x in (lat, g, out, m, v)), sc,
+    got = ge.guidance_epilogue_plain(*(torch.from_numpy(x) for x in (lat, g, out, m, v)),
+                                     torch.tensor([sc]), torch.zeros(1, dtype=torch.int64),
                                      lr=0.05, v_pred=kw["v_pred"])
     for name, a, b in zip(("lat", "m", "v"), got, ref):
         np.testing.assert_allclose(a.numpy().reshape(2, -1), np.asarray(b), rtol=1e-5,
@@ -75,13 +77,14 @@ def test_matches_pallas_kernel_interpreted(ptype, monkeypatch):
     jlat, jm, jv, count = (jnp.asarray(lat), jnp.zeros(shape), jnp.zeros(shape),
                            jnp.zeros((), jnp.int32))
     tlat, tm, tv = torch.from_numpy(lat.copy()), torch.zeros(shape), torch.zeros(shape)
+    table = ge.epilogue_table(tsched, (999, 799, 599), steps)
     for i, t in enumerate((999, 799, 599)):
         g, out = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
         jlat, jm, jv, count = jge.guided_epilogue(
             jlat, jnp.asarray(g), jnp.asarray(out), jm, jv, count, jsched, jnp.asarray(t),
             steps, lr=0.05)
-        ge.guidance_epilogue(tlat, torch.from_numpy(g), torch.from_numpy(out), tm, tv,
-                             ge.epilogue_scalars(tsched, t, steps, i), lr=0.05, v_pred=v_pred)
+        ge.guidance_epilogue(tlat, torch.from_numpy(g), torch.from_numpy(out), tm, tv, table,
+                             torch.tensor([i]), lr=0.05, v_pred=v_pred)
         for name, a, b in (("lat", tlat, jlat), ("m", tm, jm), ("v", tv, jv)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5, atol=2e-5,
                                        err_msg=f"{name} after step {i}")
@@ -100,10 +103,10 @@ def test_wrapper_takes_plain_twin_only_on_cpu():
     """A CPU tensor runs the twin and counts no launch."""
     lat, g, out, m, v = (torch.from_numpy(x) for x in _state((1, 4, 6, 4), 2))
     before = dict(ge.LAUNCHES)
-    ref = ge.guidance_epilogue_plain(lat, g, out, m, v, (0.5, 0.8, 0.6, 0.7, 10.0, 100.0),
-                                     lr=0.05, v_pred=True)
-    ge.guidance_epilogue(lat, g, out, m, v, (0.5, 0.8, 0.6, 0.7, 10.0, 100.0), lr=0.05,
-                         v_pred=True)
+    table = torch.tensor([[0.1, 0.2, 0.3, 0.4, 1.0, 1.0], [0.5, 0.8, 0.6, 0.7, 10.0, 100.0]])
+    step = torch.tensor([1])
+    ref = ge.guidance_epilogue_plain(lat, g, out, m, v, table, step, lr=0.05, v_pred=True)
+    ge.guidance_epilogue(lat, g, out, m, v, table, step, lr=0.05, v_pred=True)
     assert ge.LAUNCHES == before
     for a, b in zip((lat, m, v), ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -33,6 +33,7 @@ from depth_completion_tpu_torch.models import registry, unet
 from depth_completion_tpu_torch.models.weights import from_jax_params
 from depth_completion_tpu_torch.ops.stats import kld_stdnorm as t_kld
 from depth_completion_tpu_torch.pipeline import sampler as TS
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 from depth_completion_tpu_torch.sched import ddim as td
 from depth_completion_tpu_torch.sched import lcm as tl
 
@@ -93,7 +94,7 @@ def _port_sample(bundles, inputs, **kw):
     _, tbundle = bundles
     imgs, sparses = inputs
     d, lat = TS.guided_sample(tbundle, torch.from_numpy(imgs), torch.from_numpy(sparses),
-                              TS.SamplerConfig(**kw))
+                              TS.SamplerConfig(**kw), programs=ProgramCache())
     return d.numpy(), lat.numpy()
 
 

@@ -23,6 +23,7 @@ from depth_completion_tpu_torch.core import prng
 from depth_completion_tpu_torch.models import registry
 from depth_completion_tpu_torch.models.weights import from_jax_params
 from depth_completion_tpu_torch.pipeline import sampler as TS
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 
 from tests.test_torch_weights import tiny_jax_trees
 
@@ -132,7 +133,7 @@ def test_guided_sample_seed_noise_matches_jax(bundles):
 
     def port(seed):
         d, lat = TS.guided_sample(tbundle, torch.from_numpy(imgs), torch.from_numpy(sparses),
-                                  TS.SamplerConfig(seed=seed, **kw))
+                                  TS.SamplerConfig(seed=seed, **kw), programs=ProgramCache())
         return d.numpy() - d_j, lat.numpy() - l_j
 
     def rms(x):

@@ -20,6 +20,7 @@ from depth_completion_tpu.pipeline import sampler as JS
 from depth_completion_tpu_torch.ops import flash_attention as tfa
 from depth_completion_tpu_torch.ops.ring_attention import LocalRing, ring_attention
 from depth_completion_tpu_torch.pipeline import sampler as TS
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 
 from tests import torch_ring_worker
 from tests.test_ring_attention import _mesh, _run_flash_ring
@@ -217,7 +218,7 @@ def test_ring_sampler_matches_jax_and_base(bundles, inputs):  # noqa: F811
     for name, ring in (("ring", LocalRing(4)), ("base", None)):
         d, lat = TS.guided_sample(tbundle, torch.from_numpy(imgs), torch.from_numpy(sparses),
                                   TS.SamplerConfig(**kw, ring_mesh=ring),
-                                  init_noise=torch.from_numpy(noise))
+                                  init_noise=torch.from_numpy(noise), programs=ProgramCache())
         runs[name] = (d.numpy(), lat.numpy())
     (d_r, l_r), (d_b, l_b) = runs["ring"], runs["base"]
     assert np.isfinite(d_r).all()

@@ -9,6 +9,7 @@ both sides (``from_jax_params``), same injected noise.
 """
 
 import functools
+import types
 
 import numpy as np
 import jax
@@ -29,6 +30,7 @@ from depth_completion_tpu_torch.models import registry
 from depth_completion_tpu_torch.models.weights import from_jax_params
 from depth_completion_tpu_torch.pipeline import pipeline as tpipe
 from depth_completion_tpu_torch.pipeline import sampler as TS
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 
 from tests.test_torch_weights import tiny_jax_trees
 
@@ -152,7 +154,8 @@ def _run_both(bundles, inputs, **cfg_kwargs):
     d_j, l_j = jfn(jbundle, jnp.asarray(imgs), jnp.asarray(sparses),
                    JS.SamplerConfig(**cfg_kwargs), init_noise=jnp.asarray(noise))
     d_t, l_t = TS.guided_sample(tbundle, torch.from_numpy(imgs), torch.from_numpy(sparses),
-                                TS.SamplerConfig(**cfg_kwargs), init_noise=torch.from_numpy(noise))
+                                TS.SamplerConfig(**cfg_kwargs), init_noise=torch.from_numpy(noise),
+                                programs=ProgramCache())
     return d_t.numpy() - np.asarray(d_j), l_t.numpy() - np.asarray(l_j)
 
 
@@ -195,17 +198,19 @@ def test_three_guided_steps_kl_match_jax(kl_bundles, inputs, monkeypatch):
     imgs, sparses, noise = inputs
     d_bug, _ = TS.guided_sample(kl_bundles[1], torch.from_numpy(imgs), torch.from_numpy(sparses),
                                 TS.SamplerConfig(**kw, detach_unet_grad=True),
-                                init_noise=torch.from_numpy(noise))
+                                init_noise=torch.from_numpy(noise), programs=ProgramCache())
     d_ok, _ = TS.guided_sample(kl_bundles[1], torch.from_numpy(imgs), torch.from_numpy(sparses),
-                               TS.SamplerConfig(**kw), init_noise=torch.from_numpy(noise))
+                               TS.SamplerConfig(**kw), init_noise=torch.from_numpy(noise),
+                               programs=ProgramCache())
     assert _rms(d_bug.numpy() - d_ok.numpy()) > 3e-2
 
 
-def test_fused_adam_matches_eager_chain():
-    """The fused Adam branch (epilogue state m, v, count; the affine's own
-    Adam) against the eager chain (one two-group Adam) over the same
-    gradients, 4 steps, v- and ε-prediction: fp32, norms summed in another
-    order (1e-5)."""
+def test_fused_adam_matches_eager_chain(monkeypatch):
+    """The fused Adam branch (``GuidedStepProgram``: the epilogue's state m,
+    v and its table row per step; the affine's Adam as tensor ops) against
+    the eager chain (one two-group Adam) over the same gradients, 4 steps,
+    v- and ε-prediction: fp32, norms summed in another order (1e-5). The
+    program runs eagerly here (the CPU) with its gradients injected."""
     rng = np.random.default_rng(21)
     shape, n = (2, 6, 8, 4), 2
     steps = [(rng.standard_normal(shape).astype(np.float32) * 1e-3,
@@ -213,25 +218,38 @@ def test_fused_adam_matches_eager_chain():
               rng.standard_normal((n, 1, 1, 1)).astype(np.float32),
               rng.standard_normal((n, 1, 1, 1)).astype(np.float32)) for _ in range(4)]
     lat0 = rng.standard_normal(shape).astype(np.float32)
+    sparses = torch.from_numpy(rng.uniform(0, 5, (n, 8, 8, 1)).astype(np.float32))
+    dn = TS.normalize_sparse(sparses, norm="const", projection="linear", inv=False,
+                             min_depth=0.0, max_depth=10.0)
+    bundle = types.SimpleNamespace(text_context=torch.zeros((1, 2, 8)))
     for ptype in ("v_prediction", "epsilon"):
         cfg = TS.SamplerConfig(steps=4, ddim=TS.DDIMConfig(prediction_type=ptype))
         sched = TS.make_schedule(cfg.ddim)
         ts = [int(t) for t in TS.make_timesteps(cfg.ddim, cfg.steps)]
-        results = []
-        for run in (TS._fused_adam_steps, TS._eager_steps):
-            latents = torch.tensor(lat0, requires_grad=True)
-            aff = [torch.ones((n, 1, 1, 1), requires_grad=True),
-                   torch.zeros((n, 1, 1, 1), requires_grad=True)]
+
+        def injected():
             it = iter(steps)
 
-            def step(t):
+            def step(*args, **kwargs):
                 g, out, gs, gb = (torch.from_numpy(x) for x in next(it))
                 return None, out, (g, gs, gb)
 
-            with torch.no_grad():
-                run(step, sched, cfg, ts, latents, aff)
-            results.append([latents.detach().clone()] + [p.detach().clone() for p in aff])
-        for a, b in zip(*results):
+            return step
+
+        monkeypatch.setattr(TS, "guided_step_grads", injected())
+        program = TS.GuidedStepProgram(bundle, cfg, sched, False, False, torch.zeros(shape),
+                                       torch.from_numpy(lat0), dn, torch.zeros((n, 8, 8, 3)),
+                                       (8, 8), (0, 0))
+        program.load(torch.zeros(shape), torch.from_numpy(lat0), dn, torch.zeros((n, 8, 8, 3)))
+        with torch.no_grad():
+            program.run()
+        fused = [program.latents] + program.affine
+        latents = torch.tensor(lat0, requires_grad=True)
+        aff = [torch.ones((n, 1, 1, 1), requires_grad=True),
+               torch.zeros((n, 1, 1, 1), requires_grad=True)]
+        with torch.no_grad():
+            TS._eager_steps(injected(), sched, cfg, ts, latents, aff)
+        for a, b in zip(fused, [latents.detach()] + [p.detach() for p in aff]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
@@ -241,7 +259,8 @@ def test_pipeline_validation(bundles, inputs, monkeypatch):
     pipe = tpipe.DepthCompletionPipeline(tbundle)
     seen = {}
     monkeypatch.setattr(tpipe, "guided_sample",
-                        lambda b, i, s, cfg, prev: seen.setdefault("cfg", cfg) and (i, prev))
+                        lambda b, i, s, cfg, prev, programs: seen.setdefault("cfg", cfg)
+                        and (i, prev))
     with pytest.raises(ValueError, match="matching"):
         pipe(imgs, sparses[:, :-1], max_depth=10.0)
     empty = sparses.copy()

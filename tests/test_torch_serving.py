@@ -40,6 +40,7 @@ from depth_completion_tpu_torch.models import registry
 from depth_completion_tpu_torch.models.weights import from_jax_params
 from depth_completion_tpu_torch.ops.resize import latent_size
 from depth_completion_tpu_torch.pipeline import sampler as TS
+from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 from depth_completion_tpu_torch.serving import OverloadedError, ServeRequest, ServingEngine
 from depth_completion_tpu_torch.serving.server import make_server
@@ -134,6 +135,11 @@ class _Blocking:
             self.entered.set()
             self.release.wait(60)
         return _fake_pipe_result(images)
+
+    def program_keys(self):
+        """One program per (batch, geometry) run, keyed as the pipeline's."""
+        shapes = dict.fromkeys((n, *hw) for n, hw, _ in self.calls)
+        return [("step", (n, h, w, 3)) for n, h, w in shapes]
 
 
 # ---------------------------------------------------------------------------
@@ -327,8 +333,25 @@ def case_warmup_parallel_runs_serially(engines):
     eng.warmup([(H, W), (W, H)], parallel=3)
     assert eng.warm and peak[0] == 1
     assert calls == [(1, False), (4, False), (1, True)] * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        eng.warmup([(H, W)], tiered=True)
+    # tiered: every job on tier 0, then each signature promoted on the
+    # compute thread (the carry shares bucket 1's program)
+    tier0 = []
+
+    class _Tier0:
+        def __call__(self, images, sparses, **k):
+            tier0.append((images.shape[0], "pred_latents_prev" in k))
+            return _fake_pipe_result(images)
+
+    eng._make_tier0_pipe = lambda effort: _Tier0()
+    calls.clear()
+    eng.warmup([(H, W)], parallel=3, tiered=True)
+    assert tier0 == [(1, False), (4, False), (1, True)]
+    deadline = time.monotonic() + 30
+    while eng.stats().get("tier0_active") and time.monotonic() < deadline:
+        time.sleep(0.02)
+    st = eng.stats()
+    assert "tier0_active" not in st and calls == [(1, False), (4, False)]
+    assert [p["signature"] for p in st["tier_promotions"]] == [((H, W), 1), ((H, W), 4)]
 
 
 def case_http_timeout_returns_504(engines, serving):
@@ -727,8 +750,9 @@ def test_serve_bad_options_fail_on_both_sides(argv):
 def test_serve_cli_runs_and_refuses(monkeypatch):
     """run_serve on the CPU with the tiny random model warms 48x64 (buckets
     1 and 4, the carry) and answers over HTTP, logging the XLA flags as
-    no-ops; --warmup-tiered raises naming the ROADMAP item; without a GPU
-    and without --device cpu it raises the device error."""
+    no-ops; --max-programs bounds the pipeline's programs; --warmup-tiered
+    warms on the eager twin, promotes each signature and serves; without a
+    GPU and without --device cpu it raises the device error."""
     monkeypatch.setenv("DCT_RANDOM_MODEL_SIZE", "tiny")
     base = ["--model", "random", "--steps", "1", "--res", "64", "--precision", "fp32",
             "--port", "0", "--log-level", "WARNING"]
@@ -743,14 +767,32 @@ def test_serve_cli_runs_and_refuses(monkeypatch):
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
         assert engine.warm and calls == [(1, False), (4, False), (1, True)]
+        assert engine.pipe.max_programs == 4 and len(engine.pipe.program_keys()) == 2
         status, data, _ = _post(httpd, "/v1/complete", _npz_payload(*_frame(3)))
         assert status == 200 and np.load(io.BytesIO(data)).shape == (H, W, 1)
     finally:
         httpd.shutdown()
         httpd.server_close()
         engine.shutdown()
-    with pytest.raises(NotImplementedError, match="--warmup-tiered.*ROADMAP queue 1, item 2"):
-        serve.main([*base, "--device", "cpu", "--warmup-tiered"])
+    calls.clear()
+    params = vars(serve.build_parser().parse_args(
+        [*base, "--device", "cpu", "--warmup", "48x64", "--warmup-tiered", "--max-batch", "2"]))
+    engine, httpd = serve.run_serve(**params, serve_forever=False)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        assert engine.warm and calls[:3] == [(1, False), (2, False), (1, True)]
+        deadline = time.monotonic() + 60
+        while engine.stats().get("tier0_active") and time.monotonic() < deadline:
+            time.sleep(0.05)
+        st = engine.stats()
+        assert "tier0_active" not in st and calls[3:] == [(1, False), (2, False)]
+        assert [p["signature"] for p in st["tier_promotions"]] == [((H, W), 1), ((H, W), 2)]
+        status, data, _ = _post(httpd, "/v1/complete", _npz_payload(*_frame(3)))
+        assert status == 200 and np.load(io.BytesIO(data)).shape == (H, W, 1)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.shutdown()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device|CUDA is not available"):
             serve.main(base)
@@ -813,7 +855,8 @@ def test_fast_guidance_keeps_no_unet_graph(bundles):
               detach_unet_grad=True)
     d_j, _ = jax.jit(JS.guided_sample, static_argnames=("cfg",))(
         jbundle, jnp.asarray(img[None]), jnp.asarray(sp[None]), JS.SamplerConfig(**kw))
-    d_t, _ = TS.guided_sample(tbundle, images, sparses, TS.SamplerConfig(**kw))
+    d_t, _ = TS.guided_sample(tbundle, images, sparses, TS.SamplerConfig(**kw),
+                              programs=ProgramCache())
     _assert_close_to_jax(d_t.numpy(), np.asarray(d_j))
 
 
