@@ -88,7 +88,18 @@
    its first batch on the eager twin and later ones on the graphs as each
    signature is promoted, and ``max_programs=1`` over two geometries,
    whose evicted program's requests run on the eager twin;
-7. prints ``{"probes": [...]}`` (each probe's readings and verdict),
+7. runs the distributed layer (``distributed_phase``): (a) ``torchrun
+   --standalone --nproc_per_node=1`` of the predict CLI with ``--multihost
+   true`` on phase 4's frames at ``min(--steps, 10)`` steps, an NCCL group
+   of one rank, against the single-process run (launches per rank counted
+   in the rank); (b) on a machine with two or more cards, native-res over
+   ``ProcessGroupRing``, data parallel at batch 4 and ``--mesh-model 2``
+   against one card, and on one card a line saying it did not run; (c) two
+   gloo ranks on the one card: a full-width tensor-parallel guided step
+   against the whole UNet (``REF_LIMITS``) and an ensemble over a data axis
+   of 2 (its rows exact), and what NCCL says to two ranks on one card;
+   ``--only-distributed`` runs phases 3a, 3 (TAESD), 4 and 7 alone;
+8. prints ``{"probes": [...]}`` (each probe's readings and verdict),
    ``{"composites": [...]}`` (the ring's passes: their times, errors
    and bound, and the ring step launches on the native path),
    ``{"graphs": {...}}`` (phase 3's (a)-(d) per path, the card),
@@ -99,8 +110,9 @@
    seconds per signature, the first request's latency, requests/s, p50 and
    p95 latency, s/step at batch 1 and 4, the device gap between batches,
    peak GiB, the step programs, the tiers' calls and promotion times, the
-   card), ``{"kernels": [...]}`` (one entry per CUDA
-   kernel, its launches over phases 3 and 6, replays included; a probe kernel's
+   card), ``{"distributed": {...}}`` (phase 7's readings, the card),
+   ``{"kernels": [...]}`` (one entry per CUDA
+   kernel, its launches over phases 3, 6 and 7 (a), replays included; a probe kernel's
    launches are its probe's, and every guided path must launch it 0
    times) and, last,
    ``{"ok": true, "device": ...}``.
@@ -123,6 +135,8 @@ import http.client
 import io
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -141,6 +155,7 @@ def _require_cuda():
 
 
 torch = _require_cuda()
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
@@ -150,6 +165,8 @@ from depth_completion_tpu_torch import _build  # noqa: E402
 from depth_completion_tpu_torch.cli import analyze as analyze_cli  # noqa: E402
 from depth_completion_tpu_torch.cli import predict as predict_cli  # noqa: E402
 from depth_completion_tpu_torch.cli import serve as serve_cli  # noqa: E402
+from depth_completion_tpu_torch.core import distributed as dist_core  # noqa: E402
+from depth_completion_tpu_torch.core import mesh as mesh_core  # noqa: E402
 from depth_completion_tpu_torch.guidance.optim import make_optimizer  # noqa: E402
 from depth_completion_tpu_torch.io import bl2, codecs, image, jpeg, png  # noqa: E402
 from depth_completion_tpu_torch.models import (  # noqa: E402
@@ -170,6 +187,7 @@ from depth_completion_tpu_torch.ops import guidance_epilogue as ge  # noqa: E402
 from depth_completion_tpu_torch.ops import ring_attention as ra  # noqa: E402
 from depth_completion_tpu_torch.ops.resize import latent_size  # noqa: E402
 from depth_completion_tpu_torch.parallel import ensemble as TE  # noqa: E402
+from depth_completion_tpu_torch.parallel import sharding  # noqa: E402
 from depth_completion_tpu_torch.pipeline import sampler as S  # noqa: E402
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline  # noqa: E402
 from depth_completion_tpu_torch.probes import card, time_ms  # noqa: E402
@@ -1115,7 +1133,7 @@ def encode_check(bundle, bundle32, images) -> None:
 
 def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 768,
                          ring=None, options=(), per_input: bool = False,
-                         label: str = "reference step", limits=None) -> dict:
+                         label: str = "reference step", limits=None, tp_bundle=None) -> dict:
     """One guided step (t = the first timestep) on the path's inputs, with
     the path's sampler ``options``, for each of ``REF_SEEDS`` (the initial
     noise), three ways: the run under
@@ -1140,6 +1158,9 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
     no UNet), at the latent 4 DDIM steps from the seed's noise give (through
     the kernels, shared by the three runs), held to ``PER_INPUT_LIMITS``.
     ``limits`` replaces the path's limits (the peaked-softmax steps).
+    ``tp_bundle``: the run under test is ``bundle`` tensor-parallel
+    (``parallel.sharding.shard_bundle``), its reference ``bundle`` whole,
+    both through the kernels, held to the path's limits.
     → the largest reading of each comparison over the seeds.
     """
     cfg = S.SamplerConfig(steps=50, resolution=resolution, norm="const", closed_form=False,
@@ -1153,6 +1174,9 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
         modes = {"kernel": kernels,
                  "plain": (bundle, plain_attention, plain_attention, _plain_conv3x3_fused),
                  "fp32": fp32}
+    elif tp_bundle is not None:
+        path_limits = REF_LIMITS[bundle.vae.kind]
+        modes = {"tensor-parallel": (tp_bundle,) + kernels[1:], "whole": kernels, "fp32": fp32}
     elif ring is None:
         path_limits = REF_LIMITS[bundle.vae.kind]
         modes = {"kernel": kernels,
@@ -1175,8 +1199,8 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
         results = []
         for bnd, unet_attention, attention_fn, conv_fn in modes.values():
             lat = lat0.clone().requires_grad_(True)
-            aff = [torch.ones((1, 1, 1, 1), device=DEV).requires_grad_(True),
-                   torch.zeros((1, 1, 1, 1), device=DEV).requires_grad_(True)]
+            aff = [torch.ones((1, 1, 1, 1), device=lat.device).requires_grad_(True),
+                   torch.zeros((1, 1, 1, 1), device=lat.device).requires_grad_(True)]
             decode = functools.partial(S.decode_prediction, bnd, conv_fn=conv_fn,
                                        attention_fn=attention_fn)
             if per_input:
@@ -1645,18 +1669,19 @@ CLI_INPUT_LIMIT = 1e-5
 CLI_FRAMES, CLI_FRAME, CLI_POINTS = 3, (480, 640), 500
 
 
-def cli_dataset(root: Path, seed: int = 0, frames: int = CLI_FRAMES):
+def cli_dataset(root: Path, seed: int = 0, frames: int = CLI_FRAMES,
+                frame: tuple[int, int] = CLI_FRAME, points: int = CLI_POINTS):
     """``scene/image/*.png`` (random RGB) and ``scene/sparse/*.png`` (8-bit
-    grey, ~500 points of 1..255 = 120·v/255 m), written with the port's
-    PNG writer. → (the dataset root, the generated images and sparse
+    grey, ``points`` points of 1..255 = 120·v/255 m), written with the
+    port's PNG writer. → (the dataset root, the generated images and sparse
     bytes, [F, H, W, 3] and [F, H, W] uint8)."""
     rng = np.random.default_rng(seed)
-    h, w = CLI_FRAME
+    h, w = frame
     imgs = rng.integers(0, 256, (frames, h, w, 3), dtype=np.uint8)
     sparse = np.zeros((frames, h * w), np.uint8)
     for f in range(frames):
-        idx = rng.choice(h * w, CLI_POINTS, replace=False)
-        sparse[f, idx] = rng.integers(1, 256, CLI_POINTS)
+        idx = rng.choice(h * w, points, replace=False)
+        sparse[f, idx] = rng.integers(1, 256, points)
     sparse = sparse.reshape(frames, h, w)
     for sub, arrays in (("image", imgs), ("sparse", sparse)):
         (root / "scene" / sub).mkdir(parents=True)
@@ -2909,10 +2934,392 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
     return line, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the distributed layer (torchrun, NCCL, tensor parallelism)
+# ---------------------------------------------------------------------------
+
+DIST_MAX_STEPS = 10
+DIST_TIMEOUT_S = 240
+KITTI_FRAMES, KITTI_FRAME, KITTI_POINTS, KITTI_RES = 2, (352, 1216), 2000, 1216
+# (c)'s ensemble over a data axis of 2 ranks on one card: 3 frames x 2
+# members put rows 0-2 on rank 0 and 3-5 on rank 1, whose first row is
+# member 1 (its local index would say member 0)
+ENSEMBLE_MESH = {"frames": 3, "members": 2, "steps": 2}
+WORKER_SPLIT = "::"  # separates a CLI worker's runs
+
+
+def start_torchrun(nproc: int, worker: str, out: Path, args: list[str],
+                   timeout: float = DIST_TIMEOUT_S, check_rc: bool = True,
+                   env: dict | None = None):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc_per_node=N`` of this script in ``worker`` mode, in a session of
+    its own, its output into ``out``. → a function that waits for it (past
+    ``timeout`` it kills every process of the session: torchrun's agent and
+    its ranks) and returns (each rank's JSON result, the output's lines)."""
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(Path(__file__).resolve()), worker, str(out), "--",
+           *args]
+    log_path, deadline = out / "output.log", time.monotonic() + timeout
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+                                env=None if env is None else {**os.environ, **env})
+
+    def finish() -> tuple[list[dict], list[str]]:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"torchrun {worker} x{nproc} did not finish in {timeout} s:\n"
+                                 f"{log_path.read_text()[-3000:]}")
+        lines = log_path.read_text().splitlines()
+        for line in lines:
+            if line.startswith("  "):  # the ranks' readings
+                print(line)
+        results = [json.loads(p.read_text()) for p in sorted(out.glob("rank*.json"))]
+        if check_rc and (rc != 0 or len(results) != nproc):
+            raise AssertionError(f"torchrun {worker} x{nproc} exited {rc} with {len(results)} "
+                                 "results:\n" + "\n".join(lines[-60:]))
+        return results, lines
+
+    return finish
+
+
+def torchrun(nproc: int, worker: str, out: Path, args: list[str]) -> list[dict]:
+    """``start_torchrun`` and its wait → each rank's JSON result."""
+    return start_torchrun(nproc, worker, out, args)()[0]
+
+
+def _result(out: Path, payload: dict) -> None:
+    (out / f"rank{os.environ.get('RANK', '0')}.json").write_text(json.dumps(payload))
+
+
+def cli_worker(out: Path, args: list[str]) -> int:
+    """One torchrun rank: the predict CLI in process for each run of
+    ``args`` (runs separated by ``WORKER_SPLIT``), launches counted from 0
+    around each. With one run the CLI joins the group itself
+    (``--multihost true``); with more, the rank joins first and the runs
+    share the group."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs, cur = [], []
+    for a in args:
+        if a == WORKER_SPLIT:
+            runs.append(cur)
+            cur = []
+        else:
+            cur.append(a)
+    runs.append(cur)
+    if len(runs) > 1:
+        dist_core.initialize()
+    results = []
+    for argv in runs:
+        reset_launches()  # just before the run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        totals = predict_cli.main(argv)
+        torch.cuda.synchronize()
+        results.append({"totals": totals, "wall_s": time.perf_counter() - t0,
+                        "launches": launches()})  # just after
+    _result(out, {"rank": int(os.environ["RANK"]), "runs": results,
+                  "nccl": ".".join(str(v) for v in torch.cuda.nccl.version())})
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_worker(out: Path, args: list[str]) -> int:
+    """One of two gloo ranks on one card (``cuda:0``; gloo's all_reduce and
+    broadcast take CUDA tensors): one full-width TAESD guided step with the
+    UNet tensor-parallel over both ranks (M=2) against the whole UNet
+    (``reference_step_check``, ``REF_LIMITS``), launches counted; then an
+    ensemble over a data axis of both ranks against the same ensemble in one
+    process: the image rows and member noise each rank hands the sampler
+    equal to the one-process rows it owns, exactly (at random weights the
+    maps hardly see which frame or member a row is), and the members within
+    ``CLI_LIMITS`` of the one-process members (two runs of one request)."""
+    model_dir, taesd_dir = Path(args[0]), Path(args[1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = dist_core.initialize(device="cuda:0", backend="gloo")
+    rank = dist.get_rank()
+    result: dict = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        bundle = load_bundle(model_dir, "tiny", taesd_dir, torch.bfloat16, device=dev)
+        tp = sharding.shard_bundle(mesh_core.make_mesh(mesh_core.MeshSpec(data=1, model=2)),
+                                   bundle, tensor_parallel=True)
+        images, sparses = path_inputs(CLI_FRAME, CLI_POINTS)
+        reset_launches()
+        result["tp_step"] = reference_step_check(
+            bundle, fp32_bundle(bundle), images.to(dev), sparses.to(dev), tp_bundle=tp,
+            label=f"rank {rank}: tensor-parallel step (M=2)")
+        result["tp_launches"] = launches()
+        # per rank, the tensor-parallel and the whole step each launch one
+        # step's kernels (a sharded stage's flash call on heads / M); the
+        # fp32 run takes none
+        one = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                                (72, 96), 1, mode="step")
+        want = {k: 2 * len(REF_SEEDS) * n for k, n in one.items()}
+        if result["tp_launches"] != want:
+            raise AssertionError(f"rank {rank}: TP step launches {result['tp_launches']} != "
+                                 f"{want}")
+        departures = sharding.tp_departures(bundle.unet_params, bundle.unet_config, 2)
+        result["tp_departures"] = {why: sum(1 for v in departures.values() if v == why)
+                                   for why in sorted(set(departures.values()))}
+        mesh = mesh_core.make_mesh(mesh_core.MeshSpec(data=2, model=1))
+        images, sparses = path_inputs(CLI_FRAME, CLI_POINTS, batch=ENSEMBLE_MESH["frames"])
+        kw = dict(max_depth=120.0, steps=ENSEMBLE_MESH["steps"], norm="const", resolution=768,
+                  ensemble_size=ENSEMBLE_MESH["members"])
+        with spy_ensemble_rows() as fed_mesh:
+            reset_launches()
+            _, members = DepthCompletionPipeline(bundle)(images, sparses, ensemble_mesh=mesh,
+                                                         **kw)
+            result["ensemble_launches"] = launches()
+        want = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                                 (72, 96), ENSEMBLE_MESH["steps"])
+        if result["ensemble_launches"] != want:  # this rank's rows, one request
+            raise AssertionError(f"rank {rank}: ensemble launches {result['ensemble_launches']}"
+                                 f" != {want}")
+        with spy_ensemble_rows() as fed_one:
+            _, alone = DepthCompletionPipeline(bundle)(images, sparses, **kw)
+        rows = len(fed_mesh[0][0])
+        own = slice(rank * rows, (rank + 1) * rows)
+        rows_err = max(float((a - b[own]).abs().max()) for a, b in zip(fed_mesh[0], fed_one[0]))
+        print(f"  rank {rank}: ensemble rows {own.start}-{own.stop - 1} of "
+              f"{len(fed_one[0][0])}: images and member noise fed against one process's, max "
+              f"{rows_err:.3e}")
+        check(f"rank {rank}: ensemble rows fed over the data axis vs one process", rows_err,
+              0.0)
+        result["ensemble_rows_err"] = rows_err
+        rms, worst = _range_errors([members.float().cpu().numpy()],
+                                   [alone.float().cpu().numpy()])
+        print(f"  rank {rank}: ensemble over a data axis of 2 against one process: members rms "
+              f"{rms:.3e}, max {worst:.3e} of the 120 m range")
+        check(f"rank {rank}: ensemble over the data axis vs one process (members, rms)", rms,
+              CLI_LIMITS[0], "rms/120 m")
+        check(f"rank {rank}: ensemble over the data axis vs one process (members, max)", worst,
+              CLI_LIMITS[1], "max/120 m")
+        result["ensemble_vs_one_process"] = {"rms": rms, "max": worst}
+    finally:
+        result["failures"] = FAILURES
+        _result(out, result)
+        dist.destroy_process_group()
+    return 0
+
+
+def nccl_pair_worker(out: Path, args: list[str]) -> int:
+    """One of two NCCL ranks on one card: one all_reduce; → what NCCL says."""
+    try:
+        dist_core.initialize(device="cuda:0", initialization_timeout=60)
+        x = torch.ones(1, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        said = f"ran: all_reduce gave {float(x)}"
+    except Exception as e:  # noqa: BLE001 - recorded, the phase's finding
+        said = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:300]}"
+    _result(out, {"rank": int(os.environ["RANK"]), "said": said})
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+@contextlib.contextmanager
+def spy_ensemble_rows():
+    """Records the (images, init_noise) rows ``parallel.ensemble`` hands
+    ``guided_sample``, per call."""
+    fed = []
+    call = TE.guided_sample
+
+    def spy(bundle, images, sparses, cfg, *args, init_noise=None, **kwargs):
+        fed.append((images.float(), init_noise.float()))
+        return call(bundle, images, sparses, cfg, *args, init_noise=init_noise, **kwargs)
+
+    TE.guided_sample = spy
+    try:
+        yield fed
+    finally:
+        TE.guided_sample = call
+
+
+WORKERS = {"--cli-worker": cli_worker, "--tp-worker": tp_worker,
+           "--nccl-pair-worker": nccl_pair_worker}
+
+
+def _dense_maps(out: Path) -> list[np.ndarray]:
+    return [codecs.load_array(p) for p in sorted((out / "scene" / "dense").glob("*.dcz"))]
+
+
+def _range_errors(got: list[np.ndarray], ref: list[np.ndarray]) -> tuple[float, float]:
+    """(rms, max) of the maps' difference over the 120 m range."""
+    if len(got) != len(ref) or not got:
+        raise AssertionError(f"{len(got)} maps against {len(ref)}")
+    diff = np.stack(got) / 120.0 - np.stack(ref) / 120.0
+    return float(np.sqrt(np.mean(diff**2))), float(np.abs(diff).max())
+
+
+def distributed_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, graphs: dict,
+                      cli_out: Path) -> tuple[dict, dict]:
+    """(a) ``torchrun --standalone --nproc_per_node=1`` of the predict CLI
+    with ``--multihost true`` (a real NCCL group of one rank on the card) at
+    ``min(steps, 10)`` steps over phase 4's three 480x640 frames on phase
+    3's checkpoint directory: world 1, backend nccl, three frames written,
+    launches three times one request's, the dense maps against phase 4's
+    single-process run of the same frames and seed (the same CLI in process
+    at those steps where phase 4 ran more) within phase 3's graph-against-
+    eager limit for the dense map (``flash_bwd``'s dq atomics make two runs
+    differ; at 50 steps that limit is loose) and within ``CLI_LIMITS`` (two
+    runs of one request through the CLI); (c) two gloo ranks on the one
+    card (``tp_worker``) and two NCCL ranks on it (``nccl_pair_worker``:
+    what NCCL says), both beside (a)'s single-process reference, since none
+    of the three is timed; (b) with two or more cards, at world min(4,
+    cards): native-res over ``ProcessGroupRing`` on KITTI frames against
+    the pipeline with ``LocalRing(P)``, data parallel at batch 4 and
+    ``--mesh-model 2`` against the CLI in one process (``CLI_LIMITS``); on
+    one card, that it did not run and why. → (the ``distributed`` line,
+    (a)'s launch counts)."""
+    t_phase = time.perf_counter()
+    n_steps = min(steps, DIST_MAX_STEPS)
+    dense_limit = graphs[PATHS[0].label]["graph_vs_twin"]["dense"]["limit"]
+    data = root / "data"  # phase 4's frames
+    base = ["--checkpoint-dir", str(model_dir), "--taesd-dir", str(taesd_dir), "--steps",
+            str(n_steps), "--vis", "false", "--log-level", "WARNING"]
+    print(f"distributed (a): torchrun --standalone --nproc_per_node=1 of the predict CLI, "
+          f"--multihost true, {CLI_FRAMES} frames of {CLI_FRAME}, {n_steps} steps")
+    out_a = root / "dist_a"
+    (a,) = torchrun(1, "--cli-worker", root / "dist_a_results",
+                    [str(data), str(out_a), *base, "--multihost", "true"])
+    run = a["runs"][0]
+    totals = run["totals"]
+    if (totals["world"], totals["backend"], totals["frames"], totals["written"]) != \
+            (1, "nccl", CLI_FRAMES, CLI_FRAMES):
+        raise AssertionError(f"(a) totals {totals}")
+    eh, ew = latent_size(CLI_FRAME, 768, 2 ** (len(registry.TAESD_CONFIG.encoder_blocks) - 1))
+    one = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                            (eh, ew), n_steps)
+    if run["launches"] != {k: CLI_FRAMES * n for k, n in one.items()}:
+        raise AssertionError(f"(a) launches {run['launches']} != {CLI_FRAMES} x {one}")
+    # (c) and the NCCL pair run beside (a)'s single-process reference (no
+    # time is read from any of them)
+    print("distributed (c): two gloo ranks on the one card: a tensor-parallel guided step "
+          "(M=2) against the whole UNet; an ensemble over a data axis of 2")
+    finish_c = start_torchrun(2, "--tp-worker", root / "dist_c_results",
+                              [str(model_dir), str(taesd_dir)])
+    finish_pair = start_torchrun(2, "--nccl-pair-worker", root / "dist_nccl_pair", [],
+                                 timeout=90, check_rc=False, env={"NCCL_DEBUG": "WARN"})
+    ref_dir = cli_out
+    if n_steps != steps:
+        ref_dir = root / "dist_a_reference"
+        predict_cli.main([str(data), str(ref_dir), *base])
+    got, ref = _dense_maps(out_a), _dense_maps(ref_dir)
+    err = max(_rel(torch.from_numpy(g), torch.from_numpy(r)) for g, r in zip(got, ref))
+    rms, worst = _range_errors(got, ref)
+    a_line = {"world": totals["world"], "backend": totals["backend"], "nccl": a["nccl"],
+              "steps": n_steps, "frames": totals["frames"],
+              "s_per_frame": run["wall_s"] / totals["frames"],
+              "infer_s_per_frame": totals["time_infer"] / totals["frames"],
+              "launches": run["launches"], "vs_single_process": err, "graph_limit": dense_limit,
+              "vs_single_process_rms": rms, "vs_single_process_max": worst}
+    print(f"  (a) world {totals['world']}, backend {totals['backend']}, NCCL {a['nccl']}: "
+          f"{a_line['s_per_frame']:.2f} s/frame (load included; infer "
+          f"{a_line['infer_s_per_frame']:.2f}), launches {run['launches']}; dense maps against "
+          f"the single-process run: max|diff|/max|ref| {err:.3e} (phase 3's graph limit "
+          f"{dense_limit:.3e}), rms {rms:.3e} and max {worst:.3e} of the 120 m range")
+    check("distributed (a): torchrun NCCL world 1 vs the single-process CLI (dense)", err,
+          dense_limit, "max|diff|/max|ref|")
+    check("distributed (a): vs the single-process CLI (rms)", rms, CLI_LIMITS[0], "rms/120 m")
+    check("distributed (a): vs the single-process CLI (max)", worst, CLI_LIMITS[1], "max/120 m")
+
+    c, _ = finish_c()
+    for r in c:
+        FAILURES.extend(r["failures"])
+    pair, pair_log = finish_pair()
+    warn = sorted({line.split("NCCL WARN", 1)[1].strip()[:200] for line in pair_log
+                   if "NCCL WARN" in line})
+    said = sorted({r["said"] for r in pair}) + warn or ["no rank reported"]
+    print(f"  NCCL, two ranks on one card: {said}")
+    c_line = {"backend": c[0]["backend"], "tp_step": [r["tp_step"] for r in c],
+              "tp_launches_per_rank": c[0]["tp_launches"],
+              "tp_departures": c[0]["tp_departures"],
+              "ensemble_rows_err": [r["ensemble_rows_err"] for r in c],
+              "ensemble_vs_one_process": [r["ensemble_vs_one_process"] for r in c],
+              "ensemble_launches_per_rank": c[0]["ensemble_launches"], "nccl_pair": said}
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        b_line = distributed_cards(model_dir, taesd_dir, root, base, min(4, count), ref_dir)
+    else:
+        b_line = {"ran": False, "reason": f"one card (torch.cuda.device_count() = {count}): "
+                  "native-res over ProcessGroupRing, data parallel at batch 4 and "
+                  "--mesh-model 2 need two or more"}
+        print(f"distributed (b): not run: {b_line['reason']}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"distributed: phase 7 took {phase_s:.1f} s")
+    return ({"a": a_line, "b": b_line, "c": c_line, "phase_s": phase_s, "card": card()},
+            run["launches"])
+
+
+def distributed_cards(model_dir: Path, taesd_dir: Path, root: Path, base: list[str], world: int,
+                      ref_dir: Path) -> dict:
+    """(b): one torchrun of ``world`` ranks, one per card, running the CLI
+    three times in one group: native-res on KITTI frames (the ring over the
+    data axis of every rank), data parallel at batch 4, ``--mesh-model 2``;
+    each against its one-card counterpart within ``CLI_LIMITS``."""
+    print(f"distributed (b): {world} cards: native-res, data parallel at batch 4, "
+          "--mesh-model 2")
+    kitti, k_imgs, k_sparse = cli_dataset(root / "dist_kitti", seed=2, frames=KITTI_FRAMES,
+                                          frame=KITTI_FRAME, points=KITTI_POINTS)
+    four, _, _ = cli_dataset(root / "dist_four", seed=3, frames=4)
+    runs = {"native_res": [str(kitti), str(root / "dist_b_native_res"), *base, "--res",
+                           str(KITTI_RES), "--native-res", "true"],
+            "data_parallel": [str(four), str(root / "dist_b_dp"), *base, "--batch-size", "4"],
+            "mesh_model_2": [str(root / "data"), str(root / "dist_b_tp"), *base,
+                             "--mesh-model", "2"]}
+    args = []
+    for argv in runs.values():
+        args += [*argv, "--multihost", "true", WORKER_SPLIT]
+    results = torchrun(world, "--cli-worker", root / "dist_b_results", args[:-1])
+    # the one-card counterparts
+    bundle = load_bundle(model_dir, "tiny", taesd_dir, torch.bfloat16, device=DEV)
+    steps = int(base[base.index("--steps") + 1])
+    pipe = DepthCompletionPipeline(bundle)
+    native_ref = [pipe(k_imgs[f:f + 1].astype(np.float32),
+                       120.0 * (k_sparse[f:f + 1, ..., None].astype(np.float32) / 255.0),
+                       max_depth=120.0, steps=steps, norm="const", resolution=KITTI_RES,
+                       ring_mesh=ra.LocalRing(world))[0][0].float().cpu().numpy()
+                  for f in range(KITTI_FRAMES)]
+    del pipe, bundle
+    predict_cli.main([str(four), str(root / "dist_b_dp_reference"), *base, "--batch-size", "4"])
+    refs = {"native_res": native_ref, "data_parallel": _dense_maps(root / "dist_b_dp_reference"),
+            "mesh_model_2": _dense_maps(ref_dir)}
+    outs = {"native_res": root / "dist_b_native_res", "data_parallel": root / "dist_b_dp",
+            "mesh_model_2": root / "dist_b_tp"}
+    line = {"ran": True, "world": world, "nccl": results[0]["nccl"]}
+    for i, name in enumerate(runs):
+        rms, worst = _range_errors(_dense_maps(outs[name]), refs[name])
+        totals = [r["runs"][i]["totals"] for r in results]
+        line[name] = {"rms": rms, "max": worst, "written": [t["written"] for t in totals],
+                      "s_per_frame": results[0]["runs"][i]["wall_s"] / max(1, totals[0]["frames"]),
+                      "launches_per_rank": [r["runs"][i]["launches"] for r in results]}
+        print(f"  (b) {name}: against one card rms {rms:.3e}, max {worst:.3e} of the 120 m "
+              f"range; written per rank {line[name]['written']}")
+        check(f"distributed (b) {name} vs one card (rms)", rms, CLI_LIMITS[0], "rms/120 m")
+        check(f"distributed (b) {name} vs one card (max)", worst, CLI_LIMITS[1], "max/120 m")
+    return line
+
+
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] in WORKERS:  # a torchrun rank of phase 7
+        rest = sys.argv[3:]
+        return WORKERS[sys.argv[1]](Path(sys.argv[2]), rest[1:] if rest[:1] == ["--"] else rest)
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=50, help="guided steps per request")
+    ap.add_argument("--only-distributed", action="store_true",
+                    help="build, write the checkpoint, run the TAESD path, the CLI phase and "
+                    "phase 7 only (a run across several cards); no kernels line")
     args = ap.parse_args()
+    if args.only_distributed:
+        return only_distributed(args.steps)
 
     print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3031,6 +3438,10 @@ def main() -> int:
         serve, serve_counts = serve_phase(model_dir, taesd_dir, args.steps)
         for k, n in serve_counts.items():
             counts[k] = counts.get(k, 0) + n
+        distributed, dist_counts = distributed_phase(
+            model_dir, taesd_dir, Path(tmp), args.steps, graphs, Path(tmp) / "out")
+        for k, n in dist_counts.items():
+            counts[k] = counts.get(k, 0) + n
     if FAILURES:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
@@ -3072,6 +3483,7 @@ def main() -> int:
     print(json.dumps({"host_io": host_io}))
     print(json.dumps({"modes": modes}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"distributed": distributed}))
     # how a wrapper that runs more than one kernel counts its launches
     launch_notes = {"flash_bwd_d512": "one per call of dct_flash_bwd_d512, which runs three "
                                       "kernels: the di pre-pass, dk/dv, then dq"}
@@ -3091,6 +3503,32 @@ def main() -> int:
             entries[-1]["launches_counted"] = launch_notes[name]
     entries.extend(probe_entries)  # launches from the probes' runs; 0 on every path
     print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_distributed(steps: int) -> int:
+    """``--only-distributed``: the kernels' build, the checkpoint directory
+    (phase 3a), the TAESD path (phase 3: its graph limits), the CLI phase
+    (phase 4: the single-process maps) and phase 7, then the
+    ``distributed`` line and the result line."""
+    print(card())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoint_") as tmp:
+        loaded, model_dir, taesd_dir = checkpoint_bundle(Path(tmp))
+        _, info = guided_path(PATHS[0], steps, loaded)
+        del loaded
+        cli_phase(model_dir, taesd_dir, Path(tmp), steps)
+        distributed, _ = distributed_phase(model_dir, taesd_dir, Path(tmp), steps,
+                                           {PATHS[0].label: info["graph"]}, Path(tmp) / "out")
+    if FAILURES:
+        sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
+        return 1
+    print(json.dumps({"distributed": distributed}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

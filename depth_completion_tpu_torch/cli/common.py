@@ -21,12 +21,6 @@ from depth_completion_tpu_torch.logger import logger
 SUPPORTED_LOSS_FUNCS = ["l1", "l2", "edge", "smooth"]
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a flag whose path is not ported, naming its ROADMAP item."""
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"(ROADMAP queue 1, {item})")
-
-
 def coerce_guidance_options(
     loss_funcs: list[str],
     norm: str,

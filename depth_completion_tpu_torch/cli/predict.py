@@ -13,11 +13,22 @@ no ``--device cpu`` the command exits with the device error.
   ``--ensemble N`` runs N members per frame as one batch; with
   ``--ensemble-uncertainty true`` the member MAD map is written under
   ``uncertainty/`` beside ``dense/``, in the dense map's format.
-- Flags whose path is not ported raise ``NotImplementedError`` naming the
-  ROADMAP item: ``--multihost true``, ``--mesh-model`` > 1. Inputs may be
-  PNG, JPEG, GIF or BMP frames; ``--compress bl2`` writes blosc2 frames
-  through the port's own codec (``io/bl2.py``). ``--native-res true`` needs a data axis of two or more devices, as
-  in JAX: on one card it is a usage error.
+- Inputs may be PNG, JPEG, GIF or BMP frames; ``--compress bl2`` writes
+  blosc2 frames through the port's own codec (``io/bl2.py``).
+- Several cards, one process per card under ``torchrun`` (JAX
+  :348-397): ``--multihost true`` joins the process group
+  (``core.distributed.initialize``: torchrun's environment or the
+  ``DCT_*`` variables). With ``--num-shards`` > 1 each process then runs
+  its own frames on its own card and writes them. Otherwise the ranks form
+  one mesh (``core.mesh``): ``--mesh-model M`` ranks per tensor-parallel
+  group, and a data axis of ``gcd(batch·ensemble, world / M)`` ranks
+  (a warning names the idle ranks, which run nothing), over which a batch
+  (padded to ``--batch-size`` with its last frame) or an ensemble's rows
+  are split; ``--native-res true`` takes the whole data axis as the ring
+  of a ``ProcessGroupRing`` over the UNet's self-attention sequence. Every
+  rank of the mesh holds the whole batch's maps; rank 0 alone writes them.
+  ``--native-res true`` on one rank, or with ``--ensemble`` > 1, is a usage
+  error, as in JAX.
 - ``--compile-graph``, ``--compile-mode`` and ``--compile-effort`` are
   accepted and logged as no-ops, as in the JAX CLI: on the card the guided
   step is always captured, one CUDA graph per signature, and replayed at
@@ -45,6 +56,7 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
+import math
 import sys
 import time
 from pathlib import Path
@@ -52,18 +64,17 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from depth_completion_tpu_torch.cli.common import (
-    coerce_guidance_options,
-    init_bundle,
-    not_ported,
-)
+from depth_completion_tpu_torch.cli.common import coerce_guidance_options, init_bundle
 from depth_completion_tpu_torch.cli.options import (
     comma_separated,
     existing_dir,
     number_range,
     str2bool,
 )
+from depth_completion_tpu_torch.core.distributed import initialize, is_primary
+from depth_completion_tpu_torch.core.mesh import AXIS_DATA, AXIS_MODEL, MeshSpec, make_mesh
 from depth_completion_tpu_torch.device import resolve_device
 from depth_completion_tpu_torch.io import (
     DATASET_DIR_NAME_IMAGE,
@@ -81,6 +92,8 @@ from depth_completion_tpu_torch.io import (
 )
 from depth_completion_tpu_torch.io.csvio import load_segmap
 from depth_completion_tpu_torch.logger import LOG_LEVELS, Progress, logger
+from depth_completion_tpu_torch.ops.ring_attention import ProcessGroupRing
+from depth_completion_tpu_torch.parallel.sharding import shard_bundle
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 from depth_completion_tpu_torch.viz import has_nan, make_grid, visualize_depth
 
@@ -181,7 +194,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ensemble-uncertainty", type=str2bool, default=False,
                    help="Save a per-pixel ensemble uncertainty map (needs --ensemble>1).")
     p.add_argument("--mesh-model", type=_POS_INT, default=1,
-                   help="Tensor-parallel axis size (> 1 is not ported yet).")
+                   help="Tensor-parallel axis size (ranks per model group).")
     p.add_argument("--native-res", type=str2bool, default=False,
                    help="Ring attention over a multi-device data axis (needs two or more "
                    "devices).")
@@ -190,7 +203,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", type=Path, default=None,
                    help="Write a torch.profiler Chrome trace of the first batch here.")
     p.add_argument("--multihost", type=str2bool, default=False,
-                   help="Join a multi-host runtime (not ported yet).")
+                   help="Join the process group (torchrun's environment or DCT_*).")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Device to run on (the tests pass cpu).")
     return p
@@ -204,8 +217,15 @@ def parse_args(argv: list[str] | None = None) -> tuple[argparse.ArgumentParser, 
 
 
 def main(argv: list[str] | None = None) -> dict[str, Any]:
+    """The CLI; a process group that ``--multihost true`` joined here is
+    left again at the end."""
     parser, params = parse_args(argv)
-    return run_predict(parser=parser, **params)
+    joins = params["multihost"] and not dist.is_initialized()
+    try:
+        return run_predict(parser=parser, **params)
+    finally:
+        if joins and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def run_predict(
@@ -295,18 +315,46 @@ def run_predict(
     loss_funcs, norm, train_latents, closed_form = coerce_guidance_options(
         loss_funcs, norm, projection, inv, model, train_latents, closed_form
     )
+
+    # ----- ranks and mesh (the JAX CLI's sizing) --------------------------
+    if multihost:
+        dev = initialize(dev)
+    # with --num-shards > 1 each process runs its own frames on its own
+    # card; otherwise every rank of the group joins one mesh
+    world = dist.get_world_size() if dist.is_initialized() and num_shards == 1 else 1
+    mesh = None
+    if world > 1 or mesh_model > 1:
+        total_rows = batch_size * ensemble
+        if native_res:  # the ring splits the sequence, not the batch
+            data_axis = max(world // mesh_model, 1)
+        else:
+            data_axis = math.gcd(total_rows, max(world // mesh_model, 1))
+        if not native_res and data_axis * mesh_model < world:
+            logger.warning(
+                f"Using {data_axis * mesh_model}/{world} devices — make batch_size*ensemble "
+                f"({total_rows}) a multiple of {world // mesh_model} to use the full mesh")
+        mesh = make_mesh(MeshSpec(data=data_axis, model=mesh_model),
+                         ranks=range(min(data_axis * mesh_model, world)))
+        logger.info(f"Mesh: data={data_axis} x model={mesh_model}")
     if native_res:
-        msg = ("--native-res is incompatible with --ensemble>1" if ensemble > 1 else
-               "--native-res needs a multi-device data axis (ring size >= 2)")
-        if parser is None:
-            raise ValueError(msg)
-        parser.error(msg)
-    for what, hit, item in (
-        ("--multihost true", multihost, "item 4"),
-        ("--mesh-model > 1", mesh_model > 1, "item 4"),
-    ):
-        if hit:
-            raise not_ported(what, item)
+        msg = None
+        if ensemble > 1:
+            msg = "--native-res is incompatible with --ensemble>1"
+        elif mesh is None or mesh.shape[AXIS_DATA] < 2:
+            msg = "--native-res needs a multi-device data axis (ring size >= 2)"
+        if msg is not None:
+            if parser is None:
+                raise ValueError(msg)
+            parser.error(msg)
+    totals = {"frames": 0, "written": 0, "time_io": 0.0, "time_infer": 0.0, "time_vis": 0.0,
+              "time_decode": 0.0, "time_jpeg": 0.0, "dense_bytes": 0,
+              "world": dist.get_world_size() if dist.is_initialized() else 1,
+              "backend": dist.get_backend() if dist.is_initialized() else None}
+    if mesh is not None and not mesh.member:
+        logger.warning(f"rank {dist.get_rank()} is outside the {mesh.shape[AXIS_DATA]}x"
+                       f"{mesh.shape[AXIS_MODEL]} mesh: it runs nothing")
+        return totals
+    writer = mesh is None or is_primary()
     if compile_graph or compile_effort is not None:
         logger.info(
             f"--compile-graph/--compile-mode={compile_mode}/--compile-effort={compile_effort} "
@@ -316,6 +364,13 @@ def run_predict(
 
     # ----- model initialization -------------------------------------------
     bundle = init_bundle(model, checkpoint_dir, taesd_dir, vae, precision, dev)
+    ring = None
+    if mesh is not None:
+        bundle = shard_bundle(mesh, bundle, tensor_parallel=mesh_model > 1)
+        if native_res:
+            ring = ProcessGroupRing(mesh.groups[AXIS_DATA])
+            logger.info(f"Native-res mode: self-attention sequence sharded over "
+                        f"data={mesh.shape[AXIS_DATA]} (ring attention)")
     pipe = DepthCompletionPipeline(bundle)
     scheduler = "lcm" if model == "lcm" else "ddim"
     logger.info(f"Device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
@@ -382,8 +437,6 @@ def run_predict(
         logger.info(f"Found {n:,} input pairs for {dataset_dir.name}")
 
     dst_root.mkdir(parents=True, exist_ok=True)
-    totals = {"frames": 0, "time_io": 0.0, "time_infer": 0.0, "time_vis": 0.0,
-              "time_decode": 0.0, "time_jpeg": 0.0, "dense_bytes": 0}
 
     # ----- inference loop -------------------------------------------------
     for dataset_idx, dataset_dir in enumerate(dataset_dirs):
@@ -516,6 +569,12 @@ def run_predict(
                 if is_segmask_enabled:
                     segmasks_list = [x for x, f in zip(segmasks_list, flags) if f]
 
+                n_real = len(imgs_list)
+                if mesh is not None:
+                    # one signature on every rank, the rows dividing the
+                    # data axis: pad to the batch size (padded rows dropped)
+                    imgs_list += imgs_list[-1:] * (batch_size - n_real)
+                    sparses_list += sparses_list[-1:] * (batch_size - n_real)
                 batch_imgs = np.stack(imgs_list).astype(np.float32)
                 batch_sparses = to_depth(np.stack(sparses_list), max_distance=max_sparse_depth)
                 if is_segmask_enabled:
@@ -560,17 +619,21 @@ def run_predict(
                         ensemble_size=ensemble,
                         ensemble_reduce=ensemble_reduce,
                         ensemble_uncertainty=ensemble_uncertainty,
+                        ensemble_mesh=mesh,
+                        data_mesh=mesh if ensemble == 1 and ring is None else None,
+                        ring_mesh=ring,
                         detach_unet_grad=fast_guidance,
                     )
                     denses, latents = out[0], out[1]
-                    denses_np = denses.float().cpu().numpy()
-                    uncs_np = out[2].float().cpu().numpy() if len(out) == 3 else None
+                    denses_np = denses[:n_real].float().cpu().numpy()
+                    uncs_np = out[2][:n_real].float().cpu().numpy() if len(out) == 3 else None
                 if isinstance(profiler, torch.profiler.profile):
                     profile_dir.mkdir(parents=True, exist_ok=True)
                     profiler.export_chrome_trace(str(profile_dir / "trace.json"))
                     logger.info(f"Saved profiler trace to {profile_dir / 'trace.json'}")
                 if use_prev_latent:
                     prev_latents = latents
+                if use_prev_latent and writer:
                     # on-disk latent carry: temporal jobs are resumable
                     out_dir.mkdir(parents=True, exist_ok=True)
                     np.savez(
@@ -589,6 +652,9 @@ def run_predict(
                         logger.error("NaN values found in dense depth map (skipped)")
                         continue
                     totals["frames"] += 1
+                    if not writer:
+                        continue
+                    totals["written"] += 1
                     if save_dense:
                         stime = time.perf_counter()
                         save_dir = (

@@ -311,6 +311,9 @@ class ModelBundle:
     # [1, S, D] cached empty-prompt context (S=2)
     text_context: torch.Tensor
     ddim_config: Any = None  # sched.ddim.DDIMConfig | None → sampler default
+    # the model-parallel process group of a tensor-parallel UNet
+    # (parallel.sharding.shard_bundle); None for a whole UNet
+    model_group: Any = None
 
     @property
     def device(self) -> torch.device:

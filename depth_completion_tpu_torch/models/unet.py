@@ -21,6 +21,20 @@ tensors.
 The GEGLU gate uses the tanh-approximate GELU: the JAX package calls
 ``jax.nn.gelu``, whose default is ``approximate=True`` (diffusers' SD2 UNet
 uses the exact GELU; see ROADMAP.md "Faults").
+
+Tensor parallelism (``parallel.sharding.shard_bundle``), Megatron's way:
+a block whose parameters are a ``ModelShard`` holds this rank's slices of
+its fan-out and fan-in layers and runs on its share of the channels or
+heads. A replicated activation enters the pair through
+``copy_to_model_parallel`` (identity forward; the gradient, partial on each
+rank, summed over the model group backward) and leaves through
+``reduce_from_model_parallel`` (the partial outputs summed forward; the
+gradient passed through backward), and the fan-in layer's bias is added
+once, after the sum. The pairs: ``conv1`` with ``time_emb_proj`` and
+``conv2`` of a ResNet (``norm2`` on this rank's groups between them);
+``to_q``/``to_k``/``to_v`` and ``to_out`` of an attention (whole heads);
+the GEGLU's ``proj_in`` (matching slices of both halves) and ``proj_out``.
+JAX gets the same function from GSPMD's annotations.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import functools
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -48,20 +63,97 @@ from depth_completion_tpu_torch.models.registry import UNetConfig
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], torch.Tensor]
 
 
+class ModelShard(dict):
+    """A block's parameters split over a model-parallel ``group`` of
+    ``size`` ranks: this rank's slices of the sharded leaves, the others
+    whole."""
+
+    def __init__(self, params: dict, group, size: int):
+        super().__init__(params)
+        self.group, self.size = group, size
+
+
+class _CopyToModelParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModelParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """The entry of a sharded pair: ``x`` forward; the sum of the ranks'
+    gradients backward."""
+    return _CopyToModelParallel.apply(x, group)
+
+
+def reduce_from_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """The exit of a sharded pair: the sum of the ranks' partial outputs
+    forward; the gradient as it is backward."""
+    return _ReduceFromModelParallel.apply(x, group)
+
+
+def _fan_in(layer, p, x, group):
+    """``layer`` (``linear`` or ``conv2d``) of ``x``; for a sharded pair, on
+    this rank's input slice, summed over the group, then the bias once."""
+    if group is None:
+        return layer(p, x)
+    y = reduce_from_model_parallel(layer({"kernel": p["kernel"]}, x), group)
+    return y + p["bias"].to(y.dtype) if "bias" in p else y
+
+
 def _resnet(p, x, temb, cfg: UNetConfig):
-    h = group_norm(p["norm1"], x, cfg.norm_groups, cfg.norm_eps)
-    h = conv2d(p["conv1"], silu(h))
-    h = h + linear(p["time_emb_proj"], silu(temb))[:, None, None, :]
-    h = group_norm(p["norm2"], h, cfg.norm_groups, cfg.norm_eps)
-    h = conv2d(p["conv2"], silu(h))
+    group = p.group if isinstance(p, ModelShard) else None
+    h = silu(group_norm(p["norm1"], x, cfg.norm_groups, cfg.norm_eps))
+    t, groups = silu(temb), cfg.norm_groups
+    if group is not None:
+        h, t = copy_to_model_parallel(h, group), copy_to_model_parallel(t, group)
+        groups //= p.size
+    h = conv2d(p["conv1"], h)
+    h = h + linear(p["time_emb_proj"], t)[:, None, None, :]
+    h = group_norm(p["norm2"], h, groups, cfg.norm_eps)
+    h = _fan_in(conv2d, p["conv2"], silu(h), group)
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding=0)
     return x + h
 
 
 def _geglu_ff(p, x):
+    group = p.group if isinstance(p, ModelShard) else None
+    if group is not None:
+        x = copy_to_model_parallel(x, group)
     val, gate = linear(p["proj_in"], x).chunk(2, dim=-1)
-    return linear(p["proj_out"], val * F.gelu(gate, approximate="tanh"))
+    return _fan_in(linear, p["proj_out"], val * F.gelu(gate, approximate="tanh"), group)
+
+
+def _attention(a, x, ctx, num_heads, attention_fn: AttentionFn):
+    """One attention layer over ``x`` (self-attention with ``ctx=None``)."""
+    group = a.group if isinstance(a, ModelShard) else None
+    if group is not None:
+        x = copy_to_model_parallel(x, group)
+        ctx = None if ctx is None else copy_to_model_parallel(ctx, group)
+        num_heads //= a.size
+    kv = x if ctx is None else ctx
+    attn = attention_fn(linear(a["to_q"], x), linear(a["to_k"], kv), linear(a["to_v"], kv),
+                        num_heads)
+    return _fan_in(linear, a["to_out"], attn, group)
 
 
 def _transformer(p, x, ctx, num_heads, cfg: UNetConfig, attention_fn: AttentionFn):
@@ -70,18 +162,10 @@ def _transformer(p, x, ctx, num_heads, cfg: UNetConfig, attention_fn: AttentionF
     hidden = group_norm(p["norm"], x, cfg.norm_groups, eps=1e-6).reshape(n, h * w, c)
     hidden = linear(p["proj_in"], hidden)
     for blk in p["blocks"]:
-        hn = layer_norm(blk["norm1"], hidden)
-        a = blk["attn1"]
-        attn = attention_fn(
-            linear(a["to_q"], hn), linear(a["to_k"], hn), linear(a["to_v"], hn), num_heads
-        )
-        hidden = hidden + linear(a["to_out"], attn)
-        hn = layer_norm(blk["norm2"], hidden)
-        a = blk["attn2"]
-        attn = attention_fn(
-            linear(a["to_q"], hn), linear(a["to_k"], ctx), linear(a["to_v"], ctx), num_heads
-        )
-        hidden = hidden + linear(a["to_out"], attn)
+        hidden = hidden + _attention(blk["attn1"], layer_norm(blk["norm1"], hidden), None,
+                                     num_heads, attention_fn)
+        hidden = hidden + _attention(blk["attn2"], layer_norm(blk["norm2"], hidden), ctx,
+                                     num_heads, attention_fn)
         hidden = hidden + _geglu_ff(blk["ff"], layer_norm(blk["norm3"], hidden))
     hidden = linear(p["proj_out"], hidden)
     return hidden.reshape(n, h, w, c) + x

@@ -17,8 +17,12 @@ aligned reduces.
 The medians average the two middle values at an even member count, as
 ``jnp.median`` does (``torch.median`` returns the lower one).
 
-One card only: ``mesh`` (a JAX sharding mesh in the JAX package) must be
-None; spreading members over devices is ROADMAP queue 1 item 4.
+Over a ``mesh`` (``core.mesh``; JAX :112-120 constrains the rows to its
+data axis) the N·E rows spread over the data ranks in contiguous blocks:
+each rank runs its rows, global rows ``[r0, r1)``, row ``i`` being frame
+``i // E``'s member ``i % E`` with that member's noise, so the rows are
+the one-card rows. The member maps are gathered over the data group before
+the reduce, and every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from depth_completion_tpu_torch.core import prng
+from depth_completion_tpu_torch.core.mesh import AXIS_DATA, gather_rows
 from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.guidance.affine import compute_affine_params
 from depth_completion_tpu_torch.models.bundle import ModelBundle
@@ -89,17 +94,24 @@ def ensemble_sample(bundle: ModelBundle, images: torch.Tensor, sparses: torch.Te
         raise ValueError(f"ensemble_size must be >= 1, got {ensemble_size}")
     if reduce not in ENSEMBLE_REDUCES:
         raise ValueError(f"Unknown ensemble reduce: {reduce} (choose from {ENSEMBLE_REDUCES})")
-    if mesh is not None:
-        raise NotImplementedError("ensembles run on one card: mesh must be None (spreading "
-                                  "members over devices is ROADMAP queue 1 item 4)")
     n, h, w, _ = images.shape
     e = ensemble_size
     eh, ew = latent_size((h, w), cfg.resolution, bundle.vae.downsample_factor)
     noise = upload(member_noise(cfg.seed, e, (eh, ew)), images.device)
+    r0, r1 = 0, n * e
+    if mesh is not None:
+        d = mesh.shape[AXIS_DATA]
+        if (n * e) % d:
+            raise ValueError(f"{n} frames x {e} members do not divide the data axis of {d}")
+        r0 = mesh.coords[AXIS_DATA] * (n * e // d)
+        r1 = r0 + n * e // d
+    rows = torch.arange(r0, r1, device=images.device)  # frame-major: frame i // e, member i % e
     denses_flat, _ = guided_sample(
-        bundle, images.repeat_interleave(e, dim=0), sparses.repeat_interleave(e, dim=0), cfg,
-        init_noise=noise.repeat(n, 1, 1, 1), programs=programs,
+        bundle, images.index_select(0, rows // e), sparses.index_select(0, rows // e), cfg,
+        init_noise=noise.index_select(0, rows % e), programs=programs,
     )
+    if mesh is not None:
+        denses_flat = gather_rows(mesh, denses_flat)
     members = denses_flat.reshape(n, e, h, w, 1)
     denses, mad = reduce_members(members, reduce, return_uncertainty)
     return (denses, members, mad) if return_uncertainty else (denses, members)

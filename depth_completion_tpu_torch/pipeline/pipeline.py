@@ -7,6 +7,16 @@ the bundle's device. Arrays are NHWC; inputs may be numpy arrays or
 tensors, outputs are tensors on the bundle's device. ``ensemble_size`` > 1 runs
 ``parallel.ensemble.ensemble_sample``.
 
+Data parallelism (``data_mesh``, a ``core.mesh.Mesh``): the host checks
+run on the whole batch, which every rank holds, as JAX's
+``process_allgather`` of the rows' validity (:156-176) lets every process
+see them all; then this rank's block of rows (``parallel.sharding.
+shard_batch``) goes through ``guided_sample``, whose step has no collective
+(the guidance is per row), and the dense maps and latents are gathered over
+the data group, so every rank returns the whole batch. The batch must
+divide the data axis. ``ensemble_mesh`` spreads an ensemble's rows the same
+way (``parallel.ensemble``).
+
 The program cache is the JAX pipeline's (:70-126, :313-318): every request
 goes through the pipeline's ``programs.ProgramCache``, one
 ``GuidedStepProgram`` per signature (on a card, one captured CUDA graph of
@@ -24,10 +34,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from depth_completion_tpu_torch.core.mesh import AXIS_DATA, gather_rows
 from depth_completion_tpu_torch.device import upload
 from depth_completion_tpu_torch.models.bundle import ModelBundle
 from depth_completion_tpu_torch.ops.resize import latent_size
 from depth_completion_tpu_torch.parallel.ensemble import ensemble_sample
+from depth_completion_tpu_torch.parallel.sharding import shard_batch
 from depth_completion_tpu_torch.pipeline.programs import EagerTwin, ProgramCache
 from depth_completion_tpu_torch.pipeline.sampler import SamplerConfig, guided_sample
 
@@ -136,6 +148,7 @@ class DepthCompletionPipeline:
         ensemble_size = int(config_overrides.pop("ensemble_size", 1))
         ensemble_reduce = config_overrides.pop("ensemble_reduce", "median")
         ensemble_mesh = config_overrides.pop("ensemble_mesh", None)
+        data_mesh = config_overrides.pop("data_mesh", None)
         ensemble_uncertainty = bool(config_overrides.pop("ensemble_uncertainty", False))
         if "ddim" not in config_overrides and self.bundle.ddim_config is not None:
             config_overrides["ddim"] = self.bundle.ddim_config
@@ -162,6 +175,12 @@ class DepthCompletionPipeline:
                         "norm='const' or provide varied sparse points."
                     )
 
+        if data_mesh is not None and data_mesh.shape[AXIS_DATA] > 1 and ensemble_size == 1:
+            images, sparses = shard_batch(data_mesh, images, sparses)
+            if pred_latents_prev is not None:
+                pred_latents_prev = shard_batch(data_mesh, pred_latents_prev)
+        else:
+            data_mesh = None
         images, sparses = _as_tensor(images, device), _as_tensor(sparses, device)
         if pred_latents_prev is not None:
             pred_latents_prev = _as_tensor(_host(pred_latents_prev), device)
@@ -184,5 +203,8 @@ class DepthCompletionPipeline:
                                    ensemble_reduce, mesh=ensemble_mesh,
                                    return_uncertainty=ensemble_uncertainty,
                                    programs=self.programs)
-        return guided_sample(self.bundle, images, sparses, cfg, pred_latents_prev,
-                             programs=self.programs)
+        denses, latents = guided_sample(self.bundle, images, sparses, cfg, pred_latents_prev,
+                                        programs=self.programs)
+        if data_mesh is not None:
+            return gather_rows(data_mesh, denses), gather_rows(data_mesh, latents)
+        return denses, latents

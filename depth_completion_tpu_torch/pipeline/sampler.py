@@ -540,8 +540,8 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 class GuidedStepProgram:
     """One per-step guided step with the fused epilogue (Adam; v- or
-    ε-prediction; no ring or a ``LocalRing``; UNet remat and fast guidance
-    as configured) over fixed buffers: the port's counterpart of the JAX
+    ε-prediction; any ring; UNet remat, fast guidance and tensor
+    parallelism as configured) over fixed buffers: the port's counterpart of the JAX
     sampler's scan body, compiled once per signature
     (``depth_completion_tpu/pipeline/sampler.py:490-511``).
 
@@ -562,9 +562,12 @@ class GuidedStepProgram:
       asynchronous ``fill_``; nothing in a step waits on the device. The
       step's results land in the buffers (the epilogue and the affine's
       Adam update them in place), so the graph keeps no live tensor in the
-      pool. On the CPU, without a cache (``programs.EagerTwin``) or with a
-      ``ProcessGroupRing`` (whose collectives stay eager), every step runs
-      eagerly. A failed capture raises.
+      pool. On the CPU, without a cache (``programs.EagerTwin``), with a
+      ``ProcessGroupRing`` or with a tensor-parallel UNet, every step runs
+      eagerly: those steps hold collectives, and gloo's cannot be captured
+      (NCCL's can, but a captured NCCL step has not run on two cards yet).
+      A data-parallel step has no collective and is captured. A failed
+      capture raises.
 
     Outside the program, eager: the encode and the final decode (once per
     request), ``_eager_steps`` (SGD, Adagrad), per-input training, LCM and
@@ -578,8 +581,11 @@ class GuidedStepProgram:
         self.orig_res, self.padding = orig_res, padding
         self.steps = cfg.steps
         self.v_pred = sched.config.prediction_type == "v_prediction"
-        self.capturable = dev.type == "cuda" and (cfg.ring_mesh is None
-                                                  or isinstance(cfg.ring_mesh, LocalRing))
+        # no collective may sit in a captured step: a ProcessGroupRing
+        # (batch_isend_irecv, waited on the host) and a tensor-parallel UNet
+        # (all_reduce over the model group) run every step eagerly
+        self.capturable = (dev.type == "cuda" and bundle.model_group is None
+                           and (cfg.ring_mesh is None or isinstance(cfg.ring_mesh, LocalRing)))
         self.lock = threading.Lock()
         ts = make_timesteps(cfg.ddim, cfg.steps)
         self.tables = step_tables(sched, ts, cfg.steps, dev)

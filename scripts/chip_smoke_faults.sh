@@ -6,8 +6,9 @@
 #
 # Runs chip_smoke.py on the tree as it is, then on a temporary copy of the
 # port with each fault below planted (one sed edit each; --steps 2, or
-# --steps $FAULT_STEPS where that is set), or only with the faults named
-# (e.g. F9_kl_skip), and
+# --steps $FAULT_STEPS where that is set; $SMOKE_ARGS, e.g.
+# --only-distributed for F42-F45, is added to every run), or only with the
+# faults named (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
 # the logs show where each limit sits between the sound tree and the
 # faults. A fault run is expected to exit non-zero; the sound run, zero.
@@ -95,6 +96,16 @@
 #   F40_replay_uncounted replays add no launches to the wrappers' counts
 #   F41_stale_adam a request does not reset the latent's Adam m and v in
 #                 the step program's buffers
+#   F42_geglu_contiguous tensor parallelism slices a GEGLU proj_in as one
+#                 contiguous block (rank 0 only values at M=2), not matching
+#                 slices of its value and gate halves
+#   F43_tp_no_entry the tensor-parallel pairs' entry op passes the gradient
+#                 through without its all_reduce (each rank's latent gradient
+#                 is partial)
+#   F44_fan_in_bias_each_rank a fan-in layer (to_out, proj_out, conv2) adds
+#                 its bias on every rank, before the all_reduce
+#   F45_ensemble_local_rows an ensemble's data rank draws its rows' member
+#                 noise and frames by local row index, not global
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -111,7 +122,7 @@ if [ $check = 0 ]; then
   mkdir -p "$out"
   out=$(cd "$out" && pwd)
   nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-  python3 chip_smoke.py > "$out/sound.log" 2>&1
+  python3 chip_smoke.py ${SMOKE_ARGS:-} > "$out/sound.log" 2>&1
   rc=$?
   echo "sound rc=$rc"
   [ $rc = 0 ] || status=1
@@ -156,7 +167,7 @@ run_fault() {  # name, then (file, sed expression) pairs
     echo "$name: edits apply"
     return 0
   fi
-  (cd "$d" && python3 chip_smoke.py --steps "${FAULT_STEPS:-2}") > "$out/$name.log" 2>&1
+  (cd "$d" && python3 chip_smoke.py --steps "${FAULT_STEPS:-2}" ${SMOKE_ARGS:-}) > "$out/$name.log" 2>&1
   local rc=$?
   echo "$name rc=$rc"
   [ $rc != 0 ] || status=1
@@ -240,4 +251,12 @@ run_fault F39_epilogue_row0 depth_completion_tpu_torch/csrc/guidance_epilogue.cu
   's|const float\* row = table + 6 \* \*step;|const float* row = table;|'
 run_fault F40_replay_uncounted $SAMPLER 's|^        add_launches(self.launch_delta)$|        pass|'
 run_fault F41_stale_adam $SAMPLER 's|^        self.m.zero_()$|        pass|; s|^        self.v.zero_()$|        pass|'
+UNET=depth_completion_tpu_torch/models/unet.py
+run_fault F42_geglu_contiguous depth_completion_tpu_torch/parallel/sharding.py \
+  's|halves = sub\[0\] == "proj_in"  # the GEGLU.s value \| gate|halves = False|'
+run_fault F43_tp_no_entry $UNET 's|^    return _CopyToModelParallel.apply(x, group)$|    return x|'
+run_fault F44_fan_in_bias_each_rank $UNET \
+  's|layer({"kernel": p\["kernel"\]}, x), group)|layer(p, x), group)|; s|^    return y + p\["bias"\].to(y.dtype) if "bias" in p else y$|    return y|'
+run_fault F45_ensemble_local_rows depth_completion_tpu_torch/parallel/ensemble.py \
+  's|rows = torch.arange(r0, r1, device=images.device)|rows = torch.arange(0, r1 - r0, device=images.device)|'
 exit $status

@@ -334,16 +334,6 @@ def test_lcm_model_runs(tmp_path, checkpoint, monkeypatch):
     assert seen == [("lcm", False, True)]
 
 
-@pytest.mark.parametrize("flag,message", [
-    (["--multihost", "true"], "--multihost true"),
-    (["--mesh-model", "2"], "--mesh-model > 1"),
-])
-def test_unported_flags_raise(tmp_path, flag, message):
-    data = _dataset(tmp_path / "data", n=1)
-    with pytest.raises(NotImplementedError, match=f"{message} is not ported.*ROADMAP queue 1, item"):
-        predict.main([str(data), str(tmp_path / "out"), "--device", "cpu", *flag])
-
-
 def test_native_res_and_device_errors(tmp_path):
     data = _dataset(tmp_path / "data", n=1)
     with pytest.raises(SystemExit) as e:

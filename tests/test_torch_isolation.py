@@ -2,9 +2,12 @@
 none of the packages the card's machine lacks (safetensors, transformers,
 click, cv2, tqdm, matplotlib, PIL, blosc2, ml_dtypes, loguru); nor does it
 name the JAX package's native codec (``native/``, ``dcz_codec.so``) or the
-system c-blosc library the JAX package's ``.bl2`` codec loads."""
+system c-blosc library the JAX package's ``.bl2`` codec loads. The tests'
+rank workers (``tests/torch_*_worker.py``, run in spawned processes) are
+held to the same rules."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -21,8 +24,11 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu", "safetensors", "t
              "click", "cv2", "tqdm", "matplotlib", "PIL", "blosc2", "ml_dtypes", "loguru")
 
 
+WORKERS = sorted(glob.glob(os.path.join(REPO, "tests", "torch_*_worker.py")))
+
+
 def _port_files(exts=(".py",)):
-    out = [SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE]
+    out = [SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE, *WORKERS]
     for root, dirs, names in os.walk(PORT):
         dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
         out.extend(os.path.join(root, n) for n in names if n.endswith(exts))
@@ -85,6 +91,8 @@ def test_import_leaves_jax_unloaded():
         "depth_completion_tpu_torch.io, depth_completion_tpu_torch.io.bl2, "
         "depth_completion_tpu_torch.utils, depth_completion_tpu_torch.viz, "
         "depth_completion_tpu_torch.parallel.ensemble, depth_completion_tpu_torch.serving, "
+        "depth_completion_tpu_torch.core.mesh, depth_completion_tpu_torch.parallel.sharding, "
+        "tests.torch_parallel_worker, tests.torch_ring_worker, "
         "depth_completion_tpu_torch.serving.server, depth_completion_tpu_torch.cli.serve; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -96,6 +104,6 @@ def test_import_leaves_jax_unloaded():
 
 
 def test_quality_gates_clean():
-    targets = [PORT, SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE]
+    targets = [PORT, SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE, *WORKERS]
     assert _undefined_names(targets) == []
     assert _ast_lint(targets) == []

@@ -279,14 +279,10 @@ def test_pipeline_validation(bundles, inputs, monkeypatch):
          loss_funcs=["l1"], pred_latents_prev=np.zeros((N, 24, 32, 4), np.float32))
     assert (seen["cfg"].lr_latent, seen["cfg"].lr_scaling) == (0.1, 0.01)
     assert seen["cfg"].loss_funcs == ("l1",)
-    # ensembles: no temporal carry (JAX's error), one card (no mesh); both
-    # raise before any sampling
+    # ensembles: no temporal carry (JAX's error), raised before any sampling
     with pytest.raises(ValueError, match="temporal latent carry is not supported"):
         pipe(imgs, sparses, max_depth=10.0, resolution=64, ensemble_size=3,
              pred_latents_prev=np.zeros((N, 24, 32, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="mesh must be None"):
-        pipe(imgs, sparses, max_depth=10.0, resolution=64, ensemble_size=3,
-             ensemble_mesh=object())
 
 
 def test_ddim_schedule_and_step_match_jax():
