@@ -42,18 +42,21 @@
    seeds (JAX's noise for each seed), against the same step run through the
    plain versions (for the ring: through the flash kernels without the
    ring), and the latent gradient against an fp32 run. The pipeline runs
-   every guided step as a replay of one captured CUDA graph per signature
-   (``pipeline.programs``; the first request runs step 0 eagerly, captures,
-   replays the rest), and each replay adds the launches its capture
-   recorded to the counts: (a) the graph's request against two requests
-   through the pipeline's eager twin (the spread of two eager runs), over
-   the latent, the dense map and the latent's Adam v; (b) ms per step eager
-   and graph (CUDA events), device ms, busy share and launches per step
+   every request as a program per signature (``pipeline.programs``): its
+   prepare step (the encode), its guided step and its finish step (the
+   final decode) each a captured CUDA graph (the first request runs each
+   phase's step 0 eagerly, captures it, replays the rest), and each replay
+   adds the launches its capture recorded to the counts: (a) the graph's
+   request against two requests through the pipeline's eager twin (the
+   spread of two eager runs), over the latent, the dense map and the
+   program's other state (Adam v, the affine); (b) ms per run of each
+   phase eager and graph (CUDA events), device ms, busy share and launches
    (``torch.profiler``), capture and instantiation ms, pool growth, peaks;
-   (c) the launches recorded at capture against one step's; (d) the
-   graph one step at a time against the eager step from the same state,
-   at step indices 0, 1, N/2 and N-1 (a fixed limit at any step count),
-   after a request has reset the program's state exactly;
+   (c) the launches recorded at each capture against one run of its
+   phase's, and each request's against one request's; (d) the graph one
+   step at a time against the eager step from the same state, at step
+   indices 0, 1, N/2 and N-1 (a fixed limit at any step count), after a
+   request has reset the program's state exactly;
 4. runs the predict CLI (``depth_completion_tpu_torch.cli.predict``) in
    process with its defaults on the checkpoint directory of step 3 over a
    3-frame 480x640 PNG dataset written with the port's PNG writer: dense
@@ -77,7 +80,12 @@
    with the strict KLD penalty, and the reference step on a bundle whose
    self-attention q and k are scaled until the softmax is peaked (kernels
    against the plain versions; the ring against one flash call); every
-   request's launches counted from 0 against its mode's;
+   request's launches counted from 0 against its mode's; then each mode's
+   program (``mode_program_check``: LCM at 4 steps, per-input with 10 train
+   steps, SGD, Adagrad, no-training DDIM, Adam with sample clipping): its
+   first request's launches, phase 3's (a)-(d) for its prepare, step (and
+   train) and finish graphs (LCM's at another seed than its first
+   request's), and (e) its request against the eager loop it replaced;
 6. runs the serving engine through ``cli.serve.run_serve`` on that
    checkpoint directory (``serve_phase``: 480x640 frames over HTTP from
    client threads, at most 10 steps): the warmup's signatures, concurrent
@@ -86,8 +94,10 @@
    against a direct pipeline call; then 8 closed-loop clients; then the
    tiers: ``run_serve`` with ``--warmup-tiered --max-programs 4`` serving
    its first batch on the eager twin and later ones on the graphs as each
-   signature is promoted, and ``max_programs=1`` over two geometries,
-   whose evicted program's requests run on the eager twin;
+   signature is promoted, ``max_programs=1`` over two geometries, whose
+   evicted program's requests run on the eager twin, and ``--max-programs
+   1`` with ``--model lcm`` and with ``--opt sgd``, each signature
+   promoted and tier 0 dropped;
 7. runs the distributed layer (``distributed_phase``): (a) ``torchrun
    --standalone --nproc_per_node=1`` of the predict CLI with ``--multihost
    true`` on phase 4's frames at ``min(--steps, 10)`` steps, an NCCL group
@@ -106,7 +116,9 @@
    ``{"cli": {...}}`` (the CLI's seconds per frame and their split, PNG
    decode and JPEG encode ms per frame, dense bytes, analyze MAE),
    ``{"modes": {...}}`` (per mode: seconds per request, launches, peak
-   GiB, the check readings, the card), ``{"serve": {...}}`` (warmup
+   GiB, the check readings, the card), ``{"programs": {...}}`` (phase 5's
+   programs, per mode: (a)-(e), each phase's ms eager and graph, busy
+   share, capture ms and pool growth), ``{"serve": {...}}`` (warmup
    seconds per signature, the first request's latency, requests/s, p50 and
    p95 latency, s/step at batch 1 and 4, the device gap between batches,
    peak GiB, the step programs, the tiers' calls and promotion times, the
@@ -166,6 +178,7 @@ from depth_completion_tpu_torch.cli import analyze as analyze_cli  # noqa: E402
 from depth_completion_tpu_torch.cli import predict as predict_cli  # noqa: E402
 from depth_completion_tpu_torch.cli import serve as serve_cli  # noqa: E402
 from depth_completion_tpu_torch.core import distributed as dist_core  # noqa: E402
+from depth_completion_tpu_torch.core import prng  # noqa: E402
 from depth_completion_tpu_torch.core import mesh as mesh_core  # noqa: E402
 from depth_completion_tpu_torch.guidance.optim import make_optimizer  # noqa: E402
 from depth_completion_tpu_torch.io import bl2, codecs, image, jpeg, png  # noqa: E402
@@ -195,6 +208,8 @@ from depth_completion_tpu_torch.probes import flash_overlap as fo  # noqa: E402
 from depth_completion_tpu_torch.probes import flash_twostream as fts  # noqa: E402
 from depth_completion_tpu_torch.probes import mma_n64 as n64  # noqa: E402
 from depth_completion_tpu_torch.probes import packed_pv as ppv  # noqa: E402
+from depth_completion_tpu_torch.sched.ddim import ddim_step, pred_epsilon  # noqa: E402
+from depth_completion_tpu_torch.sched.lcm import lcm_step, make_lcm_timesteps  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -677,10 +692,27 @@ def check_autograd() -> None:
                   2e-2 * float(g_ref.float().abs().max()))
 
 
+def eager_epilogue(sched, opt, latents, g, out, t: int, num_steps: int) -> None:
+    """The guided step's epilogue as the chain of eager ops the sampler ran
+    before the fused kernel and the tensor-op optimizers: the ε-norm rescale
+    of the latent gradient ``g`` (per sample), ``opt.step()`` (a
+    ``make_optimizer`` optimizer; the affine's gradients, if any, already
+    set) and the DDIM transition of the updated ``latents`` with the old
+    UNet output ``out``, in place."""
+    n = latents.shape[0]
+    eps_norm = pred_epsilon(sched, out, t, latents).reshape(n, -1).float().norm(dim=1)
+    g = g.float()
+    g_norm = g.reshape(n, -1).norm(dim=1)
+    latents.grad = g * (eps_norm / torch.clamp(g_norm, min=S.EPSILON)).reshape(n, 1, 1, 1)
+    opt.step()
+    new_lat, _ = ddim_step(sched, out, t, latents, num_steps)
+    latents.copy_(new_lat)
+
+
 def _eager_chain(sched, lat, m, v, count: int, lr: float):
-    """The sampler's eager epilogue (``sampler.eager_epilogue``) on a copy of
-    ``lat`` whose Adam state is (m, v) after ``count`` steps: → (the latent
-    it updates, a function doing one step on given (g, out, t))."""
+    """``eager_epilogue`` on a copy of ``lat`` whose Adam state is (m, v)
+    after ``count`` steps: → (the latent it updates, a function doing one
+    step on given (g, out, t))."""
     p = lat.clone().requires_grad_(True)
     opt = make_optimizer("adam", p, [], lr)
     opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": m.clone(),
@@ -688,7 +720,7 @@ def _eager_chain(sched, lat, m, v, count: int, lr: float):
 
     @torch.no_grad()
     def step(g, out, t):
-        S.eager_epilogue(sched, opt, p, g, out, t, 50)
+        eager_epilogue(sched, opt, p, g, out, t, 50)
 
     return p, opt, step
 
@@ -974,26 +1006,45 @@ def probe_phase() -> tuple[list, list]:
 # Phase 3: the guided paths
 # ---------------------------------------------------------------------------
 
+# What one run of each phase of a request's program launches, per request
+# mode: (UNet forwards, UNet backwards, decoder forward-and-backward passes,
+# encodes, final decodes, epilogues). Every mode's program has a prepare
+# phase (the encode) and a finish phase (the final decode) besides these.
+MODE_PHASES = {
+    "per-step": {"step": (1, 1, 1, 0, 0, 1)},  # the fused Adam step
+    "general": {"step": (1, 1, 1, 0, 0, 0)},  # SGD, Adagrad, Adam without the epilogue
+    "fast_guidance": {"step": (1, 0, 1, 0, 0, 1)},
+    "per-input": {"step": (1, 0, 0, 0, 0, 0), "train": (0, 0, 1, 0, 0, 0)},
+    "forward": {"step": (1, 0, 0, 0, 0, 0)},  # no training: DDIM or LCM
+}
+EDGE_PHASES = {"prepare": (0, 0, 0, 1, 0, 0), "finish": (0, 0, 0, 0, 1, 0)}
+
+
 def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
                       ring_size: int | None = None, mode: str = "per-step",
-                      train_steps: int = 0, remat: bool = False) -> dict:
+                      train_steps: int = 0, remat: bool = False,
+                      phase: str | None = None) -> dict:
     """Kernel launches one request implies (JAX package routing:
     with a ring, UNet self-attention whose length divides the ring size
     takes the ring, which launches one ring step kernel per visiting block;
     other self-attention with S >= 768 and head dim 64 or 512 takes a flash
     kernel; every stride-1 3x3 conv of a decoder, and of the KL encoder,
     takes the conv kernel). The batch does not count: every kernel takes it
-    in one launch. ``mode``: "per-step" (a guided request: per step a UNet
-    forward and backward, a decode forward and backward, the epilogue);
-    "fast_guidance" (a guided request whose UNet output is detached: per
-    step a UNet forward without a graph, no UNet backward, a decode forward
-    and backward, the epilogue); "per-input" (``steps`` UNet forwards, then
-    ``train_steps`` decode forward and backward passes); "forward" (no
-    training, LCM or DDIM: ``steps`` UNet forwards); "step" and
-    "step-remat" (one guided step's forward and backward alone, no encode
-    or final decode; with remat every flash forward of the UNet's
-    checkpointed stages runs twice). ``remat``: the same second forward in
-    every guided step of a request."""
+    in one launch. ``mode`` (``MODE_PHASES``): "per-step" (a guided request
+    with the fused epilogue: per step a UNet forward and backward, a decode
+    forward and backward, the epilogue); "general" (the same without the
+    epilogue: SGD, Adagrad, Adam with sample clipping); "fast_guidance" (a
+    guided request whose UNet output is detached: per step a UNet forward
+    without a graph, no UNet backward, a decode forward and backward, the
+    epilogue); "per-input" (``steps`` UNet forwards, then ``train_steps``
+    decode forward and backward passes); "forward" (no training, LCM or
+    DDIM: ``steps`` UNet forwards); "step" and "step-remat" (one guided
+    step's forward and backward alone, no encode, final decode or epilogue;
+    with remat every flash forward of the UNet's checkpointed stages runs
+    twice). A whole request adds the encode (prepare) and the final decode
+    (finish); ``phase`` ("prepare", "step", "train", "finish"): one run of
+    that phase of a ``mode`` request. ``remat``: the same second forward in
+    every guided step."""
     eh, ew = latent_hw
     attn = []  # (sequence length, head dim, attention layers) per UNet stage and the mid block
     last = len(unet_cfg.block_out_channels) - 1
@@ -1021,24 +1072,28 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
         convs_per_decode = 4 + 2 * stages * (layers + 1)  # mid: 2 ResNets; 2 convs each
         convs_per_encode = 4 + 2 * stages * layers
         mid_attn = int(eh * ew >= 768)  # one head at d = the widest stage
-    step = mode in ("step", "step-remat")
-    remat = remat or mode == "step-remat"
-    unet_fwd = 1 if step else steps
-    unet_bwd = {"per-step": steps, "step": 1, "step-remat": 1}.get(mode, 0)
-    dec_bwd = {"per-input": train_steps, "fast_guidance": steps}.get(mode, unet_bwd)
-    whole = 0 if step else 1  # a whole request: the encode and the final decode
+    if mode in ("step", "step-remat"):
+        units = MODE_PHASES["general"]["step"]
+        remat = remat or mode == "step-remat"
+    else:
+        table = {**EDGE_PHASES, **MODE_PHASES[mode]}
+        runs = {"prepare": 1, "step": steps, "train": train_steps, "finish": 1}
+        units = table[phase] if phase is not None else [
+            sum(runs[p] * u[i] for p, u in table.items()) for i in range(6)]
+    unet_fwd, unet_bwd, dec_bwd, encodes, decodes, epilogues = units
     return {
         "flash_fwd": flash_per_unet * unet_fwd + (flash_in_stages * unet_bwd if remat else 0),
         "flash_bwd": flash_per_unet * unet_bwd,
         # one ring step launch per visiting block, forward and backward
         "flash_fwd_ring": (ring_size or 0) * ring_per_unet * unet_fwd,
         "flash_bwd_ring": (ring_size or 0) * ring_per_unet * unet_bwd,
-        "flash_fwd_d512": mid_attn * (dec_bwd + 2 * whole),
+        "flash_fwd_d512": mid_attn * (dec_bwd + encodes + decodes),
         "flash_bwd_d512": mid_attn * dec_bwd,
         # forward and dx of every decoder conv per trained decode; the
         # encode; the final decode
-        "conv3x3": 2 * convs_per_decode * dec_bwd + (convs_per_encode + convs_per_decode) * whole,
-        "guidance_epilogue": steps if mode in ("per-step", "fast_guidance") else 0,
+        "conv3x3": 2 * convs_per_decode * dec_bwd + convs_per_encode * encodes
+        + convs_per_decode * decodes,
+        "guidance_epilogue": epilogues,
         **{name: 0 for name in PROBE_KERNELS},  # no path launches a probe kernel
     }
 
@@ -1131,6 +1186,15 @@ def encode_check(bundle, bundle32, images) -> None:
     check("KL encode latent", rk / rp, ENCODE_LIMIT, "rel(kernel,fp32)/rel(plain,fp32)")
 
 
+@torch.no_grad()
+def ddim_denoise(denoise, sched, cfg, lat):
+    """Plain η=0 DDIM over the trailing timesteps, eagerly (the sampler's
+    former no-training loop)."""
+    for t in S.make_timesteps(cfg.ddim, cfg.steps):
+        lat, _ = ddim_step(sched, denoise(lat, int(t)), int(t), lat, cfg.steps)
+    return lat
+
+
 def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 768,
                          ring=None, options=(), per_input: bool = False,
                          label: str = "reference step", limits=None, tp_bundle=None) -> dict:
@@ -1193,9 +1257,8 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
         img_lat, lat0, dn, padding, orig_res = S._prepare(
             bundle, images, sparses, dataclasses.replace(cfg, seed=seed), None)
         if per_input:
-            with torch.no_grad():
-                lat0 = S._ddim_denoise(S._Denoiser(bundle, img_lat, fa.flash_attention), sched,
-                                       dataclasses.replace(cfg, steps=4), lat0)
+            lat0 = ddim_denoise(S._Denoiser(bundle, img_lat, fa.flash_attention), sched,
+                                dataclasses.replace(cfg, steps=4), lat0)
         results = []
         for bnd, unet_attention, attention_fn, conv_fn in modes.values():
             lat = lat0.clone().requires_grad_(True)
@@ -1279,9 +1342,10 @@ def check_request(dense, lat, shape, latent_shape) -> tuple[float, float]:
 
 # Phase 3 (a): the pipeline's graph against its eager twin on the same
 # inputs, each comparison max|diff| / max|twin| over the final latent, the
-# dense map and the latent's Adam v. flash_bwd's float4 dq atomics make two
-# eager runs differ, and the guidance's eps-norm rescale carries that through
-# the steps, so the graph is held to GRAPH_SPREAD_FACTOR times the spread of
+# dense map and the program's other state (the latent's Adam v, Adagrad's
+# sum, the affine). flash_bwd's float4 dq atomics make two eager runs
+# differ, and the guidance's eps-norm rescale carries that through the
+# steps, so the graph is held to GRAPH_SPREAD_FACTOR times the spread of
 # two twin requests, or GRAPH_FLOOR where the spread is smaller. A request
 # that finds the previous request's Adam v in its buffers reads O(1) on v
 # (v keeps 0.999^50 = 95% of it over 50 steps).
@@ -1297,8 +1361,11 @@ GRAPH_TIMING_STEPS = 10  # (b): steps timed back to back, eager and graph
 # over the tensor. Readings at 50 steps on the four guided paths (H100 80GB
 # HBM3, 700 W), sound / the step index not advanced before a replay: latent
 # <= 5.2e-3 / >= 2.2e-2, Adam m and v <= 1.06e-2 / >= 0.23, the affine 0
-# (its gradient takes no atomics) / >= 1.7e-3.
-STEP_LIMITS = {"latent": 1.5e-2, "adam_m": 5e-2, "adam_v": 5e-2, "affine": 1e-3}
+# (its gradient takes no atomics) / >= 1.7e-3. Adagrad's sum of squared
+# gradients takes Adam v's limit (the same squares, summed in place of
+# averaged).
+STEP_LIMITS = {"latent": 1.5e-2, "adam_m": 5e-2, "adam_v": 5e-2, "adagrad_sum": 5e-2,
+               "affine": 1e-3}
 
 
 def _rel(a, b) -> float:
@@ -1329,16 +1396,19 @@ def profile_step(run) -> dict:
 
 
 @torch.no_grad()
-def step_timing(program, eager: bool, steps: int = GRAPH_TIMING_STEPS) -> dict:
-    """One step of ``program`` at a time (``step_eager``, or ``replay`` of
-    its graph) at step indices 0, 1, ... (modulo its steps): ms per step by
-    CUDA events over ``steps`` of them back to back (the host's pace where
-    it is slower than the card), then one more under the profiler: device
-    ms, device-busy share, launches."""
+def step_timing(program, eager: bool, steps: int = GRAPH_TIMING_STEPS,
+                name: str = "step", profile: bool = True) -> dict:
+    """One run of ``program``'s phase ``name`` at a time (``step_eager``, or
+    ``replay`` of its graph) at step indices 0, 1, ... (modulo the phase's
+    count): ms per run by CUDA events over ``steps`` of them back to back
+    (the host's pace where it is slower than the card), then, with
+    ``profile``, one more under the profiler: device ms, device-busy share,
+    launches."""
     step = program.step_eager if eager else program.replay
+    count = dict(program.phases)[name]
 
     def run(k):
-        step(k % program.steps)
+        step(k % count, name)
 
     run(0)
     torch.cuda.synchronize()
@@ -1349,24 +1419,17 @@ def step_timing(program, eager: bool, steps: int = GRAPH_TIMING_STEPS) -> dict:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / steps
+    if not profile:
+        return {"s_per_step": ms / 1e3}
     prof = profile_step(lambda: run(steps // 2))
     return {"s_per_step": ms / 1e3, **prof, "busy_share": prof["device_ms"] / ms}
 
 
-def _step_state(program) -> tuple:
-    """The step program's state buffers: what one step reads and writes."""
-    return (program.latents, program.m, program.v, *program.affine, *program.affine_m,
-            *program.affine_v)
+INPUTS = ("images", "sparses", "noise", "prev", "mix")  # a program's request buffers
 
 
-def _step_groups(state) -> dict:
-    """The latent, Adam m, Adam v and the affine's parameters of a state."""
-    latents, m, v, *rest = state
-    n_aff = len(rest) // 3
-    out = {"latent": latents, "adam_m": m, "adam_v": v}
-    if n_aff:
-        out["affine"] = torch.cat([p.flatten() for p in rest[:n_aff]])
-    return out
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.float().flatten() for t in tensors])
 
 
 def _rel_l2(a, b) -> float:
@@ -1375,101 +1438,142 @@ def _rel_l2(a, b) -> float:
 
 @torch.no_grad()
 def stepwise_check(label: str, graph, twin) -> dict:
-    """Phase 3 (d): the graph one step at a time against its eager twin.
-    The graph program loads the twin's request inputs as a request does, and
-    its state must then be the initial one exactly (the latent's and the
-    affine's Adam moments zero, the affine (1, 0)). Then, at step indices 0,
+    """Phase 3 (d): each step phase's graph one step at a time against its
+    eager twin. The graph program takes the twin's request inputs and
+    replays its prepare graph, and its state must then be the initial one
+    exactly (optimizer state zero, the affine (1, 0)). Then, for each step
+    phase (``graph.phases`` between prepare and finish) at step indices 0,
     1, N/2 and N-1, each from the graph program's current state: the twin
     program takes that state and runs ``step_eager(k)`` twice (the eager
-    spread), the graph runs ``replay(k)``; each held to ``STEP_LIMITS``.
-    → the readings."""
-    graph.load(twin.img_latents, twin.latents, twin.dn, twin.images)
-    initial = max([float(graph.m.abs().max()), float(graph.v.abs().max())]
-                  + [float((p - init).abs().max()) for p, init in zip(graph.affine, (1.0, 0.0))]
-                  + [float(b.abs().max()) for b in (*graph.affine_m, *graph.affine_v)])
-    check(f"{label}: a request resets the step state", initial, 0.0, "max|state - initial|")
-    readings = {"reset_err": initial, "steps": {}}
-    n = graph.steps
-    for k in sorted({0, 1, n // 2, n - 1} & set(range(n))):
-        start = [t.clone() for t in _step_state(graph)]
-        runs = []
-        for _ in range(2):
-            for dst, src in zip(_step_state(twin), start):
-                dst.copy_(src)
-            twin.step_eager(k)
-            runs.append(_step_groups([t.clone() for t in _step_state(twin)]))
-        graph.replay(k)
-        got = _step_groups(_step_state(graph))
-        row = {}
-        for what, ref in runs[0].items():
-            diff, spread = _rel_l2(got[what], ref), _rel_l2(runs[1][what], ref)
-            row[what] = {"graph_vs_eager": diff, "eager_spread": spread,
-                         "max_rel": _rel(got[what], ref)}
-            check(f"{label}: step {k} graph vs eager ({what}; eager vs eager {spread:.3e})",
-                  diff, STEP_LIMITS[what], "||diff||/||eager||")
-        readings["steps"][k] = row
+    spread), the graph runs ``replay(k)``; each state group held to
+    ``STEP_LIMITS``. → the readings."""
+    for name in INPUTS:
+        getattr(graph, name).copy_(getattr(twin, name))
+    if hasattr(graph, "renoise"):  # LCM: the twin's request seed's re-noise
+        graph.renoise.copy_(twin.renoise)
+    graph.replay(0, "prepare")
+    initial = 0.0
+    for group, tensors in graph.state_groups(graph.phases[-2][0]).items():
+        for t, init in zip(tensors, (1.0, 0.0) if group == "affine" else [0.0] * len(tensors)):
+            if group != "latent":
+                initial = max(initial, float((t - init).abs().max()))
+    check(f"{label}: a request resets the state", initial, 0.0, "max|state - initial|")
+    readings = {"reset_err": initial, "phases": {}}
+    for name, n in graph.phases[1:-1]:
+        groups = graph.state_groups(name)
+        state = [t for ts in groups.values() for t in ts]
+        twin_state = [t for ts in twin.state_groups(name).values() for t in ts]
+        rows = {}
+        for k in sorted({0, 1, n // 2, n - 1} & set(range(n))):
+            start = [t.clone() for t in state]
+            runs = []
+            for _ in range(2):
+                for dst, src in zip(twin_state, start):
+                    dst.copy_(src)
+                twin.step_eager(k, name)
+                runs.append({g: _flat(ts).clone() for g, ts in twin.state_groups(name).items()})
+            graph.replay(k, name)
+            got = {g: _flat(ts) for g, ts in groups.items()}
+            row = {}
+            for what, ref in runs[0].items():
+                diff, spread = _rel_l2(got[what], ref), _rel_l2(runs[1][what], ref)
+                row[what] = {"graph_vs_eager": diff, "eager_spread": spread,
+                             "max_rel": _rel(got[what], ref)}
+                check(f"{label}: {name} {k} graph vs eager ({what}; eager vs eager "
+                      f"{spread:.3e})", diff, STEP_LIMITS[what], "||diff||/||eager||")
+            rows[k] = row
+        readings["phases"][name] = rows
     torch.cuda.synchronize()
     return readings
 
 
-def graph_check(path: GuidedPath, pipe, images, sparses, kwargs: dict, latent_hw) -> dict:
-    """Phase 3's graph checks on the path's pipeline, after its two
-    requests: (a) two requests through ``pipe.twin()`` (fresh programs, every
-    step eager) and one through the pipeline's graph on the same inputs,
-    held as ``GRAPH_SPREAD_FACTOR`` says; (b) eager and graph timing
-    (``step_timing``), the capture's ms, its instantiation's ms, the pool's
-    growth and each request's peak; (c) the capture's launch delta against
-    one step's launches; (d) ``stepwise_check``. → the readings."""
-    h, w = path.frame
+def graph_check(label: str, pipe, images, sparses, kwargs: dict, latent_hw, expect) -> dict:
+    """The graph checks of one program, after the pipeline's own requests of
+    its signature: (a) two requests through ``pipe.twin()`` (fresh
+    programs, every phase eager) and one through the pipeline's graphs on
+    the same inputs, held as ``GRAPH_SPREAD_FACTOR`` says; (b) eager and
+    graph timing of every phase (``step_timing``: the prepare and finish
+    steps, and each step phase), each capture's ms, its instantiation's ms,
+    its pool growth and each request's peak; (c) each phase's capture's
+    launch delta against one run of that phase (``expect(phase)``), and each
+    request's launches against one request's (``expect()``); (d)
+    ``stepwise_check``. → the readings."""
+    n, h, w = images.shape[:3]
     eh, ew = latent_hw
     runs, readings = {}, {"requests": {}}
     for name in ("twin 1", "twin 2", "graph"):
         target = pipe if name == "graph" else pipe.twin()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_launches()
         t0 = time.perf_counter()
         dense, lat = target(images, sparses, **kwargs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        counts = launches()
+        reset_launches()
+        if counts != expect():  # the graph's request: every phase replayed
+            raise AssertionError(f"{label}: {name}'s launches {counts} != {expect()}")
         program = target.programs.find(images.shape)
-        check_request(dense, lat, (1, h, w, 1), (1, eh, ew, 4))
-        runs[name] = (lat, dense, program.v.clone(), program)
+        check_request(dense, lat, (n, h, w, 1), (n, eh, ew, 4))
+        groups = program.state_groups(program.phases[-2][0])
+        state = {g: _flat(ts).clone() for g, ts in groups.items() if g != "latent"}
+        runs[name] = ({"latent": lat, "dense": dense, **state}, program)
         readings["requests"][name] = {"s": dt, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    # the graph's dense map against its finish step run again, eagerly, on
+    # the request's final state: the finish must decode the last step's
+    # latent
+    graph = runs["graph"][1]
+    graph.step_eager(0, "finish")
+    final = _rel(runs["graph"][0]["dense"], graph.dense)
+    print(f"  (a) dense vs the finish rerun on the final state: {final:.3e} (limit {GRAPH_FLOOR})")
+    check(f"{label}: the graph's dense map is the finish of its final state", final, GRAPH_FLOOR,
+          "max|diff|/max|rerun|")
+    readings["dense_vs_final_finish"] = final
     out = {}
-    for i, what in enumerate(("latent", "dense", "adam_v")):
-        spread = _rel(runs["twin 2"][i], runs["twin 1"][i])
-        diff = _rel(runs["graph"][i], runs["twin 1"][i])
+    for what in runs["graph"][0]:
+        spread = _rel(runs["twin 2"][0][what], runs["twin 1"][0][what])
+        diff = _rel(runs["graph"][0][what], runs["twin 1"][0][what])
         limit = max(GRAPH_SPREAD_FACTOR * spread, GRAPH_FLOOR)
-        out[what] = {"graph_vs_twin": diff, "twin_spread": spread, "limit": limit}
+        out[what] = {"graph_vs_twin": diff, "twin_spread": spread, "limit": limit,
+                     "twin_spread_l2": _rel_l2(runs["twin 2"][0][what], runs["twin 1"][0][what])}
         print(f"  (a) {what}: graph vs eager twin {diff:.3e}, twin vs twin {spread:.3e} "
               f"(max|diff|/max|twin|; limit {limit:.3e})")
-        check(f"{path.label}: graph vs eager twin ({what})", diff, limit, "max|diff|/max|twin|")
+        check(f"{label}: graph vs eager twin ({what})", diff, limit, "max|diff|/max|twin|")
     readings["graph_vs_twin"] = out
-    graph, twin = runs["graph"][3], runs["twin 1"][3]
-    per_step = expected_launches(registry.MARIGOLD_UNET_CONFIG, path.vae_kind, path.vae_config,
-                                 (eh, ew), 1, path.ring_size,
-                                 mode="step-remat" if graph.remat else "step")
-    per_step["guidance_epilogue"] += 1  # the step's epilogue, which "step" leaves out
-    want = {k: n for k, n in per_step.items() if n}
-    print(f"  (c) launches recorded at capture, added at every replay: {graph.launch_delta}")
-    if graph.launch_delta != want:
-        raise AssertionError(f"{path.label}: the capture's launches {graph.launch_delta} != "
-                             f"one step's {want}")
+    graph, twin = runs["graph"][1], runs["twin 1"][1]
+    if graph.tag != twin.tag or set(graph.graphs) != {p for p, _ in graph.phases}:
+        raise AssertionError(f"{label}: the {graph.tag} program's graphs {sorted(graph.graphs)} "
+                             f"are not its phases {graph.phases}")
+    readings["program"] = graph.tag
+    for phase, _ in graph.phases:
+        want = {k: c for k, c in expect(phase).items() if c}
+        print(f"  (c) {phase}: launches recorded at capture, added at every replay: "
+              f"{graph.launch_delta[phase]}")
+        if graph.launch_delta[phase] != want:
+            raise AssertionError(f"{label}: the {phase} capture's launches "
+                                 f"{graph.launch_delta[phase]} != one {phase}'s {want}")
     readings["launch_delta"] = graph.launch_delta
-    readings["stepwise"] = stepwise_check(path.label, graph, twin)
-    readings["eager"] = step_timing(twin, eager=True)
-    readings["graph"] = {**step_timing(graph, eager=False), **graph.stats}
+    readings["stepwise"] = stepwise_check(label, graph, twin)
+    # the step phases under the profiler too; the prepare and finish steps,
+    # once per request, by CUDA events alone
+    profiled = {p: p not in ("prepare", "finish") for p, _ in graph.phases}
+    readings["eager"] = {p: step_timing(twin, True, name=p, profile=profiled[p])
+                         for p, _ in graph.phases}
+    readings["graph"] = {p: {**step_timing(graph, False, name=p, profile=profiled[p]),
+                             **graph.stats[p]} for p, _ in graph.phases}
     reset_launches()  # the timing's launches are no path's
-    for kind in ("eager", "graph"):
-        r = readings[kind]
-        print(f"  (b) {kind}: {r['s_per_step'] * 1e3:.2f} ms/step (CUDA events over "
-              f"{GRAPH_TIMING_STEPS} steps), device {r['device_ms']:.2f} ms/step, busy "
-              f"{r['busy_share']:.1%}, {r['device_launches']} device launches and "
-              f"{r['host_launch_calls']} host launch calls per step")
-    g = readings["graph"]
-    print(f"  (b) capture {g['capture_ms']:.1f} ms, instantiate {g['instantiate_ms']:.1f} ms, "
-          f"pool growth {g['pool_growth_bytes'] / 2**30:.2f} GiB; request s and peak GiB "
-          f"{readings['requests']}")
+    for phase, _ in graph.phases:
+        e, g = readings["eager"][phase], readings["graph"][phase]
+        device = (f", device {e['device_ms']:.2f} / {g['device_ms']:.2f} ms, busy "
+                  f"{e['busy_share']:.1%} / {g['busy_share']:.1%}, host launch calls "
+                  f"{e['host_launch_calls']} / {g['host_launch_calls']}"
+                  if profiled[phase] else "")
+        print(f"  (b) {phase}: eager {e['s_per_step'] * 1e3:.2f} ms / graph "
+              f"{g['s_per_step'] * 1e3:.2f} ms per run (CUDA events over {GRAPH_TIMING_STEPS})"
+              f"{device}; capture {g['capture_ms']:.1f} ms, instantiate "
+              f"{g['instantiate_ms']:.1f} ms, pool growth {g['pool_growth_bytes'] / 2**30:.3f} GiB")
+    print(f"  (b) request s and peak GiB {readings['requests']}")
     readings["card"] = card()
     return readings
 
@@ -1526,12 +1630,19 @@ def guided_path(path: GuidedPath, steps: int, bundle=None) -> tuple[dict, dict]:
     print(f"  path launches (2 requests): {totals}")
     reset_launches()
     program = pipe.programs.find(images.shape)
-    print(f"  step program: captured at request 0 in {program.stats['capture_ms']:.1f} ms, "
-          f"instantiated in {program.stats['instantiate_ms']:.1f} ms, pool growth "
-          f"{program.stats['pool_growth_bytes'] / 2**30:.2f} GiB")
-    graphs = graph_check(path, pipe, images, sparses, dict(
+    for phase, st in program.stats.items():
+        print(f"  {program.tag} program, {phase}: captured at request 0 in "
+              f"{st['capture_ms']:.1f} ms, instantiated in {st['instantiate_ms']:.1f} ms, pool "
+              f"growth {st['pool_growth_bytes'] / 2**30:.3f} GiB")
+
+    def expect(phase=None):
+        return expected_launches(registry.MARIGOLD_UNET_CONFIG, path.vae_kind, path.vae_config,
+                                 (eh, ew), steps, path.ring_size, remat=program.remat,
+                                 phase=phase)
+
+    graphs = graph_check(path.label, pipe, images, sparses, dict(
         max_depth=120.0, steps=steps, norm="const", closed_form=False,
-        resolution=path.resolution, ring_mesh=ring, **options), (eh, ew))
+        resolution=path.resolution, ring_mesh=ring, **options), (eh, ew), expect)
     del pipe, program
     gc.collect()
     torch.cuda.empty_cache()
@@ -2132,6 +2243,209 @@ def peaked_reference_steps(bundle, images, sparses) -> dict:
             "ring_reference_step": ring, "card": card()}
 
 
+@torch.no_grad()
+def former_request(bundle, images, sparses, cfg):
+    """One request through the sampler's eager loops as they were before
+    every branch had a program (``_prepare``; the no-training DDIM or LCM
+    loop; the per-step steps with ``make_optimizer`` and ``eager_epilogue``;
+    per-input training with ``make_optimizer``; the final decode) → (dense,
+    latents). It holds what a program's graphs and their eager twin share:
+    a fault in both (an optimizer row, the ε-norm rescale) shows only
+    against it."""
+    closed_form = cfg.resolved_closed_form()
+    sched = S.make_schedule(cfg.ddim)
+    img_lat, lat, dn, padding, orig_res = S._prepare(bundle, images, sparses, cfg, None)
+    denoise = S._Denoiser(bundle, img_lat, fa.flash_attention)
+    decode = functools.partial(S.decode_prediction, bundle)
+    affine = []
+    if cfg.scheduler == "lcm":
+        ts = [int(t) for t in make_lcm_timesteps(cfg.ddim.num_train_timesteps, cfg.steps,
+                                                 cfg.lcm)]
+        key = prng.split(prng.PRNGKey(cfg.seed))[0]
+        for i, t in enumerate(ts):
+            key, sub = prng.split(key)
+            last = i == len(ts) - 1
+            lat, _ = lcm_step(sched, denoise(lat, t), t, -1 if last else ts[i + 1], lat, sub,
+                              last, cfg.lcm)
+    elif not cfg.train_latents:
+        lat = ddim_denoise(denoise, sched, cfg, lat)
+    else:
+        n = images.shape[0]
+        if not closed_form:
+            affine = [torch.ones((n, 1, 1, 1), device=DEV).requires_grad_(True),
+                      torch.zeros((n, 1, 1, 1), device=DEV).requires_grad_(True)]
+        if cfg.train_method == "per-input":
+            lat = ddim_denoise(denoise, sched, cfg, lat).requires_grad_(True)
+            opt = make_optimizer(cfg.opt, lat, affine, cfg.lr_latent, cfg.lr_scaling)
+            for _ in range(cfg.train_steps):
+                _, grads = S.per_input_grads(decode, cfg, dn, images, orig_res, padding,
+                                             closed_form, lat, affine)
+                for p, g in zip([lat, *affine], grads):
+                    p.grad = g
+                opt.step()
+        else:
+            lat = lat.clone().requires_grad_(True)
+            opt = make_optimizer(cfg.opt, lat, affine, cfg.lr_latent, cfg.lr_scaling)
+            for t in S.make_timesteps(cfg.ddim, cfg.steps):
+                _, out, grads = S.guided_step_grads(denoise, decode, sched, cfg, dn, images,
+                                                    orig_res, padding, closed_form, lat,
+                                                    affine, int(t))
+                for p, g in zip(affine, grads[1:]):
+                    p.grad = g
+                eager_epilogue(sched, opt, lat, grads[0], out, int(t), cfg.steps)
+        lat = lat.detach()
+    dense = S.latent_to_affine(decode, lat, orig_res, padding, cfg.interp_mode)
+    dense = torch.clamp(S._affine_to_metric(dense, dn, affine, closed_form), 0.0, 1.0)
+    return S.denormalize_depth(dense, dn), lat
+
+
+# (e): the former loop's optimizer is torch.optim's, whose CUDA kernels
+# round Adam's division otherwise than the programs' tensor ops; where that
+# flips the sign of an element's gradient (an L1 anchor at its value), the
+# element moves by 2 lr a step, which a max-norm reads as O(lr / max|latent|)
+# (per-input at 4 steps: 4.5e-3 of the largest latent, 1.1e-2 of the
+# largest depth, against 0 between the graph and its twin). The request's
+# latent is held in relative L2, with the latent step's limit as its floor;
+# the dense map, which the decoder draws from the few such elements, reads
+# 15x the latent's L2 (9.6e-3 against 6.2e-4) and is printed, not held.
+FORMER_FLOOR = STEP_LIMITS["latent"]
+# (f), per-input's train step: from one state the decode's backward is
+# deterministic, so the graph's update and the former optimizer's differ by
+# rounding alone; Adam's bias-correction row one step ahead changes the
+# first update by 26%, the second by 14%.
+FORMER_UPDATE_LIMIT = 1e-2
+
+
+@torch.no_grad()
+def former_step_check(label: str, program) -> dict:
+    """(f) A program's graph one optimizer step at a time against the former
+    eager step from the same state, a ``make_optimizer`` optimizer holding
+    the program's optimizer state, at steps 0 and 1 of the request in the
+    program's buffers (its prepare replayed first). General per-step (SGD,
+    Adagrad, Adam without the epilogue): ``guided_step_grads`` at the host's
+    t, then ``eager_epilogue`` (the rescale, the optimizer, the DDIM
+    transition); the latent held to ``STEP_LIMITS`` (relative L2): SGD's
+    step is the ε-norm-rescaled gradient times lr, 5% of the latent's norm.
+    Per-input (after its denoise steps): ``per_input_grads``, then the
+    optimizer; the update held to ``FORMER_UPDATE_LIMIT`` (relative L2).
+    → the readings."""
+    cfg, sched = program.cfg, program.sched
+    per_input = program.tag == "per-input"
+    phase = "train" if per_input else "step"
+    program.replay(0, "prepare")
+    if per_input:
+        for k in range(program.steps):
+            program.replay(k, "step")
+    ts = S.make_timesteps(cfg.ddim, cfg.steps)
+    rows = {}
+    for k in (0, 1):
+        before = program.latents.clone()
+        lat = before.clone().requires_grad_(True)
+        aff = [p.clone().requires_grad_(True) for p in program.affine]
+        opt = make_optimizer(cfg.opt, lat, aff, cfg.lr_latent, cfg.lr_scaling)
+        state = program.opt.state
+        for i, p in enumerate([lat, *aff]):
+            if cfg.opt == "adam":
+                opt.state[p] = {"step": torch.tensor(float(k)),
+                                "exp_avg": state["adam_m"][i].clone(),
+                                "exp_avg_sq": state["adam_v"][i].clone()}
+            elif cfg.opt == "adagrad":
+                opt.state[p] = {"sum": state["adagrad_sum"][i].clone()}
+        if per_input:
+            _, grads = S.per_input_grads(program._decode, cfg, program.dn, program.images,
+                                         program.orig_res, program.padding, program.closed_form,
+                                         lat, aff)
+            for p, g in zip([lat, *aff], grads):
+                p.grad = g
+            opt.step()
+        else:
+            t = int(ts[k])
+            _, out, grads = S.guided_step_grads(
+                program._denoise, program._decode, sched, cfg, program.dn, program.images,
+                program.orig_res, program.padding, program.closed_form, lat, aff, t)
+            for p, g in zip(aff, grads[1:]):
+                p.grad = g
+            eager_epilogue(sched, opt, lat, grads[0], out, t, cfg.steps)
+        program.replay(k, phase)
+        if per_input:
+            what, limit = "the update", FORMER_UPDATE_LIMIT
+            rows[k] = _rel_l2(program.latents - before, lat.detach() - before)
+        else:
+            what, limit = "latent", STEP_LIMITS["latent"]
+            rows[k] = _rel_l2(program.latents, lat.detach())
+        print(f"  (f) {phase} {k}: graph vs the former eager step ({what}) {rows[k]:.3e}")
+        check(f"{label}: {phase} {k} graph vs the former eager step ({what})", rows[k], limit,
+              "||diff||/||former||")
+    return rows
+
+
+# Phase 5's programs: the modes' requests, each through a fresh pipeline
+# (its captures), then graph_check's. The per-step modes other than the
+# fused one, no-training DDIM and per-input's denoise run at most this many
+# steps: the fewest that give stepwise_check four distinct step indices
+# (the readings per step do not depend on it; the smoke's time does).
+# Per-input trains MODES_TRAIN_STEPS, LCM runs LCM_STEPS. LCM's second
+# seed: graph_check runs it through the program that served the first,
+# whose re-noise table must then be this seed's.
+MODE_PROGRAM_STEPS, LCM_SECOND_SEED = 4, 7
+
+
+def mode_program_check(label: str, bundle, images, sparses, kwargs: dict, mode: str,
+                       latent_hw, train_steps: int = 0) -> dict:
+    """One mode's program on the card (phase 5's ``programs`` line): the
+    first request through a fresh pipeline (each phase's step 0 eager, its
+    capture, its replays), its launches held to ``expected_launches(mode)``;
+    ``graph_check`` at ``kwargs`` (LCM: at ``LCM_SECOND_SEED``, after a first
+    request at the default seed); then (e) the graph's request against
+    ``former_request``, the loop it replaced, over the latent (relative L2,
+    ``GRAPH_SPREAD_FACTOR`` times (a)'s L2 spread or ``FORMER_FLOOR``); and
+    for the general per-step modes and per-input (f) ``former_step_check``.
+    → the readings."""
+    pipe = DepthCompletionPipeline(bundle)
+    first_kwargs = {k: v for k, v in kwargs.items() if k != "seed"}
+
+    def expect(phase=None):
+        return expected_launches(registry.MARIGOLD_UNET_CONFIG, bundle.vae.kind,
+                                 registry.TAESD_CONFIG, latent_hw, kwargs["steps"], mode=mode,
+                                 train_steps=train_steps, phase=phase)
+
+    print(f"modes: {label} program ({mode}): {kwargs}")
+    torch.cuda.synchronize()
+    reset_launches()  # just before
+    t0 = time.perf_counter()
+    dense, lat = pipe(images, sparses, **first_kwargs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launches()  # just after
+    reset_launches()
+    n, h, w = images.shape[:3]
+    check_request(dense, lat, (n, h, w, 1), (n, *latent_hw, 4))
+    print(f"  first request {first_s:.2f} s (captures included), launches "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    if counts != expect():
+        raise AssertionError(f"{label}: the first request's launches {counts} != {expect()}")
+    readings = {"mode": mode, "steps": kwargs["steps"], "train_steps": train_steps,
+                "first_request_s": first_s,
+                "graph": graph_check(label, pipe, images, sparses, kwargs, latent_hw, expect)}
+    cfg = S.SamplerConfig(**{"ddim": bundle.ddim_config, **kwargs} if bundle.ddim_config
+                          else kwargs)
+    ref_dense, ref_lat = former_request(bundle, images.to(DEV), sparses.to(DEV), cfg)
+    dense, lat = pipe(images, sparses, **kwargs)
+    diff = _rel_l2(lat, ref_lat)
+    spread = readings["graph"]["graph_vs_twin"]["latent"]["twin_spread_l2"]
+    limit = max(GRAPH_SPREAD_FACTOR * spread, FORMER_FLOOR)
+    readings["former"] = {"latent": diff, "limit": limit, "dense": _rel_l2(dense, ref_dense)}
+    print(f"  (e) latent: graph vs the former eager loop {diff:.3e} (limit {limit:.3e}); dense "
+          f"{readings['former']['dense']:.3e}")
+    check(f"{label}: graph vs the former eager loop (latent)", diff, limit, "||diff||/||former||")
+    if mode in ("general", "per-input"):
+        readings["former_steps"] = former_step_check(label, pipe.programs.find(images.shape))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
 def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: int = 768) -> dict:
     """The sampler's other modes at full width on the checkpoint bundle of
     phase 3a (Marigold UNet, TAESD, the SD2 tower's context; bf16), 480x640
@@ -2264,7 +2578,8 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
             lambda: kl_pipe(imgs_k, sps_k, max_depth=120.0, norm="const", resolution=res,
                             steps=REMAT_PROGRAM_STEPS, closed_form=False, remat_unet="off"))
         check_request(dense, None, (n, h, w, 1), None)
-        kl_buckets[n] = {"s_per_request": dt, "peak_gib": peak, **kl_pipe.programs.find(imgs_k.shape).stats}
+        kl_buckets[n] = {"s_per_request": dt, "peak_gib": peak,
+                         **kl_pipe.programs.find(imgs_k.shape).stats["step"]}
         print(f"  kl program batch {n}: pool growth "
               f"{kl_buckets[n]['pool_growth_bytes'] / 2**30:.2f} GiB, capture "
               f"{kl_buckets[n]['capture_ms']:.0f} ms")
@@ -2344,12 +2659,13 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
             raise AssertionError(f"remat {remat}: the program's remat is {program.remat}")
         timing = step_timing(program, eager=False, steps=REMAT_PROGRAM_STEPS)
         reset_launches()
-        programs[remat] = {"s_per_request": dt, "peak_gib": peak, **program.stats, **timing}
+        stats = program.stats["step"]
+        programs[remat] = {"s_per_request": dt, "peak_gib": peak, **stats, **timing}
         print(f"  program remat {remat}: {timing['s_per_step']:.3f} s/step replayed (one eager "
               f"step: {remat_s['tiny'][remat]:.3f} s), device {timing['device_ms']:.1f} ms/step, "
-              f"busy {timing['busy_share']:.1%}; capture {program.stats['capture_ms']:.0f} ms, "
-              f"instantiate {program.stats['instantiate_ms']:.0f} ms, pool growth "
-              f"{program.stats['pool_growth_bytes'] / 2**30:.2f} GiB; request peak {peak:.2f} GiB")
+              f"busy {timing['busy_share']:.1%}; capture {stats['capture_ms']:.0f} ms, "
+              f"instantiate {stats['instantiate_ms']:.0f} ms, pool growth "
+              f"{stats['pool_growth_bytes'] / 2**30:.2f} GiB; request peak {peak:.2f} GiB")
     modes["remat"]["programs"] = programs
     modes["remat"]["kl_bucket_programs"] = kl_buckets
     del imgs_b, sps_b, rpipe, program, dense, lat
@@ -2363,7 +2679,7 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
         ensemble_size=ENSEMBLE_SIZE, ensemble_reduce="aligned-median", ensemble_uncertainty=True)
     check_request(denses, None, (1, h, w, 1), None)
     program = pipe.programs.find((ENSEMBLE_SIZE, h, w, 3))  # the E members' batch
-    ens_program = {**program.stats, **step_timing(program, eager=False)}
+    ens_program = {**program.stats["step"], **step_timing(program, eager=False)}
     reset_launches()
     print(f"  ensemble program: batch {program.latents.shape[0]}, "
           f"{ens_program['s_per_step']:.3f} s/step replayed, device "
@@ -2436,7 +2752,7 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
     with plain_decode():
         (plain, _), _, _, _ = counted(
             "lcm (plain versions)", {k: 0 for k in launches()},
-            lambda: DepthCompletionPipeline(bundle)(
+            lambda: DepthCompletionPipeline(bundle).twin()(
                 x, y, *args, **{**kwargs, "flash_attention": "off"}))
     lcm_rms, lcm_max = _range_diff(torch.from_numpy(dense), plain[0])
     print(f"  lcm: kernels vs plain versions rms {lcm_rms:.3e} max {lcm_max:.3e} of 120 m")
@@ -2470,6 +2786,26 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
                     "peak_gib": info["peak_gib"], "checks": info["reference_step"],
                     "graph": info["graph"], "card": card()}
     modes["peaked"] = peaked_reference_steps(bundle, images, sparses)
+
+    # every mode's program: prepare, step and finish graphs (the programs line)
+    n_prog = min(steps, MODE_PROGRAM_STEPS)
+    base = dict(max_depth=120.0, norm="const", resolution=res)
+    clip = dataclasses.replace(bundle.ddim_config or S.DDIMConfig(), clip_sample=True)
+    specs = (  # label, expected_launches mode, request options, train steps
+        ("lcm", "forward", dict(steps=LCM_STEPS, scheduler="lcm", train_latents=False,
+                                seed=LCM_SECOND_SEED), 0),
+        ("per-input", "per-input", dict(steps=n_prog, train_method="per-input",
+                                        train_steps=MODES_TRAIN_STEPS, closed_form=False),
+         MODES_TRAIN_STEPS),
+        ("sgd", "general", dict(steps=n_prog, opt="sgd", closed_form=False), 0),
+        ("adagrad", "general", dict(steps=n_prog, opt="adagrad", closed_form=False), 0),
+        ("ddim", "forward", dict(steps=n_prog, train_latents=False), 0),
+        ("adam_clip", "general", dict(steps=n_prog, closed_form=False, ddim=clip), 0),
+    )
+    modes["programs"] = {
+        label: mode_program_check(label, bundle, images, sparses, {**base, **options}, mode,
+                                  (eh, ew), train_steps)
+        for label, mode, options, train_steps in specs}
     return modes
 
 
@@ -2590,7 +2926,11 @@ def tiered_phase(model_dir: Path, taesd_dir: Path, n_steps: int, bundle, call_kw
       geometries (480x640 and 240x320, ``max_batch=1``): promoting the
       second evicts the first; a request of the first geometry then runs
       on tier 0 (the eviction-aware dispatch), without a capture, and one
-      of the second on its graph.
+      of the second on its graph;
+    - (i) ``run_serve --warmup-tiered --max-programs 1 --max-batch 1`` with
+      ``--model lcm``, then with ``--opt sgd``: the signature's program (an
+      LCM or a general-step program) is promoted, tier 0 drops, and a
+      request then runs on the graph pipeline.
     → the readings."""
     from depth_completion_tpu_torch.serving import ServeRequest, ServingEngine
 
@@ -2674,6 +3014,41 @@ def tiered_phase(model_dir: Path, taesd_dir: Path, n_steps: int, bundle, call_kw
     del engine, pipe
     gc.collect()
     torch.cuda.empty_cache()
+
+    # (i) --max-programs 1 over a branch other than the fused step
+    for name, extra, tag in (("lcm", ["--model", "lcm"], "lcm"),
+                             ("sgd", ["--opt", "sgd"], "general-step")):
+        params = vars(serve_cli.build_parser().parse_args([
+            "--checkpoint-dir", str(model_dir), "--taesd-dir", str(taesd_dir),
+            "--steps", str(n_steps), "--max-batch", "1", "--warmup", f"{h}x{w}",
+            "--warmup-tiered", "--max-programs", "1", "--port", "0", "--log-level", "WARNING",
+            *extra]))
+        log, t0 = [], time.perf_counter()
+        engine, httpd = serve_cli.run_serve(**params, serve_forever=False)
+        try:
+            warm_s = time.perf_counter() - t0
+            with engine._tier_lock:
+                tier0_after_warmup = engine._tier0_pipe is not None
+            engine.pipe = TierLog(engine.pipe, "graph", log, t0)
+            _wait(engine, lambda st: "tier0_active" not in st, timeout_s=120.0)
+            engine.complete(*frames(26, 1)[0], timeout=600)
+            st = engine.stats()
+            tags = [k[0] for k in engine.pipe.program_keys()]
+            print(f"  (i) run_serve {' '.join(extra)} --warmup-tiered --max-programs 1: "
+                  f"{warm_s:.2f} s on tier 0, tier 0 active after it: {tier0_after_warmup}; "
+                  f"promotions {st['tier_promotions']}; programs {tags}; the request after them "
+                  f"ran on {log[-1][0]}")
+            if not tier0_after_warmup or len(st["tier_promotions"]) != 1 or tags != [tag] \
+                    or log[-1][:2] != ("graph", 1):
+                raise AssertionError(f"(i) {name}: {tier0_after_warmup} {st} {tags} {log}")
+            out[f"i_{name}"] = {"run_serve_s": warm_s, "promotions": st["tier_promotions"],
+                                "programs": tags}
+        finally:
+            httpd.server_close()
+            engine.shutdown()
+        del engine, httpd
+        gc.collect()
+        torch.cuda.empty_cache()
     reset_launches()  # the tiers' launches are no count of the served traffic's
     return out
 
@@ -3481,7 +3856,9 @@ def main() -> int:
     print(json.dumps({"graphs": graphs}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"host_io": host_io}))
+    programs = modes.pop("programs")
     print(json.dumps({"modes": modes}))
+    print(json.dumps({"programs": programs}, default=str))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"distributed": distributed}))
     # how a wrapper that runs more than one kernel counts its launches

@@ -42,8 +42,8 @@ no ``--device cpu`` the command exits with the device error.
   thread, the NaN skip, ``dense/<stem>.<compress>`` and
   ``vis/<stem>_vis.jpg`` grids; a progress line through the logger in
   place of tqdm. The last batch is not padded to ``--batch-size`` (a
-  smaller last batch is one more signature: its own step program and
-  capture), and only a batch's finished dense maps and latents come back
+  smaller last batch is one more signature: its own program and
+  captures), and only a batch's finished dense maps and latents come back
   to the host.
 
 ``main(argv)`` returns the run's totals (frames, seconds of IO, inference,

@@ -12,8 +12,9 @@ JAX CLI uses click); one more flag, ``--device {cuda,cpu}`` (default
 ``cuda``): with no GPU and no ``--device cpu`` the command exits with the
 device error. The sampler config is fixed for the server's lifetime.
 
-- ``--max-programs`` bounds the pipeline's live step programs (one
-  captured CUDA graph of the guided step per signature, LRU order).
+- ``--max-programs`` bounds the pipeline's live programs (one per
+  signature, whatever the sampler branch: its captured CUDA graphs; LRU
+  order).
 - ``--warmup-tiered`` opens for traffic after every signature ran on the
   eager step (tier 0), then captures each signature's graph on the compute
   thread between batches (``ServingEngine.warmup(tiered=True)``).

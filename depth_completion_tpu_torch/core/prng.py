@@ -17,6 +17,8 @@ second, and ``random_bits`` at 32 bits is the xor of the two hashed words.
 - ``uniform(key, shape, lo, hi)``: the top 23 bits of each word OR-ed
   into the exponent of 1.0, minus 1.0, scaled to ``[lo, hi)``, then
   ``max(lo, ·)``: bit for bit.
+- ``chain_normals(key, num, shape)``: ``num`` normals along a carried
+  key chain (each step splits the carry), the LCM sampler's re-noise.
 - ``normal(key, shape)``: ``sqrt(2) · erfinv(u)``, ``u`` uniform on
   ``[nextafter(-1, 0), 1)``, with ``erfinv`` as XLA's float32 ``ErfInv32``
   computes it (Giles' single-precision polynomial, w < 5 and w >= 5
@@ -125,3 +127,14 @@ def normal(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
     u = uniform(key, shape, lo, 1.0)
     return (np.float32(np.sqrt(2)) * erfinv(u)).astype(np.float32)
+
+
+def chain_normals(key: np.ndarray, num: int, shape: tuple[int, ...]) -> np.ndarray:
+    """``num`` draws along a carried key chain, as a ``lax.scan`` body that
+    splits its carry does: ``key, sub = split(key)``, then ``normal(sub,
+    shape)``, ``num`` times → ``[num, *shape]`` float32."""
+    out = np.empty((num, *shape), np.float32)
+    for i in range(num):
+        key, sub = split(key)
+        out[i] = normal(sub, shape)
+    return out

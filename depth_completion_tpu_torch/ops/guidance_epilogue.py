@@ -24,7 +24,7 @@ The six per-step scalars [sa, s1, sap, s1p, bc1, bc2] are read on the
 device, from a table of every step's row (``epilogue_table``: the float32
 values of ``epilogue_scalars``) at a step index that is a device tensor
 too, so one launch captured in a CUDA graph serves every step of a request
-(``pipeline.sampler.GuidedStepProgram``); lr and Adam's b1, b2 and eps are
+(``pipeline.sampler.FusedStepProgram``); lr and Adam's b1, b2 and eps are
 constant per request and stay arguments.
 
 The epilogue updates ``lat``, ``m`` and ``v`` in place (the sampler's latent
@@ -42,10 +42,10 @@ import torch
 
 from depth_completion_tpu_torch import _build
 from depth_completion_tpu_torch.device import upload
+from depth_completion_tpu_torch.guidance.optim import ADAM_B1, ADAM_B2, ADAM_EPS
 from depth_completion_tpu_torch.sched.ddim import DiffusionSchedule, _coeffs
 
 EPSILON = 1e-7  # floor of the gradient norm in the rescale
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # torch.optim.Adam's defaults
 
 LAUNCHES = {"guidance_epilogue": 0}
 

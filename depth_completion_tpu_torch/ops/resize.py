@@ -132,12 +132,21 @@ def unpad(x: torch.Tensor, padding: tuple[int, int]) -> torch.Tensor:
     return x[:, : x.shape[1] - ph, : x.shape[2] - pw, :]
 
 
+def processing_padding(orig_res: tuple[int, int], resolution: int) -> tuple[int, int]:
+    """(ph, pw): the edge padding ``pad_to_multiple`` adds to the frame
+    resized to ``resolution`` (``resize_to_max_edge``)."""
+    h, w = orig_res
+    m = max(h, w)
+    rh, rw = resolution * h // m, resolution * w // m
+    return -rh % LATENT_ALIGN, -rw % LATENT_ALIGN
+
+
 def processing_size(orig_res: tuple[int, int], resolution: int) -> tuple[int, int]:
     """(PPH, PPW): longest side floor-scaled to ``resolution``, aligned to 16."""
     h, w = orig_res
     m = max(h, w)
-    rh, rw = resolution * h // m, resolution * w // m
-    return rh + (-rh % LATENT_ALIGN), rw + (-rw % LATENT_ALIGN)
+    ph, pw = processing_padding(orig_res, resolution)
+    return resolution * h // m + ph, resolution * w // m + pw
 
 
 def latent_size(orig_res: tuple[int, int], resolution: int, downsample: int = 8) -> tuple[int, int]:

@@ -25,10 +25,12 @@ def masked_quantile(x: torch.Tensor, mask: torch.Tensor, qs) -> torch.Tensor:
     if x.dim() != 2 or x.shape != mask.shape:
         raise ValueError(f"expected matching 2-D x/mask, got {tuple(x.shape)} / {tuple(mask.shape)}")
     x = x.float()
-    qs = torch.as_tensor(qs, dtype=torch.float32, device=x.device)
     n_valid = mask.sum(dim=-1).float()
     sorted_x = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf"))), dim=-1).values
-    pos = qs[None, :] * torch.clamp(n_valid[:, None] - 1.0, min=0.0)
+    # each q a scalar operand: no host-to-device copy (the captured prepare
+    # step runs this)
+    last = torch.clamp(n_valid[:, None] - 1.0, min=0.0)
+    pos = torch.cat([float(q) * last for q in qs], dim=-1)
     lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
     frac = pos - lo.float()
     return sorted_x.gather(-1, lo) * (1.0 - frac) + sorted_x.gather(-1, hi) * frac

@@ -17,13 +17,15 @@ the data group, so every rank returns the whole batch. The batch must
 divide the data axis. ``ensemble_mesh`` spreads an ensemble's rows the same
 way (``parallel.ensemble``).
 
-The program cache is the JAX pipeline's (:70-126, :313-318): every request
-goes through the pipeline's ``programs.ProgramCache``, one
-``GuidedStepProgram`` per signature (on a card, one captured CUDA graph of
-the guided step, replayed at every DDIM step), ``max_programs`` bounding
-the live ones in LRU order, ``program_keys()`` listing them. ``twin()`` is
-the same pipeline with every step run eagerly (the serving engine's tier 0;
-the reference ``chip_smoke.py`` holds the graphs to).
+The program cache is the JAX pipeline's (:70-126, :313-318): every request,
+whatever its sampler branch, goes through the pipeline's
+``programs.ProgramCache``, one ``sampler.SamplerProgram`` per signature (on
+a card, captured CUDA graphs of the request's prepare step, of its steps,
+replayed at every step, and of its final decode), ``max_programs`` bounding
+the live ones in LRU order, ``program_keys()`` listing them. The outputs
+are copies out of the program's buffers. ``twin()`` is the same pipeline
+with every phase run eagerly (the serving engine's tier 0; the reference
+``chip_smoke.py`` holds the graphs to).
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ class DepthCompletionPipeline:
     """
 
     def __init__(self, bundle: ModelBundle, max_programs: int | None = None):
-        """``max_programs``: bound the live step programs (their graphs,
+        """``max_programs``: bound the live programs (their graphs,
         buffers and share of the graph pool), least recently used first out;
         None keeps every signature's program, which is right for batch
         jobs. A long-running server over a mixed-geometry stream passes a

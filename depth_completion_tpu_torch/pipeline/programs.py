@@ -1,35 +1,37 @@
-"""The program cache: one captured guided step per signature, PyTorch
-counterpart of the JAX pipeline's per-signature programs
+"""The program cache: one program per signature, PyTorch counterpart of
+the JAX pipeline's per-signature programs
 (``depth_completion_tpu.pipeline.pipeline``: ``_lru_program``,
 ``program_keys`` and ``max_programs``, :70-126).
 
-The JAX package jit-compiles its whole sampling loop once per (batch,
-geometry, config) signature. The port's counterpart is a
-``sampler.GuidedStepProgram`` per signature: fixed buffers and, on a card,
-one CUDA graph of one guided step, replayed once per DDIM step. The cache
-holds them:
+The JAX package jit-compiles the whole of ``guided_sample`` once per
+(branch, batch, geometry, config) signature. The port's counterpart is a
+``sampler.SamplerProgram`` per signature, one class per branch of the
+sampler: fixed buffers and, on a card, a CUDA graph per phase (the prepare
+step, the branch's step or steps, the finish step), each replayed as often
+as the phase runs. The cache holds them:
 
-- an LRU keyed by signature (``program_key``): ``max_programs`` bounds the
-  live programs, and an evicted program's graph, buffers and share of the
-  pool go with it (the caller that is running it keeps its reference until
-  it returns);
-- one graph memory pool for all its programs. A captured step leaves no
-  live tensor of its own in the pool (its results go into the program's
-  fixed buffers), so the programs of one cache, replayed one at a time on
-  one stream, can share it: the pool is as large as the largest step, not
-  the sum of them;
+- an LRU keyed by signature (``program_key``, whose first field names the
+  branch): ``max_programs`` bounds the live programs, and an evicted
+  program's graphs, buffers and share of the pool go with it (the caller
+  that is running it keeps its reference until it returns);
+- one graph memory pool for all its programs' graphs. A captured phase
+  leaves no live tensor of its own in the pool (its results go into the
+  program's fixed buffers), so the graphs of one cache, replayed one at a
+  time on one stream, can share it: the pool is as large as the largest
+  phase, not the sum of them;
 - a lock around the LRU bookkeeping, as in JAX, so concurrent callers
   keep it consistent.
 
 ``EagerTwin`` is the cache's plain twin: the same programs and buffers,
-each step run eagerly on any device. It is tier 0 of the serving engine's
+each phase run eagerly on any device. It is tier 0 of the serving engine's
 tiered warmup, and the reference that ``chip_smoke.py`` holds the graphs
 to; no entry point chooses it by an option.
 
 ``LAUNCH_COUNTERS`` are the kernel wrappers' launch counts. A wrapper
 counts in Python where it launches; a capture launches nothing, so each
-program records what its capture counted (``launch_delta``), takes it off
-again, and adds it at every replay, where the kernels do launch.
+program records what each phase's capture counted (``launch_delta[phase]``),
+takes it off again, and adds it at every replay of that phase's graph,
+where the kernels do launch.
 """
 
 from __future__ import annotations
@@ -57,15 +59,16 @@ def add_launches(delta: dict[str, int], sign: int = 1) -> None:
             counts[name] += sign * delta.get(name, 0)
 
 
-def program_key(bundle: Any, images_shape: tuple, cfg: Any, remat: bool) -> tuple:
-    """The signature of a per-step guided request: ("step", images' shape
-    [N, H, W, C], the sampler config without the fields that only shape the
-    initial latent (seed, beta: a carried or seeded latent shares the
+def program_key(branch: str, bundle: Any, images_shape: tuple, cfg: Any, remat: bool) -> tuple:
+    """The signature of a request: (the sampler's branch
+    (``sampler.sampler_branch``), images' shape [N, H, W, C], the sampler
+    config without the fields that only shape the initial latent and the
+    LCM re-noise (seed, beta: a carried or seeded latent shares the
     program), the remat setting, the bundle's identity (a graph holds its
     weights' addresses)). The config holds the resolution, the steps, the
-    ring and every other field the step reads."""
+    ring and every other field the program reads."""
     step_cfg = dataclasses.replace(cfg, seed=type(cfg).seed, beta=type(cfg).beta)
-    return ("step", tuple(int(d) for d in images_shape), step_cfg, bool(remat), id(bundle))
+    return (branch, tuple(int(d) for d in images_shape), step_cfg, bool(remat), id(bundle))
 
 
 def signature(key: tuple) -> tuple[int, int, int, int]:
@@ -75,9 +78,9 @@ def signature(key: tuple) -> tuple[int, int, int, int]:
 
 
 class ProgramCache:
-    """An LRU of ``GuidedStepProgram``s sharing one graph memory pool."""
+    """An LRU of ``sampler.SamplerProgram``s sharing one graph memory pool."""
 
-    capture = True  # run each program's steps as replays of its captured graph
+    capture = True  # run each program's phases as replays of their captured graphs
 
     def __init__(self, max_programs: int | None = None):
         if max_programs is not None and max_programs < 1:
@@ -122,12 +125,12 @@ class ProgramCache:
             return self._pool
 
     def run(self, program: Any) -> None:
-        """One request's steps: on a card, the captured graph (capturing it
-        at the program's first request); on the CPU, eagerly."""
+        """One request's phases: on a card, their captured graphs (each
+        captured at the program's first request); on the CPU, eagerly."""
         program.run(self if self.capture else None)
 
 
 class EagerTwin(ProgramCache):
-    """The cache's plain twin: every step run eagerly, on any device."""
+    """The cache's plain twin: every phase run eagerly, on any device."""
 
     capture = False

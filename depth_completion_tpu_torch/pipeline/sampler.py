@@ -1,16 +1,19 @@
 """The guided sampling loop, PyTorch counterpart of
 ``depth_completion_tpu.pipeline.sampler``.
 
-The JAX sampler runs its steps as one jit-compiled ``lax.scan``, compiled
-once per signature. Here the per-step guided branch with the fused
-epilogue is a ``GuidedStepProgram`` per signature (held by a
-``programs.ProgramCache``): on a card, one CUDA graph of one step, captured
-at the signature's first request and replayed at every DDIM step; on the
-CPU, the same step run eagerly. Its per-step values (t, the schedule's
-coefficients, the bias corrections) are device tables indexed by a device
-step index, so a replay reads what an eager step took as host floats,
-bit for bit. Every other loop here runs eagerly. Per-step guided training
-(the main path) keeps the JAX package's dataflow exactly:
+The JAX sampler runs its steps as one jit-compiled ``lax.scan``, and the
+JAX pipeline jits the whole of ``guided_sample`` once per signature. Here
+every branch is a ``SamplerProgram`` per signature (held by a
+``programs.ProgramCache``): a prepare step (preprocessing, the encode, the
+carried-latent mix, the sparse normalisation), the branch's step or steps
+and a finish step (the final decode to metric depth), each on a card one
+CUDA graph captured at the signature's first request and replayed (the
+branch's step once per DDIM, LCM or training step), on the CPU the same
+bodies run eagerly. Their per-step values (t, the schedule's and LCM's
+coefficients, the bias corrections, the LCM re-noise) are device tables
+indexed by a device step index, so a replay reads what an eager step took
+as host floats, bit for bit. Per-step guided training (the main path)
+keeps the JAX package's dataflow exactly:
 
 - ε̂ comes from the UNet applied to the *pre-update* latent; the DDIM step
   is applied to the *post-update* latent with that old ε̂;
@@ -27,7 +30,9 @@ configuration) the rescale, the latent's Adam update and the DDIM
 transition run as one fused epilogue (``ops.guidance_epilogue``, the Hopper
 kernel on CUDA; JAX ``sampler.py:466-511``), which holds the latent's Adam
 moments; the affine's Adam is ``torch.optim.Adam``'s arithmetic as tensor
-ops. SGD and Adagrad run the same math as a chain of eager ops.
+ops (``guidance.optim.FixedOptimizer``). SGD, Adagrad and Adam where the
+epilogue does not apply run the same math as a chain of tensor ops, the
+optimizer a ``FixedOptimizer`` over the latent and the affine.
 
 Native-resolution mode (``ring_mesh``, a ring of ``ops.ring_attention``)
 routes the UNet's self-attention through the ring wherever the sequence
@@ -35,10 +40,11 @@ divides the ring size, whatever its length (JAX ``sampler.py:357-370``);
 cross-attention, the other self-attention calls and the VAE keep the base
 attention.
 
-Also ported: the no-training DDIM branch, the LCM branch (no training;
-JAX's threefry key chain for the re-noise), per-input training (a no-grad
-DDIM denoise, then ``train_steps`` optimizer steps on the latent and the
-affine through the unclamped decode of the latent itself), the KLD penalty,
+Also ported, each a program: the no-training DDIM branch, the LCM branch
+(no training; JAX's threefry key chain for the re-noise, drawn on the host
+for a request's seed), per-input training (a no-grad DDIM denoise, then
+``train_steps`` optimizer steps on the latent and the affine through the
+unclamped decode of the latent itself); and the KLD penalty,
 UNet rematerialisation (``remat_unet``), fast guidance (``detach_unet_grad``:
 the UNet runs without a graph, as JAX's ``stop_gradient`` lets XLA drop its
 activations) and the final decode.
@@ -57,7 +63,6 @@ import threading
 import time
 from typing import Any
 
-import numpy as np
 import torch
 
 from depth_completion_tpu_torch.core import prng
@@ -67,7 +72,7 @@ from depth_completion_tpu_torch.guidance.affine import (
     affine_to_metric_learned,
 )
 from depth_completion_tpu_torch.guidance.losses import compute_loss
-from depth_completion_tpu_torch.guidance.optim import make_optimizer
+from depth_completion_tpu_torch.guidance.optim import FixedOptimizer
 from depth_completion_tpu_torch.guidance.projection import (
     DepthNormalization,
     denormalize_depth,
@@ -79,15 +84,14 @@ from depth_completion_tpu_torch.models.layers import attention
 from depth_completion_tpu_torch.models.unet import apply_unet
 from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
 from depth_completion_tpu_torch.ops.flash_attention import flash_attention
-from depth_completion_tpu_torch.ops.guidance_epilogue import (
-    ADAM_B1,
-    ADAM_B2,
-    ADAM_EPS,
-    epilogue_table,
-    guidance_epilogue,
-)
+from depth_completion_tpu_torch.ops.guidance_epilogue import epilogue_table, guidance_epilogue
 from depth_completion_tpu_torch.ops.guidance_epilogue import supported as epilogue_supported
-from depth_completion_tpu_torch.ops.resize import latent_size, resize_antialias, unpad
+from depth_completion_tpu_torch.ops.resize import (
+    latent_size,
+    processing_padding,
+    resize_antialias,
+    unpad,
+)
 from depth_completion_tpu_torch.ops.ring_attention import LocalRing, ring_attention
 from depth_completion_tpu_torch.pipeline.preprocess import preprocess_images
 from depth_completion_tpu_torch.pipeline.programs import (
@@ -98,15 +102,21 @@ from depth_completion_tpu_torch.pipeline.programs import (
 )
 from depth_completion_tpu_torch.sched.ddim import (
     DDIMConfig,
-    ddim_step,
+    ddim_step_at,
     make_schedule,
     make_timesteps,
-    pred_epsilon,
+    pred_epsilon_at,
     pred_original,
     pred_original_at,
     step_tables,
 )
-from depth_completion_tpu_torch.sched.lcm import LCMConfig, lcm_step, make_lcm_timesteps
+from depth_completion_tpu_torch.sched.lcm import (
+    LCMConfig,
+    lcm_renoise,
+    lcm_step_at,
+    lcm_tables,
+    make_lcm_timesteps,
+)
 
 EPSILON = 1e-7
 
@@ -287,7 +297,9 @@ def _affine_to_metric(affines, dn: DepthNormalization, affine_params, closed_for
 
 
 def _prepare(bundle, images, sparses, cfg, pred_latents_prev, init_noise=None):
-    """No-grad preprocessing: noise, image latents, normalisation state.
+    """No-grad preprocessing: noise, image latents, normalisation state (the
+    arithmetic of a program's prepare step, which the tests hold to it bit
+    for bit; the reference steps of ``chip_smoke.py`` start from it).
 
     Without ``init_noise`` the noise is JAX's for ``cfg.seed``
     (``PRNGKey(seed)``, a split, ``normal`` of the second key), drawn on
@@ -379,6 +391,21 @@ def guided_step_grads(denoise, decode, sched, cfg, dn, images, orig_res, padding
     return losses.detach(), out.detach(), grads
 
 
+def sampler_branch(cfg: SamplerConfig, sched) -> str:
+    """The branch of ``guided_sample`` that ``cfg`` takes (JAX
+    ``sampler.py:410-592``), the tag of its program key: "lcm" or "ddim"
+    (no training), "fused-step" (per-step guided with Adam through the fused
+    epilogue: v- or ε-prediction, no sample clipping), "general-step" (any
+    other per-step optimizer or schedule), "per-input"."""
+    if not (cfg.train_latents and cfg.scheduler != "lcm"):
+        return "lcm" if cfg.scheduler == "lcm" else "ddim"
+    if cfg.train_method == "per-input":
+        return "per-input"
+    if cfg.opt == "adam" and epilogue_supported(sched):
+        return "fused-step"
+    return "general-step"
+
+
 @torch.no_grad()
 def guided_sample(
     bundle: ModelBundle,
@@ -395,94 +422,36 @@ def guided_sample(
     ``images`` [N,H,W,3] (0..255) and ``sparses`` [N,H,W,1] are tensors on
     the bundle's device. A per-step guided batch that would not fit on the
     card even with UNet remat raises ``ValueError`` (``check_batch_fits``)
-    before the first kernel. The per-step branch with the fused epilogue
-    runs through ``programs`` (the caller's cache, e.g. the pipeline's, or
-    a ``programs.EagerTwin``): one ``GuidedStepProgram`` per signature, its
-    steps replayed from one captured CUDA graph on a card and run eagerly
-    on the CPU.
+    before the first kernel. Every branch runs through ``programs`` (the
+    caller's cache, e.g. the pipeline's, or a ``programs.EagerTwin``): one
+    program per signature (``PROGRAMS``), its prepare, step and finish
+    graphs replayed on a card and their bodies run eagerly on the CPU.
+    Without ``init_noise`` the initial noise is JAX's for ``cfg.seed``
+    (``PRNGKey(seed)``, a split, ``normal`` of the second key), drawn on the
+    host in float32 and shared by the batch: one seed gives the same
+    starting latent on both sides, on any device. The outputs are copies:
+    the program's buffers belong to its next request.
     """
     cfg.validate()
     _check_options(cfg)
-    closed_form = cfg.resolved_closed_form()
     n = images.shape[0]
     latent_hw = latent_size(tuple(images.shape[1:3]), cfg.resolution,
                             bundle.vae.downsample_factor)
-    unet_backward = (cfg.train_latents and cfg.scheduler != "lcm"
-                     and cfg.train_method == "per-step" and not cfg.detach_unet_grad)
-    if unet_backward:
+    sched = make_schedule(cfg.ddim)
+    branch = sampler_branch(cfg, sched)
+    if branch in ("fused-step", "general-step") and not cfg.detach_unet_grad:
         check_batch_fits(bundle.vae.kind, n, latent_hw, images.device)
     remat = resolve_remat(cfg, n, latent_hw, images.device, bundle.vae.kind)
-    sched = make_schedule(cfg.ddim)
-    img_latents, pred_latents, dn, padding, orig_res = _prepare(
-        bundle, images, sparses, cfg, pred_latents_prev, init_noise
-    )
-    attention_fn = attention if cfg.flash_attention == "off" else flash_attention
-    unet_attention = attention_fn if cfg.ring_mesh is None else functools.partial(
-        ring_or_base, cfg.ring_mesh, attention_fn)
-    denoise = _Denoiser(bundle, img_latents, unet_attention, remat)
-    decode = functools.partial(decode_prediction, bundle, attention_fn=attention_fn)
-
-    affine_params: list[torch.Tensor] = []
-    if not (cfg.train_latents and cfg.scheduler != "lcm"):
-        if cfg.scheduler == "lcm":
-            final_latents = _lcm_denoise(denoise, sched, cfg, pred_latents)
-        else:
-            final_latents = _ddim_denoise(denoise, sched, cfg, pred_latents)
-    elif cfg.train_method == "per-step" and cfg.opt == "adam" and epilogue_supported(sched):
-        program = programs.get(
-            program_key(bundle, images.shape, cfg, remat),
-            lambda: GuidedStepProgram(bundle, cfg, sched, remat, closed_form, img_latents,
-                                      pred_latents, dn, images, orig_res, padding))
-        with program.lock:
-            program.load(img_latents, pred_latents, dn, images)
-            programs.run(program)
-            final_latents = program.latents.clone()
-            affine_params = [p.clone() for p in program.affine]
-    else:
-        if not closed_form:
-            affine_params = _initial_affine(n, images.device)
-            for p in affine_params:
-                p.requires_grad_(True)
-        if cfg.train_method == "per-input":
-            latents = _ddim_denoise(denoise, sched, cfg, pred_latents).requires_grad_(True)
-            _per_input_steps(decode, cfg, dn, images, orig_res, padding, closed_form,
-                             latents, affine_params)
-        else:
-            latents = pred_latents.clone().requires_grad_(True)
-            step = functools.partial(
-                guided_step_grads, denoise, decode, sched, cfg, dn, images, orig_res, padding,
-                closed_form, latents, affine_params,
-            )
-            ts = [int(t) for t in make_timesteps(cfg.ddim, cfg.steps)]
-            _eager_steps(step, sched, cfg, ts, latents, affine_params)
-        final_latents = latents.detach()
-
-    denses_affine = latent_to_affine(decode, final_latents, orig_res, padding, cfg.interp_mode)
-    denses_normed = torch.clamp(
-        _affine_to_metric(denses_affine, dn, affine_params, closed_form), 0.0, 1.0
-    )
-    return denormalize_depth(denses_normed, dn), final_latents
-
-
-def _ddim_denoise(denoise, sched, cfg, lat):
-    """Plain η=0 DDIM over the trailing timesteps, no guidance."""
-    for t in make_timesteps(cfg.ddim, cfg.steps):
-        lat, _ = ddim_step(sched, denoise(lat, int(t)), int(t), lat, cfg.steps)
-    return lat
-
-
-def _lcm_denoise(denoise, sched, cfg, lat):
-    """The LCM steps. The key chain is JAX's: the carry starts from the
-    first key of ``split(PRNGKey(seed))`` (the second drew the initial
-    noise); each step splits it and re-noises with the second key."""
-    ts = [int(t) for t in make_lcm_timesteps(cfg.ddim.num_train_timesteps, cfg.steps, cfg.lcm)]
-    key = prng.split(prng.PRNGKey(cfg.seed))[0]
-    for i, t in enumerate(ts):
-        key, sub = prng.split(key)
-        last = i == len(ts) - 1
-        lat, _ = lcm_step(sched, denoise(lat, t), t, -1 if last else ts[i + 1], lat, sub,
-                          last, cfg.lcm)
-    return lat
+    program = programs.get(
+        program_key(branch, bundle, images.shape, cfg, remat),
+        lambda: PROGRAMS[branch](bundle, cfg, sched, remat, images, sparses))
+    if init_noise is None:
+        _, noise_key = prng.split(prng.PRNGKey(cfg.seed))
+        init_noise = upload(prng.normal(noise_key, (1, *latent_hw, 4)), images.device)
+    with program.lock:
+        program.load(images, sparses, init_noise, pred_latents_prev, cfg)
+        programs.run(program)
+        return program.dense.clone(), program.latents.clone()
 
 
 def per_input_grads(decode, cfg, dn, images, orig_res, padding, closed_form, latents,
@@ -497,31 +466,9 @@ def per_input_grads(decode, cfg, dn, images, orig_res, padding, closed_form, lat
     return losses.detach(), grads
 
 
-def _per_input_steps(decode, cfg, dn, images, orig_res, padding, closed_form, latents,
-                     affine_params):
-    """``cfg.train_steps`` optimizer steps (``make_optimizer``: the latent
-    and the affine together) on the raw per-input gradients (no ε-norm
-    rescale)."""
-    opt = make_optimizer(cfg.opt, latents, affine_params, cfg.lr_latent, cfg.lr_scaling)
-    for _ in range(cfg.train_steps):
-        _, grads = per_input_grads(decode, cfg, dn, images, orig_res, padding, closed_form,
-                                   latents, affine_params)
-        for p, g in zip([latents, *affine_params], grads):
-            p.grad = g
-        opt.step()
-
-
 def _initial_affine(n: int, device: torch.device) -> list[torch.Tensor]:
     """The learned affine's start: scale 1, shift 0 per sample."""
     return [torch.ones((n, 1, 1, 1), device=device), torch.zeros((n, 1, 1, 1), device=device)]
-
-
-def affine_adam_table(num_steps: int, lr: float, device: torch.device) -> torch.Tensor:
-    """[steps, 2] float32: step k's −lr/(1−b1^(k+1)) and √(1−b2^(k+1)), the
-    values ``torch.optim.Adam`` takes as host floats at its (k+1)-th step."""
-    rows = [(-(lr / (1 - ADAM_B1 ** c)), (1 - ADAM_B2 ** c) ** 0.5)
-            for c in range(1, num_steps + 1)]
-    return upload(np.array(rows, dtype=np.float32), device)
 
 
 _SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
@@ -538,147 +485,183 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
         return _SIDE_STREAMS[device]
 
 
-class GuidedStepProgram:
-    """One per-step guided step with the fused epilogue (Adam; v- or
-    ε-prediction; any ring; UNet remat, fast guidance and tensor
-    parallelism as configured) over fixed buffers: the port's counterpart of the JAX
-    sampler's scan body, compiled once per signature
-    (``depth_completion_tpu/pipeline/sampler.py:490-511``).
+class SamplerProgram:
+    """One signature's program: the port's counterpart of the JAX
+    pipeline's one jit of the whole ``guided_sample``
+    (``depth_completion_tpu/pipeline/pipeline.py:27``), a subclass per
+    branch (``PROGRAMS``).
 
-    - Buffers, at fixed addresses: the image latents, the latent and its
-      Adam moments, the learned affine and its Adam moments, the
-      ``DepthNormalization`` tensors, the images, the step index and the
-      per-step tables (``step_tables``, ``epilogue_table``,
-      ``affine_adam_table``). ``load`` copies a request's tensors in and
-      resets the state.
-    - ``step()``: one step at the step index, eagerly. It is the graph's
-      plain twin: ``run`` without a cache, the tests and ``chip_smoke.py``
-      call it directly.
-    - ``run(cache)``: one request's steps. On a card, the first request runs
-      step 0 eagerly on a side stream (the kernels build, cuDNN picks its
-      plans, the resize tables fill), captures one step into the cache's
-      graph pool and replays steps 1..N−1; later requests replay all N.
-      Before each replay the host advances the step index with one
-      asynchronous ``fill_``; nothing in a step waits on the device. The
-      step's results land in the buffers (the epilogue and the affine's
-      Adam update them in place), so the graph keeps no live tensor in the
-      pool. On the CPU, without a cache (``programs.EagerTwin``), with a
-      ``ProcessGroupRing`` or with a tensor-parallel UNet, every step runs
-      eagerly: those steps hold collectives, and gloo's cannot be captured
-      (NCCL's can, but a captured NCCL step has not run on two cards yet).
-      A data-parallel step has no collective and is captured. A failed
-      capture raises.
-
-    Outside the program, eager: the encode and the final decode (once per
-    request), ``_eager_steps`` (SGD, Adagrad), per-input training, LCM and
-    the no-training DDIM branch.
+    - Buffers, at fixed addresses: the request's inputs (the frames, the
+      initial noise, the carried latent and the two mixing weights), what
+      the prepare step makes (the image latents, the latent, the
+      ``DepthNormalization`` tensors), the branch's state (optimizer state,
+      the learned affine), the dense output, the step index and the
+      per-step tables. ``load`` copies a request's inputs in.
+    - Phases (``phases``: name and count), each a method of that name run
+      ``count`` times with the step index at 0..count-1: ``prepare``
+      (``preprocess_images``, ``vae.encode``, the carried-latent mix,
+      ``normalize_sparse``, the state reset; ``_prepare``'s arithmetic),
+      the branch's steps, and ``finish`` (decode, unpad, resize, the affine
+      to metric, clamp, ``denormalize_depth``, into ``dense``).
+    - ``step_eager(k, name)``: phase ``name``'s body at step index ``k``,
+      eagerly: the plain twin of its graph.
+    - ``run(cache)``: one request. On a card, each phase's first request
+      runs its step 0 eagerly on a side stream (the kernels build, cuDNN
+      picks its plans, the resize tables fill), captures one step into the
+      cache's graph pool and replays the rest; later requests replay every
+      step. Before each replay the host sets the step index with one
+      asynchronous ``fill_``; nothing in a step waits on the device. Every
+      result lands in the buffers, so a graph keeps no live tensor in the
+      pool. On the CPU and without a cache (``programs.EagerTwin``) every
+      phase runs eagerly, and so do the UNet's phases (``unet_phases``)
+      with a ``ProcessGroupRing`` or a tensor-parallel UNet: those hold
+      collectives, and gloo's cannot be captured (NCCL's can, but a captured
+      NCCL step has not run on two cards yet). The prepare and finish
+      phases hold none and are captured there too. A data-parallel step has
+      no collective and is captured. A failed capture raises.
+    - ``launch_delta[name]``: the kernel launches that phase's capture
+      counted, taken off the counts and added back at each of its replays;
+      ``stats[name]``: capture and instantiate ms, pool growth.
     """
 
-    def __init__(self, bundle, cfg, sched, remat, closed_form, img_latents, pred_latents, dn,
-                 images, orig_res, padding):
+    tag = ""
+    unet_phases = ("step",)  # the phases that run the UNet (and any collective it holds)
+
+    def __init__(self, bundle, cfg, sched, remat, images, sparses):
         dev = images.device
-        self.cfg, self.sched, self.closed_form, self.remat = cfg, sched, closed_form, remat
-        self.orig_res, self.padding = orig_res, padding
+        n, h, w, _ = images.shape
+        self.bundle, self.cfg, self.sched, self.remat = bundle, cfg, sched, remat
+        self.closed_form = cfg.resolved_closed_form()
+        self.orig_res = (h, w)
+        self.padding = processing_padding((h, w), cfg.resolution)
+        eh, ew = latent_size((h, w), cfg.resolution, bundle.vae.downsample_factor)
+        shape = (n, eh, ew, bundle.vae.config.latent_channels)
         self.steps = cfg.steps
-        self.v_pred = sched.config.prediction_type == "v_prediction"
-        # no collective may sit in a captured step: a ProcessGroupRing
-        # (batch_isend_irecv, waited on the host) and a tensor-parallel UNet
-        # (all_reduce over the model group) run every step eagerly
         self.capturable = (dev.type == "cuda" and bundle.model_group is None
                            and (cfg.ring_mesh is None or isinstance(cfg.ring_mesh, LocalRing)))
         self.lock = threading.Lock()
-        ts = make_timesteps(cfg.ddim, cfg.steps)
-        self.tables = step_tables(sched, ts, cfg.steps, dev)
-        self.epilogue = epilogue_table(sched, ts, cfg.steps, dev)
-        self.affine_adam = affine_adam_table(cfg.steps, cfg.lr_scaling, dev)
         self.step_index = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.img_latents = torch.empty_like(img_latents)
-        self.latents = torch.empty_like(pred_latents, dtype=torch.float32)
-        self.m, self.v = torch.zeros_like(self.latents), torch.zeros_like(self.latents)
-        n = images.shape[0]
-        self.affine = [] if closed_form else _initial_affine(n, dev)
-        self.affine_m = [torch.zeros_like(p) for p in self.affine]
-        self.affine_v = [torch.zeros_like(p) for p in self.affine]
-        self.dn = DepthNormalization(**{f.name: torch.empty_like(getattr(dn, f.name))
-                                        for f in dataclasses.fields(dn)})
-        self.images = torch.empty_like(images)
+
+        def buf(*size, dtype=torch.float32):
+            return torch.empty(size, dtype=dtype, device=dev)
+
+        self.images, self.sparses = torch.empty_like(images), torch.empty_like(sparses)
+        self.noise, self.prev, self.mix = buf(*shape), buf(*shape), buf(2)
+        self.img_latents = buf(*shape, dtype=bundle.dtype)
+        self.latents = buf(*shape)
+        self.dn = DepthNormalization(
+            sparses_normed=buf(n, h, w, 1), masks=buf(n, h, w, 1, dtype=torch.bool),
+            min_depths=buf(n, 1, 1, 1), max_depths=buf(n, 1, 1, 1), min_proj=buf(n, 1, 1, 1),
+            max_proj=buf(n, 1, 1, 1), any_valid=buf(n, dtype=torch.bool))
+        self.dense = buf(n, h, w, 1)
+        self.affine: list[torch.Tensor] = []
         attention_fn = attention if cfg.flash_attention == "off" else flash_attention
         unet_attention = attention_fn if cfg.ring_mesh is None else functools.partial(
             ring_or_base, cfg.ring_mesh, attention_fn)
         self._denoise = _Denoiser(bundle, self.img_latents, unet_attention, remat)
         self._decode = functools.partial(decode_prediction, bundle, attention_fn=attention_fn)
-        self.graph = None
-        self.launch_delta: dict[str, int] = {}  # one captured step's kernel launches
-        self.stats: dict[str, Any] = {}  # capture ms, instantiate ms, pool growth
+        self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
+        self.launch_delta: dict[str, dict[str, int]] = {}
+        self.stats: dict[str, dict[str, float]] = {}
 
-    def load(self, img_latents, pred_latents, dn, images) -> None:
-        """A request's tensors into the buffers, and the state reset."""
-        self.img_latents.copy_(img_latents)
-        self.latents.copy_(pred_latents)
-        self.m.zero_()
-        self.v.zero_()
+    @property
+    def phases(self) -> list[tuple[str, int]]:
+        return [("prepare", 1), ("step", self.steps), ("finish", 1)]
+
+    def load(self, images, sparses, noise, prev, cfg) -> None:
+        """A request's inputs into the buffers: the frames, the initial
+        noise ([1 or N, EH, EW, C]), and the carried latent with weights β,
+        1−β; without one, a zero latent with weights 1, 0, which gives the
+        noise itself bit for bit. ``cfg``: the request's (seed, β)."""
+        self.images.copy_(images)
+        self.sparses.copy_(sparses)
+        self.noise.copy_(noise)
+        beta = 1.0
+        if prev is None:
+            self.prev.zero_()
+        else:
+            self.prev.copy_(prev)
+            beta = cfg.beta
+        self.mix[0].fill_(beta)
+        self.mix[1].fill_(1.0 - beta)
+
+    def prepare(self) -> None:
+        """The request's preprocessing (``_prepare``'s), into the buffers,
+        then the state reset."""
+        cfg = self.cfg
+        imgs_proc, _, _ = preprocess_images(self.images, cfg.resolution, cfg.interp_mode)
+        self.img_latents.copy_(self.bundle.vae.encode(imgs_proc.to(self.bundle.dtype)))
+        beta, rest = self.mix.unbind(0)
+        self.latents.copy_(beta * self.noise + rest * self.prev)
+        dn = normalize_sparse(
+            self.sparses, norm=cfg.norm, projection=cfg.projection, inv=cfg.inv,
+            min_depth=cfg.min_depth, max_depth=cfg.max_depth, percentile=cfg.percentile,
+        )
         for f in dataclasses.fields(dn):
             getattr(self.dn, f.name).copy_(getattr(dn, f.name))
-        self.images.copy_(images)
-        for p, init in zip(self.affine, (1.0, 0.0)):
-            p.fill_(init)
-        for buf in (*self.affine_m, *self.affine_v):
-            buf.zero_()
+        self.reset_state()
 
-    def step(self) -> None:
-        """One guided step at ``step_index``, eagerly, on the buffers."""
-        # rows by index_select: Python indexing with a 0-d tensor may read it on the host
+    def reset_state(self) -> None:
+        """The branch's state at a request's start (the prepare step's last
+        part)."""
+
+    def finish(self) -> None:
+        """The final decode (JAX ``sampler.py:594-601``) into ``dense``."""
+        affine = latent_to_affine(self._decode, self.latents, self.orig_res, self.padding,
+                                  self.cfg.interp_mode)
+        normed = torch.clamp(_affine_to_metric(affine, self.dn, self.affine, self.closed_form),
+                             0.0, 1.0)
+        self.dense.copy_(denormalize_depth(normed, self.dn))
+
+    def state_groups(self, name: str = "step") -> dict[str, list[torch.Tensor]]:
+        """The state phase ``name`` reads and writes, by group (the latent,
+        the affine, each optimizer state); empty groups left out."""
+        return {"latent": [self.latents]}
+
+    def _step_row(self):
+        """The step index, t for the batch and the step's coefficient row
+        (``tables``), read on the device."""
         k = self.step_index
+        # rows by index_select: Python indexing with a 0-d tensor may read it on the host
         t = self.tables.t.index_select(0, k).expand(self.images.shape[0])
-        sqrt_a, sqrt_1ma = self.tables.coeffs.index_select(0, k)[0, :2].unbind(0)
-        lat = self.latents.detach().requires_grad_(True)
-        aff = [p.detach().requires_grad_(True) for p in self.affine]
-        _, out, grads = guided_step_grads(
-            self._denoise, self._decode, self.sched, self.cfg, self.dn, self.images,
-            self.orig_res, self.padding, self.closed_form, lat, aff, t, (sqrt_a, sqrt_1ma))
-        if self.affine:
-            # torch.optim.Adam's single-tensor arithmetic, its host floats
-            # read from the table row
-            neg_step_size, bc2_sqrt = self.affine_adam.index_select(0, k)[0].unbind(0)
-            for p, g, m, v in zip(self.affine, grads[1:], self.affine_m, self.affine_v):
-                m.lerp_(g, 1 - ADAM_B1)
-                v.mul_(ADAM_B2).addcmul_(g, g, value=1 - ADAM_B2)
-                p.add_(m * neg_step_size / (v.sqrt() / bc2_sqrt).add_(ADAM_EPS))
-        guidance_epilogue(self.latents, grads[0], out, self.m, self.v, self.epilogue, k,
-                          lr=self.cfg.lr_latent, v_pred=self.v_pred)
+        return k, t, self.tables.coeffs.index_select(0, k)[0].unbind(0)
 
-    def step_eager(self, k: int) -> None:
+    @torch.no_grad()
+    def step_eager(self, k: int, name: str = "step") -> None:
         self.step_index.fill_(k)
-        self.step()
+        getattr(self, name)()
 
-    def replay(self, k: int) -> None:
-        """Step ``k`` through the captured graph."""
+    def replay(self, k: int, name: str = "step") -> None:
+        """Phase ``name``'s step ``k`` through its captured graph."""
         self.step_index.fill_(k)
-        self.graph.replay()
-        add_launches(self.launch_delta)
+        self.graphs[name].replay()
+        add_launches(self.launch_delta[name])
 
+    def capturable_phase(self, name: str) -> bool:
+        return self.capturable if name in self.unet_phases else self.latents.is_cuda
+
+    @torch.no_grad()
     def run(self, cache: ProgramCache | None = None) -> None:
-        """One request's steps (see the class docstring)."""
-        if cache is None or not self.capturable:
-            for k in range(self.steps):
-                self.step_eager(k)
-            return
-        first = 0
-        if self.graph is None:
-            self._capture(cache)
-            first = 1
-        for k in range(first, self.steps):
-            self.replay(k)
+        """One request's phases (see the class docstring)."""
+        for name, count in self.phases:
+            graph = cache is not None and self.capturable_phase(name)
+            ks = range(count)
+            if graph and name not in self.graphs:
+                self._capture(cache, name)
+                ks = range(1, count)
+            for k in ks:
+                (self.replay if graph else self.step_eager)(k, name)
 
-    def _capture(self, cache: ProgramCache) -> None:
-        """Step 0 eagerly on a side stream, then one step captured into the
-        cache's pool (PyTorch's whole-network capture recipe)."""
+    def _capture(self, cache: ProgramCache, name: str) -> None:
+        """Phase ``name``'s step 0 eagerly on a side stream, then one step
+        captured into the cache's pool (PyTorch's whole-network capture
+        recipe)."""
         dev = self.latents.device
         cur = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            self.step_eager(0)
+            self.step_eager(0, name)
         cur.wait_stream(side)
         torch.cuda.synchronize(dev)
         gc.collect()
@@ -689,7 +672,7 @@ class GuidedStepProgram:
         try:
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, pool=cache.pool()):
-                self.step()
+                getattr(self, name)()
                 t1 = time.perf_counter()
             t2 = time.perf_counter()
         finally:
@@ -704,32 +687,205 @@ class GuidedStepProgram:
         clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
         if clear is not None:
             clear()
-        self.launch_delta = delta
-        self.graph = graph
-        self.stats = {"capture_ms": (t1 - t0) * 1e3, "instantiate_ms": (t2 - t1) * 1e3,
-                      "pool_growth_bytes": torch.cuda.memory_reserved(dev) - reserved}
+        self.launch_delta[name] = delta
+        self.graphs[name] = graph
+        self.stats[name] = {"capture_ms": (t1 - t0) * 1e3, "instantiate_ms": (t2 - t1) * 1e3,
+                            "pool_growth_bytes": torch.cuda.memory_reserved(dev) - reserved}
 
 
-def eager_epilogue(sched, opt, latents, g, out, t: int, num_steps: int) -> None:
-    """The step's epilogue as a chain of eager ops: the ε-norm rescale of
-    the latent gradient ``g`` (per sample), ``opt.step()`` (the affine's
-    gradients, if any, already set) and the DDIM transition of the updated
-    ``latents`` with the old UNet output ``out``, in place."""
-    n = latents.shape[0]
-    eps_norm = pred_epsilon(sched, out, t, latents).reshape(n, -1).float().norm(dim=1)
-    g = g.float()
-    g_norm = g.reshape(n, -1).norm(dim=1)
-    latents.grad = g * (eps_norm / torch.clamp(g_norm, min=EPSILON)).reshape(n, 1, 1, 1)
-    opt.step()
-    new_lat, _ = ddim_step(sched, out, t, latents, num_steps)
-    latents.copy_(new_lat)
+class _GuidedProgram(SamplerProgram):
+    """A training branch's shared part: the learned affine (unless the
+    affine is closed form), the DDIM tables, and ``make_optimizer``'s
+    optimizer over the latent and the affine as a ``FixedOptimizer``
+    (``opt``, made by the branch for its number of optimizer steps)."""
+
+    def __init__(self, bundle, cfg, sched, remat, images, sparses):
+        super().__init__(bundle, cfg, sched, remat, images, sparses)
+        dev = images.device
+        self.tables = step_tables(sched, make_timesteps(cfg.ddim, cfg.steps), cfg.steps, dev)
+        if not self.closed_form:
+            self.affine = _initial_affine(images.shape[0], dev)
+
+    def _optimizer(self, num_steps: int) -> FixedOptimizer:
+        return FixedOptimizer(self.cfg.opt, [self.latents, *self.affine],
+                              [self.cfg.lr_latent] + [self.cfg.lr_scaling] * len(self.affine),
+                              num_steps)
+
+    def _reset_affine(self) -> None:
+        for p, init in zip(self.affine, (1.0, 0.0)):
+            p.fill_(init)
+
+    def reset_state(self) -> None:
+        self._reset_affine()
+        self.opt.reset()
+
+    def state_groups(self, name: str = "step") -> dict[str, list[torch.Tensor]]:
+        groups = {"latent": [self.latents], "affine": self.affine, **self.opt.state}
+        return {k: v for k, v in groups.items() if v}
 
 
-def _eager_steps(step, sched, cfg, ts, latents, affine_params):
-    """Per-step guided steps as eager ops, for any optimizer."""
-    opt = make_optimizer(cfg.opt, latents, affine_params, cfg.lr_latent, cfg.lr_scaling)
-    for t in ts:
-        _, out, grads = step(t)
-        for p, gp in zip(affine_params, grads[1:]):
-            p.grad = gp
-        eager_epilogue(sched, opt, latents, grads[0], out, t, cfg.steps)
+class FusedStepProgram(_GuidedProgram):
+    """Per-step guided training with the fused epilogue (Adam; v- or
+    ε-prediction, no sample clipping; any ring; UNet remat, fast guidance
+    and tensor parallelism as configured): the JAX sampler's scan body
+    ``sampler.py:490-511``. The epilogue holds the latent's Adam moments
+    (``m``, ``v``) and reads its six scalars from ``epilogue_table``; the
+    affine's Adam is a ``FixedOptimizer``."""
+
+    tag = "fused-step"
+
+    def __init__(self, bundle, cfg, sched, remat, images, sparses):
+        super().__init__(bundle, cfg, sched, remat, images, sparses)
+        dev = images.device
+        self.v_pred = sched.config.prediction_type == "v_prediction"
+        self.epilogue = epilogue_table(sched, make_timesteps(cfg.ddim, cfg.steps), cfg.steps, dev)
+        self.m, self.v = torch.zeros_like(self.latents), torch.zeros_like(self.latents)
+        self.affine_opt = FixedOptimizer("adam", self.affine,
+                                         [cfg.lr_scaling] * len(self.affine), cfg.steps)
+
+    def reset_state(self) -> None:
+        self.m.zero_()
+        self.v.zero_()
+        self._reset_affine()
+        self.affine_opt.reset()
+
+    def state_groups(self, name: str = "step") -> dict[str, list[torch.Tensor]]:
+        opt = self.affine_opt.state
+        return {k: v for k, v in {"latent": [self.latents], "affine": self.affine,
+                                  "adam_m": [self.m, *opt.get("adam_m", [])],
+                                  "adam_v": [self.v, *opt.get("adam_v", [])]}.items() if v}
+
+    def step(self) -> None:
+        """One guided step at ``step_index`` on the buffers."""
+        k, t, (sqrt_a, sqrt_1ma, _, _) = self._step_row()
+        lat = self.latents.detach().requires_grad_(True)
+        aff = [p.detach().requires_grad_(True) for p in self.affine]
+        _, out, grads = guided_step_grads(
+            self._denoise, self._decode, self.sched, self.cfg, self.dn, self.images,
+            self.orig_res, self.padding, self.closed_form, lat, aff, t, (sqrt_a, sqrt_1ma))
+        self.affine_opt.step(grads[1:], k)
+        guidance_epilogue(self.latents, grads[0], out, self.m, self.v, self.epilogue, k,
+                          lr=self.cfg.lr_latent, v_pred=self.v_pred)
+
+
+class GeneralStepProgram(_GuidedProgram):
+    """Per-step guided training with any other optimizer or schedule (SGD,
+    Adagrad, Adam where the epilogue does not apply): the JAX sampler's
+    general optax chain (``sampler.py:512-545``). The guided step, the
+    ε-norm rescale of the latent gradient, the optimizer (a
+    ``FixedOptimizer`` over the latent and the affine), then the DDIM
+    transition of the updated latent with the old UNet output."""
+
+    tag = "general-step"
+
+    def __init__(self, bundle, cfg, sched, remat, images, sparses):
+        super().__init__(bundle, cfg, sched, remat, images, sparses)
+        self.opt = self._optimizer(cfg.steps)
+
+    def step(self) -> None:
+        """One guided step at ``step_index`` on the buffers."""
+        k, t, (sqrt_a, sqrt_1ma, sqrt_ap, sqrt_1map) = self._step_row()
+        n = self.latents.shape[0]
+        lat = self.latents.detach().requires_grad_(True)
+        aff = [p.detach().requires_grad_(True) for p in self.affine]
+        _, out, grads = guided_step_grads(
+            self._denoise, self._decode, self.sched, self.cfg, self.dn, self.images,
+            self.orig_res, self.padding, self.closed_form, lat, aff, t, (sqrt_a, sqrt_1ma))
+        # the ε-norm rescale of the latent gradient, per sample
+        eps = pred_epsilon_at(self.sched, out, self.latents, sqrt_a, sqrt_1ma)
+        eps_norm = eps.reshape(n, -1).float().norm(dim=1)
+        g = grads[0].float()
+        g_norm = g.reshape(n, -1).norm(dim=1)
+        g = g * (eps_norm / torch.clamp(g_norm, min=EPSILON)).reshape(n, 1, 1, 1)
+        self.opt.step([g, *grads[1:]], k)
+        new_lat, _ = ddim_step_at(self.sched, out, self.latents, sqrt_a, sqrt_1ma, sqrt_ap,
+                                  sqrt_1map)
+        self.latents.copy_(new_lat)
+
+
+class DDIMProgram(SamplerProgram):
+    """No training, η=0 DDIM (JAX ``sampler.py:430-437``): per step one UNet
+    forward and ``ddim_step``."""
+
+    tag = "ddim"
+
+    def __init__(self, bundle, cfg, sched, remat, images, sparses):
+        super().__init__(bundle, cfg, sched, remat, images, sparses)
+        self.tables = step_tables(sched, make_timesteps(cfg.ddim, cfg.steps), cfg.steps,
+                                  images.device)
+
+    def step(self) -> None:
+        _, t, row = self._step_row()
+        new_lat, _ = ddim_step_at(self.sched, self._denoise(self.latents, t), self.latents, *row)
+        self.latents.copy_(new_lat)
+
+
+class LCMProgram(SamplerProgram):
+    """No training, LCM (JAX ``sampler.py:410-429``): per step one UNet
+    forward and ``lcm_step``, its scalars from ``lcm_tables`` and its
+    re-noise from ``renoise`` ([steps, N, EH, EW, C], ``lcm_renoise``: JAX's
+    key chain for a seed). The seed is not in the program key: ``load``
+    draws the table again for a request whose seed is not the one it
+    holds."""
+
+    tag = "lcm"
+
+    def __init__(self, bundle, cfg, sched, remat, images, sparses):
+        super().__init__(bundle, cfg, sched, remat, images, sparses)
+        dev = images.device
+        ts = make_lcm_timesteps(cfg.ddim.num_train_timesteps, cfg.steps, cfg.lcm)
+        self.tables = lcm_tables(sched, ts, cfg.lcm, dev)
+        self.renoise = upload(lcm_renoise(cfg.seed, cfg.steps, tuple(self.latents.shape)), dev)
+        self.renoise_seed = cfg.seed
+
+    def load(self, images, sparses, noise, prev, cfg) -> None:
+        super().load(images, sparses, noise, prev, cfg)
+        if cfg.seed != self.renoise_seed:
+            self.renoise.copy_(upload(lcm_renoise(cfg.seed, self.steps,
+                                                  tuple(self.latents.shape)),
+                                      self.renoise.device))
+            self.renoise_seed = cfg.seed
+
+    def step(self) -> None:
+        k, t, row = self._step_row()
+        noise = self.renoise.index_select(0, k)[0]
+        new_lat, _ = lcm_step_at(self.sched, self._denoise(self.latents, t), self.latents, noise,
+                                 *row)
+        self.latents.copy_(new_lat)
+
+
+class PerInputProgram(_GuidedProgram):
+    """Per-input training (JAX ``sampler.py:549-592``): the DDIM denoise
+    (``step``: one UNet forward and ``ddim_step``, ``steps`` times), then
+    ``train``, ``train_steps`` times: the guidance loss of the latent's own
+    decode, unclamped, its gradient and the optimizer (a ``FixedOptimizer``
+    over the latent and the affine, no ε-norm rescale)."""
+
+    tag = "per-input"
+
+    def __init__(self, bundle, cfg, sched, remat, images, sparses):
+        super().__init__(bundle, cfg, sched, remat, images, sparses)
+        self.train_steps = cfg.train_steps
+        self.opt = self._optimizer(cfg.train_steps)
+
+    @property
+    def phases(self) -> list[tuple[str, int]]:
+        return [("prepare", 1), ("step", self.steps), ("train", self.train_steps),
+                ("finish", 1)]
+
+    def state_groups(self, name: str = "step") -> dict[str, list[torch.Tensor]]:
+        return super().state_groups() if name == "train" else {"latent": [self.latents]}
+
+    step = DDIMProgram.step
+
+    def train(self) -> None:
+        """One training step at ``step_index`` on the buffers."""
+        lat = self.latents.detach().requires_grad_(True)
+        aff = [p.detach().requires_grad_(True) for p in self.affine]
+        _, grads = per_input_grads(self._decode, self.cfg, self.dn, self.images, self.orig_res,
+                                   self.padding, self.closed_form, lat, aff)
+        self.opt.step(grads, self.step_index)
+
+
+PROGRAMS = {cls.tag: cls for cls in (FusedStepProgram, GeneralStepProgram, DDIMProgram,
+                                     LCMProgram, PerInputProgram)}

@@ -6,12 +6,13 @@ The eager loops walk python-int timesteps, so ᾱ lookups are plain indexing;
 near t=0 lose precision in bf16). Marigold uses scaled-linear betas over
 1000 train steps, trailing spacing and v-prediction.
 
-The captured guided step (``pipeline.sampler.GuidedStepProgram``) cannot
-freeze per-step floats into its graph: ``step_tables`` gives every step's
-t and coefficients as device tensors, and ``pred_original_at`` /
-``pred_epsilon_at`` take 0-d tensor coefficients (JAX's scan indexes its
-schedule with a traced t in the same way). The float and tensor forms run
-the same float32 arithmetic, so their values are bit-identical.
+The sampler's captured steps (``pipeline.sampler``'s programs) cannot
+freeze per-step floats into their graphs: ``step_tables`` gives every
+step's t and coefficients as device tensors, and ``pred_original_at``,
+``pred_epsilon_at`` and ``ddim_step_at`` take 0-d tensor coefficients
+(JAX's scan indexes its schedule with a traced t in the same way). The
+float and tensor forms run the same float32 arithmetic, so their values
+are bit-identical.
 """
 
 from __future__ import annotations
@@ -166,8 +167,14 @@ def pred_epsilon_at(sched: DiffusionSchedule, model_out, sample, sqrt_a, sqrt_1m
 def ddim_step(sched: DiffusionSchedule, model_out, t: int, sample, num_steps: int):
     """One η=0 DDIM step → ``(prev_sample, pred_original_sample)``."""
     prev_t = prev_timestep(sched, t, num_steps)
-    x0 = pred_original(sched, model_out, t, sample).float()
-    eps = pred_epsilon(sched, model_out, t, sample).float()
-    sqrt_ap, sqrt_1map = _coeffs(sched, prev_t)
+    return ddim_step_at(sched, model_out, sample, *_coeffs(sched, t), *_coeffs(sched, prev_t))
+
+
+def ddim_step_at(sched: DiffusionSchedule, model_out, sample, sqrt_a, sqrt_1ma, sqrt_ap,
+                 sqrt_1map):
+    """``ddim_step`` with the four coefficients given (floats, or 0-d float32
+    tensors: a ``step_tables`` row)."""
+    x0 = pred_original_at(sched, model_out, sample, sqrt_a, sqrt_1ma).float()
+    eps = pred_epsilon_at(sched, model_out, sample, sqrt_a, sqrt_1ma).float()
     prev = sqrt_ap * x0 + sqrt_1map * eps
     return prev.to(sample.dtype), x0.to(sample.dtype)

@@ -26,10 +26,11 @@ engine's, with its names.
   CUDA error (an illegal address) fails every later call: the retry fails
   too and the requests resolve with the error; nothing hangs.
 
-- Programs: the pipeline keeps one step program per signature (a captured
-  CUDA graph of the guided step on the card, ``pipeline.programs``); the
-  carry shares its geometry's bucket-1 program (the carry only changes the
-  initial latent). ``warmup`` captures each (geometry, bucket) program
+- Programs: the pipeline keeps one program per signature, whatever the
+  sampler branch (on the card, captured CUDA graphs of the request's
+  prepare step, its steps and its final decode, ``pipeline.programs``);
+  the carry shares its geometry's bucket-1 program (the carry only changes
+  the initial latent). ``warmup`` captures each (geometry, bucket) program
   before traffic.
 - Tiered warmup ("serve first, optimise later", JAX ``engine.py:285-496``):
   tier 0 is the pipeline's eager twin (``pipe.twin()``), tier 1 its
@@ -334,7 +335,7 @@ class ServingEngine:
     ) -> None:
         """Run every (geometry, batch-bucket) signature once, plus the
         session-carry job per geometry, one after another, so the first live
-        request pays none of the start-up: each signature's step program is
+        request pays none of the start-up: each signature's program is
         captured (the carry replays its geometry's bucket-1 program), the
         kernels are built, cuDNN has chosen its plans. A bucket the card
         cannot hold raises here (``sampler.check_batch_fits``), not on live
@@ -680,7 +681,7 @@ class ServingEngine:
         with self._tier_lock:
             failed = self._failed_promotions.get(key)
             if failed is not None:
-                raise RuntimeError(f"the step program of signature {key} failed to capture: "
+                raise RuntimeError(f"the program of signature {key} failed to capture: "
                                    f"{type(failed).__name__}: {failed}")
             tier0 = self._tier0_pipe is not None and key in self._tier0_ready and (
                 key not in self._full_ready or not self._program_alive(key))

@@ -106,6 +106,16 @@
 #                 its bias on every rank, before the all_reduce
 #   F45_ensemble_local_rows an ensemble's data rank draws its rows' member
 #                 noise and frames by local row index, not global
+#   F46_lcm_stale_renoise the LCM program keeps the re-noise table of the
+#                 seed it was made with (a request of another seed re-noises
+#                 with the first one's draws)
+#   F47_per_input_adam_row per-input training reads Adam's bias-correction
+#                 row of the next train step (the last step's row at the end)
+#   F48_general_no_rescale the general per-step program (SGD, Adagrad, Adam
+#                 without the epilogue) drops the eps-norm gradient rescale
+#   F49_finish_before_last_step on the graph path the finish graph is
+#                 replayed before the last step's replay (it decodes the
+#                 latent one step short; the latent itself ends right)
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -246,10 +256,10 @@ run_fault F37_bl2_shape_reversed depth_completion_tpu_torch/io/bl2.py \
   's|\["numpy", \[int(s) for s in x.shape\], x.dtype.str\]|["numpy", [int(s) for s in x.shape[::-1]], x.dtype.str]|'
 SAMPLER=depth_completion_tpu_torch/pipeline/sampler.py
 run_fault F38_step_not_advanced $SAMPLER \
-  '/def replay(self, k: int)/,/self.graph.replay()/s|self.step_index.fill_(k)|pass|'
+  '/def replay(self, k: int/,/self.graphs\[name\].replay()/s|self.step_index.fill_(k)|pass|'
 run_fault F39_epilogue_row0 depth_completion_tpu_torch/csrc/guidance_epilogue.cu \
   's|const float\* row = table + 6 \* \*step;|const float* row = table;|'
-run_fault F40_replay_uncounted $SAMPLER 's|^        add_launches(self.launch_delta)$|        pass|'
+run_fault F40_replay_uncounted $SAMPLER 's|^        add_launches(self.launch_delta\[name\])$|        pass|'
 run_fault F41_stale_adam $SAMPLER 's|^        self.m.zero_()$|        pass|; s|^        self.v.zero_()$|        pass|'
 UNET=depth_completion_tpu_torch/models/unet.py
 run_fault F42_geglu_contiguous depth_completion_tpu_torch/parallel/sharding.py \
@@ -259,4 +269,11 @@ run_fault F44_fan_in_bias_each_rank $UNET \
   's|layer({"kernel": p\["kernel"\]}, x), group)|layer(p, x), group)|; s|^    return y + p\["bias"\].to(y.dtype) if "bias" in p else y$|    return y|'
 run_fault F45_ensemble_local_rows depth_completion_tpu_torch/parallel/ensemble.py \
   's|rows = torch.arange(r0, r1, device=images.device)|rows = torch.arange(0, r1 - r0, device=images.device)|'
+run_fault F46_lcm_stale_renoise $SAMPLER 's|if cfg.seed != self.renoise_seed:|if False:|'
+run_fault F47_per_input_adam_row $SAMPLER \
+  's|self.opt.step(grads, self.step_index)|self.opt.step(grads, (self.step_index + 1).clamp(max=self.train_steps - 1))|'
+run_fault F48_general_no_rescale $SAMPLER \
+  's|g = g \* (eps_norm / torch.clamp(g_norm, min=EPSILON)).reshape(n, 1, 1, 1)|g = g|'
+run_fault F49_finish_before_last_step $SAMPLER \
+  's|^            for k in ks:$|            if graph and name == "step":\n                ks, held = ks[:-1], ks[-1:]\n&|; s|^                (self.replay if graph else self.step_eager)(k, name)$|&\n            if graph and name == "finish":\n                for k in held:\n                    self.replay(k, "step")|'
 exit $status

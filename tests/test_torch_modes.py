@@ -194,13 +194,15 @@ def test_lcm_sampler_matches_jax(bundles, inputs, monkeypatch):
     streams match, so the forward-only bounds of JAX's
     ``test_lcm_single_step`` hold (dense rms 1e-4, max 5e-4, latent rms
     1e-4; measured 6.4e-7, 2.9e-6, 3.9e-7). Re-noising with another key
-    on the port side (``fold_in`` of the step's key) reads dense rms 0.52."""
+    chain on the port side (the program's re-noise table drawn from a seed
+    folded in) reads dense rms 0.52."""
     kw = dict(steps=3, resolution=64, train_latents=False, scheduler="lcm", max_depth=10.0)
     ref = _jax_sample(bundles, inputs, **kw)
     d_rms, d_max, l_rms = _readings(_port_sample(bundles, inputs, **kw), ref)
     assert d_rms < 1e-4 and d_max < 5e-4 and l_rms < 1e-4, (d_rms, d_max, l_rms)
-    step = TS.lcm_step
-    monkeypatch.setattr(TS, "lcm_step", lambda *a: step(*a[:5], prng.fold_in(a[5], 1), *a[6:]))
+    renoise = TS.lcm_renoise
+    monkeypatch.setattr(TS, "lcm_renoise", lambda seed, *a: renoise(prng.fold_in(
+        prng.PRNGKey(seed), 1)[1], *a))
     other = _readings(_port_sample(bundles, inputs, **kw), ref)
     assert other[0] > 3e-4, other
 
@@ -224,9 +226,9 @@ def test_per_input_sampler_matches_jax(bundles, inputs, monkeypatch):
     ref = _jax_sample(bundles, inputs, **kw)
     d_rms, d_max, l_rms = _readings(_port_sample(bundles, inputs, **kw), ref)
     assert d_rms < 1e-5 and d_max < 1e-4 and l_rms < 1e-5, (d_rms, d_max, l_rms)
-    mk = TS.make_optimizer
-    monkeypatch.setattr(TS, "make_optimizer",
-                        lambda opt, lat, aff, lr, lr_s: mk(opt, lat, aff, 0.0, lr_s))
+    fixed = TS.FixedOptimizer
+    monkeypatch.setattr(TS, "FixedOptimizer",
+                        lambda opt, params, lrs, n: fixed(opt, params, [0.0, *lrs[1:]], n))
     stale = _readings(_port_sample(bundles, inputs, **kw), ref)
     assert stale[0] > 3e-5, stale
 

@@ -206,11 +206,14 @@ def test_three_guided_steps_kl_match_jax(kl_bundles, inputs, monkeypatch):
 
 
 def test_fused_adam_matches_eager_chain(monkeypatch):
-    """The fused Adam branch (``GuidedStepProgram``: the epilogue's state m,
+    """The fused Adam branch (``FusedStepProgram``: the epilogue's state m,
     v and its table row per step; the affine's Adam as tensor ops) against
     the eager chain (one two-group Adam) over the same gradients, 4 steps,
     v- and ε-prediction: fp32, norms summed in another order (1e-5). The
-    program runs eagerly here (the CPU) with its gradients injected."""
+    program's steps run eagerly here (the CPU) with its gradients
+    injected."""
+    from tests.test_torch_programs import _eager_steps  # the former loop
+
     rng = np.random.default_rng(21)
     shape, n = (2, 6, 8, 4), 2
     steps = [(rng.standard_normal(shape).astype(np.float32) * 1e-3,
@@ -218,12 +221,13 @@ def test_fused_adam_matches_eager_chain(monkeypatch):
               rng.standard_normal((n, 1, 1, 1)).astype(np.float32),
               rng.standard_normal((n, 1, 1, 1)).astype(np.float32)) for _ in range(4)]
     lat0 = rng.standard_normal(shape).astype(np.float32)
-    sparses = torch.from_numpy(rng.uniform(0, 5, (n, 8, 8, 1)).astype(np.float32))
-    dn = TS.normalize_sparse(sparses, norm="const", projection="linear", inv=False,
-                             min_depth=0.0, max_depth=10.0)
-    bundle = types.SimpleNamespace(text_context=torch.zeros((1, 2, 8)))
+    # 48x64 frames at res 64 and an 8x downsample: 6x8 latents
+    vae = types.SimpleNamespace(downsample_factor=8,
+                                config=types.SimpleNamespace(latent_channels=4))
+    bundle = types.SimpleNamespace(text_context=torch.zeros((1, 2, 8)), dtype=torch.float32,
+                                   model_group=None, vae=vae)
     for ptype in ("v_prediction", "epsilon"):
-        cfg = TS.SamplerConfig(steps=4, ddim=TS.DDIMConfig(prediction_type=ptype))
+        cfg = TS.SamplerConfig(steps=4, resolution=64, ddim=TS.DDIMConfig(prediction_type=ptype))
         sched = TS.make_schedule(cfg.ddim)
         ts = [int(t) for t in TS.make_timesteps(cfg.ddim, cfg.steps)]
 
@@ -237,18 +241,18 @@ def test_fused_adam_matches_eager_chain(monkeypatch):
             return step
 
         monkeypatch.setattr(TS, "guided_step_grads", injected())
-        program = TS.GuidedStepProgram(bundle, cfg, sched, False, False, torch.zeros(shape),
-                                       torch.from_numpy(lat0), dn, torch.zeros((n, 8, 8, 3)),
-                                       (8, 8), (0, 0))
-        program.load(torch.zeros(shape), torch.from_numpy(lat0), dn, torch.zeros((n, 8, 8, 3)))
-        with torch.no_grad():
-            program.run()
+        program = TS.FusedStepProgram(bundle, cfg, sched, False, torch.zeros((n, 48, 64, 3)),
+                                      torch.zeros((n, 48, 64, 1)))
+        program.latents.copy_(torch.from_numpy(lat0))
+        program.reset_state()
+        for k in range(cfg.steps):
+            program.step_eager(k)
         fused = [program.latents] + program.affine
         latents = torch.tensor(lat0, requires_grad=True)
         aff = [torch.ones((n, 1, 1, 1), requires_grad=True),
                torch.zeros((n, 1, 1, 1), requires_grad=True)]
         with torch.no_grad():
-            TS._eager_steps(injected(), sched, cfg, ts, latents, aff)
+            _eager_steps(injected(), sched, cfg, ts, latents, aff)
         for a, b in zip(fused, [latents.detach()] + [p.detach() for p in aff]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 

@@ -1,5 +1,5 @@
 """The captured guided step's CPU side: the per-step tables, the step
-program (``sampler.GuidedStepProgram``, eager here: the CPU runs the graph's
+program (``sampler.FusedStepProgram``, eager here: the CPU runs the graph's
 plain twin) against the per-step loop it replaced and against JAX's
 ``guided_sample``, the program cache (``pipeline.programs``) and the serving
 engine's tiered warmup and eviction-aware dispatch.
@@ -24,7 +24,8 @@ from depth_completion_tpu_torch.ops.ring_attention import LocalRing
 from depth_completion_tpu_torch.pipeline import sampler as TS
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 from depth_completion_tpu_torch.pipeline.programs import EagerTwin, ProgramCache, signature
-from depth_completion_tpu_torch.sched import ddim
+from depth_completion_tpu_torch.core import prng
+from depth_completion_tpu_torch.sched import ddim, lcm
 from depth_completion_tpu_torch.serving import ServeRequest, ServingEngine
 
 from tests.test_ring_attention import _mesh
@@ -49,9 +50,10 @@ def _two_torch_threads():
 @pytest.mark.parametrize("ptype", ["v_prediction", "epsilon"])
 @pytest.mark.parametrize("spacing", ["trailing", "leading"])
 def test_tables_equal_host_scalars(spacing, ptype, num_steps):
-    """``step_tables`` and ``epilogue_table`` hold ``_coeffs`` and
-    ``epilogue_scalars`` bit for bit (float32), and the tensor-indexed x̂₀
-    and ε̂ equal the float forms bit for bit."""
+    """``step_tables``, ``epilogue_table`` and ``lcm_tables`` hold
+    ``_coeffs``, ``epilogue_scalars`` and ``lcm_scalars`` bit for bit
+    (float32), and the tensor-indexed x̂₀, ε̂, DDIM and LCM steps equal the
+    float forms bit for bit."""
     cfg = ddim.DDIMConfig(prediction_type=ptype, timestep_spacing=spacing)
     sched = ddim.make_schedule(cfg)
     ts = ddim.make_timesteps(cfg, num_steps)
@@ -72,6 +74,25 @@ def test_tables_equal_host_scalars(spacing, ptype, num_steps):
                            ddim.pred_original(sched, out, t, x))
         assert torch.equal(ddim.pred_epsilon_at(sched, out, x, *row),
                            ddim.pred_epsilon(sched, out, t, x))
+        full = tables.coeffs.index_select(0, torch.tensor([k]))[0].unbind(0)
+        assert all(torch.equal(a, b) for a, b in zip(ddim.ddim_step_at(sched, out, x, *full),
+                                                     ddim.ddim_step(sched, out, t, x, num_steps)))
+    # the LCM table: each row the host floats ``lcm_step`` takes, and the
+    # tensor-indexed step equal to it (the last step: the denoised estimate)
+    lts = [int(t) for t in lcm.make_lcm_timesteps(cfg.num_train_timesteps, num_steps)]
+    ltab = lcm.lcm_tables(sched, lts)
+    assert ltab.t.tolist() == lts
+    key = prng.split(prng.PRNGKey(num_steps))[0]
+    for k, t in enumerate(lts):
+        last = k == len(lts) - 1
+        prev_t = -1 if last else lts[k + 1]
+        assert np.array_equal(ltab.coeffs[k].numpy(),
+                              np.float32(lcm.lcm_scalars(sched, t, prev_t, last)))
+        row = ltab.coeffs.index_select(0, torch.tensor([k]))[0].unbind(0)
+        noise = torch.zeros_like(x) if last else torch.from_numpy(prng.normal(key, x.shape))
+        got = lcm.lcm_step_at(sched, out, x, noise, *row)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, lcm.lcm_step(sched, out, t, prev_t, x, key, last)))
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +157,7 @@ OPTIONS = {"plain": {}, "remat": {"remat_unet": "on"}, "fast": {"detach_unet_gra
 
 @pytest.mark.parametrize("option", list(OPTIONS))
 def test_program_equals_the_loop_it_replaced(bundles, inputs, option):
-    """3 steps through ``GuidedStepProgram`` (eager on the CPU) against the
+    """3 steps through ``FusedStepProgram`` (eager on the CPU) against the
     former loop on the same inputs: bit-identical denses and latents (the
     tables hold the host floats exactly, and a 0-d float32 tensor multiplies
     as the float does)."""
@@ -147,7 +168,7 @@ def test_program_equals_the_loop_it_replaced(bundles, inputs, option):
     d_new, l_new = TS.guided_sample(tbundle, imgs, sparses, cfg, init_noise=noise,
                                     programs=cache)
     d_old, l_old = _old_guided_sample(tbundle, imgs, sparses, cfg, noise)
-    assert len(cache.keys()) == 1 and cache.find(imgs.shape).graph is None  # eager on the CPU
+    assert len(cache.keys()) == 1 and cache.find(imgs.shape).graphs == {}  # eager on the CPU
     assert torch.equal(l_new, l_old) and torch.equal(d_new, d_old), (
         float((l_new - l_old).abs().max()), float((d_new - d_old).abs().max()))
 

@@ -59,8 +59,7 @@ def pipeline_run(trees, unet_config, images, sparses, data, model, overrides):
     out = pipe(images, sparses, data_mesh=mesh, **overrides)
     (key,) = pipe.program_keys()
     program = pipe.programs.get(key, None)
-    state = [program.latents, program.m, program.v, *program.affine, *program.affine_m,
-             *program.affine_v]
+    state = [t for tensors in program.state_groups().values() for t in tensors]
     return {"out": _numpy(out), "state": _numpy(state)}
 
 
