@@ -23,8 +23,10 @@
    launches counted from 0 (each must launch its kernel), its verdict, and
    its times beside bound, plain and library times;
 3. writes the seeded full-width bundle (Marigold UNet, TAESD, the SD2 CLIP
-   text tower; bf16) as an HF-layout checkpoint directory with the port's
-   exporters and safetensors writer, loads it with ``load_bundle`` (every
+   text tower; bf16; and a seeded float16 KL VAE) as an HF-layout
+   checkpoint directory through ``write_checkpoint`` of
+   ``scripts/make_synthetic_checkpoint_torch.py`` (the port's exporters
+   and safetensors writer), loads it with ``load_bundle`` (every
    leaf bit-exact, the context the tower's), and drives three guided
    paths through ``DepthCompletionPipeline`` at full Marigold width
    (random bf16 weights from a seed, the context made by the SD2 tower):
@@ -57,13 +59,20 @@
    step at a time against the eager step from the same state, at step
    indices 0, 1, N/2 and N-1 (a fixed limit at any step count), after a
    request has reset the program's state exactly;
+   3b. runs ``scripts/verify_checkpoint_torch.py`` on that directory in
+   two processes, ``--vae light`` and ``--vae original``: each exits 0 with
+   OK, and the launches it prints equal ``expected_launches`` of its
+   2-step request at 128x160;
 4. runs the predict CLI (``depth_completion_tpu_torch.cli.predict``) in
    process with its defaults on the checkpoint directory of step 3 over a
    3-frame 480x640 PNG dataset written with the port's PNG writer: dense
    ``.dcz`` maps and JPEG vis grids checked, the kernel launches three
    times one request's, frame 0 against the pipeline called directly on
    the same weights and arrays; ``--resume true`` then launches nothing,
-   and the analyze CLI scores the outputs;
+   and the analyze CLI scores the outputs; 4b. holds every committed image
+   fixture bit-exact to its recorded cv2 decode, runs the CLI over JPEG
+   frames with ``--compress bl2``, and writes and reads one dense map with
+   every ``.bl2`` codec at clevel 1, 5 and 9;
 5. runs the sampler's other modes on that checkpoint's bundle (at 480x640,
    500 points, res 768; ``modes_phase``): UNet rematerialisation (one
    guided step at batch 8 and 1 with and without; the same with the KL
@@ -115,6 +124,9 @@
    ``{"graphs": {...}}`` (phase 3's (a)-(d) per path, the card),
    ``{"cli": {...}}`` (the CLI's seconds per frame and their split, PNG
    decode and JPEG encode ms per frame, dense bytes, analyze MAE),
+   ``{"verify": {...}}`` (phase 3b: seconds and launches per VAE),
+   ``{"host_io": {...}}`` (phase 4b: fixtures, JPEG decode and ``.bl2``
+   ms, each codec's ms and ratio, the host CPU),
    ``{"modes": {...}}`` (per mode: seconds per request, launches, peak
    GiB, the check readings, the card), ``{"programs": {...}}`` (phase 5's
    programs, per mode: (a)-(e), each phase's ms eager and graph, busy
@@ -182,12 +194,7 @@ from depth_completion_tpu_torch.core import prng  # noqa: E402
 from depth_completion_tpu_torch.core import mesh as mesh_core  # noqa: E402
 from depth_completion_tpu_torch.guidance.optim import make_optimizer  # noqa: E402
 from depth_completion_tpu_torch.io import bl2, codecs, image, jpeg, png  # noqa: E402
-from depth_completion_tpu_torch.models import (  # noqa: E402
-    clip_text,
-    registry,
-    safetensors_io,
-    weights,
-)
+from depth_completion_tpu_torch.models import clip_text, registry, weights  # noqa: E402
 from depth_completion_tpu_torch.models.bundle import (  # noqa: E402
     load_bundle,
     make_random_bundle,
@@ -210,6 +217,7 @@ from depth_completion_tpu_torch.probes import mma_n64 as n64  # noqa: E402
 from depth_completion_tpu_torch.probes import packed_pv as ppv  # noqa: E402
 from depth_completion_tpu_torch.sched.ddim import ddim_step, pred_epsilon  # noqa: E402
 from depth_completion_tpu_torch.sched.lcm import lcm_step, make_lcm_timesteps  # noqa: E402
+from scripts import make_synthetic_checkpoint_torch as synthetic  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1656,55 +1664,25 @@ def guided_path(path: GuidedPath, steps: int, bundle=None) -> tuple[dict, dict]:
                     "graph": graphs}
 
 
-# The config JSONs of an HF-layout Marigold checkpoint (the fields the
-# readers in models/registry.py consume, at prs-eth/marigold-v1-0's
-# published geometry; scripts/make_synthetic_checkpoint.py writes the
-# same), and transformers' CLIPTextConfig of SD2's OpenCLIP-ViT/H tower
-# with the tokenizer's BOS and EOS ids.
-UNET_CONFIG_JSON = {
-    "_class_name": "UNet2DConditionModel", "in_channels": 8, "out_channels": 4,
-    "block_out_channels": [320, 640, 1280, 1280],
-    "down_block_types": ["CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
-                         "DownBlock2D"],
-    "up_block_types": ["UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
-                       "CrossAttnUpBlock2D"],
-    "layers_per_block": 2, "cross_attention_dim": 1024, "attention_head_dim": [5, 10, 20, 20],
-    "norm_num_groups": 32, "norm_eps": 1e-05, "sample_size": 96,
-}
-SCHEDULER_CONFIG_JSON = {
-    "_class_name": "DDIMScheduler", "num_train_timesteps": 1000, "beta_start": 0.00085,
-    "beta_end": 0.012, "beta_schedule": "scaled_linear", "clip_sample": False,
-    "set_alpha_to_one": False, "steps_offset": 1, "prediction_type": "v_prediction",
-    "timestep_spacing": "leading",
-}
-TAESD_CONFIG_JSON = {
-    "_class_name": "AutoencoderTiny", "in_channels": 3, "out_channels": 3, "latent_channels": 4,
-    "encoder_block_out_channels": [64, 64, 64, 64], "decoder_block_out_channels": [64, 64, 64, 64],
-    "num_encoder_blocks": [1, 3, 3, 3], "num_decoder_blocks": [3, 3, 3, 1], "scaling_factor": 1.0,
-}
-TEXT_ENCODER_CONFIG_JSON = {
-    "architectures": ["CLIPTextModel"], "hidden_act": "gelu", "hidden_size": 1024,
-    "intermediate_size": 4096, "layer_norm_eps": 1e-05, "max_position_embeddings": 77,
-    "num_attention_heads": 16, "num_hidden_layers": 23, "projection_dim": 512,
-    "vocab_size": 49408, "bos_token_id": 49406, "eos_token_id": 49407, "torch_dtype": "bfloat16",
-}
-
-
 def checkpoint_bundle(root: Path, seed: int = 0):
     """Phase 3a: the seeded full-width trees (``make_random_params``: the
-    Marigold UNet, TAESD, the SD2 text tower; bf16 on the card) written
-    with the port's exporters and safetensors writer into an HF-layout
-    directory under ``root`` (``marigold/``: ``unet/``, ``text_encoder/``,
-    ``scheduler/``; and ``taesd/``), then read back with ``load_bundle``.
-    Every leaf of the loaded UNet, TAESD and text tower must equal its
-    source bit for bit, the configs the registry's, and the context (the
-    loaded tower's on the empty prompt) that of the source tower: [1, 2,
-    1024], finite. The directory stays for the CLI phase, which loads it
-    again. → (the loaded bundle, the model directory, the TAESD directory)."""
+    Marigold UNet, TAESD, the SD2 text tower; bf16 on the card) written by
+    ``scripts/make_synthetic_checkpoint_torch.py``'s ``write_checkpoint``
+    (the port's exporters and safetensors writer, the published config
+    JSONs) into an HF-layout directory under ``root`` (``marigold/``:
+    ``unet/``, ``vae/`` (the writer's seeded float16 KL VAE, for phase 3b's
+    ``--vae original``), ``text_encoder/``, ``scheduler/``; and
+    ``taesd/``), then read back with ``load_bundle``. Every leaf of the
+    loaded UNet, TAESD and text tower must equal its source bit for bit,
+    the configs the registry's, and the context (the loaded tower's on the
+    empty prompt) that of the source tower: [1, 2, 1024], finite. The
+    directory stays for the later phases, which load it again. → (the
+    loaded bundle, the model directory, the TAESD directory)."""
     print("checkpoint: MARIGOLD_UNET_CONFIG + TAESD_CONFIG + SD2_TEXT_CONFIG bf16, seed "
-          f"{seed}, written in HF layout and loaded with load_bundle")
+          f"{seed}, and the KL VAE (seeded float16), written in HF layout by write_checkpoint "
+          "and loaded with load_bundle")
     bf16 = torch.bfloat16
-    text_cfg = registry.text_config_from_transformers(TEXT_ENCODER_CONFIG_JSON)
+    text_cfg = registry.text_config_from_transformers(synthetic.TEXT_ENCODER_CONFIG_JSON)
     params = make_random_params(seed, registry.MARIGOLD_UNET_CONFIG, "tiny",
                                 registry.TAESD_CONFIG, text_cfg, bf16, DEV)
     with torch.no_grad():
@@ -1712,24 +1690,12 @@ def checkpoint_bundle(root: Path, seed: int = 0):
     model_dir, taesd_dir = root / "marigold", root / "taesd"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    nbytes = 0
-    for sub, state, fname, cfg in (
-        ("unet", weights.to_diffusers_unet_state(params["unet"]),
-         "diffusion_pytorch_model.safetensors", UNET_CONFIG_JSON),
-        ("text_encoder", weights.to_transformers_text_encoder_state(params["text_encoder"]),
-         "model.safetensors", TEXT_ENCODER_CONFIG_JSON),
-    ):
-        (model_dir / sub).mkdir(parents=True)
-        nbytes += safetensors_io.save_file(state, model_dir / sub / fname)
-        (model_dir / sub / "config.json").write_text(json.dumps(cfg))
-    (model_dir / "scheduler").mkdir()
-    (model_dir / "scheduler" / "scheduler_config.json").write_text(
-        json.dumps(SCHEDULER_CONFIG_JSON))
-    taesd_dir.mkdir()
-    nbytes += safetensors_io.save_file(
-        weights.to_diffusers_taesd_state(params["vae"], registry.TAESD_CONFIG),
-        taesd_dir / "diffusion_pytorch_model.safetensors")
-    (taesd_dir / "config.json").write_text(json.dumps(TAESD_CONFIG_JSON))
+    report = synthetic.write_checkpoint(
+        model_dir, taesd_dir, seed=seed, log=lambda m: print(f"  {m}"), states={
+            "unet": weights.to_diffusers_unet_state(params["unet"]),
+            "text_encoder": weights.to_transformers_text_encoder_state(params["text_encoder"]),
+            "taesd": weights.to_diffusers_taesd_state(params["vae"], registry.TAESD_CONFIG)})
+    nbytes = sum(r["bytes"] for r in report.values())
     t_write = time.perf_counter() - t0
     t0 = time.perf_counter()
     bundle = load_bundle(model_dir, "tiny", taesd_dir, bf16, device=DEV)
@@ -1758,6 +1724,56 @@ def checkpoint_bundle(root: Path, seed: int = 0):
     check("checkpoint context vs the source tower's", max_err(ctx, ctx_ref), 0.0)
     del params, text
     return bundle, model_dir, taesd_dir
+
+
+# Phase 3b: scripts/verify_checkpoint_torch.py, as a user runs it on the
+# day the real weights arrive, on phase 3a's directory: its 2-step request
+# at 128x160, res 128, with TAESD and with the KL VAE.
+VERIFY_SCRIPT = Path(__file__).resolve().parent / "scripts" / "verify_checkpoint_torch.py"
+VERIFY_FRAME, VERIFY_RES, VERIFY_STEPS = (128, 160), 128, 2
+
+
+def verify_phase(model_dir: Path, taesd_dir: Path) -> dict:
+    """Phase 3b: ``verify_checkpoint_torch.py`` in two processes at once on
+    the card, ``--vae light`` (TAESD) and ``--vae original`` (the KL VAE
+    phase 3a wrote): each must exit 0 and print OK, and the launches it
+    printed must equal ``expected_launches`` of its request (its UNet's
+    attention at 14x16 is below the flash kernels' 768, so conv3x3 and the
+    epilogue launch; the KL path's convs at SD widths). → the ``verify``
+    line: per VAE, wall seconds, the launches and the output's summary."""
+    procs = {vae: subprocess.Popen(
+        [sys.executable, str(VERIFY_SCRIPT), str(model_dir), "--taesd", str(taesd_dir), "--vae",
+         vae], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for vae in ("light", "original")}
+    t0 = time.perf_counter()
+    result = {}
+    try:
+        for vae, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            wall = time.perf_counter() - t0
+            lines = out.splitlines()
+            print(f"verify --vae {vae}: rc {proc.returncode} after {wall:.2f} s")
+            print("\n".join("  " + line for line in lines))
+            if proc.returncode != 0 or not lines or lines[-1] != "OK":
+                raise AssertionError(f"verify --vae {vae} failed (rc {proc.returncode}):\n"
+                                     + err[-3000:])
+            got = json.loads(next(x for x in lines if x.startswith("launches "))[9:])
+            kind, cfg = (("tiny", registry.TAESD_CONFIG) if vae == "light"
+                         else ("kl", registry.SD_VAE_CONFIG))
+            hw = latent_size(VERIFY_FRAME, VERIFY_RES, 8)
+            want = {k: n for k, n in expected_launches(registry.MARIGOLD_UNET_CONFIG, kind, cfg,
+                                                       hw, VERIFY_STEPS).items()
+                    if k not in PROBE_KERNELS}
+            if got != want:
+                raise AssertionError(f"verify --vae {vae}: launches {got} != {want}")
+            result[vae] = {"s": wall, "launches": got,
+                           "summary": next(x.strip() for x in lines if "smoke step" in x)}
+    finally:  # none outlives the phase, also when one fails
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return result
 
 
 # Phase 4: the predict and analyze CLIs on the checkpoint directory
@@ -1995,6 +2011,32 @@ def median_ms(fn, reps: int = HOST_IO_REPEATS) -> float:
     return float(np.median(times))
 
 
+BL2_CODECS, BL2_CLEVELS = ("blosclz", "lz4", "lz4hc", "zlib", "zstd"), (1, 5, 9)
+
+
+def bl2_codec_table(dense: np.ndarray, root: Path) -> dict:
+    """(f) Every ``.bl2`` codec the writer takes at clevel 1, 5 and 9 on one
+    dense 480x640 map: written, read back bit-identical (byte for byte),
+    save and load ms (median of 3) and the compression ratio, one line each.
+    → {"codec/clevel": {"save_ms", "load_ms", "ratio"}}."""
+    table, differ = {}, []
+    path = root / "bl2_codec.bl2"
+    for codec in BL2_CODECS:
+        for clevel in BL2_CLEVELS:
+            save_ms = median_ms(lambda: bl2.save_bl2(dense, path, clevel=clevel, codec=codec), 3)
+            back = bl2.load_bl2(path)
+            load_ms = median_ms(lambda: bl2.load_bl2(path), 3)
+            if back.shape != dense.shape or back.tobytes() != dense.tobytes():
+                differ.append(f"{codec}/{clevel}")
+            ratio = dense.nbytes / path.stat().st_size
+            table[f"{codec}/{clevel}"] = {"save_ms": save_ms, "load_ms": load_ms, "ratio": ratio}
+            print(f"  (f) .bl2 {codec} clevel {clevel}: save {save_ms:.2f} ms, load "
+                  f"{load_ms:.2f} ms, ratio {ratio:.3f}")
+    check("host io (f) .bl2 every codec and clevel read back bit-identical (maps differing)",
+          len(differ), 0, "maps")
+    return table
+
+
 def host_io_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> dict:
     """The port's host IO on the main path: (a) every committed image
     fixture (``tests/data/torch_io/``: JPEG, PNG, GIF, BMP) decodes
@@ -2010,7 +2052,10 @@ def host_io_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> d
     run's kernel launches are three times one request's; (e) host timings:
     JPEG decode ms per 480x640 and per 352x1216 frame, ``.bl2`` save and
     load ms and the compression ratio of one dense map, with the host CPU
-    model and the libzstd loaded. → the ``host_io`` line."""
+    model and the libzstd loaded; (f) that map through every ``.bl2`` codec
+    at clevel 1, 5 and 9 (``bl2_codec_table``). The fixtures of (a) include
+    CMYK and YCCK JPEG, progressive JPEG cut after a few scans (libjpeg's
+    block smoothing), RLE8, RLE4 and 16-bit BMP. → the ``host_io`` line."""
     names = sorted(p for p in FIXTURES.glob("*") if p.suffix != ".npy")
     if len(names) < 50:
         raise AssertionError(f"(a) {len(names)} image fixtures under {FIXTURES}")
@@ -2092,6 +2137,7 @@ def host_io_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> d
     tmp = root / "bl2_timing.bl2"
     save_ms = median_ms(lambda: codecs.save_array(dense, tmp, compress="bl2"))
     load_ms = median_ms(lambda: codecs.load_array(tmp))
+    codec_table = bl2_codec_table(dense, root)
     result = {
         "frames": totals["frames"], "wall_s_per_frame": wall / totals["frames"],
         "fixtures": len(names), "fixtures_differing": len(differ),
@@ -2102,6 +2148,7 @@ def host_io_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> d
         "image_decode_ms_per_frame_cli": 1e3 * totals["time_decode"] / totals["frames"],
         "bl2_save_ms": save_ms, "bl2_load_ms": load_ms,
         "bl2_ratio": dense.nbytes / tmp.stat().st_size, "bl2_bytes": tmp.stat().st_size,
+        "bl2_codecs": codec_table,
         "libzstd": zstd_library(), "host_cpu": host_cpu(), "card": card(),
     }
     print(f"  (e) JPEG decode {result['jpeg_decode_ms_480x640']:.2f} ms (480x640), "
@@ -3808,6 +3855,7 @@ def main() -> int:
             if path.ring_size:
                 ring_launches = path_counts
         cli = cli_phase(model_dir, taesd_dir, Path(tmp), args.steps)
+        verify = verify_phase(model_dir, taesd_dir)
         host_io = host_io_phase(model_dir, taesd_dir, Path(tmp), args.steps)
         modes = modes_phase(model_dir, taesd_dir, Path(tmp), args.steps)
         serve, serve_counts = serve_phase(model_dir, taesd_dir, args.steps)
@@ -3855,6 +3903,7 @@ def main() -> int:
     print(json.dumps({"composites": composites}))
     print(json.dumps({"graphs": graphs}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"verify": verify}))
     print(json.dumps({"host_io": host_io}))
     programs = modes.pop("programs")
     print(json.dumps({"modes": modes}))

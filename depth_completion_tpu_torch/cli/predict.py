@@ -142,11 +142,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--compress", choices=["npz", "bl2", "npy", "dcz"], default="dcz",
                    help="Array format of the dense depth.")
     p.add_argument("--compile-graph", type=str2bool, default=False,
-                   help="Accepted for compatibility; a no-op (eager PyTorch).")
+                   help="Accepted for compatibility; a no-op: every request already runs as "
+                   "its program's captured CUDA graphs (prepare, each step, finish), "
+                   "replayed from the second run of a signature on.")
     p.add_argument("--compile-mode", choices=["max-autotune", "reduce-overhead", "default"],
-                   default="reduce-overhead", help="Accepted for compatibility; a no-op.")
+                   default="reduce-overhead",
+                   help="Accepted for compatibility; a no-op: there is no compiler to tune, "
+                   "the graphs replay the hand-written kernels as captured.")
     p.add_argument("--compile-effort", type=number_range(float, min=-1.0, max=1.0),
-                   default=None, help="Accepted for compatibility; a no-op.")
+                   default=None,
+                   help="Accepted for compatibility; a no-op: capture has no effort level.")
     p.add_argument("--interp-mode", choices=["bilinear", "nearest"], default="bilinear",
                    help="Interpolation mode for resizing.")
     p.add_argument("--loss-funcs", type=comma_separated(str), default="l1,l2",

@@ -119,14 +119,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Comma-separated HxW geometries to run before accepting traffic, "
                    "e.g. 480x640,352x1216.")
     p.add_argument("--warmup-parallel", type=_POS_INT, default=1,
-                   help="Accepted for compatibility; a no-op (warmup runs serially).")
+                   help="Accepted for compatibility; a no-op: the warmup runs its signatures "
+                   "one after another, because a CUDA graph is captured on the one compute "
+                   "stream and a capture does not overlap another.")
     p.add_argument("--warmup-tiered", dest="warmup_tiered", action="store_true", default=False,
-                   help="Tiered warmup (not ported yet).")
+                   help="Serve first, capture later: warm every signature on the eager twin "
+                   "(tier 0), open for traffic, then capture each signature's CUDA graphs on "
+                   "the compute thread between batches (also while idle) and move its "
+                   "dispatch to them as each lands; tier 0 is dropped once every signature "
+                   "is promoted. Steady-state throughput unchanged.")
     p.add_argument("--no-warmup-tiered", dest="warmup_tiered", action="store_false")
     p.add_argument("--tier-effort", type=number_range(float, min=-1.0, max=0.0), default=-1.0,
-                   help="Accepted for compatibility; a no-op.")
+                   help="Accepted for compatibility; a no-op: tier 0 is the eager twin, "
+                   "which has no compile effort to lower.")
     p.add_argument("--max-programs", type=_POS_INT, default=None,
-                   help="Accepted for compatibility; a no-op (no compiled programs).")
+                   help="Bound the number of live captured (geometry, bucket) programs; the "
+                   "least-recently-used program is evicted, freeing its graphs and buffers. "
+                   "Default: unbounded (batch-job behavior). Size it to >= geometries x "
+                   "(buckets+1) you want permanently warm.")
     p.add_argument("--log", type=Path, default=None, help="Path to save logs.")
     p.add_argument("--log-level", choices=LOG_LEVELS, default="INFO", help="Minimum log level.")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",

@@ -20,6 +20,12 @@
 // and the primitives of the .bl2 chunk layer (io/bl2.py walks the blosc
 // containers and calls zstd and zlib itself):
 //   long bl2_lz4_compress(src, n, dst, dst_cap)      raw LZ4 block; 0: no fit
+//   long bl2_lz4hc_compress(src, n, dst, dst_cap, clevel)
+//     an LZ4 block from a hash-chain search of 2^(clevel-1) candidates
+//     (at least 2) with one step of lazy matching, as LZ4HC searches
+//   long bl2_blosclz_compress(src, n, dst, dst_cap, clevel)
+//     a blosclz stream from the same search (1 candidate up to clevel 3,
+//     then 2^(clevel-3)); 0 where the stream would not fit dst_cap
 //   long bl2_lz4_decompress(src, n, dst, dst_n)      LZ4 and LZ4HC blocks
 //   long bl2_blosclz_decompress(src, n, dst, dst_n)  blosc's FastLZ variant
 //   void bl2_shuffle(src, dst, n, typesize)          the byte shuffle above;
@@ -30,6 +36,7 @@
 //     (blosc2: the largest multiple of 8 of them; blosc1: all of them, or
 //     none unless their count is a multiple of 8), the rest copied.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -75,6 +82,38 @@ void shuffle_planes(const uint8_t* src, uint8_t* dst, size_t n, size_t esize, bo
 // LZ4 block compress/decompress
 // ---------------------------------------------------------------------------
 
+// Writes LZ4 sequences: a token, the literal count's extension, the
+// literals, then (unless it is the final literal run, a match length of 0)
+// the 2-byte LE offset and the match length's extension. false: no room.
+struct Lz4Writer {
+  uint8_t* op;
+  uint8_t* const oend;
+
+  bool put(const uint8_t* lit, size_t lit_len, size_t match_len, size_t offset) {
+    const size_t need = 1 + lit_len / 255 + 1 + lit_len + 2 + match_len / 255 + 1;
+    if (static_cast<size_t>(oend - op) < need) return false;
+    uint8_t* token = op++;
+    size_t ll = lit_len;
+    *token = static_cast<uint8_t>(std::min<size_t>(ll, 15) << 4);
+    if (ll >= 15) {
+      for (ll -= 15; ll >= 255; ll -= 255) *op++ = 255;
+      *op++ = static_cast<uint8_t>(ll);
+    }
+    std::memcpy(op, lit, lit_len);
+    op += lit_len;
+    if (match_len == 0) return true;
+    *op++ = static_cast<uint8_t>(offset & 0xff);
+    *op++ = static_cast<uint8_t>(offset >> 8);
+    size_t ml = match_len - kMinMatch;
+    *token |= static_cast<uint8_t>(std::min<size_t>(ml, 15));
+    if (ml >= 15) {
+      for (ml -= 15; ml >= 255; ml -= 255) *op++ = 255;
+      *op++ = static_cast<uint8_t>(ml);
+    }
+    return true;
+  }
+};
+
 size_t lz4_compress(const uint8_t* src, size_t n, uint8_t* dst,
                     size_t dst_cap) {
   if (n == 0) return 0;
@@ -84,41 +123,7 @@ size_t lz4_compress(const uint8_t* src, size_t n, uint8_t* dst,
   // matches must end 12 bytes before the end (LZ4 format requirement)
   const uint8_t* const mflimit = (n > 12) ? iend - 12 : src;
   const uint8_t* anchor = src;
-  uint8_t* op = dst;
-  uint8_t* const oend = dst + dst_cap;
-
-  auto emit = [&](const uint8_t* lit, size_t lit_len, size_t match_len,
-                  uint16_t offset) -> bool {
-    // token + extended literal length + literals + offset + ext match length
-    size_t need = 1 + lit_len / 255 + 1 + lit_len + 2 + match_len / 255 + 1;
-    if (op + need > oend) return false;
-    uint8_t* token = op++;
-    size_t ll = lit_len;
-    if (ll >= 15) {
-      *token = 15 << 4;
-      ll -= 15;
-      while (ll >= 255) { *op++ = 255; ll -= 255; }
-      *op++ = static_cast<uint8_t>(ll);
-    } else {
-      *token = static_cast<uint8_t>(ll << 4);
-    }
-    std::memcpy(op, lit, lit_len);
-    op += lit_len;
-    if (match_len == 0) return true;  // final literal run
-    op[0] = static_cast<uint8_t>(offset & 0xff);
-    op[1] = static_cast<uint8_t>(offset >> 8);
-    op += 2;
-    size_t ml = match_len - kMinMatch;
-    if (ml >= 15) {
-      *token |= 15;
-      ml -= 15;
-      while (ml >= 255) { *op++ = 255; ml -= 255; }
-      *op++ = static_cast<uint8_t>(ml);
-    } else {
-      *token |= static_cast<uint8_t>(ml);
-    }
-    return true;
-  };
+  Lz4Writer out{dst, dst + dst_cap};
 
   while (ip < mflimit) {
     uint32_t h = hash4(read32(ip));
@@ -132,8 +137,8 @@ size_t lz4_compress(const uint8_t* src, size_t n, uint8_t* dst,
       const uint8_t* matchlimit = iend - 5;
       while (p < matchlimit && *p == *m) { ++p; ++m; }
       size_t match_len = static_cast<size_t>(p - ip);
-      if (!emit(anchor, static_cast<size_t>(ip - anchor), match_len,
-                static_cast<uint16_t>(ip - match)))
+      if (!out.put(anchor, static_cast<size_t>(ip - anchor), match_len,
+                   static_cast<size_t>(ip - match)))
         return 0;  // incompressible for dst_cap
       ip += match_len;
       anchor = ip;
@@ -141,8 +146,8 @@ size_t lz4_compress(const uint8_t* src, size_t n, uint8_t* dst,
       ++ip;
     }
   }
-  if (!emit(anchor, static_cast<size_t>(iend - anchor), 0, 0)) return 0;
-  return static_cast<size_t>(op - dst);
+  if (!out.put(anchor, static_cast<size_t>(iend - anchor), 0, 0)) return 0;
+  return static_cast<size_t>(out.op - dst);
 }
 
 long lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst,
@@ -187,6 +192,143 @@ long lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst,
     for (size_t i = 0; i < ml; ++i) op[i] = match[i];  // overlap-safe
     op += ml;
   }
+  return static_cast<long>(op - dst);
+}
+
+// ---------------------------------------------------------------------------
+// hash-chain match search shared by the LZ4HC and blosclz encoders
+// ---------------------------------------------------------------------------
+
+constexpr size_t kLastLiterals = 5;  // LZ4: the last 5 bytes are literals
+constexpr size_t kMfLimit = 12;      // LZ4: no match starts in the last 12 bytes
+
+struct ChainSearch {
+  const uint8_t* src;
+  size_t n;
+  size_t max_dist;
+  int depth;
+  std::vector<int32_t> head, prev;
+  size_t inserted = 0;
+
+  ChainSearch(const uint8_t* s, size_t len, size_t dist, int d)
+      : src(s), n(len), max_dist(dist), depth(d), head(kHashSize, -1), prev(len, -1) {}
+
+  void insert_upto(size_t pos) {
+    for (; inserted < pos; ++inserted) {
+      const uint32_t h = hash4(read32(src + inserted));
+      prev[inserted] = head[h];
+      head[h] = static_cast<int32_t>(inserted);
+    }
+  }
+
+  // The longest match at ip (at least kMinMatch bytes, ending by limit);
+  // 0 if none. dist receives its distance.
+  size_t find(size_t ip, size_t limit, size_t* dist) {
+    insert_upto(ip);
+    const uint32_t want = read32(src + ip);
+    int32_t cand = head[hash4(want)];
+    size_t best = 0;
+    for (int k = 0; k < depth && cand >= 0 && ip - static_cast<size_t>(cand) <= max_dist; ++k) {
+      const size_t c = static_cast<size_t>(cand);
+      if (read32(src + c) == want && (best == 0 || src[c + best] == src[ip + best])) {
+        size_t len = kMinMatch;
+        while (ip + len < limit && src[c + len] == src[ip + len]) ++len;
+        if (len > best) {
+          best = len;
+          *dist = ip - c;
+        }
+      }
+      cand = prev[c];
+    }
+    return best;
+  }
+};
+
+// Greedy parsing with one step of lazy matching: a match at ip is taken
+// unless the one at ip + 1 is longer. emit(literals, count, match length,
+// distance) writes a sequence (a match length of 0: the final literals).
+template <class Emit>
+bool parse(const uint8_t* src, size_t n, size_t max_dist, int depth, Emit&& emit) {
+  if (n > kMfLimit) {
+    ChainSearch cs(src, n, max_dist, depth);
+    const size_t mflimit = n - kMfLimit, matchlimit = n - kLastLiterals;
+    size_t ip = 0, anchor = 0;
+    while (ip < mflimit) {
+      size_t dist = 0;
+      size_t len = cs.find(ip, matchlimit, &dist);
+      if (len == 0) {
+        ++ip;
+        continue;
+      }
+      while (depth > 1 && ip + 1 < mflimit) {
+        size_t dist2 = 0;
+        const size_t len2 = cs.find(ip + 1, matchlimit, &dist2);
+        if (len2 <= len) break;
+        ++ip;
+        len = len2;
+        dist = dist2;
+      }
+      if (!emit(src + anchor, ip - anchor, len, dist)) return false;
+      ip += len;
+      anchor = ip;
+    }
+    return emit(src + anchor, n - anchor, 0, 0);
+  }
+  return emit(src, n, 0, 0);
+}
+
+long lz4hc_compress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_cap, int clevel) {
+  if (n == 0) return 0;
+  Lz4Writer out{dst, dst + dst_cap};
+  auto emit = [&](const uint8_t* lit, size_t lit_len, size_t match_len, size_t dist) {
+    return out.put(lit, lit_len, match_len, dist);
+  };
+  if (!parse(src, n, 0xffff, clevel <= 1 ? 2 : 1 << (clevel - 1), emit)) return 0;
+  return static_cast<long>(out.op - dst);
+}
+
+// The blosclz stream that blosclz_decompress below reads: literal runs of
+// at most 32 bytes, matches of 3 or more bytes at distances up to
+// 8191 + 65536 (kMaxDistance: the near form below it, the far form with a
+// 16-bit distance beyond), the stream starting and ending with literals.
+long blosclz_compress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_cap, int clevel) {
+  constexpr size_t kMaxDistance = 8191, kMaxCopy = 32;
+  if (n == 0) return 0;
+  const int depth = clevel <= 3 ? 1 : 1 << (clevel - 3);
+  uint8_t* op = dst;
+  uint8_t* const oend = dst + dst_cap;
+  auto emit = [&](const uint8_t* lit, size_t lit_len, size_t match_len, size_t dist) -> bool {
+    const size_t need = lit_len + (lit_len + kMaxCopy - 1) / kMaxCopy + match_len / 255 + 6;
+    if (static_cast<size_t>(oend - op) < need) return false;
+    for (size_t done = 0; done < lit_len;) {
+      const size_t run = std::min(kMaxCopy, lit_len - done);
+      *op++ = static_cast<uint8_t>(run - 1);
+      std::memcpy(op, lit + done, run);
+      op += run;
+      done += run;
+    }
+    if (match_len == 0) return true;
+    const size_t d = dist - 1;
+    const bool far = d >= kMaxDistance;
+    const size_t code = far ? 255 : d & 255;
+    const uint8_t high = static_cast<uint8_t>(far ? 31 : d >> 8);
+    const size_t len = match_len - 2;
+    if (len < 7) {
+      *op++ = static_cast<uint8_t>((len << 5) + high);
+    } else {
+      *op++ = static_cast<uint8_t>((7 << 5) + high);
+      size_t rest = len - 7;
+      for (; rest >= 255; rest -= 255) *op++ = 255;
+      *op++ = static_cast<uint8_t>(rest);
+    }
+    *op++ = static_cast<uint8_t>(code);
+    if (far) {
+      *op++ = static_cast<uint8_t>((d - kMaxDistance) >> 8);
+      *op++ = static_cast<uint8_t>((d - kMaxDistance) & 255);
+    }
+    return true;
+  };
+  if (!parse(src, n, kMaxDistance + 65536, depth, emit)) return 0;
   return static_cast<long>(op - dst);
 }
 
@@ -250,6 +392,15 @@ extern "C" {
 
 long bl2_lz4_compress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_cap) {
   return static_cast<long>(lz4_compress(src, n, dst, dst_cap));
+}
+
+long bl2_lz4hc_compress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_cap, int clevel) {
+  return lz4hc_compress(src, n, dst, dst_cap, clevel);
+}
+
+long bl2_blosclz_compress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_cap,
+                          int clevel) {
+  return blosclz_compress(src, n, dst, dst_cap, clevel);
 }
 
 long bl2_lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_n) {

@@ -6,7 +6,7 @@
 // conventions and the integer arithmetic libjpeg documents:
 //
 //   - frames SOF0/SOF1 (Huffman, sequential) and SOF2 (progressive: DC and
-//     AC first and refinement scans, EOB runs), 8-bit samples, 1 or 3
+//     AC first and refinement scans, EOB runs), 8-bit samples, 1, 3 or 4
 //     components, any integral sampling factors, restart intervals;
 //   - the IDCT of jidctint.c: CONST_BITS 13, PASS1_BITS 2, pass 1 descaled
 //     by CONST_BITS - PASS1_BITS, pass 2 by CONST_BITS + PASS1_BITS + 3,
@@ -19,18 +19,27 @@
 //   - colour: Y/Cb/Cr through jdcolor.c's tables (16 fractional bits,
 //     ONE_HALF folded into the Cb->G table), then range limiting; an
 //     Adobe APP14 transform of 0 (without a JFIF APP0), or component ids
-//     'R','G','B' without either marker, means RGB: no conversion.
+//     'R','G','B' without either marker, means RGB: no conversion. Four
+//     components are CMYK (Adobe transform 0, or no Adobe marker) or YCCK
+//     (any other transform: jdcolor.c's YCbCr->RGB, inverted, K kept),
+//     then OpenCV's CMYK->BGR (icvCvt_CMYK2BGR_8u_C4C3R, which reads the
+//     samples as Adobe's inverted CMYK): v = k - ((255 - v) * k >> 8);
+//   - block smoothing (jdcoefct.c's decompress_smooth_data, libjpeg-turbo
+//     2.1 and later): a progressive file whose coefficients 1-9 are not all
+//     exact has those still zero estimated from the DC values of a 5x5
+//     block neighbourhood (its DC too where no AC data arrived), capped
+//     below 2^Al; rows past the iMCU row where the last scan's data ran
+//     out use the progression status from before that scan.
 //
-// Output: BGR (3 channels) or grey (1 channel), rows top to bottom.
+// Output: BGR (3 channels, also for 4 components) or grey (1 channel), rows
+// top to bottom.
 //
 // Data that ends early is read as libjpeg reads a file (cv2.imread): past
 // the end, every read gives a fake EOI marker. Where a scan's data runs
 // out, the missing bits are zeros, and every later MCU of the scan keeps
 // the coefficients it had (zero, or those of earlier scans); a file that
 // ends after its first scan has begun decodes, one that ends before it
-// does not. Not done: libjpeg's block smoothing of a progressive file
-// whose low-frequency scans never began (such a file decodes here without
-// it).
+// does not.
 //
 //   int jpeg_header(const uint8_t* data, size_t n, int* info, char* err,
 //                   size_t err_cap)
@@ -39,7 +48,7 @@
 //                   size_t out_cap, char* err, size_t err_cap)
 //     returns 0, or nonzero with a message in err. Refused (code 2):
 //     arithmetic coding, lossless and hierarchical frames (named by SOF),
-//     precision other than 8, and component counts other than 1 and 3.
+//     precision other than 8, and component counts other than 1, 3 and 4.
 
 #include <algorithm>
 #include <cstdint>
@@ -222,6 +231,10 @@ struct Component {
   std::vector<int16_t> coef; // bw*bh blocks of 64, natural order
   uint16_t qt[64];           // latched at the component's first scan
   bool latched = false;
+  // progression status (libjpeg's coef_bits): the Al of the last scan
+  // that carried each coefficient, -1 before any; prev_bits: the same
+  // before the latest scan of this component (coefficients 0-9)
+  int bits[64], prev_bits[10];
   int dc_pred = 0;
   std::vector<uint8_t> plane;  // wblocks*8 x hblocks*8 samples
 };
@@ -241,6 +254,8 @@ struct Decoder {
   int maxh = 1, maxv = 1, mcux = 0, mcuy = 0;
   int eobrun = 0;
   int scans = 0;
+  // the iMCU row in which the latest scan's data ran out (-1: it did not)
+  int short_row = -1;
 
   Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
 
@@ -315,9 +330,9 @@ struct Decoder {
       std::snprintf(msg, sizeof(msg), "%d-bit JPEG (SOF%d) is not supported", precision, sof);
       fail(msg, 2);
     }
-    if (nc != 1 && nc != 3) {
+    if (nc != 1 && nc != 3 && nc != 4) {
       std::snprintf(msg, sizeof(msg),
-                    "JPEG with %d components is not supported (CMYK/YCCK or other)", nc);
+                    "JPEG with %d components is not supported (1, 3 and 4 are)", nc);
       fail(msg, 2);
     }
     if (width == 0 || height == 0) fail("JPEG with an empty frame (or a DNL height)");
@@ -344,6 +359,8 @@ struct Decoder {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      std::fill(c.bits, c.bits + 64, -1);
+      std::fill(c.prev_bits, c.prev_bits + 10, -1);
     }
   }
 
@@ -406,6 +423,12 @@ struct Decoder {
       if (!progressive || ss > 0) ac[ta[i]].check(false);
     }
     ++scans;
+    if (progressive)  // jdphuff.c's start_pass: the progression status
+      for (Component* c : sc) {
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+          if (k < 10) c->prev_bits[k] = scans > 1 ? c->bits[k] : 0;
+        for (int k = ss; k <= se; ++k) c->bits[k] = al;
+      }
     // the entropy-coded data runs to the first marker other than RSTn
     size_t e = end;
     while (e + 1 < n && !(d[e] == 0xFF && d[e + 1] != 0 && d[e + 1] != 0xFF &&
@@ -415,6 +438,7 @@ struct Decoder {
     Bits bits{d, e, end};
     for (Component* c : sc) c->dc_pred = 0;
     eobrun = 0;
+    short_row = -1;
 
     auto block = [&](Component& c, int by, int bx, int i) {
       int16_t* blk = &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64];
@@ -449,7 +473,9 @@ struct Decoder {
       for (int by = 0; by < c.hblocks; ++by)
         for (int bx = 0; bx < c.wblocks; ++bx) {
           restart_check();
-          if (!bits.insufficient) block(c, by, bx, 0);
+          if (bits.insufficient) continue;
+          block(c, by, bx, 0);
+          if (bits.insufficient) short_row = by / c.v;
         }
     } else {
       for (int my = 0; my < mcuy; ++my)
@@ -461,6 +487,7 @@ struct Decoder {
             for (int y = 0; y < c.v; ++y)
               for (int x = 0; x < c.h; ++x) block(c, my * c.v + y, mx * c.h + x, i);
           }
+          if (bits.insufficient) short_row = my;
         }
     }
     return e;
@@ -632,6 +659,84 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
   }
 }
 
+// Block smoothing (libjpeg-turbo 2.1+'s decompress_smooth_data, which cv2's
+// bundled libjpeg-turbo 3.1 runs): where a progressive file's first ten
+// coefficients are not all known to full precision, each still-zero one of
+// AC01..AC30 is estimated from the DC values of the block's 5x5
+// neighbourhood; where no AC data arrived at all, the DC is smoothed too.
+// The natural positions of zigzag coefficients 0-9:
+constexpr int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// libjpeg's smoothing_ok: a progressive file, every component's table
+// latched with nonzero Q00..Q30, its DC begun, and some coefficient of
+// 1-9 not yet exact.
+bool smoothing_ok(const std::vector<Component>& comps, bool progressive) {
+  if (!progressive) return false;
+  bool useful = false;
+  for (const Component& c : comps) {
+    if (!c.latched || c.bits[0] < 0) return false;
+    for (int k = 0; k < 10; ++k)
+      if (c.qt[kQ[k]] == 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (c.bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
+// One coefficient's estimate: num / (Q << 8) rounded half away from zero,
+// its magnitude capped below 2^Al when Al > 0.
+inline int16_t estimate(int64_t num, int64_t q, int al) {
+  const bool neg = num < 0;
+  int pred = static_cast<int>(((q << 7) + (neg ? -num : num)) / (q << 8));
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return static_cast<int16_t>(neg ? -pred : pred);
+}
+
+// The smoothed coefficients of one block into ws (a copy of the block):
+// dc[0..24] are the DC values of rows above-above .. below-below (the
+// rows chosen by the caller) and columns X-2 .. X+2 (clamped), row-major.
+void smooth_block(const int* dc, const int* bits, const uint16_t* q, int16_t* ws) {
+  auto D = [&](int i) { return static_cast<int64_t>(dc[i - 1]); };
+  bool change_dc = true;
+  for (int k = 1; k < 10; ++k)
+    if (bits[k] != -1) change_dc = false;
+  const int64_t q00 = q[0];
+  auto apply = [&](int k, int64_t sum) {
+    const int pos = kQ[k];
+    if (bits[k] != 0 && ws[pos] == 0) ws[pos] = estimate(q00 * sum, q[pos], bits[k]);
+  };
+  if (change_dc) {
+    apply(1, -D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) + 3 * D(10) -
+             3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+             13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25));
+    apply(2, -D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7) + 38 * D(8) +
+             13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) + D(21) +
+             3 * D(22) + 3 * D(23) + 3 * D(24) + D(25));
+    apply(3, D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13) - 5 * D(14) +
+             2 * D(17) + 7 * D(18) + 2 * D(19) + D(23));
+    apply(4, -D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21) - D(25));
+    apply(5, 2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13) + 7 * D(14) +
+             D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19));
+    apply(6, D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19));
+    apply(7, D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19));
+    apply(8, D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19));
+    apply(9, D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19));
+    ws[0] = estimate(q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) -
+                            6 * D(6) + 6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) -
+                            8 * D(11) + 42 * D(12) + 152 * D(13) + 42 * D(14) - 8 * D(15) -
+                            6 * D(16) + 6 * D(17) + 42 * D(18) + 6 * D(19) - 6 * D(20) -
+                            2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) - 2 * D(25)),
+                     q00, 0);
+  } else {
+    apply(1, -7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15));
+    apply(2, -7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23));
+    apply(3, -D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23));
+    apply(4, D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22) - D(24) + D(4) -
+             D(6) + 10 * D(7) - 10 * D(9));
+    apply(5, -D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15));
+  }
+}
+
 // jdcolor.c's YCbCr->RGB tables (SCALEBITS 16).
 struct YccTables {
   int cr_r[256], cb_b[256];
@@ -706,16 +811,50 @@ void upsample_row(const Component& c, int fx, int fy, int y, int width, uint8_t*
 }
 
 void finish(Decoder& dec, uint8_t* out) {
+  for (Component& c : dec.comps)  // a component no scan carried: zero
+    if (!c.latched) std::memset(c.qt, 0, sizeof(c.qt));  // coefficients and multipliers
+  const bool smooth = smoothing_ok(dec.comps, dec.progressive);
+  const int imcu_rows = dec.mcuy;
   for (Component& c : dec.comps) {
-    // a component no scan carried: zero coefficients, and libjpeg's
-    // multipliers stay zero
-    if (!c.latched) std::memset(c.qt, 0, sizeof(c.qt));
     const int stride = c.wblocks * 8;
     c.plane.assign(static_cast<size_t>(stride) * c.hblocks * 8, 0);
-    for (int by = 0; by < c.hblocks; ++by)
-      for (int bx = 0; bx < c.wblocks; ++bx)
-        idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.qt,
-                   &c.plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+    // the rows past the one where the last scan's data ran out keep what
+    // the scans before it gave: their status is the one before that scan
+    // (libjpeg's latch: -1 for coefficients 1-9 when it is the first)
+    const int last_good = dec.short_row >= 0 ? dec.short_row : imcu_rows;
+    int before[10];
+    for (int k = 0; k < 10; ++k) before[k] = dec.scans > 1 ? c.prev_bits[k] : -1;
+    auto blk = [&](int by, int bx) { return &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64]; };
+    for (int r = 0; r < imcu_rows; ++r) {
+      // libjpeg's rows of this iMCU row and its neighbour rule: the
+      // last iMCU row holds its real block rows only, and its index
+      // arithmetic counts them as if every iMCU row had as few
+      int block_rows = c.v;
+      if (r == imcu_rows - 1) block_rows = c.hblocks % c.v ? c.hblocks % c.v : c.v;
+      for (int br = 0; br < block_rows; ++br) {
+        const int by = r * c.v + br;
+        if (by >= c.hblocks) break;
+        const int ib = r * block_rows + br, ibs = block_rows * imcu_rows;
+        const int prev = ib > 0 ? by - 1 : by, pprev = ib > 1 ? by - 2 : prev;
+        const int next = ib < ibs - 1 ? by + 1 : by, nnext = ib < ibs - 2 ? by + 2 : next;
+        const int rows[5] = {pprev, prev, by, next, nnext};
+        for (int bx = 0; bx < c.wblocks; ++bx) {
+          uint8_t* dst = &c.plane[static_cast<size_t>(by) * 8 * stride + bx * 8];
+          if (!smooth) {
+            idct_islow(blk(by, bx), c.qt, dst, stride);
+            continue;
+          }
+          int dc[25];
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 5; ++j)
+              dc[i * 5 + j] = blk(rows[i], std::clamp(bx + j - 2, 0, c.wblocks - 1))[0];
+          int16_t ws[64];
+          std::memcpy(ws, blk(by, bx), sizeof(ws));
+          smooth_block(dc, r > last_good ? before : c.bits, c.qt, ws);
+          idct_islow(ws, c.qt, dst, stride);
+        }
+      }
+    }
   }
   const int w = dec.width, h = dec.height, nc = static_cast<int>(dec.comps.size());
   if (nc == 1) {
@@ -724,24 +863,44 @@ void finish(Decoder& dec, uint8_t* out) {
       upsample_row(c, dec.maxh / c.h, dec.maxv / c.v, y, w, out + static_cast<size_t>(y) * w);
     return;
   }
-  bool rgb;
-  if (dec.jfif) {
+  // four components: CMYK unless an Adobe marker says otherwise (transform
+  // 2, or any but 0: YCCK), as libjpeg decides; three: RGB or YCbCr
+  bool rgb, ycck = false;
+  if (nc == 4) {
+    rgb = false;
+    ycck = dec.adobe && dec.adobe_transform != 0;
+  } else if (dec.jfif) {
     rgb = false;
   } else if (dec.adobe) {
     rgb = dec.adobe_transform == 0;
   } else {
     rgb = dec.comps[0].id == 'R' && dec.comps[1].id == 'G' && dec.comps[2].id == 'B';
   }
-  std::vector<uint8_t> rows(3 * static_cast<size_t>(w));
+  std::vector<uint8_t> rows(static_cast<size_t>(nc) * w);
   for (int y = 0; y < h; ++y) {
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < nc; ++i) {
       const Component& c = dec.comps[i];
       upsample_row(c, dec.maxh / c.h, dec.maxv / c.v, y, w, &rows[static_cast<size_t>(i) * w]);
     }
-    const uint8_t *c0 = rows.data(), *c1 = c0 + w, *c2 = c1 + w;
+    const uint8_t *c0 = rows.data(), *c1 = c0 + w, *c2 = c1 + w, *c3 = c2 + w;
     uint8_t* o = out + static_cast<size_t>(y) * w * 3;
     for (int x = 0; x < w; ++x, o += 3) {
-      if (rgb) {
+      if (nc == 4) {
+        // libjpeg's CMYK samples (jdcolor.c's ycck_cmyk_convert: YCbCr to
+        // RGB, inverted, K kept), then OpenCV's icvCvt_CMYK2BGR_8u_C4C3R,
+        // which takes them as Adobe's inverted CMYK: v = k - (255 - v) k / 256
+        int cc = c0[x], mm = c1[x], yy = c2[x];
+        const int k = c3[x];
+        if (ycck) {
+          const int yv = c0[x], cb = c1[x], cr = c2[x];
+          cc = 255 - clamp255(yv + kYcc.cr_r[cr]);
+          mm = 255 - clamp255(yv + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+          yy = 255 - clamp255(yv + kYcc.cb_b[cb]);
+        }
+        o[2] = static_cast<uint8_t>(k - (((255 - cc) * k) >> 8));
+        o[1] = static_cast<uint8_t>(k - (((255 - mm) * k) >> 8));
+        o[0] = static_cast<uint8_t>(k - (((255 - yy) * k) >> 8));
+      } else if (rgb) {
         o[0] = c2[x];
         o[1] = c1[x];
         o[2] = c0[x];
@@ -788,7 +947,7 @@ int jpeg_header(const uint8_t* data, size_t n, int* info, char* err, size_t err_
     if (dec.sof < 0) fail("no frame header");
     info[0] = dec.height;
     info[1] = dec.width;
-    info[2] = static_cast<int>(dec.comps.size());
+    info[2] = dec.comps.size() == 4 ? 3 : static_cast<int>(dec.comps.size());  // CMYK -> BGR
     return 0;
   } catch (const Error& e) {
     set_err(err, err_cap, e.msg);
@@ -803,7 +962,8 @@ int jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, size_t out_cap, cha
     Decoder dec(buf.data(), buf.size());
     dec.run(false);
     if (dec.sof < 0) fail("no frame header");
-    const size_t need = static_cast<size_t>(dec.width) * dec.height * dec.comps.size();
+    const size_t need = static_cast<size_t>(dec.width) * dec.height *
+                        std::min<size_t>(dec.comps.size(), 3);
     if (out_cap < need) fail("output buffer too small");
     finish(dec, out);
     return 0;

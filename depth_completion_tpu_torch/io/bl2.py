@@ -16,15 +16,22 @@ the system c-blosc library: the port carries the blosc containers itself.
   compression library, not a kernel package: absent, the codec raises
   naming it), LZ4 and LZ4HC streams and blosclz through the port's own
   decoders (``csrc/dcz_codec.cpp``), zlib through Python's ``zlib``.
-- **Writer.** What the JAX package's ``save_bl2`` writes by default: zstd
-  at blosc clevel 1 (zstd level 1), byte shuffle for typesize > 1, blocks of
-  32 KiB in one stream each, chunks of 4 MiB, a memcpyed chunk under 128
-  bytes or where compression does not pay (beyond the 4 KiB of slack the
-  JAX writer gives c-blosc), the chunk offsets as a memcpyed
-  chunk of int64s, the frame header and trailer of ``save_bl2`` and its
-  ``__pack_tensor__`` vlmeta entry (``["numpy", shape, dtype.str]``). It
-  also writes LZ4 (the port's compressor, split streams as blosc splits
-  them); other codecs raise ``ValueError`` naming them.
+- **Writer.** What the JAX package's ``save_bl2`` writes through c-blosc
+  1.21, for every codec it takes (blosclz, lz4, lz4hc, zlib, zstd) at
+  clevel 0-9: byte shuffle for typesize > 1; blocks as c-blosc sizes them
+  (32 KiB, doubled for lz4hc, zlib and zstd, scaled by the clevel; split
+  into typesize streams for every codec but zstd when a stream holds at
+  least 128 elements, the block then 64 KiB to 1 MiB); chunks of 4 MiB; a
+  memcpyed chunk at clevel 0, under 128 bytes, or where compression does
+  not pay (beyond the 4 KiB of slack the JAX writer gives c-blosc); the
+  chunk offsets as a memcpyed chunk of int64s, the frame header and trailer
+  of ``save_bl2`` and its ``__pack_tensor__`` vlmeta entry (``["numpy",
+  shape, dtype.str]``). The streams: zstd at c-blosc's level (2 clevel - 1,
+  the maximum at 9) and zlib at the clevel (Python's ``zlib``) give the
+  bytes c-blosc gives; LZ4, LZ4HC (a hash-chain search whose depth grows
+  with the clevel) and blosclz are the port's own encoders
+  (``csrc/dcz_codec.cpp``), whose streams any LZ4 or blosclz decoder reads.
+  The default (zstd at clevel 1) is byte-identical to the JAX writer's.
 - **Frame reader.** Lenient as ``load_bl2`` is: the magic, the
   ``__pack_tensor__`` triple found after its name, the first chunk at the
   header's ``header_len`` (else the first plausible chunk header), then
@@ -60,7 +67,11 @@ FLAG_SHUFFLE, FLAG_MEMCPYED, FLAG_BITSHUFFLE, FLAG_DONT_SPLIT = 0x1, 0x2, 0x4, 0
 _CODEC_NAMES = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
 # the codecs written: (the chunk header's codec code, the frame header's
 # codec byte in blosc2's compressor codes)
-WRITE_CODECS = {"zstd": (4, 5), "lz4": (1, 1)}
+WRITE_CODECS = {"blosclz": (0, 0), "lz4": (1, 1), "lz4hc": (1, 2), "zlib": (3, 4),
+                "zstd": (4, 5)}
+_HCR_CODECS = ("lz4hc", "zlib", "zstd")  # c-blosc doubles their blocks
+L1 = 32 * 1024  # c-blosc's base block size
+MAX_CLEVEL = 9
 _B2_USEDICT = 0x1
 _B2_FILTER_SHUFFLE, _B2_FILTER_BITSHUFFLE = 1, 2
 _UNSUPPORTED_FILTERS = {3: "delta", 4: "truncation"}
@@ -112,6 +123,10 @@ def _codec_lib() -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_long
         getattr(lib, fn).argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
                                      ctypes.c_size_t]
+    for fn in ("bl2_lz4hc_compress", "bl2_blosclz_compress"):
+        getattr(lib, fn).restype = ctypes.c_long
+        getattr(lib, fn).argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                     ctypes.c_size_t, ctypes.c_int]
     for fn in ("bl2_shuffle", "bl2_unshuffle"):
         getattr(lib, fn).restype = None
         getattr(lib, fn).argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t,
@@ -156,19 +171,35 @@ def _decode_stream(codec: int, data: bytes, size: int) -> bytes:
     return raw
 
 
-def _encode_stream(codec: str, data: bytes) -> bytes | None:
+def _zstd_level(clevel: int) -> int:
+    """c-blosc 1.21's zstd level for a blosc clevel: 2 clevel - 1, and
+    zstd's maximum at 9."""
+    return 2 * clevel - 1 if clevel < MAX_CLEVEL else 22
+
+
+def _encode_stream(codec: str, data: bytes, clevel: int) -> bytes | None:
     """One stream compressed, or None where it does not shrink."""
     if codec == "zstd":
         lib = _zstd_lib()
         cap = lib.ZSTD_compressBound(len(data))
         out = ctypes.create_string_buffer(cap)
-        got = lib.ZSTD_compress(out, cap, data, len(data), 1)  # blosc clevel 1 → zstd level 1
+        got = lib.ZSTD_compress(out, cap, data, len(data), _zstd_level(clevel))
         if lib.ZSTD_isError(got):
             raise RuntimeError("ZSTD_compress failed")
+        raw = out.raw[:got]
+    elif codec == "zlib":
+        raw = zlib.compress(data, clevel)
     else:
         out = ctypes.create_string_buffer(len(data))
-        got = _codec_lib().bl2_lz4_compress(data, len(data), out, len(data))
-    return out.raw[:got] if 0 < got < len(data) else None
+        lib = _codec_lib()
+        if codec == "lz4":
+            got = lib.bl2_lz4_compress(data, len(data), out, len(data))
+        elif codec == "lz4hc":
+            got = lib.bl2_lz4hc_compress(data, len(data), out, len(data), clevel)
+        else:
+            got = lib.bl2_blosclz_compress(data, len(data), out, len(data), clevel)
+        raw = out.raw[:got]
+    return raw if 0 < len(raw) < len(data) else None
 
 
 # ---------------------------------------------------------------------------
@@ -272,41 +303,59 @@ def decompress_chunk(chunk: bytes) -> bytes:
     return out.raw[:nbytes]
 
 
-def _blocksize(codec: str, typesize: int, nbytes: int) -> tuple[int, bool]:
-    """(block size, split into typesize streams) as c-blosc 1.21 chooses
-    them at clevel 1: zstd 32 KiB in one stream; LZ4 16 KiB per stream,
-    split when the typesize is at most 16 and a stream holds at least 128
-    elements, the block then 64 KiB to 1 MiB; never beyond the chunk."""
-    if codec == "zstd":
-        size, split = 1 << 15, False
-    else:
-        size = 1 << 14
-        split = typesize <= MAX_SPLITS and size // typesize >= MIN_BUFFERSIZE
-        if split:
-            size = min(max(size * typesize, 1 << 16), 1 << 20)
+def _splits(codec: str, typesize: int, blocksize: int) -> bool:
+    """c-blosc 1.21's split rule (its forward-compatible default): every
+    codec but zstd splits a block into typesize streams when the typesize
+    is at most 16 and a stream holds at least 128 elements."""
+    return codec != "zstd" and typesize <= MAX_SPLITS and blocksize // typesize >= MIN_BUFFERSIZE
+
+
+def _blocksize(codec: str, typesize: int, nbytes: int, clevel: int) -> int:
+    """The block size c-blosc 1.21 chooses (``compute_blocksize``): L1,
+    doubled for lz4hc, zlib and zstd, scaled by the clevel (0: /4, 1: /2,
+    3: x2, 4-5: x4, 6-9: x8, 9 doubling again for the doubled codecs); for
+    a split codec at clevel > 0 at most 256 KiB per stream, times the
+    typesize, kept within 64 KiB to 1 MiB; never beyond the chunk, and a
+    multiple of the typesize."""
+    if nbytes < typesize:
+        return 1
+    size = nbytes
+    if nbytes >= L1:
+        size = L1 * (2 if codec in _HCR_CODECS else 1)
+        size = {0: size // 4, 1: size // 2, 2: size, 3: size * 2, 4: size * 4,
+                5: size * 4}.get(clevel, size * 8)
+        if clevel == MAX_CLEVEL and codec in _HCR_CODECS:
+            size *= 2
+        if clevel > 0 and _splits(codec, typesize, size):
+            size = min(max(min(size, 1 << 18) * typesize, 1 << 16), 1 << 20)
     size = min(size, nbytes)
     if size > typesize:
         size -= size % typesize
-    split = split and size // typesize >= MIN_BUFFERSIZE
-    return size, split
+    return size
 
 
-def compress_chunk(data: bytes, typesize: int, codec: str = "zstd") -> bytes:
-    """One blosc1 chunk (format version 2) of ``data`` at clevel 1, byte
-    shuffled for a typesize above 1."""
+def _check_codec(codec: str, clevel: int) -> None:
     if codec not in WRITE_CODECS:
-        raise ValueError(f"the port writes .bl2 chunks with {' or '.join(WRITE_CODECS)}, not "
-                         f"{codec!r}")
+        raise ValueError(f"the port writes .bl2 with {', '.join(WRITE_CODECS)}, not {codec!r}")
+    if not 0 <= clevel <= MAX_CLEVEL:
+        raise ValueError(f".bl2 clevel {clevel} is not in 0-{MAX_CLEVEL}")
+
+
+def compress_chunk(data: bytes, typesize: int, codec: str = "zstd", clevel: int = 1) -> bytes:
+    """One blosc1 chunk (format version 2) of ``data``, byte shuffled for
+    a typesize above 1, as c-blosc 1.21 lays it out (see the module note)."""
+    _check_codec(codec, clevel)
     nbytes = len(data)
     shuffle = typesize > 1
     flags = (WRITE_CODECS[codec][0] << 5) | (FLAG_SHUFFLE if shuffle else 0)
-    blocksize, split = _blocksize(codec, typesize, nbytes)
-    memcpyed = struct.pack("<BBBBiii", 2, 1, flags | FLAG_MEMCPYED | FLAG_DONT_SPLIT, typesize,
-                           nbytes, blocksize, 16 + nbytes) + data
-    if nbytes < MIN_BUFFERSIZE:
-        return memcpyed
+    blocksize = _blocksize(codec, typesize, nbytes, clevel)
+    split = _splits(codec, typesize, blocksize)
     if not split:
         flags |= FLAG_DONT_SPLIT
+    memcpyed = struct.pack("<BBBBiii", 2, 1, flags | FLAG_MEMCPYED, typesize, nbytes,
+                           blocksize, 16 + nbytes) + data
+    if nbytes < MIN_BUFFERSIZE or clevel == 0:
+        return memcpyed
     lib = _codec_lib()
     nblocks = -(-nbytes // blocksize)
     body, pos = [], 16 + 4 * nblocks
@@ -322,7 +371,7 @@ def compress_chunk(data: bytes, typesize: int, codec: str = "zstd") -> bytes:
         bstarts.append(pos)
         for s in range(streams):
             raw = block[s * neblock: (s + 1) * neblock]
-            packed = _encode_stream(codec, raw)
+            packed = _encode_stream(codec, raw, clevel)
             payload = raw if packed is None else packed
             body.append(struct.pack("<i", len(payload)) + payload)
             pos += 4 + len(payload)
@@ -379,10 +428,10 @@ def _build_trailer(vlmeta: dict[str, bytes]) -> bytes:
     return body + b"\xce" + struct.pack(">I", tail_len) + b"\xd8\x00" + bytes(16)
 
 
-def save_bl2(x, path: Path | str, codec: str = "zstd", chunksize: int = DEFAULT_CHUNKSIZE) -> None:
+def save_bl2(x, path: Path | str, clevel: int = 1, codec: str = "zstd",
+             chunksize: int = DEFAULT_CHUNKSIZE) -> None:
     """Write ``x`` as a blosc2 contiguous frame (see the module note)."""
-    if codec not in WRITE_CODECS:
-        raise ValueError(f"the port writes .bl2 with {' or '.join(WRITE_CODECS)}, not {codec!r}")
+    _check_codec(codec, clevel)
     path = Path(path)
     x = np.asarray(x)
     if not x.flags.c_contiguous:  # ascontiguousarray would make a 0-d array 1-d
@@ -390,7 +439,7 @@ def save_bl2(x, path: Path | str, codec: str = "zstd", chunksize: int = DEFAULT_
     data = x.tobytes()
     typesize = x.dtype.itemsize if 0 < x.dtype.itemsize <= 255 else 8
     chunksize = max(typesize, chunksize - chunksize % typesize)
-    chunks = [compress_chunk(data[s: s + chunksize], typesize, codec)
+    chunks = [compress_chunk(data[s: s + chunksize], typesize, codec, clevel)
               for s in range(0, len(data), chunksize)]
     blob = b"".join(chunks)
     offsets = np.cumsum([0] + [len(c) for c in chunks[:-1]]).astype("<i8") if chunks \

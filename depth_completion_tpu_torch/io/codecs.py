@@ -58,7 +58,8 @@ def load_array(path: Path) -> np.ndarray:
 def save_array(x: Any, path: Path, compress: str | None = None, bl2_codec: str = "zstd") -> None:
     """Save with the JAX package's extension/compression contract.
     ``bl2_codec`` is the ``.bl2`` writer's codec: "zstd" (what the JAX
-    package writes; needs the system libzstd) or "lz4" (the port's own)."""
+    package writes by default; needs the system libzstd), or "blosclz",
+    "lz4", "lz4hc" or "zlib" (the port's own encoders and Python's zlib)."""
     path = Path(path)
     expected = {None: ".npy", "npy": ".npy", "npz": ".npz", "bl2": ".bl2", "dcz": ".dcz"}
     if compress not in expected:

@@ -11,7 +11,8 @@ machines have no ``cv2``, so it decodes with its own ``io/png.py``,
   ``mode=None`` keeps cv2's channel order (BGR for 3 or 4 channels); an
   all-zero image, a file that is not an image or a corrupt one gives
   ``None``. A well-formed variant that cv2 reads and the port does not
-  (arithmetic-coded, lossless, 12-bit or CMYK JPEG, compressed BMP)
+  (arithmetic-coded, lossless, hierarchical or 12-bit JPEG, BMP holding a
+  JPEG or PNG)
   raises ``UnsupportedImage``.
 - ``image_size``: header sniffing (PNG/JPEG/GIF/BMP), a copy.
 - ``save_img_array``: ``.png`` through ``io/png.py``, ``.jpg``/``.jpeg``

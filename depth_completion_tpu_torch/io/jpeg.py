@@ -1,15 +1,17 @@
 """JPEG codec of the port.
 
 ``decode_jpeg``: what ``cv2.imread(path, IMREAD_UNCHANGED)`` gives (libjpeg-turbo with its defaults), sample for sample: BGR [H,W,3] or
-grey [H,W]; baseline, extended and progressive Huffman frames, 8-bit, 1 or
-3 components, any integral sampling, restart markers; EXIF orientation is
-not applied. The decoder is host C++ (``csrc/jpeg_decode.cpp``, built with
-g++ at first use). Arithmetic coding, lossless and hierarchical frames,
-12-bit samples and CMYK/YCCK raise ``UnsupportedImage`` naming the SOF or
-the component count; a file that is not a JPEG, or is corrupt, raises
-``ValueError``. A file cut short decodes as libjpeg decodes a file that
-ends early (grey where the data ran out), except that a progressive file
-cut before its low-frequency scans is not block-smoothed.
+grey [H,W]; baseline, extended and progressive Huffman frames, 8-bit, 1, 3
+or 4 components (CMYK, with or without Adobe's marker, and YCCK: BGR
+through OpenCV's CMYK conversion), any integral sampling, restart markers;
+EXIF orientation is not applied. The decoder is host C++
+(``csrc/jpeg_decode.cpp``, built with g++ at first use). Arithmetic coding,
+lossless and hierarchical frames, 12-bit samples and other component
+counts raise ``UnsupportedImage`` naming the SOF or the count; a file that
+is not a JPEG, or is corrupt, raises ``ValueError``. A file cut short
+decodes as libjpeg decodes a file that ends early (grey where the data ran
+out), a progressive one with libjpeg's block smoothing of the coefficients
+its missing scans would have refined.
 
 ``encode_jpeg`` / ``write_jpeg``: a baseline JFIF encoder in numpy, to
 OpenCV's defaults: quality 95 (the Annex K tables scaled as libjpeg scales

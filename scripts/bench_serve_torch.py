@@ -19,10 +19,17 @@ CPU smoke (the plain versions, the tiny random model; no card numbers):
 Env (``scripts/bench_serve.py``'s): SB_GEOMETRY (default 480x640; a comma
 list for a mixed stream), SB_RES (768), SB_STEPS (50), SB_CLIENTS (8),
 SB_REQUESTS (24), SB_MAX_BATCH (8), SB_MAX_DELAY_MS (25), SB_MAX_PROGRAMS
-and SB_WARM_PARALLEL (XLA's program cache and parallel compiles: no-ops
-here), SB_TIERED=1 (tiered warmup: raises, not ported); and SB_DEVICE
-(cuda; cpu for the smoke). Prints one JSON line, with the card's name and
-power limit as ``nvidia-smi`` reports them.
+(the pipeline's bound on live captured programs, LRU-evicted; unset:
+unbounded), SB_TIERED=1 (tiered warmup: every signature warms on the eager
+twin, then the compute thread captures each between batches; after the
+clients the script waits for the promotions, SB_WAIT_PROMOTE=0 skips the
+wait, SB_PROMOTE_TIMEOUT_S bounds it and a timeout raises, and reports
+``tiered``, ``promote_s`` (seconds from the warmup's return until tier 0
+was dropped) and ``tier_promoted``), SB_WARM_PARALLEL (a no-op: a CUDA
+graph is captured on the one compute stream, so signatures warm one after
+another); and SB_DEVICE (cuda; cpu for the smoke). Prints one JSON line,
+with the card's name and power limit as ``nvidia-smi`` reports them, and
+the pipeline's live program count.
 """
 
 from __future__ import annotations
@@ -56,10 +63,12 @@ CLIENTS = int(os.environ.get("SB_CLIENTS", "8"))
 REQUESTS = int(os.environ.get("SB_REQUESTS", "24"))
 MAX_BATCH = int(os.environ.get("SB_MAX_BATCH", "8"))
 MAX_DELAY_MS = float(os.environ.get("SB_MAX_DELAY_MS", "25"))
-MAX_PROGRAMS = os.environ.get("SB_MAX_PROGRAMS") or None
+MAX_PROGRAMS = int(os.environ["SB_MAX_PROGRAMS"]) if os.environ.get("SB_MAX_PROGRAMS") else None
 TIERED = os.environ.get("SB_TIERED", "0") == "1"
 WARM_PARALLEL = int(os.environ.get("SB_WARM_PARALLEL", "1"))
 DEVICE = os.environ.get("SB_DEVICE", "cuda")
+WAIT_PROMOTE = os.environ.get("SB_WAIT_PROMOTE", "1") == "1"
+PROMOTE_TIMEOUT_S = float(os.environ.get("SB_PROMOTE_TIMEOUT_S", "3600"))
 
 
 def card() -> str | None:
@@ -72,11 +81,30 @@ def card() -> str | None:
     ).stdout.strip().splitlines()[0]
 
 
+def wait_for_promotions(engine: ServingEngine, warm_end: float) -> float | None:
+    """Wait until every warmed signature is promoted to its captured graphs
+    and return the seconds since the warmup returned; None when a
+    signature's promotion failed for good (no promotion is pending then).
+    The port promotes on its compute thread, also while idle, so polling
+    ``stats()`` is enough; past SB_PROMOTE_TIMEOUT_S this raises."""
+    deadline = time.monotonic() + PROMOTE_TIMEOUT_S
+    while True:
+        stats = engine.stats()
+        if not stats.get("tier0_active"):  # tier 0 dropped: all promoted
+            return time.monotonic() - warm_end
+        promoted, warmed = map(int, stats["tier_promoted"].split("/"))
+        if promoted == warmed:  # tier 0 kept only for programs the LRU evicted
+            return time.monotonic() - warm_end
+        if stats["tier_failed"]:
+            return None
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"tiered warmup: {stats['tier_promoted']} signatures promoted "
+                               f"after {PROMOTE_TIMEOUT_S} s")
+        time.sleep(0.05)
+
+
 def main() -> None:
     dev = resolve_device(DEVICE)
-    if MAX_PROGRAMS is not None:
-        print(f"SB_MAX_PROGRAMS={MAX_PROGRAMS} noted: the port runs eagerly; a no-op",
-              file=sys.stderr)
     if os.environ.get("DCT_RANDOM_MODEL_SIZE") == "tiny":
         bundle = make_random_bundle(seed=0, vae_kind="tiny", vae_config=registry.TAESD_CONFIG,
                                     dtype=torch.float32, device=dev)
@@ -88,7 +116,7 @@ def main() -> None:
             vae_config=registry.TAESD_CONFIG, text_config=registry.TINY_TEXT_CONFIG,
             dtype=torch.bfloat16, device=dev)
     engine = ServingEngine(
-        DepthCompletionPipeline(bundle),
+        DepthCompletionPipeline(bundle, max_programs=MAX_PROGRAMS),
         dict(max_depth=120.0, steps=STEPS, resolution=RES, norm="const",
              loss_funcs=("l1", "l2")),
         max_batch=MAX_BATCH, max_delay_ms=MAX_DELAY_MS,
@@ -151,6 +179,7 @@ def main() -> None:
         span = time.monotonic() - t1
         if errors:
             raise errors[0]
+        promote_s = wait_for_promotions(engine, t0 + warm_s) if TIERED and WAIT_PROMOTE else None
         stats = engine.stats()
     finally:
         engine.shutdown()
@@ -181,6 +210,12 @@ def main() -> None:
         "ttfr_s": ttfr_s,  # first response after warmup returned
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None,
     }
+    if TIERED:
+        n = len(stats["tier_promotions"])
+        out["tiered"] = True
+        out["promote_s"] = promote_s
+        out["tier_promoted"] = stats.get("tier_promoted", f"{n}/{n}")
+    out["pipe_programs"] = stats.get("pipe_programs")
     if len(GEOMETRIES) > 1:
         out["per_geometry"] = {
             f"{h}x{w}": {"requests": len(xs), "p50": pctl(xs, 0.5), "p95": pctl(xs, 0.95)}

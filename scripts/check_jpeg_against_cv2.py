@@ -7,21 +7,16 @@ it):
    bytes from 40 bytes before its first SOS marker to its end (and just
    before its last 1, 2 and 3 bytes), written to a file and decoded by
    ``cv2.imread`` and by the port. libjpeg reads such a file with a fake EOI
-   past its end; the port does the same, apart from libjpeg's block
-   smoothing of a progressive file whose low-frequency scans never began.
-   Each cut is counted as equal (both give the same samples, or both no
-   image) or differing, and each differing cut is checked against
-   libjpeg's smoothing test (``smoothing_ok`` in ``jdcoefct.c``: every
-   component's DC begun, some AC coefficient 1-9 of some component not
-   complete, from the SOS headers wholly before the cut).
+   past its end, and block-smooths a progressive one whose coefficients
+   1-9 are not all complete; the port does the same. Each cut is counted
+   as equal (both give the same samples, or both no image) or differing.
 2. **Coefficients past the valid range.** ``--random`` grey 64x64 files
    of random coefficients (up to 1000 in magnitude, quantisers up to 255)
    through the port's own entropy coder: the block where a truncated scan
    runs out of bits holds such values, and there the decoder follows
    libjpeg-turbo's SIMD IDCT lanes.
 
-Prints the counts and exits 1 if a cut differs where libjpeg would not
-smooth, or a random file differs. Usage::
+Prints the counts and exits 1 if a cut or a random file differs. Usage::
 
     python scripts/check_jpeg_against_cv2.py [--step 7] [--random 500]
 """
@@ -45,32 +40,6 @@ from depth_completion_tpu_torch.io import jpeg  # noqa: E402
 DATA = ROOT / "tests" / "data" / "torch_io"
 
 
-def smooths(data: bytes, cut: int) -> bool:
-    """libjpeg's block-smoothing test after the SOS headers before ``cut``."""
-    if b"\xff\xc2" not in data:
-        return False
-    sof = data.index(b"\xff\xc2")
-    ids = [data[sof + 10 + 3 * i] for i in range(data[sof + 9])]
-    bits = {c: [-1] * 10 for c in ids}
-    p = 2
-    while p < min(cut, len(data)) - 1:
-        if data[p] == 0xFF and data[p + 1] == 0xDA:
-            length = int.from_bytes(data[p + 2: p + 4], "big")
-            if p + 2 + length > cut:
-                break
-            ns = data[p + 4]
-            ss, se, a = data[p + 5 + 2 * ns], data[p + 6 + 2 * ns], data[p + 7 + 2 * ns]
-            for c in (data[p + 5 + 2 * i] for i in range(ns)):
-                for k in range(ss, min(se, 9) + 1):
-                    bits[c][k] = a & 15
-            p += 2 + length
-        else:
-            p += 1
-    if any(b[0] < 0 for b in bits.values()):
-        return False
-    return any(any(x != 0 for x in b[1:]) for b in bits.values())
-
-
 def decode_both(data: bytes, path: Path):
     path.write_bytes(data)
     want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
@@ -83,8 +52,8 @@ def decode_both(data: bytes, path: Path):
     return want.shape == got.shape and bool((want == got).all())
 
 
-def truncation(step: int, path: Path) -> tuple[int, int, int, int]:
-    same = none = smoothed = other = 0
+def truncation(step: int, path: Path) -> tuple[int, int, int]:
+    same = none = other = 0
     for f in sorted(DATA.glob("jpeg_*.jpg")):
         data = f.read_bytes()
         first = data.index(b"\xff\xda")
@@ -94,12 +63,10 @@ def truncation(step: int, path: Path) -> tuple[int, int, int, int]:
                 same += 1
                 path.write_bytes(data[:cut])
                 none += cv2.imread(str(path), cv2.IMREAD_UNCHANGED) is None
-            elif smooths(data, cut):
-                smoothed += 1
             else:
                 other += 1
-                print(f"  differs without smoothing: {f.name} cut at {cut} of {len(data)}")
-    return same, none, smoothed, other
+                print(f"  differs: {f.name} cut at {cut} of {len(data)}")
+    return same, none, other
 
 
 def grey_jpeg(coefs: np.ndarray, q: np.ndarray, h: int, w: int) -> bytes:
@@ -138,11 +105,10 @@ def main() -> int:
     args = ap.parse_args()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "probe.jpg"
-        same, none, smoothed, other = truncation(args.step, path)
+        same, none, other = truncation(args.step, path)
         bad = random_blocks(args.random, path)
-    print(f"truncated fixtures: {same + smoothed + other} cuts, {same} equal to cv2.imread "
-          f"({none} of them no image on both sides), {smoothed} differ where libjpeg "
-          f"block-smooths, {other} differ elsewhere")
+    print(f"truncated fixtures: {same + other} cuts, {same} equal to cv2.imread "
+          f"({none} of them no image on both sides), {other} differ")
     print(f"random coefficients: {args.random} files, {bad} differ")
     return int(bool(other or bad))
 

@@ -116,6 +116,16 @@
 #   F49_finish_before_last_step on the graph path the finish graph is
 #                 replayed before the last step's replay (it decodes the
 #                 latent one step short; the latent itself ends right)
+#   F50_cmyk_no_k the JPEG decoder's CMYK->BGR conversion drops the K
+#                 term (each channel is its inverted sample)
+#   F51_bl2_blosclz_codec the .bl2 writer's blosclz chunks name LZ4 in their
+#                 header (their streams are blosclz)
+#   F52_smooth_complete the JPEG decoder block-smooths complete progressive
+#                 files too, estimating every zero coefficient 1-9
+#   F53_rle_delta_no_move the BMP decoder's RLE8 delta escape does not move
+#                 the cursor
+#   F54_verify_launch_count scripts/verify_checkpoint_torch.py prints one
+#                 conv3x3 launch more than its request made
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -155,8 +165,10 @@ run_fault() {  # name, then (file, sed expression) pairs
   if [ $check = 0 ]; then
     cp -r chip_smoke.py depth_completion_tpu_torch "$d"/
     rm -rf "$d/depth_completion_tpu_torch/_build"
-    mkdir -p "$d/tests/data"
+    mkdir -p "$d/tests/data" "$d/scripts"
     cp -r tests/data/torch_io "$d/tests/data/"  # the host IO phase's fixtures
+    # phase 3a's checkpoint writer and phase 3b's verifier
+    cp scripts/make_synthetic_checkpoint_torch.py scripts/verify_checkpoint_torch.py "$d/scripts/"
   fi
   while [ $# -gt 0 ]; do
     local before
@@ -276,4 +288,15 @@ run_fault F48_general_no_rescale $SAMPLER \
   's|g = g \* (eps_norm / torch.clamp(g_norm, min=EPSILON)).reshape(n, 1, 1, 1)|g = g|'
 run_fault F49_finish_before_last_step $SAMPLER \
   's|^            for k in ks:$|            if graph and name == "step":\n                ks, held = ks[:-1], ks[-1:]\n&|; s|^                (self.replay if graph else self.step_eager)(k, name)$|&\n            if graph and name == "finish":\n                for k in held:\n                    self.replay(k, "step")|'
+JPEG_DEC=depth_completion_tpu_torch/csrc/jpeg_decode.cpp
+run_fault F50_cmyk_no_k $JPEG_DEC \
+  's|k - (((255 - cc) \* k) >> 8)|cc|; s|k - (((255 - mm) \* k) >> 8)|mm|; s|k - (((255 - yy) \* k) >> 8)|yy|'
+run_fault F51_bl2_blosclz_codec depth_completion_tpu_torch/io/bl2.py \
+  's|WRITE_CODECS = {"blosclz": (0, 0),|WRITE_CODECS = {"blosclz": (1, 0),|'
+run_fault F52_smooth_complete $JPEG_DEC \
+  's|      if (c.bits\[k\] != 0) useful = true;|      useful = true;|; s|if (bits\[k\] != 0 \&\& ws\[pos\] == 0)|if (ws[pos] == 0)|'
+run_fault F53_rle_delta_no_move depth_completion_tpu_torch/io/bmp.py \
+  's|                skip = dx + dy \* w|                skip = 0|'
+run_fault F54_verify_launch_count scripts/verify_checkpoint_torch.py \
+  's|counts = {k: v for counter in COUNTERS|counts = {k: v + (k == "conv3x3") for counter in COUNTERS|'
 exit $status

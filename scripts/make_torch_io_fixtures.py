@@ -6,10 +6,12 @@ Writes small files (64x48 or smaller) under ``tests/data/torch_io/`` (or
 OUT_DIR), each beside its ``cv2.imread(path, IMREAD_UNCHANGED)`` decode as
 ``<name>.npy``: JPEG from cv2 and PIL (4:4:4, 4:2:2, 4:2:0 and 4:4:0,
 grey, restart markers, a ragged 53x37 frame, progressive, optimised
-tables, Adobe RGB), PNG at bit depths 1, 2 and 4 (grey and palette) and
-Adam7-interlaced PNG (written here: neither cv2 nor PIL writes one), GIF
-(global and local palettes, interlaced, transparent) and BMP (8-bit
-palette, grey palette, 24 and 32 bits, bottom-up and top-down). This needs
+tables, Adobe RGB, CMYK with and without Adobe's marker, YCCK, and
+progressive files cut after a few of their scans), PNG at bit depths 1, 2
+and 4 (grey and palette) and Adam7-interlaced PNG (written here: neither
+cv2 nor PIL writes one), GIF (global and local palettes, interlaced,
+transparent) and BMP (8-bit palette, grey palette, 24 and 32 bits,
+bottom-up and top-down; RLE8, RLE4 and 16-bit written here). This needs
 cv2 and PIL; the port never imports either: its tests and ``chip_smoke.py``
 hold its decoders to the recorded decodes.
 """
@@ -123,7 +125,7 @@ def jpeg_cases(out: Path) -> list[Path]:
 
     def pil(name, arr, **kw):
         p = out / f"{name}.jpg"
-        Image.fromarray(arr).save(p, "JPEG", **kw)
+        (arr if isinstance(arr, Image.Image) else Image.fromarray(arr)).save(p, "JPEG", **kw)
         paths.append(p)
 
     q = cv2.IMWRITE_JPEG_QUALITY
@@ -148,7 +150,38 @@ def jpeg_cases(out: Path) -> list[Path]:
     pil("jpeg_adobe_rgb", img, quality=90, keep_rgb=True, subsampling=0)
     # a tiny frame: one MCU, chroma narrower than the triangle filter needs
     cv("jpeg_3x2", np.ascontiguousarray(bgr[:2, :3]), q, 95)
+
+    # four components: PIL writes Adobe CMYK (stored inverted); the same
+    # file without its APP14 marker (plain CMYK), with the marker's
+    # transform set to 2 (YCCK: nothing here writes one, so its first three
+    # components are read as YCbCr), and progressive
+    cmyk = np.concatenate([255 - ragged, ragged.min(-1, keepdims=True)], -1)
+    pil("jpeg_cmyk_adobe", Image.fromarray(cmyk, "CMYK"), quality=90)
+    adobe = (out / "jpeg_cmyk_adobe.jpg").read_bytes()
+    i = adobe.index(b"\xff\xee")
+    end = i + 2 + int.from_bytes(adobe[i + 2: i + 4], "big")
+    raw(out, "jpeg_cmyk_no_adobe", adobe[:i] + adobe[end:], paths)
+    ycck = bytearray(adobe)
+    ycck[i + 15] = 2  # the transform byte of "Adobe" APP14
+    raw(out, "jpeg_ycck", bytes(ycck), paths)
+    pil("jpeg_cmyk_progressive", Image.fromarray(cmyk, "CMYK"), quality=85, progressive=True)
+
+    # progressive files cut after their 1st, 2nd and a middle scan, EOI
+    # appended: libjpeg block-smooths what the missing scans would refine
+    for name, src in (("jpeg_progressive", "colour"), ("jpeg_progressive_grey", "grey")):
+        data = (out / f"{name}.jpg").read_bytes()
+        sos = [k for k in range(len(data) - 1) if data[k: k + 2] == b"\xff\xda"]
+        for scans in (1, 2, len(sos) // 2):
+            raw(out, f"jpeg_progressive_{src}_{scans}_scans", data[: sos[scans]] + b"\xff\xd9",
+                paths)
     return paths
+
+
+def raw(out: Path, name: str, data: bytes, paths: list[Path]) -> None:
+    """Write ``data`` as ``<name>.jpg`` and list it."""
+    p = out / f"{name}.jpg"
+    p.write_bytes(data)
+    paths.append(p)
 
 
 def png_cases(out: Path) -> list[Path]:
@@ -273,7 +306,141 @@ def bmp_cases(out: Path) -> list[Path]:
         p.write_bytes(b"BM" + struct.pack("<IHHI", 54 + pix.size, 0, 0, 54) + info + pix.tobytes())
 
     add("bmp_24_top_down", top_down)
+
+    # RLE8 and RLE4 (neither cv2 nor PIL writes them): encoded and
+    # absolute runs, then the same with delta escapes, early ends of line
+    # and an early end of bitmap, whose skipped pixels cv2 fills with
+    # colour table entry 0
+    rng = np.random.default_rng(9)
+    idx = rle_scene(37, 53, rng)
+    pal = rng.integers(0, 256, (256, 3))
+    grey = np.repeat(np.arange(256)[:, None], 3, axis=1)
+    add("bmp_rle8", lambda p: write_rle_bmp(p, idx, pal, 8))
+    add("bmp_rle8_grey", lambda p: write_rle_bmp(p, idx, grey, 8))
+    add("bmp_rle8_skips", lambda p: write_rle_bmp(p, idx, pal, 8, skips=True))
+    add("bmp_rle4", lambda p: write_rle_bmp(p, idx % 16, pal[:16], 4))
+    add("bmp_rle4_skips", lambda p: write_rle_bmp(p, idx % 16, pal[:16], 4, skips=True))
+    # 16 bits: 5-5-5 as BI_RGB and as bitfields, 5-6-5 as bitfields
+    words = rng.integers(0, 1 << 16, (37, 53))
+    add("bmp_16_555", lambda p: write_bmp16(p, words & 0x7FFF, None))
+    add("bmp_16_555_bitfields", lambda p: write_bmp16(p, words & 0x7FFF, (0x7C00, 0x3E0, 0x1F)))
+    add("bmp_16_565_bitfields", lambda p: write_bmp16(p, words, (0xF800, 0x7E0, 0x1F)))
     return paths
+
+
+def rle_scene(h: int, w: int, rng: np.random.Generator) -> np.ndarray:
+    """Palette indices [h, w]: flat bands (encoded runs, some ending on a
+    row's last pixel, some 255 long over several rows' worth), alternating
+    pairs (RLE4's two-colour runs) and noise (absolute runs of odd and even
+    lengths)."""
+    idx = np.repeat(rng.integers(0, 256, (h, 1)), w, axis=1)
+    idx[:, w // 3: w // 2] = rng.integers(0, 256, (h, w // 2 - w // 3))
+    idx[::3, 5:11] = np.resize([7, 200], 6)
+    idx[1::4, -7:] = 3
+    idx[h // 2, :] = rng.integers(0, 256, w)
+    return idx.astype(np.uint8)
+
+
+def rle_row(row: np.ndarray, bpp: int) -> bytes:
+    """One row as RLE8 or RLE4 codes: runs of 3 or more (RLE4: of one
+    two-colour pattern) encoded, what lies between them absolute (at least
+    3 pixels, padded to 16 bits), shorter leftovers as short runs."""
+    out = bytearray()
+    n, i = len(row), 0
+
+    def run_at(j: int) -> int:
+        k = j + 1
+        while k < n and k - j < 255 and (row[k] == row[k - 2] if bpp == 4 and k - j >= 2
+                                           else row[k] == row[j] if bpp == 8 else True):
+            k += 1
+        return k - j
+
+    lit: list[int] = []
+
+    def flush() -> None:
+        j = 0
+        while len(lit) - j >= 3:
+            chunk = lit[j: j + 255]
+            if bpp == 8:
+                body = bytes(chunk) + bytes(len(chunk) % 2)
+            else:
+                nib = chunk + [0] * (len(chunk) % 2)
+                body = bytes((a << 4) | b for a, b in zip(nib[::2], nib[1::2]))
+                body += bytes(len(body) % 2)
+            out.extend([0, len(chunk)])
+            out.extend(body)
+            j += len(chunk)
+        for v in lit[j:]:  # 1 or 2 left: one-pixel runs
+            out.extend([1, v if bpp == 8 else v << 4])
+        lit.clear()
+
+    while i < n:
+        r = run_at(i)
+        if r >= 3:
+            flush()
+            code = row[i] if bpp == 8 else (row[i] << 4) | (row[i + 1] if r > 1 else 0)
+            out.extend([r, int(code)])
+            i += r
+        else:
+            lit.append(int(row[i]))
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def write_rle_bmp(path: Path, idx: np.ndarray, palette: np.ndarray, bpp: int,
+                  skips: bool = False) -> None:
+    """An RLE8 or RLE4 BMP of ``idx`` (rows stored bottom-up), each row
+    ended by an end of line and the bitmap by an end of bitmap. With
+    ``skips``: row 2 ends early, a delta of (3, 2) leaves row 4 (RLE8
+    lands in row 6; cv2's RLE4 ignores dy and stays in row 4), row 9 starts
+    with a delta of (5, 0), and the bitmap ends early: four rows early in
+    RLE8, a third into the last row in RLE4 (whose end of bitmap cv2 reads
+    as an end of line, so an earlier one would leave rows unread)."""
+    h, w = idx.shape
+    rows = idx[::-1]
+    body = bytearray()
+    y = 0
+    while y < h:
+        if skips and y == h - (4 if bpp == 8 else 1):
+            if bpp == 4:
+                body += rle_row(rows[y][: w // 3], bpp)
+            break
+        if skips and y == 2:
+            body += rle_row(rows[y][: w // 2], bpp) + b"\x00\x00"
+        elif skips and y == 4:  # left part, then a delta down 2 rows and 3 right
+            body += rle_row(rows[y][:10], bpp) + bytes([0, 2, 3, 2])
+            body += rle_row(rows[y + 2][13:], bpp) + b"\x00\x00"
+            y += 3 if bpp == 8 else 1
+            continue
+        elif skips and y == 9:
+            body += bytes([0, 2, 5, 0]) + rle_row(rows[y][5:], bpp) + b"\x00\x00"
+        else:
+            body += rle_row(rows[y], bpp) + b"\x00\x00"
+        y += 1
+    body += b"\x00\x01"
+    table = np.concatenate([palette[:, ::-1], np.zeros((len(palette), 1))], 1).astype(np.uint8)
+    offset = 54 + table.size
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, 1 if bpp == 8 else 2, len(body), 2835,
+                       2835, len(palette), 0)
+    path.write_bytes(b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info
+                     + table.tobytes() + bytes(body))
+
+
+def write_bmp16(path: Path, words: np.ndarray, masks: tuple[int, int, int] | None) -> None:
+    """A 16-bit BMP of ``words`` [h, w] (bottom-up): BI_RGB (5-5-5) when
+    ``masks`` is None, else BI_BITFIELDS with the red, green, blue masks
+    after the header."""
+    h, w = words.shape
+    stride = (2 * w + 3) & ~3
+    pix = np.zeros((h, stride), np.uint8)
+    pix[:, : 2 * w] = words[::-1].astype("<u2").view(np.uint8).reshape(h, -1)
+    extra = b"" if masks is None else struct.pack("<III", *masks)
+    offset = 54 + len(extra)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 16, 0 if masks is None else 3, pix.size,
+                       2835, 2835, 0, 0)
+    path.write_bytes(b"BM" + struct.pack("<IHHI", offset + pix.size, 0, 0, offset) + info
+                     + extra + pix.tobytes())
 
 
 def main(out: Path = OUT) -> None:

@@ -5,8 +5,10 @@ exactly for every codec, shuffle mode and clevel, blosc2 extended,
 memcpyed and special-value chunks, dictionary and filter refusals; frames
 bit-identical both ways (JAX ``save_bl2`` → port, port → JAX
 ``load_bl2``) over dtypes and 0-d, empty and multi-chunk shapes, the
-port's default writer byte-identical to JAX's; LZ4 frames; the codecs'
-``.bl2`` path; a missing libzstd raises naming it.
+port's default writer byte-identical to JAX's; every codec the JAX writer
+takes (blosclz, lz4, lz4hc, zlib, zstd) at clevel 0, 1, 5 and 9 read both
+ways, each file within 1.15x of the JAX writer's size at clevel 1-9; the
+codecs' ``.bl2`` path; a missing libzstd raises naming it.
 """
 
 import struct
@@ -154,9 +156,73 @@ def test_multichunk_and_lz4_frames(tmp_path):
     assert not bl2.chunk_info(raw[94:110])["flags"] & bl2.FLAG_DONT_SPLIT
     assert len(raw) < smooth.nbytes // 4
     np.testing.assert_array_equal(jbl2.load_bl2(p), smooth)
-    for codec in ("blosclz", "zlib", "lz4hc"):
-        with pytest.raises(ValueError, match=f"not '{codec}'"):
-            bl2.save_bl2(smooth, tmp_path / "x.bl2", codec=codec)
+    with pytest.raises(ValueError, match="not 'snappy'"):
+        bl2.save_bl2(smooth, tmp_path / "x.bl2", codec="snappy")
+    for clevel in (-1, 10):
+        with pytest.raises(ValueError, match=f"clevel {clevel} is not in 0-9"):
+            bl2.save_bl2(smooth, tmp_path / "x.bl2", clevel=clevel, codec="lz4")
+
+
+WRITE_CODECS = ["blosclz", "lz4", "lz4hc", "zlib", "zstd"]
+
+
+def dense_map(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """A smooth dense depth map [h, w, 1] in metres: a sum of seeded
+    low-frequency waves over a slanted floor, as the pipeline's maps are."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    depth = 5.0 + 40.0 * yy / h
+    for _ in range(6):
+        fy, fx = rng.uniform(0.2, 3.0, 2) * 2 * np.pi / np.array([h, w])
+        depth += rng.uniform(0.5, 4.0) * np.sin(fy * yy + fx * xx + rng.uniform(0, 2 * np.pi))
+    return depth.astype(np.float32)[..., None]
+
+
+@pytest.mark.parametrize("clevel", [0, 1, 5, 9])
+@pytest.mark.parametrize("codec", WRITE_CODECS)
+def test_every_codec_and_clevel_both_ways(tmp_path, codec, clevel):
+    """The port's file for each codec and clevel is read bit-exact by the
+    JAX reader (libblosc1) and the port's; the JAX writer's file for the
+    same codec and clevel by the port's. clevel 0 writes memcpyed chunks,
+    as c-blosc does."""
+    port, jax = tmp_path / "port.bl2", tmp_path / "jax.bl2"
+    for name in ("f32-depth", "u16", "incompressible", "0-d"):
+        x = FRAME_ARRAYS[name]
+        bl2.save_bl2(x, port, clevel=clevel, codec=codec)
+        jbl2.save_bl2(x, jax, clevel=clevel, codec=codec)
+        for got in (jbl2.load_bl2(port), bl2.load_bl2(port), bl2.load_bl2(jax)):
+            assert got.dtype == x.dtype and got.shape == x.shape, (name, got.shape)
+            np.testing.assert_array_equal(got, x, err_msg=name)
+        if clevel == 0:
+            assert bl2.chunk_info(port.read_bytes()[94:110])["flags"] & bl2.FLAG_MEMCPYED
+    # several chunks, and blocks split into streams (the codecs but zstd)
+    x = dense_map(64, 96, seed=1)
+    bl2.save_bl2(x, port, clevel=clevel, codec=codec, chunksize=1 << 13)
+    np.testing.assert_array_equal(jbl2.load_bl2(port), x)
+    np.testing.assert_array_equal(bl2.load_bl2(port), x)
+
+
+@pytest.mark.parametrize("codec", WRITE_CODECS)
+def test_writer_size_within_bound_of_jax(tmp_path, codec):
+    """At every clevel from 1 to 9 the port's file of a smooth dense depth
+    map is at most 1.15x the JAX writer's (c-blosc 1.21) for the same codec
+    and clevel: its encoders compress. The JAX reader reads each file
+    bit-exact. zstd and zlib give c-blosc's bytes, so their files are the
+    same size; every chunk header carries c-blosc's block size and split
+    flag."""
+    x = dense_map(192, 256)
+    for clevel in range(1, 10):
+        port, jax = tmp_path / f"port{clevel}.bl2", tmp_path / f"jax{clevel}.bl2"
+        bl2.save_bl2(x, port, clevel=clevel, codec=codec)
+        jbl2.save_bl2(x, jax, clevel=clevel, codec=codec)
+        np.testing.assert_array_equal(jbl2.load_bl2(port), x)  # every clevel read by JAX
+        size, ref = port.stat().st_size, jax.stat().st_size
+        assert size <= 1.15 * ref, (clevel, size, ref)
+        assert size < 0.8 * x.nbytes, (clevel, size)
+        if codec in ("zstd", "zlib"):
+            assert size == ref, (clevel, size, ref)
+        mine, theirs = (bl2.chunk_info(p.read_bytes()[94:110]) for p in (port, jax))
+        assert (mine["blocksize"], mine["flags"]) == (theirs["blocksize"], theirs["flags"]), clevel
 
 
 def test_frame_errors(tmp_path):

@@ -278,6 +278,28 @@ def test_real_transformers_text_model_loads_and_agrees():
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
 
 
+def test_synthetic_text_tower_inventory_matches_transformers():
+    """``scripts/make_synthetic_checkpoint_torch.py``'s text tower (the JAX
+    script takes it from ``transformers`` itself): at SD2 geometry its keys
+    and shapes are those of a ``transformers.CLIPTextModel`` built on the
+    meta device, without its ``position_ids`` buffer."""
+    transformers = pytest.importorskip("transformers")
+    from scripts import make_synthetic_checkpoint_torch as synth
+
+    cfg = registry.text_config_from_transformers(synth.TEXT_ENCODER_CONFIG_JSON)
+    assert cfg == registry.SD2_TEXT_CONFIG
+    hf_cfg = transformers.CLIPTextConfig(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+        num_hidden_layers=cfg.num_layers, num_attention_heads=cfg.num_heads,
+        intermediate_size=cfg.intermediate_size,
+        max_position_embeddings=cfg.max_position_embeddings, hidden_act=cfg.hidden_act)
+    with torch.device("meta"):
+        model = transformers.CLIPTextModel(hf_cfg)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if not k.endswith("position_ids")}
+    assert synth.inventory("text_encoder", synth.TEXT_ENCODER_CONFIG_JSON) == want
+
+
 SD2_TEXT_CONFIG_JSON = {  # transformers' CLIPTextConfig of SD2's OpenCLIP-ViT/H tower
     "architectures": ["CLIPTextModel"], "hidden_act": "gelu", "hidden_size": 1024,
     "intermediate_size": 4096, "layer_norm_eps": 1e-05, "max_position_embeddings": 77,

@@ -3,8 +3,10 @@ none of the packages the card's machine lacks (safetensors, transformers,
 click, cv2, tqdm, matplotlib, PIL, blosc2, ml_dtypes, loguru); nor does it
 name the JAX package's native codec (``native/``, ``dcz_codec.so``) or the
 system c-blosc library the JAX package's ``.bl2`` codec loads. The tests'
-rank workers (``tests/torch_*_worker.py``, run in spawned processes) are
-held to the same rules."""
+rank workers (``tests/torch_*_worker.py``, run in spawned processes) and
+the port's scripts (the serving bench, the profiler, the kernel A/B, the
+synthetic-checkpoint writer and the checkpoint verifier) are held to the
+same rules."""
 
 import ast
 import glob
@@ -20,6 +22,9 @@ SMOKE = os.path.join(REPO, "chip_smoke.py")
 PROFILE = os.path.join(REPO, "scripts", "profile_torch_step.py")
 KERNEL_AB = os.path.join(REPO, "scripts", "kernel_ab.py")
 BENCH_SERVE = os.path.join(REPO, "scripts", "bench_serve_torch.py")
+SYNTH_CHECKPOINT = os.path.join(REPO, "scripts", "make_synthetic_checkpoint_torch.py")
+VERIFY_CHECKPOINT = os.path.join(REPO, "scripts", "verify_checkpoint_torch.py")
+SCRIPTS = [PROFILE, KERNEL_AB, BENCH_SERVE, SYNTH_CHECKPOINT, VERIFY_CHECKPOINT]
 FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu", "safetensors", "transformers",
              "click", "cv2", "tqdm", "matplotlib", "PIL", "blosc2", "ml_dtypes", "loguru")
 
@@ -28,7 +33,7 @@ WORKERS = sorted(glob.glob(os.path.join(REPO, "tests", "torch_*_worker.py")))
 
 
 def _port_files(exts=(".py",)):
-    out = [SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE, *WORKERS]
+    out = [SMOKE, *SCRIPTS, *WORKERS]
     for root, dirs, names in os.walk(PORT):
         dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
         out.extend(os.path.join(root, n) for n in names if n.endswith(exts))
@@ -93,7 +98,9 @@ def test_import_leaves_jax_unloaded():
         "depth_completion_tpu_torch.parallel.ensemble, depth_completion_tpu_torch.serving, "
         "depth_completion_tpu_torch.core.mesh, depth_completion_tpu_torch.parallel.sharding, "
         "tests.torch_parallel_worker, tests.torch_ring_worker, "
-        "depth_completion_tpu_torch.serving.server, depth_completion_tpu_torch.cli.serve; "
+        "depth_completion_tpu_torch.serving.server, depth_completion_tpu_torch.cli.serve, "
+        "scripts.make_synthetic_checkpoint_torch, scripts.verify_checkpoint_torch, "
+        "scripts.bench_serve_torch; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -104,6 +111,6 @@ def test_import_leaves_jax_unloaded():
 
 
 def test_quality_gates_clean():
-    targets = [PORT, SMOKE, PROFILE, KERNEL_AB, BENCH_SERVE, *WORKERS]
+    targets = [PORT, SMOKE, *SCRIPTS, *WORKERS]
     assert _undefined_names(targets) == []
     assert _ast_lint(targets) == []

@@ -1,13 +1,15 @@
 """The port's image decoders against OpenCV: every committed fixture under
 ``tests/data/torch_io/`` (written by ``scripts/make_torch_io_fixtures.py``:
 JPEG in each sampling, grey, with restart markers, ragged, progressive with
-successive approximation, Adobe RGB; PNG at bit depths 1, 2 and 4 and
-Adam7-interlaced; GIF; BMP) decodes bit-exact to the cv2 decode recorded
-beside it and to a live ``cv2.imread``; ``load_img_array`` equals the JAX
-package's for every mode; full-size JPEG frames decode bit-exact; the
-refused JPEG variants raise naming what they are; a truncated JPEG decodes
-as cv2.imread decodes it; corrupt Huffman tables are refused as cv2 refuses
-them.
+successive approximation, Adobe RGB, CMYK and YCCK, progressive files cut
+after a few scans; PNG at bit depths 1, 2 and 4 and Adam7-interlaced; GIF;
+BMP uncompressed, RLE8, RLE4 and 16-bit) decodes bit-exact to the cv2
+decode recorded beside it and to a live ``cv2.imread``; ``load_img_array``
+equals the JAX package's for every mode; full-size JPEG frames decode
+bit-exact; the refused JPEG variants raise naming what they are; a
+truncated JPEG decodes as cv2.imread decodes it, a progressive one cut
+inside any scan with libjpeg's block smoothing; corrupt Huffman tables and
+bad RLE BMPs are refused as cv2 refuses them.
 """
 
 import io
@@ -42,7 +44,11 @@ def test_fixtures_cover_every_kind():
     for needed in ("jpeg_444", "jpeg_422", "jpeg_420", "jpeg_440", "jpeg_grey", "jpeg_restart",
                    "jpeg_53x37_420", "jpeg_progressive", "jpeg_adobe_rgb", "png_grey1",
                    "png_palette2", "png_grey4_adam7", "png_rgb8_adam7", "png_grey16_adam7",
-                   "bmp_8_palette", "bmp_24", "bmp_32", "gif_interlaced", "gif_local_table"):
+                   "bmp_8_palette", "bmp_24", "bmp_32", "gif_interlaced", "gif_local_table",
+                   "jpeg_cmyk_adobe", "jpeg_cmyk_no_adobe", "jpeg_ycck", "jpeg_cmyk_progressive",
+                   "jpeg_progressive_colour_1_scans", "jpeg_progressive_grey_2_scans",
+                   "bmp_rle8", "bmp_rle8_skips", "bmp_rle4", "bmp_rle4_skips", "bmp_16_555",
+                   "bmp_16_565_bitfields"):
         assert any(n.startswith(needed + ".") for n in FIXTURES), needed
     # the PIL progressive file refines with successive approximation
     data = (DATA / "jpeg_progressive.jpg").read_bytes()
@@ -102,9 +108,13 @@ def test_jpeg_input_raises(tmp_path):
     }
     i = base.index(b"\xff\xc0") + 4
     cases["12-bit"] = (base[:i] + b"\x0c" + base[i + 1:], r"12-bit JPEG \(SOF0\)")
+    # CMYK decodes since the 4-component fixtures; a component count
+    # outside 1, 3 and 4 still raises
     cmyk = io.BytesIO()
     Image.fromarray(np.full((8, 8, 4), 60, np.uint8), "CMYK").save(cmyk, "JPEG")
-    cases["CMYK"] = (cmyk.getvalue(), "JPEG with 4 components")
+    i = cmyk.getvalue().index(b"\xff\xc0") + 9
+    cases["2 components"] = (cmyk.getvalue()[:i] + b"\x02" + cmyk.getvalue()[i + 1:],
+                             "JPEG with 2 components")
     for name, (data, match) in cases.items():
         with pytest.raises(UnsupportedImage, match=match):
             jpeg.decode_jpeg(data, name)
@@ -149,9 +159,8 @@ def test_truncated_jpeg_decodes_as_cv2(tmp_path, name):
     zero bits where a scan runs out, and leaves the later blocks grey. The
     block where the bits ran out holds coefficients no encoder writes, so
     this also holds the IDCT's 16-bit lanes to libjpeg-turbo's. For a
-    progressive file the cuts lie in its last scan: a cut before it makes
-    libjpeg smooth the blocks, which the port does not (the same shape,
-    other samples)."""
+    progressive file the cuts lie in its last scan, and one more inside its
+    third, where libjpeg smooths the blocks."""
     data = (DATA / name).read_bytes()
     first = _sos_offsets(data)[-1 if "progressive" in name else 0]
     span = len(data) - first
@@ -168,7 +177,59 @@ def test_truncated_jpeg_decodes_as_cv2(tmp_path, name):
     if "progressive" in name:
         cut = data[: _sos_offsets(data)[2] + 40]
         path.write_bytes(cut)
-        assert jpeg.decode_jpeg(cut).shape == cv2.imread(str(path), cv2.IMREAD_UNCHANGED).shape
+        np.testing.assert_array_equal(jpeg.decode_jpeg(cut),
+                                      cv2.imread(str(path), cv2.IMREAD_UNCHANGED))
+
+
+@pytest.mark.parametrize("name", ["jpeg_progressive.jpg", "jpeg_progressive_grey.jpg",
+                                  "jpeg_progressive_444.jpg", "jpeg_cmyk_progressive.jpg"])
+def test_progressive_cut_inside_each_scan_is_smoothed_as_cv2(tmp_path, name):
+    """A progressive file cut inside any of its scans decodes as
+    cv2.imread decodes it: libjpeg block-smooths the coefficients the
+    later scans would refine, and the rows past the one where the cut
+    scan's data ran out with the progression status from before that scan
+    (the first scan's rows past it as the rest of that scan)."""
+    data = (DATA / name).read_bytes()
+    sos = _sos_offsets(data)
+    path = tmp_path / name
+    for k, start in enumerate(sos):
+        end = sos[k + 1] if k + 1 < len(sos) else len(data) - 2
+        for frac in (0.2, 0.5, 0.8):
+            cut = data[: start + int((end - start) * frac)]
+            path.write_bytes(cut)
+            want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+            if want is None:  # cut inside the scan header
+                continue
+            np.testing.assert_array_equal(jpeg.decode_jpeg(cut), want,
+                                          err_msg=f"scan {k}, {frac}")
+
+
+def test_cmyk_conversion_uses_every_channel():
+    """The 4-component fixtures are not degenerate: the CMYK decode has
+    many colours, and the YCCK file (the same data, read as YCbCr + K)
+    decodes to other pixels than the CMYK one."""
+    cmyk = np.load(DATA / "jpeg_cmyk_adobe.npy")
+    ycck = np.load(DATA / "jpeg_ycck.npy")
+    assert cmyk.shape == ycck.shape == (37, 53, 3)
+    assert (cmyk != ycck).mean() > 0.5
+    assert len(np.unique(cmyk.reshape(-1, 3), axis=0)) > 100
+
+
+def test_bad_rle_bmp_is_refused_as_cv2_refuses_it(tmp_path):
+    """An RLE8 run past its row's end and RLE data that ends before the
+    bitmap's last row make cv2.imread give None; the port raises
+    ``ValueError`` for each and ``load_img_array`` gives None."""
+    data = (DATA / "bmp_rle8.bmp").read_bytes()
+    offset = int.from_bytes(data[10:14], "little")
+    cases = {"past_row": data[:offset] + bytes([60, 1]) + data[offset:],
+             "truncated": data[: offset + (len(data) - offset) // 2]}
+    for label, bad in cases.items():
+        p = tmp_path / f"{label}.bmp"
+        p.write_bytes(bad)
+        assert cv2.imread(str(p), cv2.IMREAD_UNCHANGED) is None, label
+        with pytest.raises(ValueError, match="RLE"):
+            image.decode_image(bad, p.name)
+        assert image.load_img_array(p) is None, label
 
 
 def _with_dht(data: bytes, **tables) -> bytes:
@@ -206,9 +267,24 @@ def test_bad_huffman_table_is_refused(tmp_path, case):
 
 
 def test_compressed_bmp_raises(tmp_path):
+    """A BMP holding a JPEG or a PNG raises ``UnsupportedImage`` naming its
+    compression (RLE8 and RLE4 decode since their fixtures); uncompressed
+    pixels relabelled RLE8 are walked as RLE8 codes, as cv2 walks them:
+    both refuse the file, or both give the same pixels."""
     data = bytearray((DATA / "bmp_8_grey.bmp").read_bytes())
+    for comp in (4, 5):
+        data[30] = comp  # BI_JPEG, BI_PNG
+        p = tmp_path / f"c{comp}.bmp"
+        p.write_bytes(bytes(data))
+        with pytest.raises(UnsupportedImage, match=f"c{comp}.bmp: BMP compression {comp} at 8 bits"):
+            image.load_img_array(p)
     data[30] = 1  # BI_RLE8
     p = tmp_path / "rle.bmp"
     p.write_bytes(bytes(data))
-    with pytest.raises(UnsupportedImage, match="rle.bmp: BMP compression 1 at 8 bits"):
-        image.load_img_array(p)
+    want = cv2.imread(str(p), cv2.IMREAD_UNCHANGED)
+    if want is None:
+        assert image.load_img_array(p) is None
+        with pytest.raises(ValueError):
+            image.decode_image(bytes(data), "rle.bmp")
+    else:
+        np.testing.assert_array_equal(image.decode_image(bytes(data), "rle.bmp"), want)

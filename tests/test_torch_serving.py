@@ -747,6 +747,75 @@ def test_serve_bad_options_fail_on_both_sides(argv):
     assert e.value.code == 2
 
 
+def _help(parser, flag: str) -> str:
+    return next(a.help for a in parser._actions if flag in a.option_strings)
+
+
+def _click_help(command, flag: str) -> str:
+    return next(p.help for p in command.params if flag in p.opts)
+
+
+# flag → words its help must hold; the working flags must not call
+# themselves no-ops, the others must say they are and why
+HELP_PINS = {
+    ("serve", "--warmup-tiered"): ("Serve first", "eager twin", "tier 0", "capture each",
+                                  "between batches", "promoted"),
+    ("serve", "--max-programs"): ("Bound the number of live captured", "least-recently-used",
+                                  "evicted", "Default: unbounded (batch-job behavior)"),
+    ("predict", "--compile-graph"): ("a no-op: every request already runs as", "CUDA graphs"),
+    ("serve", "--warmup-parallel"): ("a no-op: the warmup runs its signatures",),
+    ("serve", "--tier-effort"): ("a no-op: tier 0 is the eager twin",),
+    ("predict", "--compile-mode"): ("a no-op: there is no compiler",),
+    ("predict", "--compile-effort"): ("a no-op: capture has no effort level",),
+}
+
+
+@pytest.mark.parametrize("cli,flag", sorted(HELP_PINS), ids=lambda x: x)
+def test_cli_help_says_what_each_flag_does(cli, flag):
+    """The CLIs' help: --warmup-tiered and --max-programs say what they do
+    (worded after the JAX serve CLI's help, whose key phrases they share),
+    --compile-graph that the step is always captured, and the flags that do
+    nothing on the card that they are no-ops and why."""
+    from depth_completion_tpu.cli import predict as j_predict
+    from depth_completion_tpu_torch.cli import predict
+
+    port, jax_cli = {"serve": (serve, j_serve), "predict": (predict, j_predict)}[cli]
+    text = _help(port.build_parser(), flag)
+    for words in HELP_PINS[(cli, flag)]:
+        assert words in text, (flag, words, text)
+    if flag in ("--warmup-tiered", "--max-programs"):
+        assert "no-op" not in text and "not ported" not in text
+        shared = {"--warmup-tiered": "Serve first", "--max-programs": "Default: unbounded"}[flag]
+        assert shared in _click_help(jax_cli.main, flag)
+    else:
+        assert "no-op" in text
+
+
+def test_bench_serve_honours_max_programs_and_tiers():
+    """``scripts/bench_serve_torch.py``'s CPU smoke (tiny model): with
+    SB_MAX_PROGRAMS=1 the pipeline keeps one program where two geometries,
+    two buckets and the carry would keep more; with SB_TIERED=1 the script
+    waits until every warmed signature is promoted and reports ``tiered``,
+    ``promote_s`` and ``tier_promoted``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, SB_DEVICE="cpu", DCT_RANDOM_MODEL_SIZE="tiny", SB_RES="64",
+               SB_GEOMETRY="48x64,64x48", SB_REQUESTS="4", SB_CLIENTS="2", SB_STEPS="1",
+               SB_MAX_BATCH="2", SB_MAX_PROGRAMS="1", SB_TIERED="1", OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, str(repo / "scripts" / "bench_serve_torch.py")],
+                          cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["pipe_programs"] == 1 and out["requests"] == 4
+    assert out["tiered"] is True and out["promote_s"] > 0
+    promoted, warmed = map(int, out["tier_promoted"].split("/"))
+    assert promoted == warmed == 4  # 2 geometries x buckets 1 and 2
+
+
 def test_serve_cli_runs_and_refuses(monkeypatch):
     """run_serve on the CPU with the tiny random model warms 48x64 (buckets
     1 and 4, the carry) and answers over HTTP, logging the XLA flags as
