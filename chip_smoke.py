@@ -118,7 +118,19 @@
    against the whole UNet (``REF_LIMITS``) and an ensemble over a data axis
    of 2 (its rows exact), and what NCCL says to two ranks on one card;
    ``--only-distributed`` runs phases 3a, 3 (TAESD), 4 and 7 alone;
-8. prints ``{"probes": [...]}`` (each probe's readings and verdict),
+8. runs the configuration drivers (``drivers_phase``), each as a user
+   runs it, at a reduced size and all at once: ``scripts/
+   bench_nativeres_torch.py`` (kitti-768, kitti-native: one flash call
+   over S=6688, kitti-native-ring1), ``frontier_torch.py`` (full-50,
+   fast-50, lcm-4, ddim-10), ``bench_kitti_torch.py`` (the predict CLI
+   over two KITTI frames, an E=2 ensemble) and ``bench_scaling_torch.py``
+   (the n = 1 rows under torchrun): every row names the card, its launches
+   equal ``expected_launches``, kitti-native-ring1 against kitti-native in
+   process, the frontier's reference and drift recomputed from its maps,
+   bench_kitti's frames/s from its parsed times and its maps, the scaling
+   rows' times against the same request timed here; ``--only-drivers``
+   runs phase 8 alone;
+9. prints ``{"probes": [...]}`` (each probe's readings and verdict),
    ``{"composites": [...]}`` (the ring's passes: their times, errors
    and bound, and the ring step launches on the native path),
    ``{"graphs": {...}}`` (phase 3's (a)-(d) per path, the card),
@@ -135,7 +147,8 @@
    p95 latency, s/step at batch 1 and 4, the device gap between batches,
    peak GiB, the step programs, the tiers' calls and promotion times, the
    card), ``{"distributed": {...}}`` (phase 7's readings, the card),
-   ``{"kernels": [...]}`` (one entry per CUDA
+   ``{"drivers": {...}}`` (phase 8: each driver's rows, (c)'s errors, the
+   phase's seconds), ``{"kernels": [...]}`` (one entry per CUDA
    kernel, its launches over phases 3, 6 and 7 (a), replays included; a probe kernel's
    launches are its probe's, and every guided path must launch it 0
    times) and, last,
@@ -3730,6 +3743,232 @@ def distributed_cards(model_dir: Path, taesd_dir: Path, root: Path, base: list[s
     return line
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the configuration drivers (scripts/*_torch.py), as a user runs them
+# ---------------------------------------------------------------------------
+
+SCRIPTS = Path(__file__).resolve().parent / "scripts"
+# each driver at a reduced size: (script, its env)
+DRIVERS = {
+    "nativeres": ("bench_nativeres_torch.py", {"NR_BATCH": "1", "NR_STEPS": "2"}),
+    "frontier": ("frontier_torch.py", {"FRONTIER_BATCH": "1", "FRONTIER_REF_STEPS": "2",
+                                       "FRONTIER_MODES": "full-50,fast-50,lcm-4,ddim-10"}),
+    "kitti": ("bench_kitti_torch.py", {"KB_FRAMES": "2", "KB_ENSEMBLE": "2", "KB_STEPS": "2"}),
+    "scaling": ("bench_scaling_torch.py", {"BENCH_FULL": "1", "BENCH_STEPS": "2"}),
+}
+DRIVERS_TIMEOUT_S = 300
+# expected_launches' mode of each frontier mode
+FRONTIER_LAUNCH_MODES = {"full-50": "per-step", "fast-50": "fast_guidance", "lcm-4": "forward",
+                         "lcm-8": "forward", "ddim-25": "per-step", "ddim-10": "per-step"}
+# (c): kitti-native-ring1 against kitti-native on the same frames (2 steps,
+# batch 1), (rms, max) of the dense maps' difference over the 120 m range.
+# At P=1 the ring's forward is the flash forward kernel itself (one visiting
+# block, no state); its backward is the ring step kernel (dq and dk|dv added
+# in fp32 in place) where kitti-native runs flash_bwd (dq by atomics), and
+# stage 2 and the mid block take the ring where kitti-native runs the plain
+# attention. So the sound difference is systematic: rms 3.65e-5 to 3.70e-5,
+# max 5.65e-4 to 6.87e-4 over twelve runs (NVIDIA H100 80GB HBM3, 700 W). At
+# random weights the near-uniform softmax passes little gradient through the
+# attention, and Adam's first steps move each element by about lr whatever
+# the gradient's size, so a backward fault moves the maps little
+# (scripts/ring1_sensitivity_torch.py): the ring's log-sum-exp saved in nats
+# (F56, p off by 2^(0.31 lse2)) reads rms 1.28e-4, max 1.43e-3 to 1.54e-3;
+# dk and dv swapped in the ring's backward 4.35e-5, 6.5e-4, which (c) cannot
+# see (PERF.md, Findings). The limits sit 1.9x / 1.7x above the sound
+# readings and 1.8x / 1.2x below F56's.
+RING1_LIMITS = (7e-5, 1.2e-3)
+# (f): a scaling row's request can take no less than this share of the same
+# request timed here, alone on the card (the mean of three by the wall clock)
+SCALING_TIME_SHARE = 0.5
+
+
+def _driver_rows(stdout: str) -> list[dict]:
+    return [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+
+
+def _want_launches(got: dict, latent_hw, steps: int, **kwargs) -> dict:
+    """``expected_launches`` of a bench-bundle request (Marigold UNet,
+    TAESD) on the kernels a driver row counts; every other kernel must be
+    0."""
+    want = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                             tuple(latent_hw), steps, **kwargs)
+    if any(n for k, n in want.items() if k not in got):
+        raise AssertionError(f"a row counts {sorted(got)}, the request launches {want}")
+    return {k: want[k] for k in got}
+
+
+def drivers_phase(root: Path) -> dict:
+    """Phase 8: the four configuration drivers, each as a user runs it
+    (``python3 scripts/<driver>.py`` with its env, ``DRIVERS``), at once, each
+    in a session of its own (past ``DRIVERS_TIMEOUT_S`` every process of it
+    is killed); meanwhile (c) in process. (a) each exits 0 and prints
+    parseable rows naming this card and its power limit; (b) each row's
+    kernel launches (one timed request; bench_kitti: per batch of the CLI's
+    run, the run's count a whole multiple) equal ``expected_launches`` of its
+    mode, steps and latent (remat as the row reports it); (c) on the same
+    frames, through ``bench_nativeres_torch.run_mode``, the dense maps of
+    kitti-native-ring1 against kitti-native (``RING1_LIMITS``); (d) the
+    frontier's full-50 is its reference and no other row is, every other
+    row's drift finite and above 0, and every row's anchor MAE and drift
+    equal to those recomputed here from the maps it saved; (e) bench_kitti's
+    frames/s equals KB_BATCH over the steady ``time/infer`` (the fastest
+    after the first) of the list it parsed, and it checked one map per frame
+    (each finite and (352, 1216, 1), or it exits non-zero); (f) bench_scaling prints the n = 1 data-parallel
+    row with scaling_efficiency 1.0 and the n = 1 ring row, and each row's
+    request takes at least ``SCALING_TIME_SHARE`` of the same request timed
+    here (the mean of three, by the wall clock up to their maps' copy).
+    → the ``drivers`` line."""
+    from scripts import bench_nativeres_torch as nativeres
+    from scripts import bench_scaling_torch as scaling
+    from scripts import drivers_torch
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.endswith("_DEVICE")}
+    extra = {"frontier": {"FRONTIER_SAVE": str(root / "frontier")}}
+    procs, logs = {}, {}
+    try:
+        for name, (script, knobs) in DRIVERS.items():
+            logs[name] = (root / f"{name}.out", root / f"{name}.err")
+            with open(logs[name][0], "w") as out, open(logs[name][1], "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(SCRIPTS / script)], stdout=out, stderr=err,
+                    env={**env, **knobs, **extra.get(name, {})}, start_new_session=True,
+                    cwd=SCRIPTS.parent)
+            print(f"drivers: {script} with {' '.join(f'{k}={v}' for k, v in knobs.items())}")
+
+        # (c) in process while the drivers run
+        bundle = drivers_torch.bench_bundle(DEV)
+        images, sparse = drivers_torch.synthetic_frames(1, *nativeres.FRAME, nativeres.POINTS)
+        modes = nativeres.make_modes(2)
+        ring1 = {}
+        for mode in ("kitti-native", "kitti-native-ring1"):
+            row, ring1[mode] = nativeres.run_mode(DepthCompletionPipeline(bundle), modes[mode],
+                                                  images, sparse, 1)
+            print(f"  (c) {mode}: {row['frames_per_sec_per_chip']:.3f} frames/s, launches "
+                  f"{row['launches']}")
+        rms, worst = _range_errors([ring1["kitti-native-ring1"]], [ring1["kitti-native"]])
+        check("drivers (c) kitti-native-ring1 vs kitti-native (rms)", rms, RING1_LIMITS[0],
+              "rms/120 m")
+        check("drivers (c) kitti-native-ring1 vs kitti-native (max)", worst, RING1_LIMITS[1],
+              "max/120 m")
+
+        deadline = time.monotonic() + DRIVERS_TIMEOUT_S
+        outputs = {}
+        for name, proc in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"drivers: {name} did not finish in {DRIVERS_TIMEOUT_S} s")
+            out, err = (p.read_text() for p in logs[name])
+            print(f"  (a) {DRIVERS[name][0]}: rc {rc} after "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+            if rc != 0:
+                raise AssertionError(f"drivers: {name} exited {rc}:\n{err[-3000:]}")
+            outputs[name] = _driver_rows(out)
+    finally:  # none outlives the phase, also when one fails
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+    # (a) rows that name this card
+    the_card = card()
+    for name, rows in outputs.items():
+        if not rows or any(r.get("card") != the_card for r in rows):
+            raise AssertionError(f"drivers (a): {name}'s rows {rows} do not name {the_card}")
+    nr, fr, (kb,), sc = (outputs[k] for k in DRIVERS)
+
+    # (b) launches against expected_launches
+    def hold(label: str, got: dict, want: dict) -> None:
+        print(f"  (b) {label}: launches {got}")
+        if got != want:
+            raise AssertionError(f"drivers (b) {label}: launches {got} != {want}")
+
+    if [r["mode"] for r in nr] != list(nativeres.make_modes(2)):
+        raise AssertionError(f"drivers: bench_nativeres ran {[r['mode'] for r in nr]}")
+    for r in nr:
+        hold(f"nativeres {r['mode']}", r["launches"], _want_launches(
+            r["launches"], r["latent_hw"], r["steps"], remat=r["remat"],
+            ring_size=1 if r["mode"].endswith("ring1") else None))
+    for r in fr:
+        hold(f"frontier {r['mode']}", r["launches"], _want_launches(
+            r["launches"], r["latent_hw"], r["steps"], remat=r["remat"],
+            mode=FRONTIER_LAUNCH_MODES[r["mode"]]))
+    kb_hw = latent_size(KITTI_FRAME, kb["resolution"],
+                        2 ** (len(registry.TAESD_CONFIG.encoder_blocks) - 1))
+    hold("kitti (per batch)", kb["launches"], _want_launches(kb["launches"], kb_hw, kb["steps"]))
+    for r in sc:
+        hold(f"scaling {r.get('mode', 'dp')} n={r['devices']}", r["launches"], _want_launches(
+            r["launches"], r["latent_hw"], r["steps"], ring_size=r.get("ring_size")))
+
+    # (d) the frontier's reference and drift, recomputed from its maps
+    refs = [r["mode"] for r in fr if r.get("is_reference")]
+    if refs != ["full-50"]:
+        raise AssertionError(f"drivers (d): the frontier's references are {refs}")
+    saved = {r["mode"]: np.load(root / "frontier" / f"{r['mode']}.npy") for r in fr}
+    sp = np.load(root / "frontier" / "sparse.npy")
+    valid = sp > 0
+    for r in fr:
+        out = saved[r["mode"]]
+        figures = {"anchor_mae_m": float(np.abs(out[valid] - sp[valid]).mean())}
+        if r["mode"] != "full-50":
+            diff = out - saved["full-50"]
+            figures["mae_vs_full_m"] = float(np.abs(diff).mean())
+            figures["rmse_vs_full_m"] = float(np.sqrt((diff**2).mean()))
+            if not all(math.isfinite(r[k]) and r[k] > 0 for k in ("mae_vs_full_m",
+                                                                   "rmse_vs_full_m")):
+                raise AssertionError(f"drivers (d): {r['mode']}'s drift {r}")
+        print(f"  (d) frontier {r['mode']}: " + ", ".join(
+            f"{k} {r[k]:.4e} (from its maps {v:.4e})" for k, v in figures.items()))
+        for k, v in figures.items():
+            if not math.isclose(r[k], v, rel_tol=1e-6, abs_tol=1e-9):
+                raise AssertionError(f"drivers (d): {r['mode']}'s {k} {r[k]} != {v} from its maps")
+
+    # (e) bench_kitti's frames/s and maps
+    steady = min(kb["infer_s"][1:]) if len(kb["infer_s"]) > 1 else kb["infer_s"][0]
+    print(f"  (e) kitti: {kb['value']:.4f} frames/s, time/infer {kb['infer_s']}, "
+          f"{kb['device_memory_high_water_gib']} GiB")
+    if not math.isclose(kb["value"], kb["batch"] / steady, rel_tol=1e-12):
+        raise AssertionError(f"drivers (e): frames/s {kb['value']} != {kb['batch']} / {steady}")
+    # the maps: the script exits non-zero unless each is finite and (352, 1216, 1)
+    if kb["maps"] != kb["frames"] or len(kb["infer_s"]) * kb["batch"] < kb["frames"]:
+        raise AssertionError(f"drivers (e): {kb['maps']} maps, {kb['infer_s']} for "
+                             f"{kb['frames']} frames")
+
+    # (f) bench_scaling's n = 1 rows, their time against this process's own
+    dp1 = [r for r in sc if "mode" not in r and r["devices"] == 1]
+    ring1_rows = [r for r in sc if r.get("mode") == "ring" and r["devices"] == 1]
+    if len(dp1) != 1 or dp1[0]["scaling_efficiency"] != 1.0 or len(ring1_rows) != 1 \
+            or ring1_rows[0]["vs_single_device"] != 1.0:
+        raise AssertionError(f"drivers (f): scaling rows {sc}")
+    images, sparse = scaling.frames(1, (480, 640))  # BENCH_FULL=1's request
+    kwargs = dict(max_depth=120.0, steps=int(DRIVERS["scaling"][1]["BENCH_STEPS"]),
+                  resolution=768, norm="const", closed_form=False)
+    # the mean request by the wall clock up to the last maps' copy to the
+    # host, which waits for the card whatever the loop's own synchronize does
+    t0 = time.perf_counter()
+    readings, _ = drivers_torch.measure(DepthCompletionPipeline(bundle), kwargs, images, sparse,
+                                        3)
+    own = (time.perf_counter() - t0 - readings["capture_plus_first_s"]) / 3
+    for r in (*dp1, *ring1_rows):
+        seconds = r["batch"] / r["frames_per_sec"]
+        print(f"  (f) scaling {r.get('mode', 'dp')} n=1: {seconds:.4f} s per request "
+              f"(here, alone: {own:.4f} s)")
+        if seconds < SCALING_TIME_SHARE * own:
+            raise AssertionError(f"drivers (f): a {r.get('mode', 'dp')} request in "
+                                 f"{seconds:.4f} s, under {SCALING_TIME_SHARE} x {own:.4f} s")
+    del bundle
+    seconds = time.perf_counter() - t_phase
+    print(f"drivers: phase 8 in {seconds:.1f} s")
+    return {"seconds": seconds, "card": the_card,
+            "ring1_vs_native": {"rms": rms, "max": worst, "limits": RING1_LIMITS},
+            "scaling_request_here_s": own, "nativeres": nr, "frontier": fr, "kitti": kb,
+            "scaling": sc}
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] in WORKERS:  # a torchrun rank of phase 7
         rest = sys.argv[3:]
@@ -3739,9 +3978,14 @@ def main() -> int:
     ap.add_argument("--only-distributed", action="store_true",
                     help="build, write the checkpoint, run the TAESD path, the CLI phase and "
                     "phase 7 only (a run across several cards); no kernels line")
+    ap.add_argument("--only-drivers", action="store_true",
+                    help="build and run phase 8 (the configuration drivers) only; no kernels "
+                    "line")
     args = ap.parse_args()
     if args.only_distributed:
         return only_distributed(args.steps)
+    if args.only_drivers:
+        return only_drivers()
 
     print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3865,6 +4109,7 @@ def main() -> int:
             model_dir, taesd_dir, Path(tmp), args.steps, graphs, Path(tmp) / "out")
         for k, n in dist_counts.items():
             counts[k] = counts.get(k, 0) + n
+        drivers = drivers_phase(Path(tmp) / "drivers")
     if FAILURES:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
@@ -3910,6 +4155,7 @@ def main() -> int:
     print(json.dumps({"programs": programs}, default=str))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"drivers": drivers}))
     # how a wrapper that runs more than one kernel counts its launches
     launch_notes = {"flash_bwd_d512": "one per call of dct_flash_bwd_d512, which runs three "
                                       "kernels: the di pre-pass, dk/dv, then dq"}
@@ -3955,6 +4201,25 @@ def only_distributed(steps: int) -> int:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_drivers() -> int:
+    """``--only-drivers``: the kernels' build and phase 8, then the
+    ``drivers`` line and the result line."""
+    print(card())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_") as tmp:
+        drivers = drivers_phase(Path(tmp))
+    if FAILURES:
+        sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
+        return 1
+    print(json.dumps({"drivers": drivers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,7 +35,9 @@ no ``--device cpu`` the command exits with the device error.
   every DDIM step (``pipeline.programs``).
 - ``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the first
   batch; the device-memory high-water mark is
-  ``torch.cuda.max_memory_allocated``.
+  ``torch.cuda.max_memory_allocated``; the last lines log it and the kernel
+  launches of the run (``Kernel launches: {...}``, JSON, counted from the
+  run's start: 0 on the CPU, where the plain versions run).
 - The loop is the JAX loop: dataset discovery and pairing, segmask loading
   (read, not used), ``--shard-index/--num-shards``, ``--resume`` (per frame,
   and the temporal ``latent_state.npz`` carry), a two-batch prefetch
@@ -56,6 +58,7 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
+import json
 import math
 import sys
 import time
@@ -95,6 +98,7 @@ from depth_completion_tpu_torch.logger import LOG_LEVELS, Progress, logger
 from depth_completion_tpu_torch.ops.ring_attention import ProcessGroupRing
 from depth_completion_tpu_torch.parallel.sharding import shard_bundle
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
+from depth_completion_tpu_torch.pipeline.programs import launch_counts
 from depth_completion_tpu_torch.viz import has_nan, make_grid, visualize_depth
 
 _POS_INT = number_range(int, min=1)
@@ -292,6 +296,7 @@ def run_predict(
 ) -> dict[str, Any]:
     logger.configure(level=log_level, log_path=log)
     dev = resolve_device(device)
+    launches_before = launch_counts()
 
     # ----- option validation / coercion (the JAX CLI's rules) -------------
     if vis:
@@ -715,6 +720,8 @@ def run_predict(
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated(dev)
         logger.info(f"Device memory high-water: {peak / 2**30:.2f} GiB")
+    launches = {k: n - launches_before[k] for k, n in launch_counts().items()}
+    logger.info(f"Kernel launches: {json.dumps(launches)}")
     logger.success(f"Finished processing all {len(dataset_dirs):,} datasets")
     return totals
 

@@ -16,7 +16,12 @@ row statistic, so the backward is a second ring pass of the backward
 kernel per visiting block fed the global o and lse2: di is computed once,
 dq accumulates in place in fp32, dk/dv accumulate in fp32 and travel with
 their blocks, and are home after P rotations (:167-205). k and v travel
-packed, as one ``[N', S/P, 2C]`` tensor, and so do dk and dv.
+packed, as one ``[N', S/P, 2C]`` tensor, and so do dk and dv. The rule for
+the step functions is JAX's (``_flash_ring_supported``, :215-224): at a
+head dim that is neither 64 nor a multiple of 128, where JAX runs its XLA
+ring body, the ring runs the steps' plain twins, on the card too; at every
+other head dim it runs the step wrappers, which take 64 on the card and
+raise at a multiple of 128, where no step kernel exists yet.
 
 Shard r holds rows ``[r·S/P, (r+1)·S/P)`` (``PartitionSpec(None, axis,
 None)`` in JAX). Two transports share the body, each with ``size``,
@@ -41,7 +46,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from depth_completion_tpu_torch.ops.flash_attention import flash_bwd_ring, flash_fwd_ring
+from depth_completion_tpu_torch.ops.flash_attention import (
+    flash_bwd_ring,
+    flash_bwd_ring_plain,
+    flash_fwd_ring,
+    flash_fwd_ring_plain,
+)
 
 
 class LocalRing:
@@ -130,14 +140,24 @@ def ring_backward(q, k, v, o, do, lse2, num_heads: int, ring, step_bwd=flash_bwd
     return dq.to(q.dtype), dkv[..., :c], dkv[..., c:]
 
 
+def ring_steps(head_dim: int):
+    """The ring's (forward, backward) step functions at ``head_dim``: the
+    plain twins where JAX's flash ring does not apply (neither 64 nor a
+    multiple of 128), the step wrappers elsewhere."""
+    if head_dim % 128 != 0 and head_dim != 64:
+        return flash_fwd_ring_plain, flash_bwd_ring_plain
+    return flash_fwd_ring, flash_bwd_ring
+
+
 class RingAttention(torch.autograd.Function):
     """Softmax attention over ``[N, S, C]`` computed by ``ring``'s shards,
-    forward and backward through the ring step wrappers."""
+    forward and backward through ``ring_steps``."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, ring):
         qs, ks, vs = ring.shard(q), ring.shard(k), ring.shard(v)
-        o, lse2 = ring_forward(qs, ks, vs, num_heads, ring)
+        step_fwd, _ = ring_steps(q.shape[-1] // num_heads)
+        o, lse2 = ring_forward(qs, ks, vs, num_heads, ring, step_fwd)
         ctx.save_for_backward(qs, ks, vs, o, lse2)
         ctx.num_heads, ctx.ring = num_heads, ring
         return ring.gather(o)
@@ -146,7 +166,9 @@ class RingAttention(torch.autograd.Function):
     def backward(ctx, do):
         qs, ks, vs, o, lse2 = ctx.saved_tensors
         ring = ctx.ring
-        dq, dk, dv = ring_backward(qs, ks, vs, o, ring.shard(do), lse2, ctx.num_heads, ring)
+        _, step_bwd = ring_steps(qs.shape[-1] // ctx.num_heads)
+        dq, dk, dv = ring_backward(qs, ks, vs, o, ring.shard(do), lse2, ctx.num_heads, ring,
+                                   step_bwd)
         return ring.gather(dq), ring.gather(dk), ring.gather(dv), None, None
 
 

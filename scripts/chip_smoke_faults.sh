@@ -7,7 +7,8 @@
 # Runs chip_smoke.py on the tree as it is, then on a temporary copy of the
 # port with each fault below planted (one sed edit each; --steps 2, or
 # --steps $FAULT_STEPS where that is set; $SMOKE_ARGS, e.g.
-# --only-distributed for F42-F45, is added to every run), or only with the
+# --only-distributed for F42-F45 or --only-drivers for F55-F58, is added to
+# every run), or only with the
 # faults named (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
 # the logs show where each limit sits between the sound tree and the
@@ -126,6 +127,16 @@
 #                 the cursor
 #   F54_verify_launch_count scripts/verify_checkpoint_torch.py prints one
 #                 conv3x3 launch more than its request made
+#   F55_frontier_chained_ref scripts/frontier_torch.py takes each mode's
+#                 drift against the mode before it, not against full-50
+#   F56_ring_lse_nats the ring's autograd.Function saves its log-sum-exp in
+#                 nats for the backward, where the step kernels take log2
+#                 (kitti-native-ring1 against kitti-native)
+#   F57_kitti_first_as_steady scripts/bench_kitti_torch.py reads the first
+#                 batch's time/infer (its programs' capture) as the steady one
+#   F58_scaling_unsynced scripts/drivers_torch.py stops a timed request's
+#                 clock without a synchronize (it times the enqueue; the
+#                 drivers' shared loop, which bench_scaling's rows take)
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -167,8 +178,10 @@ run_fault() {  # name, then (file, sed expression) pairs
     rm -rf "$d/depth_completion_tpu_torch/_build"
     mkdir -p "$d/tests/data" "$d/scripts"
     cp -r tests/data/torch_io "$d/tests/data/"  # the host IO phase's fixtures
-    # phase 3a's checkpoint writer and phase 3b's verifier
-    cp scripts/make_synthetic_checkpoint_torch.py scripts/verify_checkpoint_torch.py "$d/scripts/"
+    # phase 3a's checkpoint writer, phase 3b's verifier and phase 8's drivers
+    cp scripts/make_synthetic_checkpoint_torch.py scripts/verify_checkpoint_torch.py \
+      scripts/drivers_torch.py scripts/bench_nativeres_torch.py scripts/frontier_torch.py \
+      scripts/bench_kitti_torch.py scripts/bench_scaling_torch.py "$d/scripts/"
   fi
   while [ $# -gt 0 ]; do
     local before
@@ -220,7 +233,7 @@ run_fault F11_ring_rescale $FA \
 run_fault F12_ring_dkv_home $RING \
   's|        state = (di, dq, ring.shift(dkv))|        state = (di, dq, dkv if step == ring.size - 1 else ring.shift(dkv))|'
 run_fault F13_ring_own_stat $RING \
-  's|import flash_bwd_ring, flash_fwd_ring$|import flash_bwd_ring, flash_fwd_plain, flash_fwd_ring|; s|        di, dq, dkv = step_bwd(|        o, lse2 = flash_fwd_plain(q, kv[..., :c], kv[..., c:], num_heads); &|'
+  's|^    flash_bwd_ring_plain,$|&\n    flash_fwd_plain,|; s|        di, dq, dkv = step_bwd(|        o, lse2 = flash_fwd_plain(q, kv[..., :c], kv[..., c:], num_heads); &|'
 run_fault F14_ring_no_norm $FA \
   's|const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;|const float inv0 = StateIn ? 1.f : (l0 == 0.f ? 1.f : 1.f / l0);|; s|const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;|const float inv1 = StateIn ? 1.f : (l1 == 0.f ? 1.f : 1.f / l1);|'
 run_fault F15_twostream_alpha depth_completion_tpu_torch/csrc/probe_flash_twostream.cu \
@@ -299,4 +312,12 @@ run_fault F53_rle_delta_no_move depth_completion_tpu_torch/io/bmp.py \
   's|                skip = dx + dy \* w|                skip = 0|'
 run_fault F54_verify_launch_count scripts/verify_checkpoint_torch.py \
   's|counts = {k: v for counter in COUNTERS|counts = {k: v + (k == "conv3x3") for counter in COUNTERS|'
+run_fault F55_frontier_chained_ref scripts/frontier_torch.py \
+  's|^            row\["rmse_vs_full_m"\] = float(np.sqrt((diff\*\*2).mean()))$|&\n            ref_out = out|'
+run_fault F56_ring_lse_nats $RING \
+  's|        ctx.save_for_backward(qs, ks, vs, o, lse2)|        ctx.save_for_backward(qs, ks, vs, o, lse2 * 0.6931471805599453)|'
+run_fault F57_kitti_first_as_steady scripts/bench_kitti_torch.py \
+  's|^    return min(infer\[1:\]) if len(infer) > 1 else infer\[0\]$|    return infer[0]|'
+run_fault F58_scaling_unsynced scripts/drivers_torch.py \
+  '/        t0 = time.perf_counter()/,/        times.append/s|^        synchronize(dev)$|        pass|'
 exit $status

@@ -5,8 +5,10 @@ name the JAX package's native codec (``native/``, ``dcz_codec.so``) or the
 system c-blosc library the JAX package's ``.bl2`` codec loads. The tests'
 rank workers (``tests/torch_*_worker.py``, run in spawned processes) and
 the port's scripts (the serving bench, the profiler, the kernel A/B, the
-synthetic-checkpoint writer and the checkpoint verifier) are held to the
-same rules."""
+synthetic-checkpoint writer, the checkpoint verifier and the configuration
+drivers: native resolution, the frontier, KITTI, scaling, what they share,
+and the sensitivity of the smoke's ring check) are held to the same
+rules."""
 
 import ast
 import glob
@@ -24,7 +26,10 @@ KERNEL_AB = os.path.join(REPO, "scripts", "kernel_ab.py")
 BENCH_SERVE = os.path.join(REPO, "scripts", "bench_serve_torch.py")
 SYNTH_CHECKPOINT = os.path.join(REPO, "scripts", "make_synthetic_checkpoint_torch.py")
 VERIFY_CHECKPOINT = os.path.join(REPO, "scripts", "verify_checkpoint_torch.py")
-SCRIPTS = [PROFILE, KERNEL_AB, BENCH_SERVE, SYNTH_CHECKPOINT, VERIFY_CHECKPOINT]
+DRIVERS = [os.path.join(REPO, "scripts", f"{name}.py") for name in (
+    "drivers_torch", "bench_nativeres_torch", "frontier_torch", "bench_kitti_torch",
+    "bench_scaling_torch", "ring1_sensitivity_torch")]
+SCRIPTS = [PROFILE, KERNEL_AB, BENCH_SERVE, SYNTH_CHECKPOINT, VERIFY_CHECKPOINT, *DRIVERS]
 FORBIDDEN = ("jax", "jaxlib", "optax", "depth_completion_tpu", "safetensors", "transformers",
              "click", "cv2", "tqdm", "matplotlib", "PIL", "blosc2", "ml_dtypes", "loguru")
 
@@ -100,7 +105,8 @@ def test_import_leaves_jax_unloaded():
         "tests.torch_parallel_worker, tests.torch_ring_worker, "
         "depth_completion_tpu_torch.serving.server, depth_completion_tpu_torch.cli.serve, "
         "scripts.make_synthetic_checkpoint_torch, scripts.verify_checkpoint_torch, "
-        "scripts.bench_serve_torch; "
+        "scripts.bench_serve_torch, scripts.drivers_torch, scripts.bench_nativeres_torch, "
+        "scripts.frontier_torch, scripts.bench_kitti_torch, scripts.bench_scaling_torch; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
