@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N]
+    python3 chip_smoke.py [--steps N] [--only-fp32 | --only-distributed | --only-drivers]
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, and builds every CUDA kernel of the package from ``csrc/``
@@ -22,6 +22,14 @@
    its twin at the probes' shapes, then each probe's own ``run`` with its
    launches counted from 0 (each must launch its kernel), its verdict, and
    its times beside bound, plain and library times;
+   2c. (``fp32_kernel_checks``) every kernel form ``--precision fp32`` runs
+   and every head dim the JAX package sends to Pallas: the fp32 flash pair
+   (3xTF32) at the paths' shapes, the generic pair at d=128, 256 and 384 in
+   bf16 and fp32, every ring step form, the ring's passes at d=64 fp32 and
+   d=128, the fp32 conv at TAESD's and the KL widths, the autograd Functions
+   in fp32 and the epilogue with an fp32 ``out``; the fp32 kernels held to
+   their fp32 twins at ``FP32_REL`` of the largest reference magnitude (the
+   arithmetic beside the constant);
 3. writes the seeded full-width bundle (Marigold UNet, TAESD, the SD2 CLIP
    text tower; bf16; and a seeded float16 KL VAE) as an HF-layout
    checkpoint directory through ``write_checkpoint`` of
@@ -49,9 +57,10 @@
    final decode) each a captured CUDA graph (the first request runs each
    phase's step 0 eagerly, captures it, replays the rest), and each replay
    adds the launches its capture recorded to the counts: (a) the graph's
-   request against two requests through the pipeline's eager twin (the
-   spread of two eager runs), over the latent, the dense map and the
-   program's other state (Adam v, the affine); (b) ms per run of each
+   request against requests through the pipeline's eager twin (the spread
+   of two eager runs, or of up to ``GRAPH_TWINS`` where two leave the graph
+   past the limit), over the latent, the dense map and the program's other
+   state (Adam v, the affine); (b) ms per run of each
    phase eager and graph (CUDA events), device ms, busy share and launches
    (``torch.profiler``), capture and instantiation ms, pool growth, peaks;
    (c) the launches recorded at each capture against one run of its
@@ -95,6 +104,19 @@
    first request's launches, phase 3's (a)-(d) for its prepare, step (and
    train) and finish graphs (LCM's at another seed than its first
    request's), and (e) its request against the eager loop it replaced;
+5b. runs ``--precision fp32`` (``fp32_phase``, on that checkpoint read at
+   fp32): TAESD at full width, ``--steps`` steps, two requests with the
+   carry, then the KL VAE and native resolution over ``LocalRing(4)`` at
+   ``FP32_STEPS``, each request's launches against
+   ``expected_launches(dtype=torch.float32)`` (every conv and flash call an
+   fp32 kernel) and ms per step graph against eager; an fp32 guided step
+   against the plain versions (``FP32_REF_LIMITS``); a dense map against the
+   same request through the plain fp32 versions (``FP32_DENSE_LIMITS``);
+   ``cli.predict --precision fp32`` in its own process (exit 0, its logged
+   launches) and the checkpoint verifier at fp32 with either VAE; a guided
+   step through the UNet with stage 1 at d=128 in bf16 and fp32; the fp32
+   rows of ``sampler.STEP_PEAK_BYTES``;
+   ``--only-fp32`` runs phases 2c, 3a and 5b alone;
 6. runs the serving engine through ``cli.serve.run_serve`` on that
    checkpoint directory (``serve_phase``: 480x640 frames over HTTP from
    client threads, at most 10 steps): the warmup's signatures, concurrent
@@ -146,10 +168,13 @@
    seconds per signature, the first request's latency, requests/s, p50 and
    p95 latency, s/step at batch 1 and 4, the device gap between batches,
    peak GiB, the step programs, the tiers' calls and promotion times, the
-   card), ``{"distributed": {...}}`` (phase 7's readings, the card),
+   card), ``{"fp32": {...}}`` (phase 5b: per path seconds, peak and ms per
+   step, the checks' readings, the CLI run, the d=128 steps, the peak rows),
+   ``{"distributed": {...}}`` (phase 7's readings, the card),
    ``{"drivers": {...}}`` (phase 8: each driver's rows, (c)'s errors, the
    phase's seconds), ``{"kernels": [...]}`` (one entry per CUDA
-   kernel, its launches over phases 3, 6 and 7 (a), replays included; a probe kernel's
+   kernel form, its launches over phases 3, 5b, 6 and 7 (a), replays
+   included; a probe kernel's
    launches are its probe's, and every guided path must launch it 0
    times) and, last,
    ``{"ok": true, "device": ...}``.
@@ -170,9 +195,11 @@ import functools
 import gc
 import http.client
 import io
+import itertools
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -233,7 +260,24 @@ from depth_completion_tpu_torch.sched.lcm import lcm_step, make_lcm_timesteps  #
 from scripts import make_synthetic_checkpoint_torch as synthetic  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor-core rate (the fp32 kernels' bound)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# The fp32 kernels (3xTF32 on the tensor cores) against their fp32 plain
+# twins (TF32 off), as a share of the largest reference magnitude. Each
+# operand is split into a TF32 high part and a TF32 remainder: ~22 bits of
+# it, so a product keeps all but ~3·2^-22 of |x·y| (the dropped lo·lo' term
+# and the remainder's rounding), against one TF32 pass's 2^-11; both sides
+# round their fp32 sums in other orders (2^-24 an addition). Over a
+# reduction of K terms of random sign the error is ~2^-21·sqrt(K)·rms(term)
+# against an output of ~sqrt(K)·rms(term): ~2^-21 of the output, a few times
+# that at the largest elements. FP32_REL = 2^-16 leaves 30x over that; one
+# TF32 pass reads ~2^-12 and fails it by 10x or more (F59 in
+# scripts/chip_smoke_faults.sh), a bf16 operand (2^-9) by far more (F60).
+# The row statistic lse2 (|lse2| ~ 13): scores of |q·k| <= ~100 before
+# their scale of ~0.18 or less, 3·2^-22 each, and log2 of an fp32 row sum:
+# FP32_LSE = 2e-5 (~20 fp32 ulps); one TF32 pass moves it ~1e-3.
+FP32_REL = 2.0 ** -16
+FP32_LSE = 2e-5
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SFU_PER_SM_CLK = 16  # MUFU ex2 results per SM per clock (4 per SM sub-partition)
 DEV = torch.device("cuda")
@@ -319,51 +363,57 @@ def sdpa_backend(q, k, v) -> SDPBackend:
 
 
 def check_flash(sq: int, sk: int | None = None, heads: int = 5, timed: bool = True,
-                reps: int = 10, d: int = 64, n: int = 1) -> dict:
+                reps: int = 10, d: int = 64, n: int = 1, dtype: torch.dtype = torch.bfloat16) -> dict:
     sk = sq if sk is None else sk
-    fwd_name, bwd_name = ("flash_fwd", "flash_bwd") if d == 64 else (
-        f"flash_fwd_d{d}", f"flash_bwd_d{d}")
+    fwd_name, bwd_name = fa.launch_names(dtype, d)
+    fp32 = dtype == torch.float32
     gen = torch.Generator(device=DEV).manual_seed(sq * 7919 + sk + d + 100003 * (n - 1))
     c = heads * d
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
     q, do, k, v = rnd(n, sq, c), rnd(n, sq, c), rnd(n, sk, c), rnd(n, sk, c)
-    print(f"flash attention N={n} heads={heads} Sq={sq} Sk={sk} d={d} bf16")
+    print(f"flash attention N={n} heads={heads} Sq={sq} Sk={sk} d={d} {fa.DTYPE_TAGS[dtype]}")
     o, lse2 = fa.flash_fwd(q, k, v, heads)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, heads)
     torch.cuda.synchronize()
-    # o: both round an fp32 result to bf16 (one ulp, <= 2^-7·|o|). Before
-    # rounding they differ by p rounded to bf16 against a running max here
-    # and the final max there: rms ~2^-9·sqrt(e/Sk)·rms(v), whose tail over
-    # millions of outputs reaches ~2^-10·max|o|. The 2^-8·max|o| floor holds
-    # the sound kernel at <= 0.35 of it and fails a row sum off by 1% at
-    # >= 1.24 of it (scripts/chip_smoke_faults.sh; PERF.md, Findings).
-    err_o = check_elementwise(f"{fwd_name} o", o, o_ref, 2**-7, 2**-8)
-    # o as a whole: the sound kernel reads 2.3e-3-2.4e-3 relative (both
-    # sides round o, and p, to bf16); a row sum off by 1%, which the
-    # elementwise bound only just sees, reads 1.03e-2 (PERF.md, Findings)
-    check(f"{fwd_name} o rel-norm",
-          float((o.float() - o_ref.float()).norm() / o_ref.float().norm()), 2**-8,
-          "|o-o_ref|/|o_ref|")
-    # lse2 (|lse2| ~ 13, fp32 ulp 1e-6): 1e-4 is ~100 ulps; a row sum off
-    # by 0.01% moves it 1.4e-4
-    check(f"{fwd_name} lse2", max_err(lse2, lse_ref), 1e-4)
+    if fp32:  # 3xTF32 against fp32 (FP32_REL, FP32_LSE)
+        err_o = max_err(o, o_ref)
+        check(f"{fwd_name} o", err_o, FP32_REL * float(o_ref.abs().max()))
+        check(f"{fwd_name} lse2", max_err(lse2, lse_ref), FP32_LSE)
+    else:
+        # o: both round an fp32 result to bf16 (one ulp, <= 2^-7·|o|). Before
+        # rounding they differ by p rounded to bf16 against a running max here
+        # and the final max there: rms ~2^-9·sqrt(e/Sk)·rms(v), whose tail over
+        # millions of outputs reaches ~2^-10·max|o|. The 2^-8·max|o| floor holds
+        # the sound kernel at <= 0.35 of it and fails a row sum off by 1% at
+        # >= 1.24 of it (scripts/chip_smoke_faults.sh; PERF.md, Findings).
+        err_o = check_elementwise(f"{fwd_name} o", o, o_ref, 2**-7, 2**-8)
+        # o as a whole: the sound kernel reads 2.3e-3-2.4e-3 relative (both
+        # sides round o, and p, to bf16); a row sum off by 1%, which the
+        # elementwise bound only just sees, reads 1.03e-2 (PERF.md, Findings)
+        check(f"{fwd_name} o rel-norm",
+              float((o.float() - o_ref.float()).norm() / o_ref.float().norm()), 2**-8,
+              "|o-o_ref|/|o_ref|")
+        # lse2 (|lse2| ~ 13, fp32 ulp 1e-6): 1e-4 is ~100 ulps; a row sum off
+        # by 0.01% moves it 1.4e-4
+        check(f"{fwd_name} lse2", max_err(lse2, lse_ref), 1e-4)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, do, lse2, heads)
     rq, rk, rv = fa.flash_bwd_plain(q, k, v, o, do, lse2, heads)
     torch.cuda.synchronize()
-    # bf16 p and ds feed the kernel's products (fp32 in the plain version):
-    # 2% of the largest reference magnitude
+    # bf16: p and ds in bf16 feed the kernel's products (fp32 in the plain
+    # version): 2% of the largest reference magnitude; fp32: FP32_REL
     errs = {}
     for nm, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         errs[nm] = max_err(got, ref)
-        check(f"{bwd_name} {nm}", errs[nm], 2e-2 * float(ref.float().abs().max()))
+        check(f"{bwd_name} {nm}", errs[nm],
+              (FP32_REL if fp32 else 2e-2) * float(ref.float().abs().max()))
     fwd, bwd = {"max_abs_err": err_o}, {"max_abs_err": max(errs.values())}
     if not timed:
         return {fwd_name: fwd, bwd_name: bwd}
 
-    qh, kh, vh = (t.view(1, -1, heads, d).transpose(1, 2) for t in (q, k, v))
+    qh, kh, vh = (t.view(n, -1, heads, d).transpose(1, 2) for t in (q, k, v))
     backend = sdpa_backend(qh, kh, vh)
     fwd["ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, heads), reps)
     fwd["plain_ms"] = time_ms(lambda: fa.flash_fwd_plain(q, k, v, heads), 3, 1)
@@ -373,16 +423,20 @@ def check_flash(sq: int, sk: int | None = None, heads: int = 5, timed: bool = Tr
         fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps)
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
         ol = F.scaled_dot_product_attention(ql, kl, vl)
-    doh = do.view(1, sq, heads, d).transpose(1, 2)
+    doh = do.view(n, sq, heads, d).transpose(1, 2)
     bwd["library_ms"] = time_ms(
         lambda: torch.autograd.grad(ol, (ql, kl, vl), doh, retain_graph=True), reps
     )
-    q_bytes, kv_bytes, stat_bytes = 2 * sq * c, 2 * sk * c, 4 * sq * heads
+    size = q.element_size()
+    q_bytes, kv_bytes, stat_bytes = size * n * sq * c, size * n * sk * c, 4 * n * sq * heads
+    # fp32 runs on the TF32 tensor cores (three products a k-step: 3x the
+    # operations the bound counts)
+    peak = PEAK_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS
     fwd["bound_ms"], fwd["bound_by"] = bound(
-        4.0 * sq * sk * d * heads, 2 * q_bytes + 2 * kv_bytes + stat_bytes)
+        4.0 * n * sq * sk * d * heads, 2 * q_bytes + 2 * kv_bytes + stat_bytes, peak)
     bwd["bound_ms"], bwd["bound_by"] = bound(
-        10.0 * sq * sk * d * heads, 4 * q_bytes + 4 * kv_bytes + stat_bytes)
-    exp_ms = exp_bound_ms(float(sq) * sk * heads)  # one exp2 per score, fwd and bwd alike
+        10.0 * n * sq * sk * d * heads, 4 * q_bytes + 4 * kv_bytes + stat_bytes, peak)
+    exp_ms = exp_bound_ms(float(n) * sq * sk * heads)  # one exp2 per score, fwd and bwd alike
     for nm, r in ((fwd_name, fwd), (bwd_name, bwd)):
         print(f"  {nm} Sq={sq} Sk={sk} heads={heads} d={d}: kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
@@ -391,7 +445,8 @@ def check_flash(sq: int, sk: int | None = None, heads: int = 5, timed: bool = Tr
     return {fwd_name: fwd, bwd_name: bwd}
 
 
-def check_ring(s: int, heads: int, p: int, timed: bool = True, reps: int = 10) -> dict:
+def check_ring(s: int, heads: int, p: int, timed: bool = True, reps: int = 10, d: int = 64,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
     """Ring attention over a ``LocalRing(p)`` (the ring step kernels, one
     launch per visiting block, the softmax state carried in fp32), forward
     and backward through its ``autograd.Function``, against one flash call
@@ -401,17 +456,20 @@ def check_ring(s: int, heads: int, p: int, timed: bool = True, reps: int = 10) -
     o's rel-norm against the single call, 2^-7: the ring's first form
     rounded each block's o to bf16 before its merge and read 3.0e-3-3.2e-3
     there (0.8 of the kernels' 2^-8), its merge without the rescale (F11)
-    1.2e-2-4.2e-2; carried in fp32, o is rounded once (PERF.md, Findings)."""
-    d = 64
+    1.2e-2-4.2e-2; carried in fp32, o is rounded once (PERF.md, Findings).
+    fp32: every comparison at FP32_REL, lse2 at FP32_LSE."""
     c = heads * d
-    gen = torch.Generator(device=DEV).manual_seed(s * 31 + heads * 7 + p)
+    fp32 = dtype == torch.float32
+    gen = torch.Generator(device=DEV).manual_seed(s * 31 + heads * 7 + p + d)
 
     def rnd():
-        return torch.randn((1, s, c), generator=gen, device=DEV).to(torch.bfloat16)
+        return torch.randn((1, s, c), generator=gen, device=DEV).to(dtype)
 
     q, k, v, do = rnd(), rnd(), rnd(), rnd()
     ring = ra.LocalRing(p)
-    print(f"ring attention LocalRing({p}) N=1 heads={heads} S={s} ({s // p}-row shards) d={d} bf16")
+    print(f"ring attention LocalRing({p}) N=1 heads={heads} S={s} ({s // p}-row shards) d={d} "
+          f"{fa.DTYPE_TAGS[dtype]}")
+    fwd_step, bwd_step = fa.launch_names(dtype, d, ring=True)
 
     def through(fn):
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
@@ -432,17 +490,23 @@ def check_ring(s: int, heads: int, p: int, timed: bool = True, reps: int = 10) -
     lse2 = lse2_s.unflatten(0, (1, p)).permute(0, 2, 1, 3).reshape(1, heads, s)
     errs = []
     for ref_name, o_ref, g_ref in (("single flash", o1, grads1), ("plain ring", o_p, grads_p)):
-        name = f"ring P={p} S={s} vs {ref_name}"
-        err = check_elementwise(f"{name} o", o, o_ref, 2**-7, 2**-8)
-        check(f"{name} o rel-norm",
-              float((o.float() - o_ref.float()).norm() / o_ref.float().norm()),
-              2**-7 if ref_name == "single flash" else 2**-8, "|o-o_ref|/|o_ref|")
+        name = f"ring P={p} S={s} d={d} {fa.DTYPE_TAGS[dtype]} vs {ref_name}"
+        if fp32:
+            err = max_err(o, o_ref)
+            check(f"{name} o", err, FP32_REL * float(o_ref.abs().max()))
+        else:
+            err = check_elementwise(f"{name} o", o, o_ref, 2**-7, 2**-8)
+            check(f"{name} o rel-norm",
+                  float((o.float() - o_ref.float()).norm() / o_ref.float().norm()),
+                  2**-7 if ref_name == "single flash" else 2**-8, "|o-o_ref|/|o_ref|")
         for nm, g, gr in zip(("dq", "dk", "dv"), grads, g_ref):
-            check(f"{name} {nm}", max_err(g, gr), 2e-2 * float(gr.float().abs().max()))
+            check(f"{name} {nm}", max_err(g, gr),
+                  (FP32_REL if fp32 else 2e-2) * float(gr.float().abs().max()))
         if ref_name == "plain ring":
             errs.append(err)
             errs.extend(max_err(g, gr) for g, gr in zip(grads, g_ref))
-    check(f"ring P={p} S={s} lse2 vs single flash", max_err(lse2, lse2_1), 1e-4)
+    check(f"ring P={p} S={s} d={d} {fa.DTYPE_TAGS[dtype]} lse2 vs single flash", max_err(lse2, lse2_1),
+          FP32_LSE if fp32 else 1e-4)
     fwd, bwd = {"max_abs_err": errs[0]}, {"max_abs_err": max(errs[1:])}
     if not timed:
         return {"ring_attention_fwd": fwd, "ring_attention_bwd": bwd}
@@ -456,7 +520,8 @@ def check_ring(s: int, heads: int, p: int, timed: bool = True, reps: int = 10) -
         qs, ks, vs, op_s, dos, lse2p_s, heads, ring, fa.flash_bwd_ring_plain), 3, 1)
     bwd["single_ms"] = time_ms(lambda: fa.flash_bwd(q, k, v, o1, do, lse2_1, heads), reps)
     qh, kh, vh, doh = (t.view(1, s, heads, d).transpose(1, 2) for t in (q, k, v, do))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+    backend = sdpa_backend(qh, kh, vh)
+    with sdpa_kernel([backend]):
         fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps)
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
         ol = F.scaled_dot_product_attention(ql, kl, vl)
@@ -470,22 +535,29 @@ def check_ring(s: int, heads: int, p: int, timed: bool = True, reps: int = 10) -
     # Backward: the same k|v traffic; dq and dk|dv (fp32) zeroed once (12),
     # dk|dv read and written by every step (16) and rotated P times (16),
     # dq read and written once by its atomics (8), both cast (18)
-    x_bytes, stat_bytes = 2 * s * c, 4 * s * heads
-    fwd["bound_ms"], fwd["bound_by"] = bound(4.0 * s * s * d * heads, 4 * x_bytes + stat_bytes)
-    bwd["bound_ms"], bwd["bound_by"] = bound(10.0 * s * s * d * heads, 8 * x_bytes + stat_bytes)
+    x_bytes, stat_bytes = q.element_size() * s * c, 4 * s * heads
+    peak = PEAK_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS
+    fwd["bound_ms"], fwd["bound_by"] = bound(4.0 * s * s * d * heads, 4 * x_bytes + stat_bytes,
+                                             peak)
+    bwd["bound_ms"], bwd["bound_by"] = bound(10.0 * s * s * d * heads, 8 * x_bytes + stat_bytes,
+                                             peak)
     kv_bytes = 8 + 8 * (p - 1)
     fwd["extra_ms"] = (kv_bytes + 8 * (p - 1)) * s * c / PEAK_BYTES * 1e3
     bwd["extra_ms"] = (kv_bytes + 12 + 32 * p + 8 + 18) * s * c / PEAK_BYTES * 1e3
+    fwd.update(d=d, dtype=fa.DTYPE_TAGS[dtype], kernel=fwd_step)
+    bwd.update(d=d, dtype=fa.DTYPE_TAGS[dtype], kernel=bwd_step)
     for nm, r in (("ring_attention_fwd", fwd), ("ring_attention_bwd", bwd)):
-        print(f"  {nm} P={p} S={s} heads={heads} d={d}: ring_ms={r['ms']:.4f} "
+        print(f"  {nm} P={p} S={s} heads={heads} d={d} {fa.DTYPE_TAGS[dtype]}: ring_ms={r['ms']:.4f} "
               f"single_flash_ms={r['single_ms']:.4f} (overhead {r['ms'] / r['single_ms'] - 1:+.1%}) "
-              f"plain_ring_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA FLASH) "
+              f"plain_ring_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+              f"(SDPA {backend.name}) "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); the ring's own bytes "
               f"alone {r['extra_ms']:.4f} ms")
     return {"ring_attention_fwd": fwd, "ring_attention_bwd": bwd}
 
 
-def check_ring_steps(s: int, heads: int, p: int, timed: bool = True, reps: int = 10) -> dict:
+def check_ring_steps(s: int, heads: int, p: int, timed: bool = True, reps: int = 10, d: int = 64,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
     """Each ring step kernel against its twin on the same inputs and the
     same carried state, at a ``LocalRing(p)``'s shapes (all p shards of
     S/p rows in one launch): the forward's first step (no state in), a
@@ -498,19 +570,21 @@ def check_ring_steps(s: int, heads: int, p: int, timed: bool = True, reps: int =
     rounded to bf16 against another running max); the last step's o as
     ``flash_fwd``'s. The backward's accumulators are held by what the step
     added (got − state in against ref − state in) at the flash backward's
-    2% of the largest reference magnitude, di (fp32 sums of 64 products in
-    another order) at 1e-5 of its largest magnitude."""
-    d = 64
+    2% of the largest reference magnitude, di (fp32 sums of d products in
+    another order) at 1e-5 of its largest magnitude. fp32 operands: m and
+    the statistic at FP32_LSE, everything else at FP32_REL."""
     c, s_loc = heads * d, s // p
-    gen = torch.Generator(device=DEV).manual_seed(s * 17 + heads + p)
+    fp32 = dtype == torch.float32
+    fwd_name, bwd_name = fa.launch_names(dtype, d, ring=True)
+    gen = torch.Generator(device=DEV).manual_seed(s * 17 + heads + p + d)
 
     def rnd():
-        return torch.randn((p, s_loc, c), generator=gen, device=DEV).to(torch.bfloat16)
+        return torch.randn((p, s_loc, c), generator=gen, device=DEV).to(dtype)
 
     q, do = rnd(), rnd()
     blocks = [(rnd(), rnd()) for _ in range(3)]
-    tag = f"ring step P={p} S={s}"
-    print(f"ring steps LocalRing({p}) heads={heads} {p}x{s_loc} rows d={d} bf16")
+    tag = f"ring step P={p} S={s} d={d} {fa.DTYPE_TAGS[dtype]}"
+    print(f"ring steps LocalRing({p}) heads={heads} {p}x{s_loc} rows d={d} {fa.DTYPE_TAGS[dtype]}")
 
     def copy(state):
         return tuple(x.clone() for x in state)
@@ -518,33 +592,43 @@ def check_ring_steps(s: int, heads: int, p: int, timed: bool = True, reps: int =
     def hold_state(name, got, ref):
         m, l, acc = got
         m_r, l_r, acc_r = ref
-        check(f"{name} m", max_err(m, m_r), 1e-4)
-        check(f"{name} m + log2 l", max_err(m + torch.log2(l), m_r + torch.log2(l_r)), 1e-4)
+        stat_tol = FP32_LSE if fp32 else 1e-4
+        check(f"{name} m", max_err(m, m_r), stat_tol)
+        check(f"{name} m + log2 l", max_err(m + torch.log2(l), m_r + torch.log2(l_r)), stat_tol)
 
         def norm(acc, l):
             return acc.view(p, s_loc, heads, d) / l.transpose(1, 2)[..., None]
 
+        if fp32:
+            err = max_err(norm(acc, l), norm(acc_r, l_r))
+            check(f"{name} acc / l", err, FP32_REL * float(norm(acc_r, l_r).abs().max()))
+            return err
         return check_elementwise(f"{name} acc / l", norm(acc, l), norm(acc_r, l_r), 2**-7, 2**-8)
 
     errs_f, errs_b = [], []
     (k1, v1), (k2, v2), (k3, v3) = blocks
     first = fa.flash_fwd_ring(q, k1, v1, heads)
-    errs_f.append(hold_state(f"flash_fwd_ring {tag} first", first,
+    errs_f.append(hold_state(f"{fwd_name} {tag} first", first,
                              fa.flash_fwd_ring_plain(q, k1, v1, heads)))
     mid = fa.flash_fwd_ring(q, k2, v2, heads, copy(first))
-    errs_f.append(hold_state(f"flash_fwd_ring {tag} middle", mid,
+    errs_f.append(hold_state(f"{fwd_name} {tag} middle", mid,
                              fa.flash_fwd_ring_plain(q, k2, v2, heads, copy(first))))
     o, lse2 = fa.flash_fwd_ring(q, k3, v3, heads, copy(mid), last=True)
     o_r, lse2_r = fa.flash_fwd_ring_plain(q, k3, v3, heads, copy(mid), last=True)
-    errs_f.append(check_elementwise(f"flash_fwd_ring {tag} last o", o, o_r, 2**-7, 2**-8))
-    check(f"flash_fwd_ring {tag} last o rel-norm",
-          float((o.float() - o_r.float()).norm() / o_r.float().norm()), 2**-8, "|o-o_ref|/|o_ref|")
-    check(f"flash_fwd_ring {tag} last lse2", max_err(lse2, lse2_r), 1e-4)
+    if fp32:
+        errs_f.append(max_err(o, o_r))
+        check(f"{fwd_name} {tag} last o", errs_f[-1], FP32_REL * float(o_r.abs().max()))
+    else:
+        errs_f.append(check_elementwise(f"{fwd_name} {tag} last o", o, o_r, 2**-7, 2**-8))
+        check(f"{fwd_name} {tag} last o rel-norm",
+              float((o.float() - o_r.float()).norm() / o_r.float().norm()), 2**-8,
+              "|o-o_ref|/|o_ref|")
+    check(f"{fwd_name} {tag} last lse2", max_err(lse2, lse2_r), FP32_LSE if fp32 else 1e-4)
 
     first_b = fa.flash_bwd_ring(q, k1, v1, o_r, do, lse2_r, heads)
     first_r = fa.flash_bwd_ring_plain(q, k1, v1, o_r, do, lse2_r, heads)
     di, di_r = first_b[0], first_r[0]
-    check(f"flash_bwd_ring {tag} di", max_err(di, di_r), 1e-5 * float(di_r.abs().max()))
+    check(f"{bwd_name} {tag} di", max_err(di, di_r), 1e-5 * float(di_r.abs().max()))
     later = fa.flash_bwd_ring(q, k2, v2, o_r, do, lse2_r, heads, copy(first_b))
     later_r = fa.flash_bwd_ring_plain(q, k2, v2, o_r, do, lse2_r, heads, copy(first_b))
     for step, got, ref, before in (("first", first_b, first_r, None),
@@ -555,10 +639,11 @@ def check_ring_steps(s: int, heads: int, p: int, timed: bool = True, reps: int =
             if before is not None:
                 g, r = g - before[sl[0]][..., sl[1]], r - before[sl[0]][..., sl[1]]
             errs_b.append(max_err(g, r))
-            check(f"flash_bwd_ring {tag} {step} {nm}", errs_b[-1], 2e-2 * float(r.abs().max()))
+            check(f"{bwd_name} {tag} {step} {nm}", errs_b[-1],
+                  (FP32_REL if fp32 else 2e-2) * float(r.abs().max()))
     fwd, bwd = {"max_abs_err": max(errs_f)}, {"max_abs_err": max(errs_b)}
     if not timed:
-        return {"flash_fwd_ring": fwd, "flash_bwd_ring": bwd}
+        return {fwd_name: fwd, bwd_name: bwd}
 
     # a middle step of the forward and a later step of the backward, the
     # state updated in place call after call
@@ -572,37 +657,45 @@ def check_ring_steps(s: int, heads: int, p: int, timed: bool = True, reps: int =
     # the nearest single call: SDPA flash over the same shards and block,
     # which computes the block's attention but carries no state
     qh, kh, vh, doh = (t.view(p, s_loc, heads, d).transpose(1, 2) for t in (q, k2, v2, do))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+    backend = sdpa_backend(qh, kh, vh)
+    with sdpa_kernel([backend]):
         fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), reps)
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
         ol = F.scaled_dot_product_attention(ql, kl, vl)
     bwd["library_ms"] = time_ms(
         lambda: torch.autograd.grad(ol, (ql, kl, vl), doh, retain_graph=True), reps)
-    x_bytes, rows = 2 * p * s_loc * c, p * s_loc * heads
+    # bytes of one [P, S/P, C] operand, and of the same in fp32 (the state)
+    x_bytes, f_bytes, rows = q.element_size() * p * s_loc * c, 4 * p * s_loc * c, p * s_loc * heads
+    peak = PEAK_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS
     # forward middle step: q, k, v read; acc (fp32) read and written; m, l read and written
     fwd["bound_ms"], fwd["bound_by"] = bound(4.0 * p * s_loc * s_loc * d * heads,
-                                             3 * x_bytes + 4 * x_bytes + 16 * rows)
+                                             3 * x_bytes + 2 * f_bytes + 16 * rows, peak)
     # backward later step: q, k, v, do read; lse2, di read; dq (fp32) and
     # dk|dv (fp32) read and written
     bwd["bound_ms"], bwd["bound_by"] = bound(10.0 * p * s_loc * s_loc * d * heads,
-                                             4 * x_bytes + 8 * rows + 4 * x_bytes + 8 * x_bytes)
-    for nm, r in (("flash_fwd_ring", fwd), ("flash_bwd_ring", bwd)):
+                                             4 * x_bytes + 8 * rows + 2 * f_bytes + 4 * f_bytes,
+                                             peak)
+    for nm, r in ((fwd_name, fwd), (bwd_name, bwd)):
         print(f"  {nm} {p}x{s_loc} rows heads={heads}: kernel_ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA FLASH, "
-              f"one block, no state) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
-    return {"flash_fwd_ring": fwd, "flash_bwd_ring": bwd}
+              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA "
+              f"{backend.name}, one block, no state) bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
+    return {fwd_name: fwd, bwd_name: bwd}
 
 
 def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
-               relu: bool = True, timed: bool = True, reps: int = 10) -> dict:
+               relu: bool = True, timed: bool = True, reps: int = 10,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
     """The conv kernel as a path runs it: TAESD (``relu``: bias+ReLU,
     bias+skip+ReLU, dx with the ReLU mask) or the KL VAE's ResNets (bias,
-    bias+skip, dx without a mask)."""
+    bias+skip, dx without a mask); bf16, or fp32 (``conv3x3_fp32``, held at
+    FP32_REL; library times: cuDNN with TF32 off, and on)."""
     cout = cin if cout is None else cout
+    fp32 = dtype == torch.float32
     gen = torch.Generator(device=DEV).manual_seed(h * w + cin + cout)
 
     def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
 
     x, skip, dy = rnd(n, h, w, cin), rnd(n, h, w, cout), rnd(n, h, w, cout)
     wgt = rnd(cout, cin, 3, 3, scale=1.0 / math.sqrt(9 * cin))
@@ -610,18 +703,20 @@ def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
     w_hwio = c3._hwio(wgt).contiguous()
     kf = c3._flip_transpose_hwio(wgt).contiguous()
     act = "+relu" if relu else ""
-    print(f"conv3x3 N={n} H={h} W={w} C={cin}->{cout} bf16 ({'TAESD' if relu else 'KL'} form)")
+    print(f"conv3x3 N={n} H={h} W={w} C={cin}->{cout} {fa.DTYPE_TAGS[dtype]} "
+          f"({'TAESD' if relu else 'KL'} form)")
     # bf16 outputs of fp32 sums taken in another order: 2 bf16 ulps of the
-    # largest output
+    # largest output; fp32: FP32_REL
+    rel = FP32_REL if fp32 else 1.6e-2
     errs = {}
     y = c3.conv3x3_call(x, w_hwio, b, relu=relu)
     y_ref, _ = c3.conv3x3_plain(x, w_hwio, b, relu=relu)
     errs["bias"] = max_err(y, y_ref)
-    check(f"conv bias{act}", errs["bias"], 1.6e-2 * float(y_ref.float().abs().max()))
+    check(f"conv bias{act}", errs["bias"], rel * float(y_ref.float().abs().max()))
     ys = c3.conv3x3_call(x, w_hwio, b, skip=skip, relu=relu)
     ys_ref, _ = c3.conv3x3_plain(x, w_hwio, b, skip=skip, relu=relu)
     errs["skip"] = max_err(ys, ys_ref)
-    check(f"conv bias+skip{act}", errs["skip"], 1.6e-2 * float(ys_ref.float().abs().max()))
+    check(f"conv bias+skip{act}", errs["skip"], rel * float(ys_ref.float().abs().max()))
     if relu:
         def run_dx():
             return c3.conv3x3_call(dy, kf, mask=y, emit_masked=True)
@@ -637,7 +732,7 @@ def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
         dx_ref, _ = c3.conv3x3_plain(dy, kf)
     errs["dx"] = max_err(dx, dx_ref)
     check(f"conv {'masked ' if relu else ''}dx", errs["dx"],
-          1.6e-2 * float(dx_ref.float().abs().max()))
+          rel * float(dx_ref.float().abs().max()))
 
     out = {"max_abs_err": max(errs.values())}
     if not timed:
@@ -646,6 +741,12 @@ def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
     out["ms"] = time_ms(lambda: c3.conv3x3_call(x, w_hwio, b, relu=relu), reps)
     out["plain_ms"] = time_ms(lambda: c3.conv3x3_plain(x, w_hwio, b, relu=relu), 3, 1)
     out["library_ms"] = time_ms(lambda: F.conv2d(xc, wgt, b, padding=1), reps)
+    if fp32:  # cuDNN's fp32 conv in TF32 (one pass: not the same function), for scale
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            out["library_tf32_ms"] = time_ms(lambda: F.conv2d(xc, wgt, b, padding=1), reps)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
     out["dx_ms"] = time_ms(run_dx, reps)
     # cuDNN's backward-data on the same channels-last views (the dx of the
     # conv alone: no single call applies the ReLU mask too)
@@ -653,32 +754,41 @@ def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
     out["dx_library_ms"] = time_ms(lambda: torch.ops.aten.convolution_backward(
         dyc, xc, wgt, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False]), reps)
     flops = 2.0 * n * h * w * cin * cout * 9
-    x_bytes, y_bytes, w_bytes = 2 * n * h * w * cin, 2 * n * h * w * cout, 2 * 9 * cin * cout
-    out["bound_ms"], out["bound_by"] = bound(flops, x_bytes + y_bytes + w_bytes + 2 * cout)
+    size = x.element_size()
+    x_bytes, y_bytes, w_bytes = (size * n * h * w * cin, size * n * h * w * cout,
+                                 size * 9 * cin * cout)
+    # fp32 runs on the TF32 tensor cores (three products a k-step: 3x the
+    # operations the bound counts)
+    peak = PEAK_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS
+    out["bound_ms"], out["bound_by"] = bound(flops, x_bytes + y_bytes + w_bytes + size * cout,
+                                             peak)
     # dx reads dy (and, with ReLU, the mask y) and writes dx (and dy masked)
     dx_bytes = x_bytes + y_bytes + w_bytes + (2 * y_bytes if relu else 0)
-    out["dx_bound_ms"], _ = bound(flops, dx_bytes)
-    print(f"  conv3x3 {h}x{w} {cin}->{cout}: kernel_ms={out['ms']:.4f} "
+    out["dx_bound_ms"], _ = bound(flops, dx_bytes, peak)
+    tf32 = f" cuDNN TF32 {out['library_tf32_ms']:.4f}" if fp32 else ""
+    print(f"  conv3x3 {fa.DTYPE_TAGS[dtype]} {h}x{w} {cin}->{cout}: kernel_ms={out['ms']:.4f} "
           f"({'masked ' if relu else ''}dx {out['dx_ms']:.4f}, bound {out['dx_bound_ms']:.4f}, "
           f"dx_library_ms {out['dx_library_ms']:.4f}) "
-          f"plain_ms={out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
+          f"plain_ms={out['plain_ms']:.4f} library_ms={out['library_ms']:.4f}{tf32} "
           f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']})")
     return out
 
 
-def check_autograd() -> None:
+def check_autograd(dtype: torch.dtype = torch.bfloat16) -> None:
     """Each ``autograd.Function`` (forward and backward through the kernels)
     against autograd through the plain path, at the paths' shapes: catches
     wiring faults (gradients swapped, dropped or misplaced) that the
     kernel-level checks above cannot see. Tolerances as for the kernels:
-    2% of the largest reference magnitude (bf16 p, ds and products). With
+    2% of the largest reference magnitude (bf16 p, ds and products), or
+    FP32_REL for fp32 operands. With
     ReLU, the plain path masks with the kernel output's sign: where the
     pre-activation lies within a rounding of 0 the two forwards can disagree
     on it, and the gradients then differ by the whole |dy| there."""
     gen = torch.Generator(device=DEV).manual_seed(77)
+    rel = FP32_REL if dtype == torch.float32 else 2e-2
 
     def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
 
     cases = []  # (name, kernel fn, plain fn of (kernel output, *inputs), inputs, dy)
     for s, heads, d in ((6912, 5, 64), (6912, 1, 512)):
@@ -698,7 +808,8 @@ def check_autograd() -> None:
                           x, wgt, b, relu=relu, skip=skip),
                       plain, [rnd(1, h, w, c), rnd(1, h, w, c)], rnd(1, h, w, c)))
     for name, fn, plain_fn, xs, dy in cases:
-        print(f"autograd {name} bf16")
+        name = f"{name} {fa.DTYPE_TAGS[dtype]}"
+        print(f"autograd {name}")
         leaves = [x.detach().clone().requires_grad_(True) for x in xs]
         y = fn(*leaves)
         grads = torch.autograd.grad(y, leaves, dy, allow_unused=True)
@@ -706,11 +817,11 @@ def check_autograd() -> None:
         y_ref = plain_fn(y.detach(), *leaves)
         grads_ref = torch.autograd.grad(y_ref, leaves, dy)
         check(f"autograd {name} output", max_err(y, y_ref),
-              2e-2 * float(y_ref.float().abs().max()))
+              rel * float(y_ref.float().abs().max()))
         for i, (g, g_ref) in enumerate(zip(grads, grads_ref)):
             g = torch.zeros_like(g_ref) if g is None else g  # a gradient left out reads as 0
             check(f"autograd {name} grad of input {i}", max_err(g, g_ref),
-                  2e-2 * float(g_ref.float().abs().max()))
+                  rel * float(g_ref.float().abs().max()))
 
 
 def eager_epilogue(sched, opt, latents, g, out, t: int, num_steps: int) -> None:
@@ -747,13 +858,15 @@ def _eager_chain(sched, lat, m, v, count: int, lr: float):
 
 
 def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
-                   latent_hw: tuple[int, int] = (72, 96)) -> dict:
+                   latent_hw: tuple[int, int] = (72, 96),
+                   out_dtype: torch.dtype = torch.bfloat16) -> dict:
     """The fused epilogue at a latent shape (72x96 at res 768, 44x152 on the
     native path, 128x128 at res 1024: more than the kernel's cluster holds
     in registers), against its plain twin and against the eager chain it
     replaces, from Adam state after three steps (bias corrections and the
     moments all in play); the scalars are row 3 of the 50-step table on the
-    card, read at a step index on the card."""
+    card, read at a step index on the card. ``out_dtype``: the UNet
+    output's (bf16, or fp32 at ``--precision fp32``)."""
     ptype = "v_prediction" if v_pred else "epsilon"
     sched = S.make_schedule(S.DDIMConfig(prediction_type=ptype))
     steps, count, lr = 50, 3, 0.05
@@ -769,10 +882,11 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
         return torch.randn(shape, generator=gen, device=DEV) * scale
 
     # a raw latent gradient is small; the rescale brings it to ‖ε̂‖
-    lat, g, out = rnd(), rnd(1e-3), rnd().to(torch.bfloat16)
+    lat, g, out = rnd(), rnd(1e-3), rnd().to(out_dtype)
     m = rnd(0.3)
     v = m * m + 0.1 * torch.rand(shape, generator=gen, device=DEV)
-    print(f"guidance epilogue N={n} {tuple(shape[1:])} {ptype} t={t} count={count}")
+    print(f"guidance epilogue N={n} {tuple(shape[1:])} {ptype} t={t} count={count} "
+          f"out {fa.DTYPE_TAGS[out_dtype]}")
     got = [x.clone() for x in (lat, m, v)]
     ge.guidance_epilogue(got[0], g, out, got[1], got[2], table, idx, lr=lr, v_pred=v_pred)
     ref = ge.guidance_epilogue_plain(lat, g, out, m, v, table, idx, lr=lr, v_pred=v_pred)
@@ -800,13 +914,87 @@ def check_epilogue(n: int, v_pred: bool, timed: bool = True, reps: int = 100,
         lat, g, out, m, v, table, idx, lr=lr, v_pred=v_pred), reps, 10)
     res["library_ms"] = time_ms(lambda: chain(g, out, t), reps, 10)
     k = g.numel()
-    # reads lat, g, m, v (fp32) and out (bf16); writes lat, m, v; ~26 fp32
+    # reads lat, g, m, v (fp32) and out; writes lat, m, v; ~26 fp32
     # operations an element (two squares, ε̂, Adam, DDIM)
-    res["bound_ms"], res["bound_by"] = bound(26.0 * k, k * (4 * 4 + 2 + 3 * 4), PEAK_FP32_FLOPS)
+    res["bound_ms"], res["bound_by"] = bound(26.0 * k, k * (4 * 4 + out.element_size() + 3 * 4),
+                                             PEAK_FP32_FLOPS)
     print(f"  guidance_epilogue N={n}: kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
           f"library_ms={res['library_ms']:.4f} (the eager chain) "
           f"bound_ms={res['bound_ms']:.5f} ({res['bound_by']})")
     return res
+
+
+# The generic flash pair's head dims other than the paths' 64 and 512, each
+# at a shape a UNet or VAE reaches it (d=128: a 640-channel stage at 5
+# heads, 1728 rows; d=256: a KL VAE whose widest stage is 256, one head at
+# 6912 rows; d=384: 768 channels at 2 heads) and at a ragged one, in bf16 and
+# fp32; and their ring steps (P=4 shards of 432 rows)
+HEAD_DIM_CASES = ((128, 1728, 5), (256, 6912, 1), (384, 1728, 2))
+RING_STEP_HEADS = {128: 5, 256: 1, 384: 2, 512: 1}
+
+
+def fp32_kernel_checks(runs: dict, ring_runs: dict) -> None:
+    """Phase 2c: every kernel form that ``--precision fp32`` runs, and every
+    head dim the JAX package sends to Pallas, against its plain twin on the
+    card (the twins in fp32 with TF32 off; limits FP32_REL and FP32_LSE, or
+    the bf16 kernels' own): the fp32 flash pair at the paths' shapes (S=6912,
+    5 heads, d=64; S=6912, 1 head, d=512) and ragged; the generic pair at
+    d=128, 256 and 384 in both dtypes; every ring step form (fp32 at the
+    native path's 4x1672, d=64; the others at 4x432) and the ring's passes at
+    d=64 fp32 and d=128 in both dtypes; the fp32 conv at TAESD's C=64 and the
+    KL widths; the autograd Functions in fp32; the epilogue with an fp32
+    ``out``. Each result joins ``runs`` (the kernels line) under its
+    kernel's name."""
+    fp32 = torch.float32
+    t_phase = time.perf_counter()
+
+    def add(results, into=runs):
+        for nm, r in results.items():
+            into.setdefault(nm, []).append(r)
+
+    for sq, sk, heads, d, is_timed in (
+        (6912, None, 5, 64, True),  # UNet stage 0 at 576x768
+        (1728, None, 10, 64, False),  # stage 1
+        (6900, None, 5, 64, False),  # ragged
+        (1000, 2100, 5, 64, False),  # ragged, Sq != Sk
+        (6912, None, 1, 512, True),  # KL VAE mid attention at 576x768
+        (1000, 2100, 1, 512, False),
+    ):
+        add(check_flash(sq, sk, heads, is_timed, d=d, dtype=fp32))
+    for d, s, heads in HEAD_DIM_CASES:
+        for dtype in (torch.bfloat16, fp32):
+            add(check_flash(s, None, heads, True, d=d, dtype=dtype))
+            add(check_flash(1000, 2100, heads, False, d=d, dtype=dtype))
+    add(check_ring_steps(6688, 5, 4, True, dtype=fp32))  # the native path's stage 0
+    add(check_ring_steps(1672, 10, 4, False, dtype=fp32))  # stage 1
+    add(check_ring_steps(114, 20, 2, False, dtype=fp32))  # the mid block at P=2: below a tile
+    for d, heads in RING_STEP_HEADS.items():
+        for dtype in (torch.bfloat16, fp32):
+            add(check_ring_steps(1728, heads, 4, True, d=d, dtype=dtype))
+    add(check_ring(6688, 5, 4, False, dtype=fp32), ring_runs)
+    for dtype in (torch.bfloat16, fp32):
+        add(check_ring(1728, 5, 4, False, d=128, dtype=dtype), ring_runs)
+    for args, kw in (
+        ((1, 576, 768), {}),  # TAESD, C=64
+        ((1, 72, 96), {"timed": False}),
+        ((2, 13, 37), {"timed": False}),  # H and W not tile multiples
+        ((1, 576, 768, 128), {"relu": False}),  # KL decoder stage 3, encoder stage 0
+        ((1, 576, 768, 256, 128), {"relu": False, "timed": False}),  # stage-3 entry
+        ((1, 288, 384, 512, 256), {"relu": False}),  # stage-2 entry
+        ((1, 288, 384, 256), {"relu": False, "timed": False}),  # stage 2
+        ((1, 288, 384, 128, 256), {"relu": False, "timed": False}),  # encoder stage-1 entry
+        ((1, 144, 192, 256, 512), {"relu": False, "timed": False}),  # encoder stage-2 entry
+        ((1, 144, 192, 512), {"relu": False, "timed": False}),  # stage 1
+        ((1, 72, 96, 512), {"relu": False, "timed": False}),  # mid and stage 0
+        ((2, 13, 37, 256, 128), {"relu": False, "timed": False}),  # ragged, cin != cout
+        ((1, 88, 304), {"timed": False}),  # the native path's decoder widths
+        ((1, 352, 1216, 64, 64), {"relu": False, "timed": False}),
+    ):
+        runs.setdefault("conv3x3_fp32", []).append(check_conv(*args, dtype=fp32, **kw))
+    check_autograd(fp32)
+    for n, v_pred, hw in ((1, True, (72, 96)), (8, False, (72, 96)), (1, True, (44, 152))):
+        check_epilogue(n, v_pred=v_pred, timed=False, latent_hw=hw, out_dtype=fp32)
+    print(f"phase 2c took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1044,14 +1232,17 @@ EDGE_PHASES = {"prepare": (0, 0, 0, 1, 0, 0), "finish": (0, 0, 0, 0, 1, 0)}
 def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
                       ring_size: int | None = None, mode: str = "per-step",
                       train_steps: int = 0, remat: bool = False,
-                      phase: str | None = None) -> dict:
+                      phase: str | None = None, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Kernel launches one request implies (JAX package routing:
     with a ring, UNet self-attention whose length divides the ring size
-    takes the ring, which launches one ring step kernel per visiting block;
-    other self-attention with S >= 768 and head dim 64 or 512 takes a flash
-    kernel; every stride-1 3x3 conv of a decoder, and of the KL encoder,
-    takes the conv kernel). The batch does not count: every kernel takes it
-    in one launch. ``mode`` (``MODE_PHASES``): "per-step" (a guided request
+    takes the ring, which launches one ring step kernel per visiting block
+    where the head dim is 64 or a multiple of 128 (elsewhere the step twins:
+    none); other self-attention with S >= 768 and head dim 64 or a multiple
+    of 128 takes a flash kernel; every stride-1 3x3 conv of a decoder, and of
+    the KL encoder, takes the conv kernel). Each kernel counts under the
+    name of its (``dtype``, head dim) form (``ops.flash_attention.
+    launch_names``; ``conv3x3`` or ``conv3x3_fp32``). The batch does not
+    count: every kernel takes it in one launch. ``mode`` (``MODE_PHASES``): "per-step" (a guided request
     with the fused epilogue: per step a UNet forward and backward, a decode
     forward and backward, the epilogue); "general" (the same without the
     epilogue: SGD, Adagrad, Adam with sample clipping); "fast_guidance" (a
@@ -1078,21 +1269,6 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
             attn.append((h * w, d, 2 * unet_cfg.layers_per_block + 1, True))
         if i == last:
             attn.append((h * w, d, 1, False))  # the mid block's transformer: not checkpointed
-    flash_per_unet = ring_per_unet = flash_in_stages = 0
-    for s, d, layers, in_stage in attn:
-        if ring_size and s % ring_size == 0:
-            ring_per_unet += layers
-        elif s >= 768 and d == 64:
-            flash_per_unet += layers
-            flash_in_stages += layers if in_stage else 0
-    if vae_kind == "tiny":
-        convs_per_decode = 3 * sum(vae_cfg.decoder_blocks) + len(vae_cfg.decoder_blocks) - 1
-        convs_per_encode = mid_attn = 0  # TAESD: plain encoder convs, no attention
-    else:
-        stages, layers = len(vae_cfg.block_out_channels), vae_cfg.layers_per_block
-        convs_per_decode = 4 + 2 * stages * (layers + 1)  # mid: 2 ResNets; 2 convs each
-        convs_per_encode = 4 + 2 * stages * layers
-        mid_attn = int(eh * ew >= 768)  # one head at d = the widest stage
     if mode in ("step", "step-remat"):
         units = MODE_PHASES["general"]["step"]
         remat = remat or mode == "step-remat"
@@ -1102,21 +1278,35 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
         units = table[phase] if phase is not None else [
             sum(runs[p] * u[i] for p, u in table.items()) for i in range(6)]
     unet_fwd, unet_bwd, dec_bwd, encodes, decodes, epilogues = units
-    return {
-        "flash_fwd": flash_per_unet * unet_fwd + (flash_in_stages * unet_bwd if remat else 0),
-        "flash_bwd": flash_per_unet * unet_bwd,
-        # one ring step launch per visiting block, forward and backward
-        "flash_fwd_ring": (ring_size or 0) * ring_per_unet * unet_fwd,
-        "flash_bwd_ring": (ring_size or 0) * ring_per_unet * unet_bwd,
-        "flash_fwd_d512": mid_attn * (dec_bwd + encodes + decodes),
-        "flash_bwd_d512": mid_attn * dec_bwd,
-        # forward and dx of every decoder conv per trained decode; the
-        # encode; the final decode
-        "conv3x3": 2 * convs_per_decode * dec_bwd + convs_per_encode * encodes
-        + convs_per_decode * decodes,
-        "guidance_epilogue": epilogues,
-        **{name: 0 for name in PROBE_KERNELS},  # no path launches a probe kernel
-    }
+    out = {name: 0 for name in launches()}
+    for s, d, layers, in_stage in attn:
+        if d != 64 and d % 128:  # JAX's plain attention, and its XLA ring body
+            continue
+        if ring_size and s % ring_size == 0:  # one ring step launch per visiting block
+            fwd, bwd = fa.launch_names(dtype, d, ring=True)
+            out[fwd] += ring_size * layers * unet_fwd
+            out[bwd] += ring_size * layers * unet_bwd
+        elif s >= 768:
+            fwd, bwd = fa.launch_names(dtype, d)
+            out[fwd] += layers * unet_fwd + (layers * unet_bwd if remat and in_stage else 0)
+            out[bwd] += layers * unet_bwd
+    if vae_kind == "tiny":
+        convs_per_decode = 3 * sum(vae_cfg.decoder_blocks) + len(vae_cfg.decoder_blocks) - 1
+        convs_per_encode = 0  # TAESD: plain encoder convs, no attention
+    else:
+        stages, layers = len(vae_cfg.block_out_channels), vae_cfg.layers_per_block
+        convs_per_decode = 4 + 2 * stages * (layers + 1)  # mid: 2 ResNets; 2 convs each
+        convs_per_encode = 4 + 2 * stages * layers
+        if eh * ew >= 768:  # the mid attention: one head at d = the widest stage
+            fwd, bwd = fa.launch_names(dtype, vae_cfg.block_out_channels[-1])
+            out[fwd] += dec_bwd + encodes + decodes
+            out[bwd] += dec_bwd
+    # forward and dx of every decoder conv per trained decode; the encode;
+    # the final decode
+    out["conv3x3" if dtype == torch.bfloat16 else "conv3x3_fp32"] += (
+        2 * convs_per_decode * dec_bwd + convs_per_encode * encodes + convs_per_decode * decodes)
+    out["guidance_epilogue"] += epilogues
+    return out  # no path launches a probe kernel
 
 
 def reset_launches():
@@ -1165,6 +1355,18 @@ ENCODE_LIMIT = 2.0
 # softmax passes little through the attention, and phase 2 holds all three
 # (PERF.md, Findings).
 RING_LIMITS = (2e-5, 1e-2, 1e-2)
+# The fp32 reference step (--precision fp32): the fp32 kernels (3xTF32)
+# against the plain versions on the same fp32 bundle, as REF_LIMITS: (loss
+# rel, affine-grad rel, latent-grad cosine gap). The two runs differ only by
+# each kernel's ~2^-21 relative error (FP32_REL's arithmetic) carried through
+# the step: sound readings (TAESD and the d=128 UNet, two seeds, NVIDIA H100
+# 80GB HBM3, 700 W) loss rel <= 6.1e-8 (one fp32 ulp of the loss), affine
+# rel <= 4.6e-7, cosine gap <= 7.2e-6. One TF32 pass (F59: 2^-11 a product)
+# reads affine rel 1.9e-5-5.3e-5 and a cosine gap of 8.2e-5-2.6e-4, while
+# its loss still reads within an ulp or two (1.2e-7): the limits sit 10x and
+# 4x above the sound readings and 3.8x and 2.7x below F59's; the loss limit
+# only holds the loss to a few ulps (PERF.md, Findings).
+FP32_REF_LIMITS = (1e-6, 5e-6, 3e-5)
 
 
 def fp32_bundle(bundle):
@@ -1218,7 +1420,8 @@ def ddim_denoise(denoise, sched, cfg, lat):
 
 def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 768,
                          ring=None, options=(), per_input: bool = False,
-                         label: str = "reference step", limits=None, tp_bundle=None) -> dict:
+                         label: str = "reference step", limits=None, tp_bundle=None,
+                         seeds=REF_SEEDS) -> dict:
     """One guided step (t = the first timestep) on the path's inputs, with
     the path's sampler ``options``, for each of ``REF_SEEDS`` (the initial
     noise), three ways: the run under
@@ -1245,7 +1448,11 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
     ``limits`` replaces the path's limits (the peaked-softmax steps).
     ``tp_bundle``: the run under test is ``bundle`` tensor-parallel
     (``parallel.sharding.shard_bundle``), its reference ``bundle`` whole,
-    both through the kernels, held to the path's limits.
+    both through the kernels, held to the path's limits. An fp32 ``bundle``
+    (``--precision fp32``): the run under test through the fp32 kernels,
+    its reference and the third run through the plain versions on it,
+    ``FP32_REF_LIMITS``. ``seeds``: the noise seeds, ``REF_SEEDS`` by
+    default.
     → the largest reading of each comparison over the seeds.
     """
     cfg = S.SamplerConfig(steps=50, resolution=resolution, norm="const", closed_form=False,
@@ -1263,7 +1470,8 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
         path_limits = REF_LIMITS[bundle.vae.kind]
         modes = {"tensor-parallel": (tp_bundle,) + kernels[1:], "whole": kernels, "fp32": fp32}
     elif ring is None:
-        path_limits = REF_LIMITS[bundle.vae.kind]
+        path_limits = FP32_REF_LIMITS if bundle.dtype == torch.float32 else \
+            REF_LIMITS[bundle.vae.kind]
         modes = {"kernel": kernels,
                  "plain": (bundle, plain_attention, plain_attention, _plain_conv3x3_fused),
                  "fp32": fp32}
@@ -1274,7 +1482,7 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
     test, ref, _ = modes
     loss_lim, aff_lim, cos_lim = path_limits if limits is None else limits
     worst = {"loss_rel": 0.0, "affine_rel": 0.0, "cos_gap": -1.0}
-    for seed in REF_SEEDS:
+    for seed in seeds:
         img_lat, lat0, dn, padding, orig_res = S._prepare(
             bundle, images, sparses, dataclasses.replace(cfg, seed=seed), None)
         if per_input:
@@ -1367,10 +1575,23 @@ def check_request(dense, lat, shape, latent_shape) -> tuple[float, float]:
 # sum, the affine). flash_bwd's float4 dq atomics make two eager runs
 # differ, and the guidance's eps-norm rescale carries that through the
 # steps, so the graph is held to GRAPH_SPREAD_FACTOR times the spread of
-# two twin requests, or GRAPH_FLOOR where the spread is smaller. A request
+# the twin requests, or GRAPH_FLOOR where the spread is smaller. A request
 # that finds the previous request's Adam v in its buffers reads O(1) on v
 # (v keeps 0.999^50 = 95% of it over 50 steps).
-GRAPH_SPREAD_FACTOR, GRAPH_FLOOR = 4.0, 1e-3
+# The spread is the largest distance between two twin requests. The
+# distance of one pair is itself one draw: over a state of a number or two
+# (the affine's scale and shift) a sound graph, a draw of the same
+# distribution, lies past 4x one pair's distance about one time in seven
+# (1 - (2/pi) atan(4) = 0.156 were the two distances independent). The
+# floor covers that where the spread is far below it (TAESD's affine, 1e-5
+# to 1e-4), not on the KL path, whose affine spread 3.1e-4 to 1.1e-3 in four
+# runs at 50 steps, and below 2.5e-4 in a fifth, where the graph read
+# 1.093e-3 against the floor (H100 80GB HBM3, 700 W). So where the first
+# two twins leave any group past its limit, more twins run, up to
+# GRAPH_TWINS: another twin can only widen the largest distance, so this
+# decides as GRAPH_TWINS twins for every program would, and costs a twin
+# request only where the first pair's spread is a low draw.
+GRAPH_SPREAD_FACTOR, GRAPH_FLOOR, GRAPH_TWINS = 4.0, 1e-3, 4
 GRAPH_TIMING_STEPS = 10  # (b): steps timed back to back, eager and graph
 # Phase 3 (d): one step at a time from one state, the graph's replay against
 # the eager step, at step indices 0, 1, N/2 and N-1, whatever the steps: the
@@ -1512,17 +1733,19 @@ def graph_check(label: str, pipe, images, sparses, kwargs: dict, latent_hw, expe
     """The graph checks of one program, after the pipeline's own requests of
     its signature: (a) two requests through ``pipe.twin()`` (fresh
     programs, every phase eager) and one through the pipeline's graphs on
-    the same inputs, held as ``GRAPH_SPREAD_FACTOR`` says; (b) eager and
-    graph timing of every phase (``step_timing``: the prepare and finish
-    steps, and each step phase), each capture's ms, its instantiation's ms,
-    its pool growth and each request's peak; (c) each phase's capture's
+    the same inputs, held as ``GRAPH_SPREAD_FACTOR`` says (more twin
+    requests, up to ``GRAPH_TWINS``, where two leave a group past its
+    limit); (b) eager and graph timing of every phase (``step_timing``: the
+    prepare and finish steps, and each step phase), each capture's ms, its
+    instantiation's ms, its pool growth and each request's peak; (c) each phase's capture's
     launch delta against one run of that phase (``expect(phase)``), and each
     request's launches against one request's (``expect()``); (d)
     ``stepwise_check``. → the readings."""
     n, h, w = images.shape[:3]
     eh, ew = latent_hw
     runs, readings = {}, {"requests": {}}
-    for name in ("twin 1", "twin 2", "graph"):
+
+    def request(name: str) -> None:
         target = pipe if name == "graph" else pipe.twin()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1541,6 +1764,9 @@ def graph_check(label: str, pipe, images, sparses, kwargs: dict, latent_hw, expe
         state = {g: _flat(ts).clone() for g, ts in groups.items() if g != "latent"}
         runs[name] = ({"latent": lat, "dense": dense, **state}, program)
         readings["requests"][name] = {"s": dt, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    for name in ("twin 1", "twin 2", "graph"):
+        request(name)
     # the graph's dense map against its finish step run again, eagerly, on
     # the request's final state: the finish must decode the last step's
     # latent
@@ -1551,16 +1777,32 @@ def graph_check(label: str, pipe, images, sparses, kwargs: dict, latent_hw, expe
     check(f"{label}: the graph's dense map is the finish of its final state", final, GRAPH_FLOOR,
           "max|diff|/max|rerun|")
     readings["dense_vs_final_finish"] = final
-    out = {}
-    for what in runs["graph"][0]:
-        spread = _rel(runs["twin 2"][0][what], runs["twin 1"][0][what])
-        diff = _rel(runs["graph"][0][what], runs["twin 1"][0][what])
-        limit = max(GRAPH_SPREAD_FACTOR * spread, GRAPH_FLOOR)
-        out[what] = {"graph_vs_twin": diff, "twin_spread": spread, "limit": limit,
-                     "twin_spread_l2": _rel_l2(runs["twin 2"][0][what], runs["twin 1"][0][what])}
-        print(f"  (a) {what}: graph vs eager twin {diff:.3e}, twin vs twin {spread:.3e} "
-              f"(max|diff|/max|twin|; limit {limit:.3e})")
-        check(f"{label}: graph vs eager twin ({what})", diff, limit, "max|diff|/max|twin|")
+
+    def spreads() -> dict:
+        twins = [runs[k][0] for k in runs if k != "graph"]
+        out = {}
+        for what in runs["graph"][0]:
+            spread = max(_rel(b[what], a[what]) for a, b in itertools.combinations(twins, 2))
+            limit = max(GRAPH_SPREAD_FACTOR * spread, GRAPH_FLOOR)
+            out[what] = {"graph_vs_twin": _rel(runs["graph"][0][what], twins[0][what]),
+                         "twin_spread": spread, "limit": limit, "twins": len(twins),
+                         "twin_spread_l2": _rel_l2(twins[1][what], twins[0][what])}
+        return out
+
+    out = spreads()
+    while (any(r["graph_vs_twin"] > r["limit"] for r in out.values())
+           and len(runs) - 1 < GRAPH_TWINS):
+        more = f"twin {len(runs)}"
+        print(f"  (a) the graph past a limit of {len(runs) - 1} twins: {more}")
+        request(more)
+        runs[more] = (runs[more][0], None)  # its outputs; its programs are let go
+        out = spreads()
+    for what, r in out.items():
+        print(f"  (a) {what}: graph vs eager twin {r['graph_vs_twin']:.3e}, twin vs twin "
+              f"{r['twin_spread']:.3e} (largest of {r['twins']} twins; max|diff|/max|twin|; "
+              f"limit {r['limit']:.3e})")
+        check(f"{label}: graph vs eager twin ({what})", r["graph_vs_twin"], r["limit"],
+              "max|diff|/max|twin|")
     readings["graph_vs_twin"] = out
     graph, twin = runs["graph"][1], runs["twin 1"][1]
     if graph.tag != twin.tag or set(graph.graphs) != {p for p, _ in graph.phases}:
@@ -1746,17 +1988,19 @@ VERIFY_SCRIPT = Path(__file__).resolve().parent / "scripts" / "verify_checkpoint
 VERIFY_FRAME, VERIFY_RES, VERIFY_STEPS = (128, 160), 128, 2
 
 
-def verify_phase(model_dir: Path, taesd_dir: Path) -> dict:
+def verify_phase(model_dir: Path, taesd_dir: Path, precision: str = "bf16") -> dict:
     """Phase 3b: ``verify_checkpoint_torch.py`` in two processes at once on
     the card, ``--vae light`` (TAESD) and ``--vae original`` (the KL VAE
     phase 3a wrote): each must exit 0 and print OK, and the launches it
     printed must equal ``expected_launches`` of its request (its UNet's
     attention at 14x16 is below the flash kernels' 768, so conv3x3 and the
-    epilogue launch; the KL path's convs at SD widths). → the ``verify``
-    line: per VAE, wall seconds, the launches and the output's summary."""
+    epilogue launch; the KL path's convs at SD widths). ``precision``: its
+    ``--precision`` (phase 5b runs it at fp32). → the ``verify`` line: per
+    VAE, wall seconds, the launches and the output's summary."""
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     procs = {vae: subprocess.Popen(
         [sys.executable, str(VERIFY_SCRIPT), str(model_dir), "--taesd", str(taesd_dir), "--vae",
-         vae], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         vae, "--precision", precision], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for vae in ("light", "original")}
     t0 = time.perf_counter()
     result = {}
@@ -1765,7 +2009,8 @@ def verify_phase(model_dir: Path, taesd_dir: Path) -> dict:
             out, err = proc.communicate(timeout=600)
             wall = time.perf_counter() - t0
             lines = out.splitlines()
-            print(f"verify --vae {vae}: rc {proc.returncode} after {wall:.2f} s")
+            print(f"verify --vae {vae} --precision {precision}: rc {proc.returncode} after "
+                  f"{wall:.2f} s")
             print("\n".join("  " + line for line in lines))
             if proc.returncode != 0 or not lines or lines[-1] != "OK":
                 raise AssertionError(f"verify --vae {vae} failed (rc {proc.returncode}):\n"
@@ -1775,7 +2020,7 @@ def verify_phase(model_dir: Path, taesd_dir: Path) -> dict:
                          else ("kl", registry.SD_VAE_CONFIG))
             hw = latent_size(VERIFY_FRAME, VERIFY_RES, 8)
             want = {k: n for k, n in expected_launches(registry.MARIGOLD_UNET_CONFIG, kind, cfg,
-                                                       hw, VERIFY_STEPS).items()
+                                                       hw, VERIFY_STEPS, dtype=dtype).items()
                     if k not in PROBE_KERNELS}
             if got != want:
                 raise AssertionError(f"verify --vae {vae}: launches {got} != {want}")
@@ -2222,6 +2467,14 @@ PEAKED_LIMITS = (2e-5, 1e-2, 2e-3)
 PEAKED_RING_LIMITS = (2e-5, 1e-2, 5e-3)
 
 
+def peak_line(by_n: dict, pixels: int) -> tuple[float, float]:
+    """(bytes per latent pixel, fixed bytes) through the end points of a
+    {batch: peak GiB} row at ``pixels`` latent pixels a sample."""
+    lo, hi = min(by_n), max(by_n)
+    per_pixel = (by_n[hi] - by_n[lo]) * 2**30 / ((hi - lo) * pixels)
+    return per_pixel, by_n[lo] * 2**30 - lo * per_pixel * pixels
+
+
 @contextlib.contextmanager
 def plain_decode():
     """The sampler's decodes through the plain conv and attention."""
@@ -2653,11 +2906,9 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
     pixels = eh * ew
     measured = {}  # (kind, remat) → (bytes per latent pixel, fixed bytes), through the end points
     for (kind, remat), by_n in peaks.items():
-        lo, hi = min(by_n), max(by_n)
-        per_pixel = (by_n[hi] - by_n[lo]) * 2**30 / ((hi - lo) * pixels)
-        measured[(kind, remat)] = (per_pixel, by_n[lo] * 2**30 - lo * per_pixel * pixels)
+        measured[(kind, remat)] = peak_line(by_n, pixels)
         for n, gib in by_n.items():
-            est = S.step_peak_bytes(kind, remat, n, (eh, ew))
+            est = S.step_peak_bytes(kind, remat, n, (eh, ew), torch.bfloat16)
             print(f"  {kind} remat {'on' if remat else 'off'} batch {n}: peak {gib:.3f} GiB, "
                   f"sampler.py's estimate {est / 2**30:.3f} GiB")
             check(f"remat {kind} {'on' if remat else 'off'} batch {n}: the estimate covers the "
@@ -2686,7 +2937,7 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
     for (kind, remat), (per_pixel, fixed) in measured.items():
         print(f"  remat {kind} {'on' if remat else 'off'}: measured {per_pixel:.0f} bytes per "
               f"latent pixel + {fixed:.0f} fixed (sampler.py: "
-              f"{S.STEP_PEAK_BYTES[(kind, remat)]})")
+              f"{S.STEP_PEAK_BYTES[(kind, remat, torch.bfloat16)]})")
     print(f"  card memory {total}; \"auto\" on at batch {auto}; the largest KL batch that fits "
           f"at {kl_hw[0]}x{kl_hw[1]}: {limit}")
     modes["remat"] = {
@@ -2867,6 +3118,276 @@ def modes_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int, res: i
                                   (eh, ew), train_steps)
         for label, mode, options, train_steps in specs}
     return modes
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: --precision fp32 on the card
+# ---------------------------------------------------------------------------
+
+FP32_STEPS = 10  # the KL and native requests and the dense-map check at fp32
+FP32_CLI_STEPS = 4  # cli.predict --precision fp32, three frames
+FP32_TIMING_STEPS = 4  # graph against eager ms per step, per fp32 path
+# The dense map of a FP32_STEPS request through the fp32 kernels against the
+# same request through the plain fp32 versions (rms, max over the 120 m
+# range). Adam turns a gradient element whose sign the kernels' ~2^-21
+# flips into a step of 2 lr, so the maps part by more than the kernels do:
+# sound 3.6e-6 rms, 1.9e-4 max at 10 steps (H100 80GB HBM3, 700 W), limits
+# 5.5x and 10x that. A guard against gross faults: one TF32 pass (F59) read
+# 8.4e-6 rms and 4.3e-4 max at 4 steps, inside them (phase 2c and the
+# reference step (c) catch it).
+FP32_DENSE_LIMITS = (2e-5, 2e-3)
+# the fp32 rows of sampler.STEP_PEAK_BYTES: TAESD at these batches (with
+# and without remat), the KL decoder at these
+FP32_PEAK_BATCHES = {"tiny": (1, 4), "kl": (1, 2)}
+D128_HEADS = (5, 5, 20, 20)  # the Marigold UNet with stage 1 (640 channels) at d=128
+
+
+def fp32_request_path(label: str, bundle, steps: int, frame, points: int, resolution: int,
+                      ring_size: int | None = None) -> tuple[dict, dict]:
+    """Two requests at fp32 through the pipeline (the second carrying the
+    first's latents), each replaying its program's graphs and launching the
+    fp32 kernels ``expected_launches(dtype=torch.float32)`` names; then the
+    program's step eager (its own body, the graph's twin) against its graph,
+    ms per step by CUDA events. → (the launches, the readings)."""
+    h, w = frame
+    ring = ra.LocalRing(ring_size) if ring_size else None
+    pipe = DepthCompletionPipeline(bundle)
+    eh, ew = latent_size(frame, resolution, bundle.vae.downsample_factor)
+    images, sparses = path_inputs(frame, points)
+    vae_cfg = registry.TAESD_CONFIG if bundle.vae.kind == "tiny" else registry.SD_VAE_CONFIG
+    expected = expected_launches(bundle.unet_config, bundle.vae.kind, vae_cfg, (eh, ew), steps,
+                                 ring_size, dtype=torch.float32)
+    print(f"fp32 path {label}: 2 requests x {steps} guided steps, {h}x{w}, res {resolution}")
+    prev, seconds, peaks, totals = None, [], [], {}
+    for req in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launches()  # just before the request
+        t0 = time.perf_counter()
+        dense, lat = pipe(images, sparses, max_depth=120.0, steps=steps, norm="const",
+                          closed_form=False, pred_latents_prev=prev, resolution=resolution,
+                          ring_mesh=ring)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts = launches()  # just after
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        lo, hi = check_request(dense, lat, (1, h, w, 1), (1, eh, ew, 4))
+        print(f"  request {req}: {seconds[-1]:.2f} s, peak {peaks[-1]:.2f} GiB, dense "
+              f"[{lo:.3f}, {hi:.3f}] m, launches {({k: n for k, n in counts.items() if n})}")
+        if counts != expected:
+            raise AssertionError(f"fp32 {label}: kernel launches {counts} != expected {expected}")
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        prev = lat
+    reset_launches()
+    program = pipe.programs.find(images.shape)
+    timing = {"graph": step_timing(program, eager=False, steps=FP32_TIMING_STEPS),
+              "eager": step_timing(program, eager=True, steps=FP32_TIMING_STEPS)}
+    reset_launches()  # the timing's launches are no path's
+    g, e = timing["graph"], timing["eager"]
+    print(f"  step: graph {g['s_per_step'] * 1e3:.2f} ms / eager {e['s_per_step'] * 1e3:.2f} ms per "
+          f"run (CUDA events), device {g['device_ms']:.2f} / {e['device_ms']:.2f} ms, busy "
+          f"{g['busy_share']:.1%} / {e['busy_share']:.1%}")
+    del pipe, program
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, {"steps": steps, "s_per_request": seconds, "peak_gib": max(peaks),
+                    "step_ms": {"graph": g["s_per_step"] * 1e3, "eager": e["s_per_step"] * 1e3},
+                    "device_ms": {"graph": g["device_ms"], "eager": e["device_ms"]},
+                    "busy_share": {"graph": g["busy_share"], "eager": e["busy_share"]}}
+
+
+def fp32_peak_rows(bundle32, kl32) -> dict:
+    """One fp32 guided step with and without UNet remat at
+    ``FP32_PEAK_BATCHES`` (480x640 at res 768): each peak against
+    ``sampler.STEP_PEAK_BYTES[(kind, remat, fp32)]`` (``STEP_PEAK_COVER``),
+    and the rows the peaks give (bytes per latent pixel, fixed bytes,
+    through the end points). → the readings."""
+    frame, points = CLI_FRAME, CLI_POINTS
+    cfg = S.SamplerConfig(steps=50, norm="const", closed_form=False)
+    sched = S.make_schedule(cfg.ddim)
+    t = int(S.make_timesteps(cfg.ddim, cfg.steps)[0])
+    eh, ew = latent_size(frame, 768, bundle32.vae.downsample_factor)
+    imgs_b, sps_b = path_inputs(frame, points, batch=max(max(b) for b in FP32_PEAK_BATCHES.values()),
+                                seed=1)
+    peaks = {}
+    for bnd in (bundle32, kl32):
+        kind = bnd.vae.kind
+        for n in FP32_PEAK_BATCHES[kind]:
+            for remat in (False, True):
+                imgs, sps = imgs_b[:n].to(DEV), sps_b[:n].to(DEV)
+                img_lat, lat0, dn, padding, orig_res = S._prepare(bnd, imgs, sps, cfg, None)
+                for _ in range(2):  # the second: the libraries' plans and workspaces set up
+                    lat = lat0.clone().requires_grad_(True)
+                    aff = [torch.ones((n, 1, 1, 1), device=DEV).requires_grad_(True),
+                           torch.zeros((n, 1, 1, 1), device=DEV).requires_grad_(True)]
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    S.guided_step_grads(S._Denoiser(bnd, img_lat, fa.flash_attention, remat),
+                                        functools.partial(S.decode_prediction, bnd), sched, cfg,
+                                        dn, imgs, orig_res, padding, False, lat, aff, t)
+                    torch.cuda.synchronize()
+                    gib = torch.cuda.max_memory_allocated() / 2**30
+                    del lat, aff
+                peaks.setdefault((kind, remat), {})[n] = gib
+                est = S.step_peak_bytes(kind, remat, n, (eh, ew), torch.float32)
+                print(f"  fp32 {kind} remat {'on' if remat else 'off'} batch {n}: peak {gib:.3f} "
+                      f"GiB, sampler.py's estimate {est / 2**30:.3f} GiB")
+                check(f"fp32 remat {kind} {'on' if remat else 'off'} batch {n}: the estimate "
+                      "covers the peak", gib * 2**30 / est, STEP_PEAK_COVER, "peak/estimate")
+                del img_lat, lat0, dn
+                gc.collect()
+                torch.cuda.empty_cache()
+    reset_launches()  # these steps are no request's
+    rows = {}
+    for (kind, remat), by_n in peaks.items():
+        key = f"{kind} {'on' if remat else 'off'}"
+        rows[key] = list(peak_line(by_n, eh * ew))
+        print(f"  fp32 remat {key}: measured {rows[key][0]:.0f} bytes per latent pixel + "
+              f"{rows[key][1]:.0f} fixed (sampler.py: "
+              f"{S.STEP_PEAK_BYTES[(kind, remat, torch.float32)]})")
+    return {"peak_gib": {f"{k} {'on' if r else 'off'}": {str(n): g for n, g in by_n.items()}
+                         for (k, r), by_n in peaks.items()},
+            "bytes_per_latent_pixel_and_fixed": rows, "card": card()}
+
+
+def fp32_phase(model_dir: Path, taesd_dir: Path, root: Path, steps: int) -> tuple[dict, dict]:
+    """Phase 5b: ``--precision fp32`` on the card, every conv and flash call
+    a launch of an fp32 kernel (3xTF32), on the checkpoint of phase 3a read
+    at fp32 (the Marigold UNet, TAESD, the SD2 tower's context):
+
+    - (a) TAESD at 480x640, res 768, ``steps`` guided steps, two requests
+      with the carry (``fp32_request_path``: launches against
+      ``expected_launches(dtype=fp32)``, graph against eager ms per step);
+      (b) the KL VAE (``SD_VAE_CONFIG``, seeded fp32) and native resolution
+      over ``LocalRing(4)`` (352x1216, res 1216), each at ``FP32_STEPS``;
+    - (c) one fp32 guided step's losses, affine and latent gradients through
+      the kernels against the plain versions (``FP32_REF_LIMITS``);
+    - (d) the dense map of a ``FP32_STEPS`` request through the kernels
+      against the same request through the plain fp32 versions
+      (``FP32_DENSE_LIMITS``);
+    - (e) ``cli.predict --precision fp32`` in its own process over three
+      480x640 frames at ``FP32_CLI_STEPS``: exit 0, its logged launches three
+      times one request's, finite maps; meanwhile (g);
+    - (f) a guided step through the UNet with ``D128_HEADS`` (stage 1 at
+      d=128: the generic flash pair) in bf16 (``REF_LIMITS``) and fp32
+      (``FP32_REF_LIMITS``) against the plain step, its launches counted;
+    - (g) ``scripts/verify_checkpoint_torch.py --precision fp32`` with
+      either VAE (``verify_phase``);
+    - (h) the fp32 rows of ``sampler.STEP_PEAK_BYTES`` (``fp32_peak_rows``).
+
+    → (the ``fp32`` line, the launches of (a), (b) and (f))."""
+    t_phase = time.perf_counter()
+    counts, out = {}, {}
+    bundle32 = load_bundle(model_dir, "tiny", taesd_dir, torch.float32, device=DEV)
+    kl_vae = make_random_bundle(seed=0, unet_config=registry.TINY_UNET_CONFIG,
+                                vae_config=registry.SD_VAE_CONFIG, dtype=torch.float32,
+                                device=DEV, vae_kind="kl").vae
+    kl32 = dataclasses.replace(bundle32, vae=kl_vae)
+    native = next(p for p in PATHS if p.ring_size)
+    for label, bnd, n_steps, frame, points, res, ring_size in (
+        ("TAESD", bundle32, steps, (480, 640), 500, 768, None),
+        ("KL", kl32, min(steps, FP32_STEPS), (480, 640), 500, 768, None),
+        ("native-res", bundle32, min(steps, FP32_STEPS), native.frame, native.points,
+         native.resolution, native.ring_size),
+    ):
+        got, out[label] = fp32_request_path(label, bnd, n_steps, frame, points, res, ring_size)
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+
+    images_h, sparses_h = path_inputs((480, 640), 500)
+    images, sparses = images_h.to(DEV), sparses_h.to(DEV)
+    print("fp32 reference step: the fp32 kernels against the plain versions, fp32 bundle")
+    out["reference_step"] = reference_step_check(bundle32, bundle32, images, sparses,
+                                                 label="fp32 reference step",
+                                                 seeds=REF_SEEDS[:2])
+
+    n_steps = min(steps, FP32_STEPS)
+    kw = dict(max_depth=120.0, steps=n_steps, norm="const", closed_form=False)
+    dense_k, _ = DepthCompletionPipeline(bundle32)(images_h, sparses_h, **kw)
+    reset_launches()
+    with plain_decode():
+        dense_p, _ = DepthCompletionPipeline(bundle32).twin()(images_h, sparses_h,
+                                                             flash_attention="off", **kw)
+    if any(n for k, n in launches().items() if k != "guidance_epilogue"):
+        raise AssertionError(f"the plain fp32 request launched {launches()}")
+    rms, mx = _range_diff(dense_k[0], dense_p[0])
+    print(f"fp32 dense map ({n_steps} steps): kernels vs the plain versions rms {rms:.3e} max "
+          f"{mx:.3e} of 120 m")
+    check("fp32 dense map vs the plain versions (rms)", rms, FP32_DENSE_LIMITS[0], "rms/120 m")
+    check("fp32 dense map vs the plain versions (max)", mx, FP32_DENSE_LIMITS[1], "max/120 m")
+    out["dense_vs_plain"] = {"steps": n_steps, "rms": rms, "max": mx}
+    del dense_k, dense_p
+
+    data, _, _ = cli_dataset(root / "fp32_data")
+    eh, ew = latent_size(CLI_FRAME, 768, bundle32.vae.downsample_factor)
+    cli_steps = min(steps, FP32_CLI_STEPS)
+    one = expected_launches(registry.MARIGOLD_UNET_CONFIG, "tiny", registry.TAESD_CONFIG,
+                            (eh, ew), cli_steps, dtype=torch.float32)
+    cmd = [sys.executable, "-m", "depth_completion_tpu_torch.cli.predict", str(data),
+           str(root / "fp32_out"), "--checkpoint-dir", str(model_dir), "--taesd-dir",
+           str(taesd_dir), "--precision", "fp32", "--steps", str(cli_steps), "--vis", "false"]
+    # the CLI's process runs while the verifier's two do (each counts its
+    # own launches)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    try:
+        out["verify"] = verify_phase(model_dir, taesd_dir, "fp32")
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:  # it does not outlive the phase, also when a check fails
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    cli_s = time.perf_counter() - t0
+    logged = [json.loads(x) for x in re.findall(r"Kernel launches: (\{.*\})", stdout + stderr)]
+    print(f"fp32 cli.predict --precision fp32 ({CLI_FRAMES} frames, {cli_steps} steps): rc "
+          f"{proc.returncode} in {cli_s:.1f} s, launches "
+          f"{[{k: n for k, n in x.items() if n} for x in logged]}")
+    if proc.returncode != 0 or len(logged) != 1:
+        raise AssertionError(f"cli.predict --precision fp32 exited {proc.returncode}:\n"
+                             f"{stdout[-4000:]}\n{stderr[-4000:]}")
+    want = {k: CLI_FRAMES * n for k, n in one.items() if n}
+    if {k: n for k, n in logged[0].items() if n} != want:
+        raise AssertionError(f"cli.predict --precision fp32 launched {logged[0]} != {want}")
+    maps = sorted((root / "fp32_out").rglob("*.dcz"))
+    for f in maps:
+        check_request(torch.from_numpy(codecs.load_array(f))[None], None, (1, *CLI_FRAME, 1), None)
+    if len(maps) != CLI_FRAMES:
+        raise AssertionError(f"cli.predict --precision fp32 wrote {len(maps)} maps")
+    out["cli"] = {"steps": cli_steps, "frames": CLI_FRAMES, "wall_s": cli_s,
+                  "launches": {k: n for k, n in logged[0].items() if n}}
+
+    d128 = {}
+    for dtype, bnd in ((torch.bfloat16, load_bundle(model_dir, "tiny", taesd_dir, torch.bfloat16,
+                                                    device=DEV)), (torch.float32, bundle32)):
+        cfg128 = dataclasses.replace(bnd.unet_config, num_heads=D128_HEADS)
+        b128 = dataclasses.replace(bnd, unet_config=cfg128)
+        seeds = REF_SEEDS[:1]
+        reset_launches()  # just before: only the steps under test launch kernels
+        d128[fa.DTYPE_TAGS[dtype]] = reference_step_check(
+            b128, fp32_bundle(b128), images, sparses, label=f"d=128 UNet step {fa.DTYPE_TAGS[dtype]}",
+            seeds=seeds)
+        got = launches()
+        reset_launches()
+        step = expected_launches(cfg128, "tiny", registry.TAESD_CONFIG, (eh, ew), 1, mode="step",
+                                 dtype=dtype)
+        want = {k: len(seeds) * n for k, n in step.items()}
+        print(f"  d=128 UNet step {fa.DTYPE_TAGS[dtype]}: launches {({k: n for k, n in got.items() if n})}")
+        if got != want:
+            raise AssertionError(f"d=128 UNet step {fa.DTYPE_TAGS[dtype]}: launches {got} != {want}")
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+        del bnd, b128
+    out["d128_step"] = d128
+    out["peaks"] = fp32_peak_rows(bundle32, kl32)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card()
+    print(f"fp32: phase 5b took {out['phase_s']:.1f} s")
+    del bundle32, kl32, kl_vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
 
 
 # ---------------------------------------------------------------------------
@@ -3981,11 +4502,16 @@ def main() -> int:
     ap.add_argument("--only-drivers", action="store_true",
                     help="build and run phase 8 (the configuration drivers) only; no kernels "
                     "line")
+    ap.add_argument("--only-fp32", action="store_true",
+                    help="build, run phase 2c (the fp32 and head-dim kernel checks), write the "
+                    "checkpoint and run phase 5b (--precision fp32) only; no kernels line")
     args = ap.parse_args()
     if args.only_distributed:
         return only_distributed(args.steps)
     if args.only_drivers:
         return only_drivers()
+    if args.only_fp32:
+        return only_fp32(args.steps)
 
     print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4081,6 +4607,7 @@ def main() -> int:
         )),
     ]
     probes, probe_entries = probe_phase()
+    fp32_kernel_checks(runs, ring_runs)
 
     counts: dict[str, int] = {}
     ring_launches: dict[str, int] = {}  # kernel launches on the native (ring) path
@@ -4102,6 +4629,9 @@ def main() -> int:
         verify = verify_phase(model_dir, taesd_dir)
         host_io = host_io_phase(model_dir, taesd_dir, Path(tmp), args.steps)
         modes = modes_phase(model_dir, taesd_dir, Path(tmp), args.steps)
+        fp32, fp32_counts = fp32_phase(model_dir, taesd_dir, Path(tmp), args.steps)
+        for k, n in fp32_counts.items():
+            counts[k] = counts.get(k, 0) + n
         serve, serve_counts = serve_phase(model_dir, taesd_dir, args.steps)
         for k, n in serve_counts.items():
             counts[k] = counts.get(k, 0) + n
@@ -4127,7 +4657,19 @@ def main() -> int:
                     "depth_completion_tpu/ops/conv3x3.py:81"),
         "guidance_epilogue": ("depth_completion_tpu_torch/csrc/guidance_epilogue.cu",
                               "depth_completion_tpu/ops/guidance_epilogue.py:62"),
+        "conv3x3_fp32": ("depth_completion_tpu_torch/csrc/conv3x3.cu",
+                         "depth_completion_tpu/ops/conv3x3.py:81"),
     }
+    # the generic flash pair, per (dtype, head dim): fp32 at every head dim,
+    # bf16 at 128-384, and the ring steps of every pair but bf16 at 64
+    for dtype, lib in ((torch.float32, "flash_generic_f32"), (torch.bfloat16, "flash_generic_bf16")):
+        for d in fa.HEAD_DIMS:
+            for ring in (False, True):
+                for name, line in zip(fa.launch_names(dtype, d, ring), (163, 534)):
+                    if name not in sources:
+                        sources[name] = (f"depth_completion_tpu_torch/csrc/{lib}.cu",
+                                         "depth_completion_tpu/ops/ring_attention.py:99" if ring
+                                         else f"{fa_py}:{line}")
     # the ring attention's passes (TPU kernel ops/ring_attention.py:99): P
     # launches of a ring step kernel each, counted under that kernel. Times
     # and bound at stage 0 of the native path, P=4; error over every case,
@@ -4152,6 +4694,7 @@ def main() -> int:
     print(json.dumps({"host_io": host_io}))
     programs = modes.pop("programs")
     print(json.dumps({"modes": modes}))
+    print(json.dumps({"fp32": fp32}))
     print(json.dumps({"programs": programs}, default=str))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"distributed": distributed}))
@@ -4167,10 +4710,13 @@ def main() -> int:
         r = next(x for x in runs[name] if "ms" in x)
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": max(x["max_abs_err"] for x in runs[name]),
+            "launches": counts.get(name, 0),
+            "max_abs_err": max(x["max_abs_err"] for x in runs[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+        if "library_tf32_ms" in r:  # the fp32 conv: cuDNN with TF32 on, for scale
+            entries[-1]["library_tf32_ms"] = r["library_tf32_ms"]
         if name in launch_notes:
             entries[-1]["launches_counted"] = launch_notes[name]
     entries.extend(probe_entries)  # launches from the probes' runs; 0 on every path
@@ -4201,6 +4747,34 @@ def only_distributed(steps: int) -> int:
         sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
         return 1
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_fp32(steps: int) -> int:
+    """``--only-fp32``: the kernels' build, phase 2c (``fp32_kernel_checks``),
+    the checkpoint directory (phase 3a) and phase 5b (``fp32_phase``), then
+    the ``fp32`` line and the result line."""
+    print(card())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    runs: dict[str, list] = {}
+    fp32_kernel_checks(runs, {})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoint_") as tmp:
+        loaded, model_dir, taesd_dir = checkpoint_bundle(Path(tmp))
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        fp32, _ = fp32_phase(model_dir, taesd_dir, Path(tmp), steps)
+    if FAILURES:
+        sys.stderr.write("chip_smoke: checks failed:\n  " + "\n  ".join(FAILURES) + "\n")
+        return 1
+    print(json.dumps({"fp32": fp32}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention", "conv3x3", "guidance_epilogue", "probe_mma", "probe_block_step",
-           "probe_flash_twostream")
+SOURCES = ("flash_attention", "flash_generic_f32", "flash_generic_bf16", "conv3x3",
+           "guidance_epilogue", "probe_mma", "probe_block_step", "probe_flash_twostream")
 HOST_SOURCES = ("dcz_codec", "png_unfilter", "jpeg_decode")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 NVCC_FLAGS = (

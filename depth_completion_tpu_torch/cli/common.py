@@ -65,6 +65,15 @@ def coerce_guidance_options(
     return loss_funcs, norm, train_latents, closed_form
 
 
+def exact_fp32() -> None:
+    """fp32 all the way through: cuDNN's convolutions (the UNet's) and
+    cuBLAS's products in full fp32, not TF32 (PyTorch rounds fp32
+    convolutions to TF32 by default); the port's own fp32 kernels take
+    3xTF32 (``ops.conv3x3``, ``ops.flash_attention``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def init_bundle(
     model: str,
     checkpoint_dir: Path | None,
@@ -85,6 +94,8 @@ def init_bundle(
     from depth_completion_tpu_torch.models.bundle import load_bundle, make_random_bundle
 
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    if dtype == torch.float32:
+        exact_fp32()
     vae_kind = "tiny" if vae == "light" else "kl"
     if model == "random":
         logger.warning("Running with RANDOM weights (smoke-test mode)")

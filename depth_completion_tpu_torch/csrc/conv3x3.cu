@@ -277,6 +277,183 @@ int launch(const void* x, const void* w, const void* bias, const void* skip, con
 
 }  // namespace
 
+// ===========================================================================
+// fp32 form (conv3x3_f32_kernel): the same function on fp32 NHWC x, skip and
+// mask, fp32 HWIO weights and bias, fp32 y (and the masked x), for
+// --precision fp32 (the JAX package sizes its tile by x.dtype.itemsize and
+// runs this kernel at fp32 too, depth_completion_tpu/ops/conv3x3.py:69-78).
+//
+// Arithmetic: 3xTF32 on the tensor cores (mma.sync m16n8k8: each operand
+// split into a TF32 high part and a TF32 remainder, three products per
+// k-step, each k-step's sum added to the fp32 accumulator with an fp32 add;
+// dct::mma_strip_tf32), so the result keeps ~22
+// bits of every product where one TF32 pass keeps 11. What bounds it: as the
+// bf16 form, at TF32's 495 TFLOP/s and three products a k-step (3 x the
+// operations), and twice the bytes. This is the first, simple form: the same
+// implicit GEMM and 4x32-pixel tile, a K-step of 8 channels (one k8 per tap),
+// BN = 64 output channels a block, stages through the two-stage cp.async
+// ring (fp32 needs no conversion), fragments read with scalar loads from
+// padded halo rows (12 floats a pixel: conflict-free) and padded weight rows,
+// and the epilogue (bias, skip, ReLU) written straight from the fragments.
+// 8 warps: one output row of the tile (two m16 tiles) by 32 output channels
+// each. Shared memory: 61 KB (81 KB with a mask).
+// ===========================================================================
+
+namespace {
+
+constexpr int CK32 = 8;              // input channels per K-step
+constexpr int CKP32 = 12;            // halo pixel stride (floats)
+constexpr int BN32 = 64;             // output channels per block
+constexpr int LDW32 = BN32 + 8;      // weight row stride (floats)
+constexpr int HALO32 = HPIX * CKP32;  // floats of one staged halo chunk
+constexpr int WTS32 = 9 * CK32 * LDW32;  // floats of one chunk's nine taps
+
+template <bool MASK>
+struct Cfg32 {
+  static constexpr int W_OFF = HALO32 * (MASK ? 2 : 1);
+  static constexpr int STAGE = W_OFF + WTS32;  // floats
+  static constexpr int SMEM = 2 * STAGE * 4;
+  static_assert(SMEM <= 232448, "tiles exceed shared memory");
+};
+
+template <bool MASK>
+__device__ __forceinline__ void load_stage32(float* st, const float* __restrict__ x,
+                                             const float* __restrict__ mask,
+                                             const float* __restrict__ w, int n, int H, int W,
+                                             int Ci, int Co, int h0, int w0, int co0, int c0) {
+  for (int i = threadIdx.x; i < HPIX * 2; i += NTHREADS) {
+    const int p = i >> 1, c = i & 1;
+    const int gh = h0 - 1 + p / HC, gw = w0 - 1 + p % HC, ch = c0 + c * 4;
+    const bool ok = gh >= 0 && gh < H && gw >= 0 && gw < W && ch < Ci;
+    const long off = ok ? (((long)n * H + gh) * W + gw) * Ci + ch : 0;
+    const int so = p * CKP32 + c * 4;
+    dct::cp_async_16(dct::smem_u32(st + so), x + off, ok);
+    if (MASK) dct::cp_async_16(dct::smem_u32(st + HALO32 + so), mask + off, ok);
+  }
+  float* sw = st + Cfg32<MASK>::W_OFF;
+  constexpr int CPR = BN32 / 4;  // 16-byte chunks per weight row
+  for (int i = threadIdx.x; i < 9 * CK32 * CPR; i += NTHREADS) {
+    const int nv = i % CPR, kr = (i / CPR) % CK32, t = i / (CPR * CK32);
+    const int ci = c0 + kr;
+    const bool ok = ci < Ci && co0 + nv * 4 < Co;  // w is [3][3][Ci][Co]
+    const long off = ok ? ((long)t * Ci + ci) * Co + co0 + nv * 4 : 0;
+    dct::cp_async_16(dct::smem_u32(sw + (t * CK32 + kr) * LDW32 + nv * 4), w + off, ok);
+  }
+}
+
+template <bool MASK>
+__global__ void __launch_bounds__(NTHREADS, 2)
+conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, const float* __restrict__ skip,
+                   const float* __restrict__ mask, float* __restrict__ y,
+                   float* __restrict__ masked_out, int H, int W, int Ci, int Co, int relu) {
+  using C = Cfg32<MASK>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+
+  const int n_co = (Co + BN32 - 1) / BN32;
+  const int n = blockIdx.z / n_co, co0 = (blockIdx.z % n_co) * BN32;
+  const int h0 = blockIdx.y * TH, w0 = blockIdx.x * TW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1;  // output row wm of the tile; channels 32·wn..
+  const int g = lane >> 2, t4 = lane & 3;
+
+  float acc[2][4][4];  // m16 tiles (columns 0-15, 16-31) x n8 tiles
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  const int nk = (Ci + CK32 - 1) / CK32;
+  load_stage32<MASK>(ring, x, mask, w, n, H, W, Ci, Co, h0, w0, co0, 0);
+  dct::cp_async_commit();
+
+  for (int kc = 0; kc < nk; ++kc) {
+    float* st = ring + (kc & 1) * C::STAGE;
+    dct::cp_async_wait<0>();
+    __syncthreads();  // chunk kc landed; chunk kc-1's stage consumed by every warp
+    if (kc + 1 < nk)
+      load_stage32<MASK>(ring + ((kc + 1) & 1) * C::STAGE, x, mask, w, n, H, W, Ci, Co, h0, w0,
+                         co0, (kc + 1) * CK32);
+    dct::cp_async_commit();
+
+    if (MASK) {  // zero the operand where mask <= 0, halo rows included
+      for (int i = threadIdx.x; i < HPIX * 2; i += NTHREADS) {
+        const int p = i >> 1, c = i & 1;
+        const int rr = p / HC, cc = p % HC;
+        float4* xs = reinterpret_cast<float4*>(st + p * CKP32 + c * 4);
+        const float4 xv = *xs;
+        const float4 mv = *reinterpret_cast<const float4*>(st + HALO32 + p * CKP32 + c * 4);
+        const float4 val = make_float4(mv.x > 0.f ? xv.x : 0.f, mv.y > 0.f ? xv.y : 0.f,
+                                       mv.z > 0.f ? xv.z : 0.f, mv.w > 0.f ? xv.w : 0.f);
+        *xs = val;
+        // the masked operand: once per pixel (co tile 0), the tile's own pixels
+        const int gh = h0 - 1 + rr, gw = w0 - 1 + cc, ch = kc * CK32 + c * 4;
+        if (masked_out != nullptr && co0 == 0 && rr >= 1 && rr <= TH && cc >= 1 && cc <= TW &&
+            gh < H && gw < W && ch < Ci)
+          *reinterpret_cast<float4*>(masked_out + (((long)n * H + gh) * W + gw) * Ci + ch) = val;
+      }
+      __syncthreads();
+    }
+
+    const float* sw = st + C::W_OFF;
+#pragma unroll 3
+    for (int t = 0; t < 9; ++t) {
+      const int dh = t / 3, dw = t % 3;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        dct::mma_strip_tf32<true, 4>(acc[i], st + ((wm + dh) * HC + i * 16 + dw) * CKP32, CKP32,
+                                     1, sw + t * CK32 * LDW32 + wn * 32, LDW32, 1, CK32);
+    }
+  }
+
+  // epilogue from the fragments: + bias, + skip, ReLU; float2 stores
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int co = co0 + wn * 32 + j * 8 + 2 * t4;
+    if (co >= Co) continue;
+    const float b0 = bias != nullptr ? bias[co] : 0.f;
+    const float b1 = bias != nullptr ? bias[co + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gh = h0 + wm, gw = w0 + i * 16 + g + 8 * half;
+        if (gh >= H || gw >= W) continue;
+        const long off = (((long)n * H + gh) * W + gw) * Co + co;
+        float v0 = acc[i][j][2 * half] + b0, v1 = acc[i][j][2 * half + 1] + b1;
+        if (skip != nullptr) {
+          const float2 s = *reinterpret_cast<const float2*>(skip + off);
+          v0 += s.x;
+          v1 += s.y;
+        }
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        *reinterpret_cast<float2*>(y + off) = make_float2(v0, v1);
+      }
+  }
+}
+
+template <bool MASK>
+int launch32(const void* x, const void* w, const void* bias, const void* skip, const void* mask,
+             void* y, void* masked_out, int N, int H, int W, int Ci, int Co, int relu,
+             cudaStream_t stream) {
+  constexpr int smem = Cfg32<MASK>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_f32_kernel<MASK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_co = (Co + BN32 - 1) / BN32;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N * n_co);
+  conv3x3_f32_kernel<MASK><<<grid, NTHREADS, smem, stream>>>(
+      (const float*)x, (const float*)w, (const float*)bias, (const float*)skip,
+      (const float*)mask, (float*)y, (float*)masked_out, H, W, Ci, Co, relu);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int dct_conv3x3(const void* x, const void* w, const void* bias, const void* skip,
                            const void* mask, void* y, void* masked_out, int N, int H, int W,
                            int Ci, int Co, int relu, void* stream) {
@@ -288,4 +465,13 @@ extern "C" int dct_conv3x3(const void* x, const void* w, const void* bias, const
   return mask != nullptr
              ? launch<128, true>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu, st)
              : launch<128, false>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu, st);
+}
+
+extern "C" int dct_conv3x3_f32(const void* x, const void* w, const void* bias, const void* skip,
+                               const void* mask, void* y, void* masked_out, int N, int H, int W,
+                               int Ci, int Co, int relu, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return mask != nullptr
+             ? launch32<true>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu, st)
+             : launch32<false>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu, st);
 }

@@ -1,7 +1,9 @@
 // Flash attention for Hopper (sm_90a): non-causal multi-head forward and a
 // one-pass backward, bf16 operands, fp32 accumulation, at head dim 64 (the
 // UNet) and head dim 512 (the KL VAE's one-head mid attention; second half
-// of this file).
+// of this file). Every other (dtype, head dim) pair the JAX package sends to
+// Pallas, fp32 operands included, takes the generic kernels of
+// flash_generic.cuh.
 //
 // Replaces the TPU kernels of depth_completion_tpu/ops/flash_attention.py,
 // which the JAX package runs at both head dims:

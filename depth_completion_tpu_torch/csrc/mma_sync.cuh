@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks shared by the Hopper kernels of
 // this package (sm_90a): cp.async copies into shared memory, ldmatrix
-// fragment loads and the bf16 mma.sync m16n8k16 product with fp32
-// accumulation. Fragment layouts follow the PTX ISA's m16n8k16 figures;
+// fragment loads, the bf16 mma.sync m16n8k16 product with fp32
+// accumulation, and the TF32 m16n8k8 product with its 3xTF32 split for
+// fp32 operands (below pack_bf16). Fragment layouts follow the PTX ISA's m16n8k16 figures;
 // with g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major): a0 (row g, cols 2t..2t+1), a1 (row g+8, same),
 //                         a2 (row g, cols 2t+8..), a3 (row g+8, cols 2t+8..)
@@ -82,6 +83,86 @@ __device__ __forceinline__ int swz64(int row, int chunk) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x rounded to bf16 and widened back (round to nearest even)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// d += a · b (m16n8k8, tf32 operands, fp32 accumulator). With g = lane / 4
+// and t = lane % 4 (PTX ISA, m16n8k8 .tf32 figures):
+//   A (16x8, row-major): a0 (row g, col t), a1 (row g+8, col t),
+//                        a2 (row g, col t+4), a3 (row g+8, col t+4)
+//   B (8x8, "col"):      b0 (row t, col g), b1 (row t+4, col g)
+//   C (16x8, fp32):      as m16n8k16
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// One operand of a tensor-core product in TF32. kSplit (3xTF32, for fp32
+// operands): x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), so that
+// hi·hi' + hi·lo' + lo·hi' carries ~22 bits of each product, where a single
+// TF32 pass keeps 11. Without kSplit x must already be exact in TF32 (a bf16
+// value widened: its low 16 bits are 0) and lo is not used.
+template <bool kSplit>
+__device__ __forceinline__ void tf32_parts(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kSplit) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// c[j] += A · B over kdim (a multiple of 8) for one warp's m16 strip of NN
+// n8 tiles, operands fp32 in shared memory: A(m, k) = a[m·a_m + k·a_k] (m <
+// 16), B(k, n) = b[k·b_k + n·b_n] (n < 8·NN). kSplit: three TF32 products per
+// k-step (the small ones first), else one (operands exact in TF32). Each
+// k-step's products go into a zeroed fragment that joins c with fp32 adds
+// (round to nearest): c itself never passes through the tensor cores, whose
+// accumulation drops low bits. Kept in the mma accumulator over S=6912 keys,
+// o read 3.7e-6-9.0e-6 from its fp32 twin (of max|o| ~0.12) where dq, which
+// left through fp32 atomics a tile at a time, read 4e-7-1.6e-6 (H100 80GB
+// HBM3; PERF.md).
+template <bool kSplit, int NN>
+__device__ __forceinline__ void mma_strip_tf32(float (&c)[NN][4], const float* a, int a_m, int a_k,
+                                               const float* b, int b_k, int b_n, int kdim) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kdim; k0 += 8) {
+    uint32_t ah[4], al[4];
+    tf32_parts<kSplit>(a[g * a_m + (k0 + t) * a_k], ah[0], al[0]);
+    tf32_parts<kSplit>(a[(g + 8) * a_m + (k0 + t) * a_k], ah[1], al[1]);
+    tf32_parts<kSplit>(a[g * a_m + (k0 + t + 4) * a_k], ah[2], al[2]);
+    tf32_parts<kSplit>(a[(g + 8) * a_m + (k0 + t + 4) * a_k], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NN; ++j) {
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_parts<kSplit>(b[(k0 + t) * b_k + (j * 8 + g) * b_n], bh0, bl0);
+      tf32_parts<kSplit>(b[(k0 + t + 4) * b_k + (j * 8 + g) * b_n], bh1, bl1);
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (kSplit) {
+        mma_tf32(d, al, bh0, bh1);
+        mma_tf32(d, ah, bl0, bl1);
+      }
+      mma_tf32(d, ah, bh0, bh1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += d[e];
+    }
+  }
 }
 
 }  // namespace dct

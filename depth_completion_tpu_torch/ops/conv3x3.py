@@ -1,11 +1,14 @@
-"""Fused 3x3 conv: the Hopper kernel, its plain PyTorch twin and the
+"""Fused 3x3 conv: the Hopper kernels, their plain PyTorch twin and the
 ``autograd.Function`` the TAESD decoder runs through.
 
-Counterpart of ``depth_completion_tpu.ops.conv3x3``. The CUDA kernel
-(``csrc/conv3x3.cu``) replaces the TPU kernel ``_conv_kernel``
+Counterpart of ``depth_completion_tpu.ops.conv3x3``. The CUDA kernels
+(``csrc/conv3x3.cu``) replace the TPU kernel ``_conv_kernel``
 (conv3x3.py:81): ``maybe_relu(conv3x3_same(x, W) + bias + skip)`` over NHWC
 in one pass with fp32 accumulation, optionally zeroing its operand where a
 mask is ``<= 0`` (halo rows included) and writing the masked operand out.
+Two forms, chosen by the operands' dtype: bf16 (``conv3x3``) and fp32
+(``conv3x3_fp32``, ``--precision fp32``: 3xTF32 products on the tensor
+cores, fp32 in and out), each counted under its own name.
 
 The ``Function``'s backward mirrors ``_conv_fused_bwd`` (conv3x3.py:257):
 dx is the same kernel on flip-transposed taps with the ReLU mask ``y > 0``
@@ -16,8 +19,9 @@ the sampler never does).
 
 Weights are OIHW ``[Co, Ci, 3, 3]`` (the port's storage layout); the kernel
 reads HWIO ``[3, 3, Ci, Co]``, made by a permute of the 3x3xCixCo taps.
-A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` counts kernel launches (forward and dx alike).
+A CPU tensor takes the plain twin; a CUDA tensor launches the kernel of
+its dtype or raises. ``LAUNCHES`` counts kernel launches (forward and dx
+alike) per form.
 """
 
 from __future__ import annotations
@@ -29,7 +33,10 @@ import torch.nn.functional as F
 
 from depth_completion_tpu_torch import _build
 
-LAUNCHES = {"conv3x3": 0}
+# operand dtype → (C entry point, launch-count name)
+_FORMS = {torch.bfloat16: ("dct_conv3x3", "conv3x3"),
+          torch.float32: ("dct_conv3x3_f32", "conv3x3_fp32")}
+LAUNCHES = {name: 0 for _, name in _FORMS.values()}
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _lib = None
@@ -39,8 +46,9 @@ def _kernels():
     global _lib
     if _lib is None:
         lib = _build.load("conv3x3")
-        lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
-        lib.dct_conv3x3.restype = _i
+        for entry, _ in _FORMS.values():
+            getattr(lib, entry).argtypes = [_p] * 7 + [_i] * 6 + [_p]
+            getattr(lib, entry).restype = _i
         _lib = lib
     return _lib
 
@@ -68,7 +76,8 @@ def conv3x3_plain(x, w_hwio, bias=None, skip=None, relu=False, mask=None):
 
 
 def conv3x3_call(x, w_hwio, bias=None, skip=None, relu=False, mask=None, emit_masked=False):
-    """One conv through the kernel (CUDA) or its plain twin (CPU).
+    """One conv through the kernel of x's dtype (CUDA: bf16 or fp32) or its
+    plain twin (CPU).
 
     x ``[N, H, W, Ci]``, w_hwio ``[3, 3, Ci, Co]``, bias ``[Co]``, skip
     ``[N, H, W, Co]``, mask like x. Returns y, or ``(y, masked_x)`` when
@@ -81,8 +90,9 @@ def conv3x3_call(x, w_hwio, bias=None, skip=None, relu=False, mask=None, emit_ma
         return (y, xm) if emit_masked else y
     n, h, w, ci = x.shape
     co = w_hwio.shape[3]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3 kernel takes bfloat16, got {x.dtype}")
+    if x.dtype not in _FORMS:
+        raise TypeError(f"conv3x3 kernels take bfloat16 or float32, got {x.dtype}")
+    entry, form = _FORMS[x.dtype]
     if ci % 8 or co % 8:
         raise ValueError(f"conv3x3 kernel needs channel counts divisible by 8, got {ci}->{co}")
     if w_hwio.shape != (3, 3, ci, co):
@@ -97,13 +107,13 @@ def conv3x3_call(x, w_hwio, bias=None, skip=None, relu=False, mask=None, emit_ma
             raise ValueError(f"conv3x3 {name} shape {tuple(t.shape)} does not match x")
     y = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
     xm = torch.empty_like(x) if emit_masked else None
-    status = _kernels().dct_conv3x3(
+    status = getattr(_kernels(), entry)(
         x.data_ptr(), w_hwio.data_ptr(), _ptr(bias), _ptr(skip), _ptr(mask),
         y.data_ptr(), _ptr(xm), n, h, w, ci, co, int(relu),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(status, "conv3x3")
-    LAUNCHES["conv3x3"] += 1
+    _build.check(status, form)
+    LAUNCHES[form] += 1
     return (y, xm) if emit_masked else y
 
 

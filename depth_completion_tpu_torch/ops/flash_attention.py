@@ -3,36 +3,47 @@ plain PyTorch twins, and the ``autograd.Function`` behind the UNet's and the
 KL VAE's ``attention_fn`` seam.
 
 Counterpart of ``depth_completion_tpu.ops.flash_attention``. The CUDA kernels
-are in ``csrc/flash_attention.cu``, built for two head dims: 64 (the UNet)
-and 512 (the KL VAE's one-head mid attention). They replace the TPU kernels
-``_fwd_kernel`` (flash_attention.py:163) and ``_bwd_fused_kernel`` /
-``_bwd_fused_kernel_t`` (:464 / :534), which the JAX package runs at both
-head dims. Routing is the JAX package's (``flash_attention``, :893-921):
-calls with ``sk < min_seq_len`` (the 2-token cross-attention, the deep UNet
-stages) or a head dim other than 64 or a multiple of 128 take the plain
-``layers.attention``; on a CUDA tensor, a head dim other than 64 or 512
-raises.
+replace the TPU kernels ``_fwd_kernel`` (flash_attention.py:163) and
+``_bwd_fused_kernel`` / ``_bwd_fused_kernel_t`` (:464 / :534), which the JAX
+package runs at head dim 64 and every multiple of 128, on bf16 or fp32
+operands. The route is keyed by (dtype, head dim): bf16 at 64 (the UNet)
+and 512 (the KL VAE's one-head mid attention) take the tuned kernels of
+``csrc/flash_attention.cu`` (``flash_fwd``/``flash_bwd``,
+``flash_fwd_d512``/``flash_bwd_d512``); every other pair, fp32 at 64, 128,
+256, 384 and 512 and bf16 at 128, 256 and 384, takes the generic pair of
+``csrc/flash_generic.cuh`` (``csrc/flash_generic_f32.cu``: 3xTF32;
+``csrc/flash_generic_bf16.cu``), counted as ``flash_fwd_<dtype>_d<D>`` and
+``flash_bwd_<dtype>_d<D>``. Routing is the JAX package's (``flash_attention``,
+:893-921): calls with ``sk < min_seq_len`` (the 2-token cross-attention, the
+deep UNet stages) or a head dim other than 64 or a multiple of 128 take the
+plain ``layers.attention``. On a CUDA tensor a head dim above
+``MAX_HEAD_DIM`` (512, where JAX's own block sweep stops) raises.
 
 Row statistic: ``lse2 = m + log2(l)`` per query row in the log2 domain
 (scores scaled by ``scale * log2(e)``), fp32, ``[N, heads, Sq]``. The
 backward recomputes ``p = exp2(s * scale * log2(e) - lse2)``.
 
 The ring of ``ops.ring_attention`` (TPU kernel ``_make_flash_ring``,
-ring_attention.py:99) runs its own instantiations of the d=64 kernels, one
-step per visiting key/value block: ``flash_fwd_ring`` carries the online
-softmax's state (m, l, acc) in fp32 from block to block, ``flash_bwd_ring``
-adds into one fp32 dq and the travelling fp32 dk|dv. Each has a plain twin
-with the same signature.
+ring_attention.py:99) runs ring instantiations of the same kernels, one
+step per visiting key/value block, at every (dtype, head dim) pair above:
+``flash_fwd_ring`` carries the online softmax's state (m, l, acc) in fp32
+from block to block, ``flash_bwd_ring`` adds into one fp32 dq and the
+travelling fp32 dk|dv. bf16 at 64 runs the tuned kernels' instantiations
+(``flash_fwd_ring``/``flash_bwd_ring``), every other pair the generic
+pair's (``flash_fwd_ring_<dtype>_d<D>``). Each has a plain twin with the
+same signature.
 
 Wrappers take the plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches, the
-d=512 and ring kernels under their own names.
+launches the kernel of its (dtype, head dim) or raises: nothing casts
+fp32 operands to bf16. ``LAUNCHES`` counts kernel launches under the names
+above (``route``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -40,40 +51,91 @@ from depth_completion_tpu_torch import _build
 from depth_completion_tpu_torch.models.layers import attention as plain_attention
 
 _LOG2E = 1.4426950408889634
-# head dim → the kernels' entry points and launch-count names
-_KERNELS = {64: ("", "flash_fwd", "flash_bwd"), 512: ("_d512", "flash_fwd_d512", "flash_bwd_d512")}
+MAX_HEAD_DIM = 512
+HEAD_DIMS = (64, 128, 256, 384, 512)  # the kernels' head dims: 64 and multiples of 128 to 512
+DTYPE_TAGS = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+# the generic pair's library and entry-point suffix per dtype
+_GENERIC = {torch.float32: ("flash_generic_f32", "f32"),
+            torch.bfloat16: ("flash_generic_bf16", "bf16")}
 
-# kernel launches per wrapper, read by chip_smoke.py; the ring step kernels
-# (head dim 64) under their own names
-LAUNCHES = {name: 0 for _, fwd, bwd in _KERNELS.values() for name in (fwd, bwd)}
-LAUNCHES.update(flash_fwd_ring=0, flash_bwd_ring=0)
+
+class Route(NamedTuple):
+    """Where a (dtype, head dim) pair's kernels live: the library, its
+    forward and backward C entry points, and their launch-count names."""
+
+    lib: str
+    fwd_entry: str
+    bwd_entry: str
+    fwd: str
+    bwd: str
+
+
+def route(dtype: torch.dtype, head_dim: int, ring: bool = False) -> Route:
+    """The kernels that take ``dtype`` operands at ``head_dim``, a whole call
+    or with ``ring`` one ring step: bf16 at 64 and 512 (not the d=512 ring
+    steps) the tuned kernels of ``flash_attention.cu``, every other pair the
+    generic pair of its dtype."""
+    if dtype == torch.bfloat16 and head_dim == 64:
+        x = "_ring" if ring else ""
+        return Route("flash_attention", f"dct_flash_fwd{x}", f"dct_flash_bwd{x}", f"flash_fwd{x}",
+                     f"flash_bwd{x}")
+    if dtype == torch.bfloat16 and head_dim == 512 and not ring:
+        return Route("flash_attention", "dct_flash_fwd_d512", "dct_flash_bwd_d512",
+                     "flash_fwd_d512", "flash_bwd_d512")
+    lib, suffix = _GENERIC[dtype]
+    tag = f"{'ring_' if ring else ''}{DTYPE_TAGS[dtype]}_d{head_dim}"
+    return Route(lib, f"dct_flash_fwd_{suffix}", f"dct_flash_bwd_{suffix}", f"flash_fwd_{tag}",
+                 f"flash_bwd_{tag}")
+
+
+def launch_names(dtype: torch.dtype, head_dim: int, ring: bool = False) -> tuple[str, str]:
+    """``route``'s (forward, backward) launch-count names."""
+    r = route(dtype, head_dim, ring)
+    return r.fwd, r.bwd
+
+
+# kernel launches per wrapper, read by chip_smoke.py
+LAUNCHES = {name: 0 for dtype in DTYPE_TAGS for d in HEAD_DIMS for ring in (False, True)
+            for name in launch_names(dtype, d, ring)}
 
 _i, _l, _f, _p = ctypes.c_int, ctypes.c_long, ctypes.c_float, ctypes.c_void_p
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
-def _kernels():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
-        for suffix, _, _ in _KERNELS.values():
-            fwd, bwd = getattr(lib, f"dct_flash_fwd{suffix}"), getattr(lib, f"dct_flash_bwd{suffix}")
-            fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
-            bwd.argtypes = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
+def _kernels(name: str = "flash_attention"):
+    """The loaded library ``name`` (the tuned kernels, or a generic pair's
+    ``flash_generic_f32`` / ``flash_generic_bf16``), argument types set."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        if name == "flash_attention":
+            for suffix in ("", "_d512"):
+                fwd = getattr(lib, f"dct_flash_fwd{suffix}")
+                bwd = getattr(lib, f"dct_flash_bwd{suffix}")
+                fwd.argtypes = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
+                bwd.argtypes = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
+                fwd.restype = bwd.restype = _i
+            lib.dct_flash_fwd_ring.argtypes = [_p] * 8 + [_i] * 4 + [_l] * 8 + [_i, _i, _f, _p]
+            lib.dct_flash_bwd_ring.argtypes = [_p] * 9 + [_i] * 4 + [_l] * 10 + [_i, _f, _p]
+            lib.dct_flash_fwd_ring.restype = lib.dct_flash_bwd_ring.restype = _i
+        else:
+            suffix = name.rsplit("_", 1)[1]
+            fwd, bwd = getattr(lib, f"dct_flash_fwd_{suffix}"), getattr(lib, f"dct_flash_bwd_{suffix}")
+            fwd.argtypes = [_p] * 8 + [_i] * 5 + [_l] * 8 + [_i, _i, _f, _p]
+            bwd.argtypes = [_p] * 11 + [_i] * 5 + [_l] * 10 + [_i, _i, _f, _p]
             fwd.restype = bwd.restype = _i
-        lib.dct_flash_fwd_ring.argtypes = [_p] * 8 + [_i] * 4 + [_l] * 8 + [_i, _i, _f, _p]
-        lib.dct_flash_bwd_ring.argtypes = [_p] * 9 + [_i] * 4 + [_l] * 10 + [_i, _f, _p]
-        lib.dct_flash_fwd_ring.restype = lib.dct_flash_bwd_ring.restype = _i
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return lib
 
 
-def _check_cuda_operands(*xs: torch.Tensor, head_dim: int) -> tuple[str, str, str]:
-    """Raise on what the kernels do not take; → (entry-point suffix, forward
-    and backward launch-count names) for ``head_dim``."""
+def _check_cuda_operands(*xs: torch.Tensor, head_dim: int) -> torch.dtype:
+    """Raise on what the kernels do not take; → the operands' dtype (bf16 or
+    fp32, every operand alike)."""
+    dtype = xs[0].dtype
     for x in xs:
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bfloat16, got {x.dtype}")
+        if x.dtype not in DTYPE_TAGS or x.dtype != dtype:
+            raise TypeError(f"flash kernels take bfloat16 or float32 operands of one dtype, "
+                            f"got {[y.dtype for y in xs]}")
         if x.dim() != 3 or x.stride(2) != 1 or x.stride(0) % 8 or x.stride(1) % 8:
             raise ValueError(
                 "flash kernel takes [N, S, C] with unit channel stride and "
@@ -81,11 +143,12 @@ def _check_cuda_operands(*xs: torch.Tensor, head_dim: int) -> tuple[str, str, st
             )
         if x.data_ptr() % 16:
             raise ValueError("flash kernel operands must be 16-byte aligned")
-    if head_dim not in _KERNELS:
+    if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
-            f"the flash kernels are built for head dims {sorted(_KERNELS)}, got {head_dim}"
+            f"the flash kernels take head dims {HEAD_DIMS} (64 and the multiples of 128 up to "
+            f"MAX_HEAD_DIM={MAX_HEAD_DIM}, where JAX's block sweep stops), got {head_dim}"
         )
-    return _KERNELS[head_dim]
+    return dtype
 
 
 # ---------------------------------------------------------------------------
@@ -173,25 +236,35 @@ def flash_bwd_plain(q, k, v, o, do, lse2, num_heads):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def flash_fwd(q, k, v, num_heads):
     """Forward: (o [N, Sq, C], lse2 [N, heads, Sq] fp32). CPU → plain twin."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_heads)
     n, sq, c = q.shape
-    sk = k.shape[1]
-    suffix, name, _ = _check_cuda_operands(q, k, v, head_dim=c // num_heads)
+    sk, d = k.shape[1], c // num_heads
+    r = route(_check_cuda_operands(q, k, v, head_dim=d), d)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse2 = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = getattr(_kernels(), f"dct_flash_fwd{suffix}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse2.data_ptr(),
-        n, num_heads, sq, sk,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-        1.0 / math.sqrt(c // num_heads), stream,
-    )
-    _build.check(status, name)
-    LAUNCHES[name] += 1
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+               v.stride(0), v.stride(1), o.stride(0), o.stride(1))
+    fn = getattr(_kernels(r.lib), r.fwd_entry)
+    if r.lib == "flash_attention":
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse2.data_ptr(),
+                    n, num_heads, sq, sk, *strides, 1.0 / math.sqrt(d), _stream(q))
+    else:
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse2.data_ptr(), None,
+                    None, None, n, num_heads, sq, sk, d, *strides, 0, 0, 1.0 / math.sqrt(d),
+                    _stream(q))
+    _build.check(status, r.fwd)
+    LAUNCHES[r.fwd] += 1
     return o, lse2
 
 
@@ -200,32 +273,27 @@ def flash_bwd(q, k, v, o, do, lse2, num_heads):
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse2, num_heads)
     n, sq, c = q.shape
-    sk = k.shape[1]
+    sk, d = k.shape[1], c // num_heads
     do = do.contiguous()
-    suffix, _, name = _check_cuda_operands(q, k, v, o, do, head_dim=c // num_heads)
+    r = route(_check_cuda_operands(q, k, v, o, do, head_dim=d), d)
     di = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
     dq_acc = torch.zeros((n, sq, c), device=q.device, dtype=torch.float32)
     dk = torch.empty((n, sk, c), device=q.device, dtype=k.dtype)
     dv = torch.empty((n, sk, c), device=q.device, dtype=v.dtype)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = getattr(_kernels(), f"dct_flash_bwd{suffix}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse2.contiguous().data_ptr(), di.data_ptr(), dq_acc.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
-        n, num_heads, sq, sk,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        o.stride(0), o.stride(1), do.stride(0), do.stride(1),
-        1.0 / math.sqrt(c // num_heads), stream,
-    )
-    _build.check(status, name)
-    LAUNCHES[name] += 1
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+               o.stride(0), o.stride(1), do.stride(0), do.stride(1))
+    lse2 = lse2.contiguous()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    fn = getattr(_kernels(r.lib), r.bwd_entry)
+    if r.lib == "flash_attention":
+        status = fn(*ptrs, n, num_heads, sq, sk, *strides, 1.0 / math.sqrt(d), _stream(q))
+    else:
+        status = fn(*ptrs, None, n, num_heads, sq, sk, d, *strides, 0, 1, 1.0 / math.sqrt(d),
+                    _stream(q))
+    _build.check(status, r.bwd)
+    LAUNCHES[r.bwd] += 1
     return dq_acc.to(q.dtype), dk, dv
-
-
-def _check_ring(*xs: torch.Tensor, num_heads: int) -> None:
-    _check_cuda_operands(*xs, head_dim=xs[0].shape[-1] // num_heads)
-    if xs[0].shape[-1] // num_heads != 64:
-        raise NotImplementedError("the ring step kernels are built for head dim 64")
 
 
 def flash_fwd_ring(q, k, v, num_heads, state=None, last=False):
@@ -236,8 +304,8 @@ def flash_fwd_ring(q, k, v, num_heads, state=None, last=False):
     if q.device.type == "cpu":
         return flash_fwd_ring_plain(q, k, v, num_heads, state, last)
     n, sq, c = q.shape
-    sk = k.shape[1]
-    _check_ring(q, k, v, num_heads=num_heads)
+    sk, d = k.shape[1], c // num_heads
+    r = route(_check_cuda_operands(q, k, v, head_dim=d), d, ring=True)
     state_in = state is not None
     if state is None and not last:
         m = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
@@ -250,19 +318,19 @@ def flash_fwd_ring(q, k, v, num_heads, state=None, last=False):
         o = torch.empty((n, sq, c), device=q.device, dtype=q.dtype)
         lse2 = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
     m, l, acc = state if state is not None else (None, None, None)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    status = _kernels().dct_flash_fwd_ring(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(o), ptr(lse2), ptr(m), ptr(l), ptr(acc),
-        n, num_heads, sq, sk,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        sq * c, c, int(state_in), int(not last), 1.0 / math.sqrt(c // num_heads),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(status, "flash_fwd_ring")
-    LAUNCHES["flash_fwd_ring"] += 1
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+               sq * c, c)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(o), _ptr(lse2), _ptr(m), _ptr(l),
+            _ptr(acc))
+    fn = getattr(_kernels(r.lib), r.fwd_entry)
+    if r.lib == "flash_attention":  # bf16 at d=64: the tuned kernel's instantiation
+        status = fn(*ptrs, n, num_heads, sq, sk, *strides, int(state_in), int(not last),
+                    1.0 / math.sqrt(d), _stream(q))
+    else:
+        status = fn(*ptrs, n, num_heads, sq, sk, d, *strides, int(state_in), int(not last),
+                    1.0 / math.sqrt(d), _stream(q))
+    _build.check(status, r.fwd)
+    LAUNCHES[r.fwd] += 1
     return (o, lse2) if last else state
 
 
@@ -274,9 +342,9 @@ def flash_bwd_ring(q, k, v, o, do, lse2, num_heads, state=None):
     if q.device.type == "cpu":
         return flash_bwd_ring_plain(q, k, v, o, do, lse2, num_heads, state)
     n, sq, c = q.shape
-    sk = k.shape[1]
+    sk, d = k.shape[1], c // num_heads
     do = do.contiguous()
-    _check_ring(q, k, v, o, do, num_heads=num_heads)
+    r = route(_check_cuda_operands(q, k, v, o, do, head_dim=d), d, ring=True)
     if state is None:
         di = torch.empty((n, num_heads, sq), device=q.device, dtype=torch.float32)
         dq = torch.zeros((n, sq, c), device=q.device, dtype=torch.float32)
@@ -285,16 +353,20 @@ def flash_bwd_ring(q, k, v, o, do, lse2, num_heads, state=None):
         di, dq, dkv = state
         if not (dq.is_contiguous() and dkv.is_contiguous()):
             raise ValueError("the ring's dq and dk|dv must be contiguous fp32")
-    status = _kernels().dct_flash_bwd_ring(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse2.contiguous().data_ptr(), di.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
-        n, num_heads, sq, sk,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        o.stride(0), o.stride(1), do.stride(0), do.stride(1), int(state is None),
-        1.0 / math.sqrt(c // num_heads), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(status, "flash_bwd_ring")
-    LAUNCHES["flash_bwd_ring"] += 1
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+               o.stride(0), o.stride(1), do.stride(0), do.stride(1))
+    lse2 = lse2.contiguous()
+    fn = getattr(_kernels(r.lib), r.bwd_entry)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), di.data_ptr(), dq.data_ptr())
+    if r.lib == "flash_attention":  # bf16 at d=64: the tuned kernel's instantiation
+        status = fn(*ptrs, dkv.data_ptr(), n, num_heads, sq, sk, *strides, int(state is None),
+                    1.0 / math.sqrt(d), _stream(q))
+    else:
+        status = fn(*ptrs, None, None, dkv.data_ptr(), n, num_heads, sq, sk, d, *strides, 1,
+                    int(state is None), 1.0 / math.sqrt(d), _stream(q))
+    _build.check(status, r.bwd)
+    LAUNCHES[r.bwd] += 1
     return di, dq, dkv
 
 
@@ -320,7 +392,9 @@ def flash_attention(q, k, v, num_heads: int, min_seq_len: int = 768):
     """Drop-in for ``layers.attention`` over ``[N, S, C]`` tensors.
 
     Short KV sequences and head dims other than 64 or a multiple of 128 take
-    the plain path, as in the JAX package; the kernels take d=64 and d=512.
+    the plain path, as in the JAX package; the kernels take bf16 and fp32 at
+    64 and the multiples of 128 up to ``MAX_HEAD_DIM``, and a CUDA tensor
+    above it raises.
     """
     c = q.shape[-1]
     sk = k.shape[1]

@@ -20,8 +20,10 @@ packed, as one ``[N', S/P, 2C]`` tensor, and so do dk and dv. The rule for
 the step functions is JAX's (``_flash_ring_supported``, :215-224): at a
 head dim that is neither 64 nor a multiple of 128, where JAX runs its XLA
 ring body, the ring runs the steps' plain twins, on the card too; at every
-other head dim it runs the step wrappers, which take 64 on the card and
-raise at a multiple of 128, where no step kernel exists yet.
+other head dim it runs the step wrappers, which launch the step kernels of
+the operands' (dtype, head dim) on the card, bf16 or fp32 at 64 and the
+multiples of 128 up to 512, and raise above 512 (``MAX_HEAD_DIM``). The
+softmax state and dq, dk|dv travel in fp32 at either dtype.
 
 Shard r holds rows ``[r·S/P, (r+1)·S/P)`` (``PartitionSpec(None, axis,
 None)`` in JAX). Two transports share the body, each with ``size``,
@@ -143,7 +145,7 @@ def ring_backward(q, k, v, o, do, lse2, num_heads: int, ring, step_bwd=flash_bwd
 def ring_steps(head_dim: int):
     """The ring's (forward, backward) step functions at ``head_dim``: the
     plain twins where JAX's flash ring does not apply (neither 64 nor a
-    multiple of 128), the step wrappers elsewhere."""
+    multiple of 128), the step wrappers elsewhere, at either dtype."""
     if head_dim % 128 != 0 and head_dim != 64:
         return flash_fwd_ring_plain, flash_bwd_ring_plain
     return flash_fwd_ring, flash_bwd_ring

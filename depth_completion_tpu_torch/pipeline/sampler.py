@@ -120,22 +120,28 @@ from depth_completion_tpu_torch.sched.lcm import (
 
 EPSILON = 1e-7
 
-# One per-step guided step's peak device memory, per VAE kind and UNet
-# remat setting, as n·EH·EW latent pixels times the bytes per latent pixel
-# plus the fixed bytes (the weights, the decode's workspace). Measured by
-# chip_smoke.py phase 5 (the peaks of one guided step, Marigold UNet, bf16,
-# 72x96 latents, through batch 1 and 8 with TAESD, 1 and 4 with the KL VAE;
-# batch 2 within 0.3% of the line) on an NVIDIA H100 80GB HBM3 at 700 W:
-# TAESD 4.13 / 21.09 GiB at batch 1 / 8 (2.41 / 7.40 with remat), KL 14.60 /
-# 52.83 at batch 1 / 4 (12.86 / 45.90). The KL decoder is not
+# One per-step guided step's peak device memory, per VAE kind, UNet remat
+# setting and model dtype, as n·EH·EW latent pixels times the bytes per
+# latent pixel plus the fixed bytes (the weights, the decode's workspace).
+# Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (the peaks
+# of one guided step, Marigold UNet, 72x96 latents). bf16 (phase 5: TAESD
+# through batch 1 and 8, KL through 1 and 4; batch 2 within 0.3% of the
+# line): TAESD 4.13 / 21.09 GiB at batch 1 / 8 (2.41 / 7.40 with remat), KL
+# 14.60 / 52.83 at batch 1 / 4 (12.86 / 45.90). fp32 (phase 5b, TAESD
+# through batch 1 and 4, KL through 1 and 2): TAESD 7.37 / 18.50 GiB (5.23 /
+# 12.10 with remat), KL 19.00 / 34.34 (16.62 / 29.62). The KL decoder is not
 # rematerialised: its full-resolution activations dominate that path's
-# bytes per pixel with and without, so the largest KL batch that fits an
-# 80 GB card at 72x96 is 6.
-STEP_PEAK_BYTES = {  # (vae kind, remat) → (bytes per latent pixel, fixed bytes)
-    ("tiny", False): (376_312, 1_833_996_288),
-    ("tiny", True): (110_756, 1_822_760_448),
-    ("kl", False): (1_979_392, 1_994_747_221),
-    ("kl", True): (1_710_515, 1_987_920_213),
+# bytes per pixel with and without, so the largest bf16 KL batch that fits
+# an 80 GB card at 72x96 is 6.
+STEP_PEAK_BYTES = {  # (vae kind, remat, dtype) → (bytes per latent pixel, fixed bytes)
+    ("tiny", False, torch.bfloat16): (376_312, 1_833_996_288),
+    ("tiny", True, torch.bfloat16): (110_756, 1_822_760_448),
+    ("kl", False, torch.bfloat16): (1_979_392, 1_994_747_221),
+    ("kl", True, torch.bfloat16): (1_710_515, 1_987_920_213),
+    ("tiny", False, torch.float32): (576_238, 3_928_159_061),
+    ("tiny", True, torch.float32): (355_738, 3_158_503_253),
+    ("kl", False, torch.float32): (2_382_839, 3_933_459_456),
+    ("kl", True, torch.float32): (2_018_243, 3_899_750_912),
 }
 # remat_unet="auto" turns remat on where the step without it would pass
 # this share of the card's memory; a batch that passes it even with remat
@@ -225,33 +231,37 @@ def card_memory_bytes(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).total_memory
 
 
-def step_peak_bytes(vae_kind: str, remat: bool, n: int, latent_hw: tuple[int, int]) -> int:
+def step_peak_bytes(vae_kind: str, remat: bool, n: int, latent_hw: tuple[int, int],
+                    dtype: torch.dtype = torch.bfloat16) -> int:
     """Estimated peak device bytes of one per-step guided step at batch ``n``
-    (``STEP_PEAK_BYTES``)."""
-    per_pixel, fixed = STEP_PEAK_BYTES[(vae_kind, remat)]
+    with a ``dtype`` bundle (``STEP_PEAK_BYTES``)."""
+    per_pixel, fixed = STEP_PEAK_BYTES[(vae_kind, remat, dtype)]
     return n * latent_hw[0] * latent_hw[1] * per_pixel + fixed
 
 
-def largest_batch(vae_kind: str, latent_hw: tuple[int, int], device: torch.device) -> int:
-    """The largest per-step guided batch whose estimated peak, with UNet
-    remat, stays within ``REMAT_MEMORY_SHARE`` of the card's memory."""
-    per_pixel, fixed = STEP_PEAK_BYTES[(vae_kind, True)]
+def largest_batch(vae_kind: str, latent_hw: tuple[int, int], device: torch.device,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """The largest per-step guided batch of a ``dtype`` bundle whose
+    estimated peak, with UNet remat, stays within ``REMAT_MEMORY_SHARE`` of
+    the card's memory."""
+    per_pixel, fixed = STEP_PEAK_BYTES[(vae_kind, True, dtype)]
     budget = REMAT_MEMORY_SHARE * card_memory_bytes(device)
     return max(0, int((budget - fixed) // (latent_hw[0] * latent_hw[1] * per_pixel)))
 
 
 def check_batch_fits(vae_kind: str, n: int, latent_hw: tuple[int, int],
-                     device: torch.device) -> None:
+                     device: torch.device, dtype: torch.dtype = torch.bfloat16) -> None:
     """Raise a ``ValueError`` naming the largest batch that fits where a
-    per-step guided batch of ``n`` would not fit on the card even with UNet
-    remat; nothing to check on the CPU."""
+    per-step guided batch of ``n`` with a ``dtype`` bundle would not fit on
+    the card even with UNet remat; nothing to check on the CPU."""
     if device.type != "cuda":
         return
-    limit = largest_batch(vae_kind, latent_hw, device)
+    limit = largest_batch(vae_kind, latent_hw, device, dtype)
     if n > limit:
-        need = step_peak_bytes(vae_kind, True, n, latent_hw)
+        need = step_peak_bytes(vae_kind, True, n, latent_hw, dtype)
+        precision = "bf16" if dtype == torch.bfloat16 else "fp32"
         raise ValueError(
-            f"a guided batch of {n} at {latent_hw[0]}x{latent_hw[1]} latents with the "
+            f"a {precision} guided batch of {n} at {latent_hw[0]}x{latent_hw[1]} latents with the "
             f"{vae_kind!r} VAE needs about {need / 2**30:.1f} GiB even with UNet remat, more "
             f"than {REMAT_MEMORY_SHARE:.0%} of the card's "
             f"{card_memory_bytes(device) / 2**30:.1f} GiB; the largest batch that fits at "
@@ -259,16 +269,17 @@ def check_batch_fits(vae_kind: str, n: int, latent_hw: tuple[int, int],
 
 
 def resolve_remat(cfg: SamplerConfig, n: int, latent_hw: tuple[int, int],
-                  device: torch.device, vae_kind: str = "tiny") -> bool:
+                  device: torch.device, vae_kind: str = "tiny",
+                  dtype: torch.dtype = torch.bfloat16) -> bool:
     """``cfg.remat_unet`` for a batch of ``n`` latents of ``latent_hw`` on
-    ``device`` with the ``vae_kind`` decoder ("auto": on where the step's
-    estimated peak without remat passes ``REMAT_MEMORY_SHARE`` of the card's
-    memory; always off on the CPU)."""
+    ``device`` with the ``vae_kind`` decoder and a ``dtype`` bundle ("auto":
+    on where the step's estimated peak without remat passes
+    ``REMAT_MEMORY_SHARE`` of the card's memory; always off on the CPU)."""
     if cfg.remat_unet == "auto":
         if device.type != "cuda":
             return False
         budget = REMAT_MEMORY_SHARE * card_memory_bytes(device)
-        return step_peak_bytes(vae_kind, False, n, latent_hw) > budget
+        return step_peak_bytes(vae_kind, False, n, latent_hw, dtype) > budget
     if isinstance(cfg.remat_unet, bool):
         return cfg.remat_unet
     return cfg.remat_unet == "on"
@@ -440,8 +451,8 @@ def guided_sample(
     sched = make_schedule(cfg.ddim)
     branch = sampler_branch(cfg, sched)
     if branch in ("fused-step", "general-step") and not cfg.detach_unet_grad:
-        check_batch_fits(bundle.vae.kind, n, latent_hw, images.device)
-    remat = resolve_remat(cfg, n, latent_hw, images.device, bundle.vae.kind)
+        check_batch_fits(bundle.vae.kind, n, latent_hw, images.device, bundle.dtype)
+    remat = resolve_remat(cfg, n, latent_hw, images.device, bundle.vae.kind, bundle.dtype)
     program = programs.get(
         program_key(branch, bundle, images.shape, cfg, remat),
         lambda: PROGRAMS[branch](bundle, cfg, sched, remat, images, sparses))

@@ -55,7 +55,8 @@ def flash_fwd_twostream(q, k, v, num_heads):
         return fa.flash_fwd_plain(q, k, v, num_heads)
     n, sq, c = q.shape
     sk = k.shape[1]
-    fa._check_cuda_operands(q, k, v, head_dim=c // num_heads)
+    if fa._check_cuda_operands(q, k, v, head_dim=c // num_heads) != torch.bfloat16:
+        raise TypeError(f"the two-stream kernel takes bfloat16, got {q.dtype}")
     if c != num_heads * D:
         raise NotImplementedError(f"the two-stream kernel is built for head dim {D}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -83,7 +83,8 @@ def mode_batch(pipe, cfg: dict, frame: tuple[int, int], requested: int) -> int:
     if pipe.bundle.device.type != "cuda":
         return requested
     hw = latent_size(frame, cfg["resolution"], pipe.bundle.vae.downsample_factor)
-    return min(requested, largest_batch(pipe.bundle.vae.kind, hw, pipe.bundle.device))
+    return min(requested, largest_batch(pipe.bundle.vae.kind, hw, pipe.bundle.device,
+                                        pipe.bundle.dtype))
 
 
 def run_mode(pipe, cfg: dict, images, sparse, repeats: int) -> tuple[dict, np.ndarray]:

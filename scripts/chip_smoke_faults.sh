@@ -7,7 +7,8 @@
 # Runs chip_smoke.py on the tree as it is, then on a temporary copy of the
 # port with each fault below planted (one sed edit each; --steps 2, or
 # --steps $FAULT_STEPS where that is set; $SMOKE_ARGS, e.g.
-# --only-distributed for F42-F45 or --only-drivers for F55-F58, is added to
+# --only-distributed for F42-F45, --only-drivers for F55-F58 or --only-fp32
+# for F59-F62, is added to
 # every run), or only with the
 # faults named (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
@@ -137,6 +138,14 @@
 #   F58_scaling_unsynced scripts/drivers_torch.py stops a timed request's
 #                 clock without a synchronize (it times the enqueue; the
 #                 drivers' shared loop, which bench_scaling's rows take)
+#   F59_fp32_one_pass the fp32 kernels (flash, conv) take one TF32 pass
+#                 per product in place of 3xTF32 (csrc/mma_sync.cuh)
+#   F60_fp32_as_bf16 the flash forward wrapper casts fp32 operands to bf16
+#                 and runs the bf16 kernel
+#   F61_d128_heads_as_d64 the generic flash forward at d=128 strides its
+#                 query heads as d=64
+#   F62_fp32_conv_plain the conv wrapper computes its plain twin for an
+#                 fp32 CUDA tensor (caught by the launch counts)
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -320,4 +329,12 @@ run_fault F57_kitti_first_as_steady scripts/bench_kitti_torch.py \
   's|^    return min(infer\[1:\]) if len(infer) > 1 else infer\[0\]$|    return infer[0]|'
 run_fault F58_scaling_unsynced scripts/drivers_torch.py \
   '/        t0 = time.perf_counter()/,/        times.append/s|^        synchronize(dev)$|        pass|'
+run_fault F59_fp32_one_pass depth_completion_tpu_torch/csrc/mma_sync.cuh \
+  's|^      if constexpr (kSplit) {$|      if constexpr (false) {|'
+run_fault F60_fp32_as_bf16 depth_completion_tpu_torch/ops/flash_attention.py \
+  's|^    r = route(_check_cuda_operands(q, k, v, head_dim=d), d)$|    if q.dtype == torch.float32:\n        o, lse2 = flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), num_heads)\n        return o.float(), lse2\n&|'
+run_fault F61_d128_heads_as_d64 depth_completion_tpu_torch/csrc/flash_generic.cuh \
+  's|(long)h \* D, q_ss, q0|(long)h * (D == 128 ? 64 : D), q_ss, q0|'
+run_fault F62_fp32_conv_plain depth_completion_tpu_torch/ops/conv3x3.py \
+  's|^    if x.device.type == "cpu":$|    if x.device.type == "cpu" or x.dtype == torch.float32:|'
 exit $status

@@ -147,7 +147,7 @@ def main() -> None:
 
     bundle = bench_bundle(dev)
     check_batch_fits(bundle.vae.kind, batch, latent_size(FRAME, res, bundle.vae.downsample_factor),
-                     dev)
+                     dev, bundle.dtype)
     images, sparse = synthetic_frames(batch, *FRAME, POINTS)
     if save is not None:
         save.mkdir(parents=True, exist_ok=True)

@@ -260,11 +260,15 @@ def flash_bwd(lib, q, k, v, o, do, lse, heads: int, entry: str | None = None):
 def with_kernels(lib, fn):
     """``fn()`` with this tree's flash wrappers (``ops.flash_attention``)
     launching ``lib``'s kernels."""
-    saved, fa._lib = fa._lib, lib
+    saved = fa._libs.get("flash_attention")
+    fa._libs["flash_attention"] = lib
     try:
         return fn()
     finally:
-        fa._lib = saved
+        if saved is None:
+            fa._libs.pop("flash_attention")
+        else:
+            fa._libs["flash_attention"] = saved
 
 
 def ring_pass(lib, fwd: bool, q, k, v, o, do, lse, heads: int, p: int):

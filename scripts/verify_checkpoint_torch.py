@@ -34,6 +34,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from depth_completion_tpu_torch.cli.common import exact_fp32  # noqa: E402
 from depth_completion_tpu_torch.models.bundle import load_bundle  # noqa: E402
 from depth_completion_tpu_torch.models.weights import _flatten  # noqa: E402
 from depth_completion_tpu_torch.ops import conv3x3, flash_attention, guidance_epilogue  # noqa: E402
@@ -73,6 +74,8 @@ def main(argv: list[str] | None = None) -> int:
 
     vae_kind = "tiny" if args.vae == "light" else "kl"
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if dtype == torch.float32:
+        exact_fp32()
     print(f"Loading {args.checkpoint_dir} (vae={vae_kind}, {args.precision}, {args.device}) ...")
     bundle = load_bundle(args.checkpoint_dir, vae_kind=vae_kind, taesd_dir=args.taesd,
                          dtype=dtype, device=args.device)

@@ -46,27 +46,31 @@ ATOL, RTOL = 1e-4, 1e-5
 
 
 @pytest.mark.parametrize(
-    "shape,use_skip",
-    [((1, 12, 16), False), ((1, 12, 16), True), ((1, 128, 8), True)],
-    ids=["bias_relu", "skip_relu", "two_h_tiles"],
+    "shape,use_skip,c,relu",
+    [((1, 12, 16), False, 128, True), ((1, 12, 16), True, 128, True),
+     ((1, 128, 8), True, 128, True), ((1, 12, 16), True, 256, False)],
+    ids=["bias_relu", "skip_relu", "two_h_tiles", "kl_256_skip"],
 )
-def test_conv_forward_and_dx_match_jax(shape, use_skip):
+def test_conv_forward_and_dx_match_jax(shape, use_skip, c, relu):
     """Forward with bias+ReLU (and skip), and dx through the ReLU mask (with
     and without skip). 128x8 runs the JAX kernel as two 64-row H tiles, so
-    the halo rows at the tile seam are exercised on the JAX side."""
+    the halo rows at the tile seam are exercised on the JAX side. kl_256_skip:
+    the KL VAE ResNet's form (bias and residual, no ReLU) at one of its
+    widths, fp32 throughout, as ``--precision fp32`` runs it (the fp32
+    kernel, ``conv3x3_fp32``, is held to this twin on the card)."""
     n, h, w = shape
-    x, k, b, g = _data(n, h, w, seed=h + int(use_skip))
+    x, k, b, g = _data(n, h, w, c=c, seed=h + int(use_skip))
     skip = (0.3 * x) if use_skip else None
 
     def jfn(x, skip):
-        return c3.conv3x3_fused(x, jnp.asarray(k), jnp.asarray(b), relu=True, skip=skip)
+        return c3.conv3x3_fused(x, jnp.asarray(k), jnp.asarray(b), relu=relu, skip=skip)
 
     y_j, vjp = jax.vjp(jfn, jnp.asarray(x), None if skip is None else jnp.asarray(skip))
     dx_j, dskip_j = vjp(jnp.asarray(g))
 
     tx = torch.tensor(x, requires_grad=True)
     tskip = None if skip is None else torch.tensor(skip, requires_grad=True)
-    y_t = tc3.conv3x3_fused(tx, _oihw(k), torch.from_numpy(b), relu=True, skip=tskip)
+    y_t = tc3.conv3x3_fused(tx, _oihw(k), torch.from_numpy(b), relu=relu, skip=tskip)
     inputs = (tx,) if tskip is None else (tx, tskip)
     grads = torch.autograd.grad(y_t, inputs, torch.from_numpy(g))
 

@@ -24,6 +24,7 @@ from depth_completion_tpu.models.bundle import ModelBundle as JBundle
 from depth_completion_tpu.pipeline import sampler as JS
 from depth_completion_tpu_torch.models import registry
 from depth_completion_tpu_torch.models.weights import from_jax_params
+from depth_completion_tpu_torch.ops import conv3x3 as c3
 from depth_completion_tpu_torch.ops import flash_attention as fa
 from depth_completion_tpu_torch.ops import ring_attention as ra
 from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
@@ -135,7 +136,7 @@ def test_nativeres_ring1_matches_native(bundles):
         assert (row["batch"], row["steps"], row["resolution"]) == (BATCH, STEPS, FRAME[1])
         assert row["latent_hw"] == [24, 32] and len(row["frame_times_s"]) == 1
         assert row["remat"] is False and row["peak_gib"] is None
-        assert set(row["launches"]) == set(fa.LAUNCHES) | {"conv3x3", "guidance_epilogue"}
+        assert set(row["launches"]) == set(fa.LAUNCHES) | set(c3.LAUNCHES) | {"guidance_epilogue"}
         assert not any(row["launches"].values())  # the CPU runs the plain versions
     assert nativeres.mode_batch(DepthCompletionPipeline(tbundle), modes["kitti-native"], FRAME,
                                 8) == 8  # no card limit on the CPU
@@ -143,8 +144,8 @@ def test_nativeres_ring1_matches_native(bundles):
 
 def test_ring_steps_by_head_dim():
     """The ring takes its step wrappers where JAX's flash ring applies (head
-    dim 64 or a multiple of 128; on the card the wrappers raise at the
-    latter) and their plain twins where JAX takes its XLA ring body; the
+    dim 64 or a multiple of 128; on the card they launch the step kernels up
+    to 512) and their plain twins where JAX takes its XLA ring body; the
     twins' ring at d=16 equals the plain attention."""
     for d in (64, 128, 512):
         assert ra.ring_steps(d) == (fa.flash_fwd_ring, fa.flash_bwd_ring)

@@ -9,6 +9,7 @@ import torch
 
 import depth_completion_tpu.ops.flash_attention as fa
 from depth_completion_tpu_torch.ops import flash_attention as tfa
+from depth_completion_tpu_torch.ops import ring_attention
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -32,10 +33,13 @@ def _inputs(s, sk, c=128, seed=0):
     return [rng.normal(size=(1, n, c)).astype(np.float32) for n in (s, sk, sk, s)]
 
 
-@pytest.mark.parametrize("s", [256, 200], ids=["aligned", "ragged"])
-def test_flash_matches_jax_forward_and_grads(s):
-    q, k, v, g = _inputs(s, s)
-    heads = 2  # d = 64
+@pytest.mark.parametrize("s,c,heads", [(256, 128, 2), (200, 128, 2), (200, 256, 2),
+                                        (256, 256, 1)],
+                         ids=["aligned", "ragged", "d128_ragged", "d256_aligned"])
+def test_flash_matches_jax_forward_and_grads(s, c, heads):
+    """fp32 operands (the port's --precision fp32) at head dims 64 (the
+    UNet), 128 and 256 (where the generic kernels take them on the card)."""
+    q, k, v, g = _inputs(s, s, c=c)
 
     def jfn(q, k, v):
         return fa.flash_attention(
@@ -122,22 +126,65 @@ def test_jax_two_kernel_backward_matches_port(c, heads, monkeypatch):
                                    err_msg=f"d{name}")
 
 
-def test_kernel_head_dims():
-    """The kernels take head dims 64 and 512, each under its own launch
-    count, the ring step kernels head dim 64 under theirs; any other head
-    dim that routes to them raises on a CUDA tensor (the operand checks are
-    device-independent, so they run here)."""
-    x = torch.zeros((1, 8, 512), dtype=torch.bfloat16)
-    assert tfa._check_cuda_operands(x, head_dim=64) == ("", "flash_fwd", "flash_bwd")
-    assert tfa._check_cuda_operands(x, head_dim=512)[1:] == ("flash_fwd_d512", "flash_bwd_d512")
-    for d in (128, 256):
-        with pytest.raises(NotImplementedError, match="head dims"):
-            tfa._check_cuda_operands(x, head_dim=d)
-    with pytest.raises(NotImplementedError, match="ring step kernels"):
-        tfa._check_ring(x, num_heads=1)  # head dim 512: no ring step kernel
-    tfa._check_ring(x, num_heads=8)
-    assert set(tfa.LAUNCHES) == {"flash_fwd", "flash_bwd", "flash_fwd_d512", "flash_bwd_d512",
-                                 "flash_fwd_ring", "flash_bwd_ring"}
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_kernel_head_dims(dtype, monkeypatch):
+    """Each head dim the JAX package sends to Pallas (64 and the multiples
+    of 128 up to 512) maps, in bf16 and fp32, to a kernel entry point and a
+    launch count of its own; the ring's steps the same. bf16 at 64 and 512
+    keep the tuned kernels of flash_attention.cu and their names. Above 512
+    the operand check raises and names the limit; a head dim of 96 takes the
+    plain attention, as in JAX, and never reaches a kernel wrapper (the
+    checks are device-independent, so they run here). The bf16 form of this
+    test pinned a raise at 128-384 and for the d=512 ring: the kernels
+    there now exist."""
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    lib = "flash_generic_bf16" if dtype == torch.bfloat16 else "flash_generic_f32"
+    suffix = lib.rsplit("_", 1)[1]
+    generic = (lib, f"dct_flash_fwd_{suffix}", f"dct_flash_bwd_{suffix}")
+    tuned = {64: ("flash_attention", "dct_flash_fwd", "dct_flash_bwd", "flash_fwd", "flash_bwd"),
+             512: ("flash_attention", "dct_flash_fwd_d512", "dct_flash_bwd_d512",
+                   "flash_fwd_d512", "flash_bwd_d512")}
+    for d in (64, 128, 256, 384, 512):
+        x = torch.zeros((1, 8, 2 * d), dtype=dtype)
+        assert tfa._check_cuda_operands(x, x, head_dim=d) == dtype
+        if dtype == torch.bfloat16 and d in tuned:
+            assert tfa.route(dtype, d) == tuned[d]
+        else:
+            assert tfa.route(dtype, d) == (*generic, f"flash_fwd_{tag}_d{d}",
+                                           f"flash_bwd_{tag}_d{d}")
+        if dtype == torch.bfloat16 and d == 64:
+            assert tfa.route(dtype, d, ring=True) == (
+                "flash_attention", "dct_flash_fwd_ring", "dct_flash_bwd_ring", "flash_fwd_ring",
+                "flash_bwd_ring")
+        else:
+            assert tfa.route(dtype, d, ring=True) == (
+                *generic, f"flash_fwd_ring_{tag}_d{d}", f"flash_bwd_ring_{tag}_d{d}")
+        for ring in (False, True):
+            assert tfa.launch_names(dtype, d, ring) == tfa.route(dtype, d, ring)[3:]
+            assert set(tfa.launch_names(dtype, d, ring)) <= set(tfa.LAUNCHES)
+    x = torch.zeros((1, 8, 640), dtype=dtype)
+    with pytest.raises(NotImplementedError, match="MAX_HEAD_DIM=512"):
+        tfa._check_cuda_operands(x, head_dim=640)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa._check_cuda_operands(x.half(), head_dim=640)
+    # 40 names: fwd and bwd, whole calls and ring steps, 2 dtypes, 5 head dims
+    assert len(tfa.LAUNCHES) == 40
+
+    # routing above the wrappers: 96 (neither 64 nor a multiple of 128) takes
+    # the plain attention and the ring's step twins; 128 the kernel path
+    def no_kernel(*args):
+        raise AssertionError("routed to the kernels")
+
+    monkeypatch.setattr(tfa.FlashAttention, "apply", no_kernel)
+    q = torch.randn((1, 800, 192), dtype=dtype)
+    out = tfa.flash_attention(q, q, q, 2)  # d = 96, S = 800 >= 768
+    assert torch.equal(out, tfa.plain_attention(q, q, q, 2))
+    with pytest.raises(AssertionError, match="routed to the kernels"):
+        tfa.flash_attention(torch.zeros((1, 800, 256), dtype=dtype), *[torch.zeros(
+            (1, 800, 256), dtype=dtype)] * 2, 2)  # d = 128
+    assert ring_attention.ring_steps(96) == (tfa.flash_fwd_ring_plain, tfa.flash_bwd_ring_plain)
+    for d in (64, 128, 256, 384, 512, 640):
+        assert ring_attention.ring_steps(d) == (tfa.flash_fwd_ring, tfa.flash_bwd_ring)
 
 
 # the ring step twins over P key blocks of 150 rows (ragged against the

@@ -89,11 +89,14 @@ def test_local_ring_matches_jax(case, p):
                                        err_msg=f"{ref_name} d{name}")
 
 
-def test_local_ring_matches_jax_flash_ring():
+@pytest.mark.parametrize("c", [128, 256], ids=["d64", "d128"])
+def test_local_ring_matches_jax_flash_ring(c):
     """Against JAX's flash-tiled ring (``_make_flash_ring``, Pallas kernels
-    in the interpreter): 2 heads of d=64, 600 rows on a 4-ring, so 150-row
-    shards, not a multiple of the 128-row blocks (padded and masked there)."""
-    q, k, v, _ = _qkvdo(1, 600, 128, 6)
+    in the interpreter): 2 heads of d=64 (the UNet's) or d=128 (where the
+    ring's generic step kernels take it on the card), fp32, 600 rows on a
+    4-ring, so 150-row shards, not a multiple of the 128-row blocks (padded
+    and masked there)."""
+    q, k, v, _ = _qkvdo(1, 600, c, 6)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     o = ring_attention(tq, tk, tv, 2, LocalRing(4))
     # the gradient of sum(o²), as _run_flash_ring takes it

@@ -963,3 +963,29 @@ def test_remat_auto_per_vae_kind_and_batch_limit(monkeypatch):
                 is want
     assert first_on["kl"] < first_on["tiny"]
     assert TS.largest_batch("kl", hw, cuda) < TS.largest_batch("tiny", hw, cuda)
+
+
+def test_fp32_rows_refuse_or_rematerialise(monkeypatch):
+    """``STEP_PEAK_BYTES`` is keyed by the bundle's dtype: a batch that the
+    bf16 rows run without remat rematerialises at fp32, and a batch that
+    the bf16 rows let through is refused at fp32 with the fp32 limit named
+    (stubbed 80 GB card)."""
+    card = 80 * 10**9
+    monkeypatch.setattr(TS, "card_memory_bytes", lambda device: card)
+    cuda, hw = torch.device("cuda"), (72, 96)
+    cfg = TS.SamplerConfig()
+    for kind in ("tiny", "kl"):
+        for remat in (False, True):
+            bf16 = TS.step_peak_bytes(kind, remat, 1, hw)
+            assert TS.step_peak_bytes(kind, remat, 1, hw, torch.bfloat16) == bf16
+            assert TS.step_peak_bytes(kind, remat, 1, hw, torch.float32) > bf16
+        remat_at = [n for n in range(1, 65)
+                    if TS.resolve_remat(cfg, n, hw, cuda, kind, torch.float32)
+                    and not TS.resolve_remat(cfg, n, hw, cuda, kind, torch.bfloat16)]
+        assert remat_at, kind
+        limit32 = TS.largest_batch(kind, hw, cuda, torch.float32)
+        assert limit32 < TS.largest_batch(kind, hw, cuda)
+        TS.check_batch_fits(kind, limit32 + 1, hw, cuda)  # bf16: fits
+        with pytest.raises(ValueError, match=f"the largest batch that fits at this geometry "
+                                             f"is {limit32}$"):
+            TS.check_batch_fits(kind, limit32 + 1, hw, cuda, torch.float32)
