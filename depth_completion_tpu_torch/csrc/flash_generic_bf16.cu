@@ -1,5 +1,5 @@
-// The generic flash kernels (flash_generic.cuh) on bf16 operands, one TF32
-// pass (bf16 is exact in TF32), at the head dims the tuned bf16 kernels of
+// The generic flash kernels (flash_generic.cuh) on bf16 operands (bf16
+// mma.sync m16n8k16, fp32 accumulation), at the head dims the tuned bf16 kernels of
 // flash_attention.cu do not take: 128, 256 and 384, forward, backward and
 // the ring's steps; and 512, whose ring steps only come from here (a whole
 // d=512 call takes flash_fwd_d512 / flash_bwd_d512). Replaces

@@ -55,12 +55,26 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "memory");
 }
 
+// two 8x8 bf16 matrices; lanes 0-15 give the addresses (lane l: row l % 8 of
+// matrix l / 8)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
 // the same, each matrix transposed (a row-major [k][n] tile read as B)
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `threads` threads of the block
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // d += a · b (m16n8k16, bf16 operands, fp32 accumulator)
@@ -127,16 +141,32 @@ __device__ __forceinline__ void tf32_parts(float x, uint32_t& hi, uint32_t& lo) 
   }
 }
 
+// c += a · b over one k8 step, each operand given as its TF32 parts (hi,
+// lo). kSplit: three products (lo·hi', hi·lo', then hi·hi': the small ones
+// first), else one (operands exact in TF32, lo unused). The products go into
+// a zeroed fragment that joins c with fp32 adds (round to nearest): c itself
+// never passes through the tensor cores, whose accumulation drops low bits.
+// Kept in the mma accumulator over S=6912 keys, o read 3.7e-6-9.0e-6 from
+// its fp32 twin (of max|o| ~0.12) where dq, which left through fp32 atomics
+// a tile at a time, read 4e-7-1.6e-6 (H100 80GB HBM3; PERF.md).
+template <bool kSplit>
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (kSplit) {
+    mma_tf32(d, al, bh0, bh1);
+    mma_tf32(d, ah, bl0, bl1);
+  }
+  mma_tf32(d, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
 // c[j] += A · B over kdim (a multiple of 8) for one warp's m16 strip of NN
 // n8 tiles, operands fp32 in shared memory: A(m, k) = a[m·a_m + k·a_k] (m <
-// 16), B(k, n) = b[k·b_k + n·b_n] (n < 8·NN). kSplit: three TF32 products per
-// k-step (the small ones first), else one (operands exact in TF32). Each
-// k-step's products go into a zeroed fragment that joins c with fp32 adds
-// (round to nearest): c itself never passes through the tensor cores, whose
-// accumulation drops low bits. Kept in the mma accumulator over S=6912 keys,
-// o read 3.7e-6-9.0e-6 from its fp32 twin (of max|o| ~0.12) where dq, which
-// left through fp32 atomics a tile at a time, read 4e-7-1.6e-6 (H100 80GB
-// HBM3; PERF.md).
+// 16), B(k, n) = b[k·b_k + n·b_n] (n < 8·NN), each k-step by mma_tf32x3
+// with the operands split as they are read.
 template <bool kSplit, int NN>
 __device__ __forceinline__ void mma_strip_tf32(float (&c)[NN][4], const float* a, int a_m, int a_k,
                                                const float* b, int b_k, int b_n, int kdim) {
@@ -153,14 +183,7 @@ __device__ __forceinline__ void mma_strip_tf32(float (&c)[NN][4], const float* a
       uint32_t bh0, bl0, bh1, bl1;
       tf32_parts<kSplit>(b[(k0 + t) * b_k + (j * 8 + g) * b_n], bh0, bl0);
       tf32_parts<kSplit>(b[(k0 + t + 4) * b_k + (j * 8 + g) * b_n], bh1, bl1);
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (kSplit) {
-        mma_tf32(d, al, bh0, bh1);
-        mma_tf32(d, ah, bl0, bl1);
-      }
-      mma_tf32(d, ah, bh0, bh1);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[j][e] += d[e];
+      mma_tf32x3<kSplit>(c[j], ah, al, bh0, bh1, bl0, bl1);
     }
   }
 }

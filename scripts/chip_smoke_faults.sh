@@ -8,7 +8,7 @@
 # port with each fault below planted (one sed edit each; --steps 2, or
 # --steps $FAULT_STEPS where that is set; $SMOKE_ARGS, e.g.
 # --only-distributed for F42-F45, --only-drivers for F55-F58 or --only-fp32
-# for F59-F62, is added to
+# for F59-F64, is added to
 # every run), or only with the
 # faults named (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
@@ -139,11 +139,19 @@
 #                 clock without a synchronize (it times the enqueue; the
 #                 drivers' shared loop, which bench_scaling's rows take)
 #   F59_fp32_one_pass the fp32 kernels (flash, conv) take one TF32 pass
-#                 per product in place of 3xTF32 (csrc/mma_sync.cuh)
+#                 per product in place of 3xTF32 (csrc/mma_sync.cuh's
+#                 mma_tf32x3, which every fp32 product runs)
 #   F60_fp32_as_bf16 the flash forward wrapper casts fp32 operands to bf16
 #                 and runs the bf16 kernel
 #   F61_d128_heads_as_d64 the generic flash forward at d=128 strides its
 #                 query heads as d=64
+#   F63_xch_own_slice the generic flash forward's warps that split o's
+#                 channels (bf16 d >= 256, fp32 d >= 128) each add their own
+#                 partial scores W times in place of the row group's W
+#                 partials
+#   F64_pv_keys_unpermuted the generic fp32 forward stores v's planes with
+#                 the keys in their own order, so that p·v's B fragment holds
+#                 keys t and t + 4 where p's A fragment holds 2t and 2t + 1
 #   F62_fp32_conv_plain the conv wrapper computes its plain twin for an
 #                 fp32 CUDA tensor (caught by the launch counts)
 set -u
@@ -330,11 +338,16 @@ run_fault F57_kitti_first_as_steady scripts/bench_kitti_torch.py \
 run_fault F58_scaling_unsynced scripts/drivers_torch.py \
   '/        t0 = time.perf_counter()/,/        times.append/s|^        synchronize(dev)$|        pass|'
 run_fault F59_fp32_one_pass depth_completion_tpu_torch/csrc/mma_sync.cuh \
-  's|^      if constexpr (kSplit) {$|      if constexpr (false) {|'
+  '/void mma_tf32x3/,/^}/s|if constexpr (kSplit) {|if constexpr (false) {|'
 run_fault F60_fp32_as_bf16 depth_completion_tpu_torch/ops/flash_attention.py \
   's|^    r = route(_check_cuda_operands(q, k, v, head_dim=d), d)$|    if q.dtype == torch.float32:\n        o, lse2 = flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), num_heads)\n        return o.float(), lse2\n&|'
-run_fault F61_d128_heads_as_d64 depth_completion_tpu_torch/csrc/flash_generic.cuh \
-  's|(long)h \* D, q_ss, q0|(long)h * (D == 128 ? 64 : D), q_ss, q0|'
+GENERIC=depth_completion_tpu_torch/csrc/flash_generic.cuh
+run_fault F61_d128_heads_as_d64 $GENERIC \
+  's|const T\* qh = q + n \* q_sn + (long)h \* D;|const T* qh = q + n * q_sn + (long)h * (D == 128 ? 64 : D);|'
 run_fault F62_fp32_conv_plain depth_completion_tpu_torch/ops/conv3x3.py \
   's|^    if x.device.type == "cpu":$|    if x.device.type == "cpu" or x.dtype == torch.float32:|'
+run_fault F63_xch_own_slice $GENERIC \
+  's|const float4 x = xb\[(w \* NS + i) \* 32 + lane\];|const float4 x = xb[(ws * NS + i) * 32 + lane];|'
+run_fault F64_pv_keys_unpermuted $GENERIC \
+  's|const int pos = (r \& ~7) + key_pos(r \& 7);|const int pos = r;|'
 exit $status

@@ -1,5 +1,6 @@
 """Device time of the flash kernels (d=64 forward and backward, d=512
-forward and backward), the ring's passes, the fused 3x3 conv and the
+forward and backward), the generic flash pair (every other dtype and head
+dim, and its ring steps), the ring's passes, the fused 3x3 conv and the
 guidance epilogue in two checkouts, side by side, on one CUDA GPU.
 
     python3 scripts/kernel_ab.py BASE_DIR [--reps 20]
@@ -7,11 +8,13 @@ guidance epilogue in two checkouts, side by side, on one CUDA GPU.
 BASE_DIR is another checkout of this repository, e.g. the parent commit
 unpacked with ``git archive`` into the git-ignored
 ``depth_completion_tpu_torch/_build/parent/``. Each tree's
-``csrc/flash_attention.cu``, ``csrc/conv3x3.cu`` and
+``csrc/flash_attention.cu``, ``csrc/flash_generic_f32.cu``,
+``csrc/flash_generic_bf16.cu``, ``csrc/conv3x3.cu`` and
 ``csrc/guidance_epilogue.cu`` is compiled with nvcc (this tree's flags)
 into ``depth_completion_tpu_torch/_build/ab/``, loaded with ctypes through
 the C entry points both trees share (``dct_flash_fwd``, ``dct_flash_bwd``,
-``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``, ``dct_conv3x3``; the
+``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``, ``dct_flash_fwd_<f32|bf16>``,
+``dct_flash_bwd_<f32|bf16>``, ``dct_conv3x3``; the
 epilogue through ``dct_guidance_epilogue_table`` or, in a tree from before
 it, ``dct_guidance_epilogue``), and timed at the guided paths' shapes: ``reps`` launches
 captured in one CUDA graph and replayed, so a time is the kernel's device
@@ -24,7 +27,11 @@ inputs o and lse2 come from this tree's forward. The ring's passes
 the ring step entry points (``dct_flash_fwd_ring``, ``dct_flash_bwd_ring``),
 this tree's ``ops.ring_attention`` over that tree's kernels; without, one
 flash call per visiting block, ``roll`` and the eager fp32 merge the ring
-had before them. Turns:
+had before them. The generic pair runs at every timed shape of PERF.md's
+generic rows (``GENERIC_CASES``: whole calls, the backward with its ``di``
+pre-pass and the zeroing of dq; ``GENERIC_RING_CASES``: a middle forward
+step and a later backward step of a ``LocalRing(P)`` on carried state,
+timed on working copies of the state, compared from fresh ones). Turns:
 base, this tree, this tree, base; each tree's two turns are averaged. The
 two trees' outputs on the same inputs are compared (max abs difference over
 every output: both compute one function, in other summation orders).
@@ -65,9 +72,12 @@ from depth_completion_tpu_torch.probes import card  # noqa: E402
 from depth_completion_tpu_torch.sched.ddim import make_schedule, make_timesteps  # noqa: E402
 
 _p, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-SOURCES = ("flash_attention", "conv3x3", "guidance_epilogue")
+SOURCES = ("flash_attention", "flash_generic_f32", "flash_generic_bf16", "conv3x3",
+           "guidance_epilogue")
 FWD_ARGS = [_p] * 5 + [_i] * 4 + [_l] * 8 + [_f, _p]
 BWD_ARGS = [_p] * 10 + [_i] * 4 + [_l] * 10 + [_f, _p]
+GENERIC_FWD_ARGS = [_p] * 8 + [_i] * 5 + [_l] * 8 + [_i, _i, _f, _p]
+GENERIC_BWD_ARGS = [_p] * 11 + [_i] * 5 + [_l] * 10 + [_i, _i, _f, _p]
 EPILOGUE_ARGS = [_p] * 5 + [_i, _l, _i, _i] + [_f] * 10 + [_p]
 EPILOGUE_TABLE_ARGS = [_p] * 5 + [_i, _l, _i, _i, _p, _p] + [_f] * 4 + [_p]
 # (N, EH, EW): the latent of res 768 at batch 1 and at bench.py's batch 8
@@ -91,6 +101,18 @@ FLASH_CASES = ((6912, 5, 1), (1728, 10, 1), (2688, 5, 1), (6688, 5, 1), (1672, 5
 # (S, heads, batch) at head dim 512: the KL VAE's mid attention at 576x768,
 # and a ragged length
 FLASH_D512_CASES = ((6912, 1, 1), (6900, 1, 1))
+# the generic pair, whole calls (dtype, head dim, S, heads): the fp32 UNet
+# stages 0 and 1 at 576x768 (10 + 10 launches a guided step between them),
+# the KL VAE's fp32 mid attention, and chip_smoke.py's HEAD_DIM_CASES in both
+# dtypes
+GENERIC_CASES = (("fp32", 64, 6912, 5), ("fp32", 64, 1728, 10), ("fp32", 512, 6912, 1),
+                 *((dt, d, s, h) for d, s, h in ((128, 1728, 5), (256, 6912, 1), (384, 1728, 2))
+                   for dt in ("bf16", "fp32")))
+# the generic pair's ring steps (dtype, head dim, shard rows, heads, P): the
+# native fp32 path's stage 0, and chip_smoke.py's RING_STEP_HEADS at 4x432
+GENERIC_RING_CASES = (("fp32", 64, 1672, 5, 4),
+                      *((dt, d, 432, h, 4) for d, h in ((128, 5), (256, 1), (384, 2), (512, 1))
+                        for dt in ("bf16", "fp32")))
 # (S, heads, P): the native path's ring at stages 0 and 1 (44x152 latent)
 RING_CASES = ((6688, 5, 4), (1672, 10, 4))
 # (H, W, Ci, Co, relu): relu is the TAESD form (bias+ReLU; masked dx with
@@ -127,6 +149,11 @@ def build(tree: Path, tag: str) -> dict:
                 lib.dct_flash_fwd_ring.argtypes = [_p] * 8 + [_i] * 4 + [_l] * 8 + [_i, _i, _f, _p]
                 lib.dct_flash_bwd_ring.argtypes = [_p] * 9 + [_i] * 4 + [_l] * 10 + [_i, _f, _p]
                 lib.dct_flash_fwd_ring.restype = lib.dct_flash_bwd_ring.restype = _i
+        elif name.startswith("flash_generic"):
+            sfx = name.rsplit("_", 1)[1]
+            fwd, bwd = getattr(lib, f"dct_flash_fwd_{sfx}"), getattr(lib, f"dct_flash_bwd_{sfx}")
+            fwd.argtypes, bwd.argtypes = GENERIC_FWD_ARGS, GENERIC_BWD_ARGS
+            fwd.restype = bwd.restype = _i
         elif name == "conv3x3":
             lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
             lib.dct_conv3x3.restype = _i
@@ -332,6 +359,120 @@ def ring_bwd_merged(lib, q, k, v, o, do, lse2, heads: int, p: int):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _strides(*xs) -> tuple:
+    """(batch stride, row stride) of each contiguous [N, S, C] operand."""
+    return tuple(v for x in xs for v in (x.stride(0), x.stride(1)))
+
+
+def generic_fwd(lib, q, k, v, heads: int, state=None, state_in: bool = False,
+                state_out: bool = False):
+    """The generic forward through ``dct_flash_fwd_<f32|bf16>``: a whole call
+    → (o, lse2); with ``state`` (m, l, acc, fp32) a ring step that reads it
+    (``state_in``) and writes it in place (``state_out``) → the state."""
+    n, s, c = q.shape
+    d = c // heads
+    fn = getattr(lib, "dct_flash_fwd_f32" if q.dtype == torch.float32 else "dct_flash_fwd_bf16")
+    if state is None and not state_out:
+        o = torch.empty_like(q)
+        lse = torch.empty((n, heads, s), device=q.device, dtype=torch.float32)
+        m = l_ = acc = None
+    else:
+        o = lse = None
+        m, l_, acc = state
+    ptr = [None if x is None else x.data_ptr() for x in (o, lse, m, l_, acc)]
+    strides = _strides(q, k, v) + (s * c, c)
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptr, n, heads, s, k.shape[1], d,
+                *strides, int(state_in), int(state_out), 1.0 / math.sqrt(d), _stream())
+    _build.check(status, "generic flash_fwd")
+    return state if state_out else (o, lse)
+
+
+def generic_bwd(lib, q, k, v, o, do, lse, heads: int, ring=None):
+    """The generic backward through ``dct_flash_bwd_<f32|bf16>``: a whole
+    call (the di pre-pass, dq zeroed) → (dq in fp32, dk, dv); with ``ring``
+    = (di, dq, dkv) a later ring step adding into them in place → ring."""
+    n, s, c = q.shape
+    d = c // heads
+    fn = getattr(lib, "dct_flash_bwd_f32" if q.dtype == torch.float32 else "dct_flash_bwd_bf16")
+    if ring is None:
+        di = torch.empty((n, heads, s), device=q.device, dtype=torch.float32)
+        dq = torch.zeros((n, s, c), device=q.device, dtype=torch.float32)
+        dk, dv, dkv = torch.empty_like(k), torch.empty_like(v), None
+    else:
+        di, dq, dkv = ring
+        dk = dv = None
+    ptr = [None if x is None else x.data_ptr() for x in (di, dq, dk, dv, dkv)]
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), *ptr, n, heads, s, k.shape[1], d, *_strides(q, k, v, o, do),
+                int(ring is not None), int(ring is None), 1.0 / math.sqrt(d), _stream())
+    _build.check(status, "generic flash_bwd")
+    return ring if ring is not None else (dq, dk, dv)
+
+
+def stateful_turns(libs: dict, run, state: tuple, reps: int) -> dict:
+    """``turns`` for a step that updates ``state`` in place: timed on
+    working copies, each tree's outputs from a fresh copy."""
+    times = {"base": [], "this": []}
+    work = tuple(x.clone() for x in state)
+    for tag in ("base", "this", "this", "base"):
+        times[tag].append(graph_ms(lambda: run(libs[tag], work), reps))
+    outs = {tag: run(libs[tag], tuple(x.clone() for x in state)) for tag in times}
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(outs["base"], outs["this"]))
+    base, this = (sum(times[t]) / 2 for t in ("base", "this"))
+    return {"base_ms": base, "this_ms": this, "speedup": base / this, "max_abs_diff": diff}
+
+
+def generic_cases(libs: dict, rnd, reps: int) -> list:
+    """The generic pair's whole calls and ring steps, each tree's against
+    the other's (inputs o and lse2, and the carried states, from this
+    tree)."""
+    results = []
+    pair = {t: {"fp32": lib["flash_generic_f32"], "bf16": lib["flash_generic_bf16"]}
+            for t, lib in libs.items()}
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    for dt, d, s, heads in GENERIC_CASES:
+        libs_dt = {t: pair[t][dt] for t in pair}
+        q, k, v, do = (rnd(1, s, heads * d, dtype=dtypes[dt]) for _ in range(4))
+        r = turns(libs_dt, lambda lib: generic_fwd(lib, q, k, v, heads)[0], reps)
+        r.update(kernel=f"flash_fwd_{dt}_d{d}", shape=f"N=1 S={s} heads={heads}")
+        results.append(r)
+        o, lse = generic_fwd(libs_dt["this"], q, k, v, heads)
+        r = turns(libs_dt, lambda lib: generic_bwd(lib, q, k, v, o, do, lse, heads), reps)
+        r.update(kernel=f"flash_bwd_{dt}_d{d}", shape=f"N=1 S={s} heads={heads}")
+        results.append(r)
+    for dt, d, s_loc, heads, p in GENERIC_RING_CASES:
+        libs_dt = {t: pair[t][dt] for t in pair}
+        q, k1, v1, k2, v2, do = (rnd(p, s_loc, heads * d, dtype=dtypes[dt]) for _ in range(6))
+        this = libs_dt["this"]
+        m = torch.empty((p, heads, s_loc), device="cuda", dtype=torch.float32)
+        first = generic_fwd(this, q, k1, v1, heads, (m, torch.empty_like(m),
+                            torch.empty((p, s_loc, heads * d), device="cuda",
+                                        dtype=torch.float32)), state_out=True)
+        first = tuple(x.clone() for x in first)
+        # a middle step from the first's state, on working copies
+        r = stateful_turns(libs_dt, lambda lib, st: generic_fwd(lib, q, k2, v2, heads, st, True,
+                                                                True), first, reps)
+        r.update(kernel=f"flash_fwd_ring_{dt}_d{d}", shape=f"{p}x{s_loc} heads={heads} middle")
+        results.append(r)
+        o, lse = generic_fwd(this, q, k1, v1, heads)
+        c = heads * d
+        di = torch.empty((p, heads, s_loc), device="cuda", dtype=torch.float32)
+        dq = torch.zeros((p, s_loc, c), device="cuda", dtype=torch.float32)
+        dkv = torch.zeros((p, s_loc, 2 * c), device="cuda", dtype=torch.float32)
+        fn = getattr(this, "dct_flash_bwd_f32" if dt == "fp32" else "dct_flash_bwd_bf16")
+        _build.check(fn(q.data_ptr(), k1.data_ptr(), v1.data_ptr(), o.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), None, None, dkv.data_ptr(),
+                        p, heads, s_loc, s_loc, d, *_strides(q, k1, v1, o, do), 1, 1,
+                        1.0 / math.sqrt(d), _stream()), "generic flash_bwd first ring step")
+        # a later step (di from the first), adding into working copies
+        r = stateful_turns(libs_dt, lambda lib, st: generic_bwd(lib, q, k2, v2, o, do, lse, heads,
+                                                                st), (di, dq, dkv), reps)
+        r.update(kernel=f"flash_bwd_ring_{dt}_d{d}", shape=f"{p}x{s_loc} heads={heads} later")
+        results.append(r)
+    return results
+
+
 def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
     n, h, w, ci = x.shape
     co = w_hwio.shape[3]
@@ -409,10 +550,10 @@ def main() -> int:
     libs = {"base": build(args.base_dir.resolve(), "base"), "this": build(ROOT, "this")}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    results = []
+    results = generic_cases(libs, rnd, args.reps)
     flash_libs = {t: lib["flash_attention"] for t, lib in libs.items()}
     for s, heads, n in FLASH_CASES:
         q, k, v, do = (rnd(n, s, heads * 64) for _ in range(4))

@@ -187,6 +187,45 @@ def test_kernel_head_dims(dtype, monkeypatch):
         assert ring_attention.ring_steps(d) == (tfa.flash_fwd_ring, tfa.flash_bwd_ring)
 
 
+# every (dtype, head dim, ring) the kernels take → (library, forward and
+# backward entry points, launch-count names), written out: bf16 at 64 (and
+# at 512 for whole calls) the tuned kernels, every other pair the generic
+# pair of its dtype
+_ROUTES = {
+    ("bf16", 64, False): ("flash_attention", "dct_flash_fwd", "dct_flash_bwd", "flash_fwd",
+                          "flash_bwd"),
+    ("bf16", 64, True): ("flash_attention", "dct_flash_fwd_ring", "dct_flash_bwd_ring",
+                         "flash_fwd_ring", "flash_bwd_ring"),
+    ("bf16", 512, False): ("flash_attention", "dct_flash_fwd_d512", "dct_flash_bwd_d512",
+                           "flash_fwd_d512", "flash_bwd_d512"),
+    **{("bf16", d, ring): ("flash_generic_bf16", "dct_flash_fwd_bf16", "dct_flash_bwd_bf16",
+                           f"flash_fwd_{'ring_' if ring else ''}bf16_d{d}",
+                           f"flash_bwd_{'ring_' if ring else ''}bf16_d{d}")
+       for d in (128, 256, 384) for ring in (False, True)},
+    ("bf16", 512, True): ("flash_generic_bf16", "dct_flash_fwd_bf16", "dct_flash_bwd_bf16",
+                          "flash_fwd_ring_bf16_d512", "flash_bwd_ring_bf16_d512"),
+    **{("fp32", d, ring): ("flash_generic_f32", "dct_flash_fwd_f32", "dct_flash_bwd_f32",
+                           f"flash_fwd_{'ring_' if ring else ''}fp32_d{d}",
+                           f"flash_bwd_{'ring_' if ring else ''}fp32_d{d}")
+       for d in (64, 128, 256, 384, 512) for ring in (False, True)},
+}
+
+
+@pytest.mark.parametrize("key", sorted(_ROUTES),
+                         ids=lambda k: f"{k[0]}-d{k[1]}-{'ring' if k[2] else 'call'}")
+def test_route_pinned(key):
+    """Each (dtype, head dim, ring) of ``HEAD_DIMS`` keeps its library, entry
+    points and launch-count names, so a kernel's redesign cannot move a
+    pair to another kernel, or its launches to another count, unnoticed."""
+    tag, d, ring = key
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[tag]
+    assert d in tfa.HEAD_DIMS
+    assert tuple(tfa.route(dtype, d, ring)) == _ROUTES[key]
+    assert tfa.launch_names(dtype, d, ring) == _ROUTES[key][3:]
+    assert set(_ROUTES[key][3:]) <= set(tfa.LAUNCHES)
+    assert len(_ROUTES) == 2 * 2 * len(tfa.HEAD_DIMS)
+
+
 # the ring step twins over P key blocks of 150 rows (ragged against the
 # kernels' 64-row tiles), 2 heads of d=64, a batch of 2 and 100 query rows
 RING_PS = pytest.mark.parametrize("p", [1, 2, 3, 4])
