@@ -765,7 +765,9 @@ def check_conv(n: int, h: int, w: int, cin: int = 64, cout: int | None = None,
     # dx reads dy (and, with ReLU, the mask y) and writes dx (and dy masked)
     dx_bytes = x_bytes + y_bytes + w_bytes + (2 * y_bytes if relu else 0)
     out["dx_bound_ms"], _ = bound(flops, dx_bytes, peak)
-    tf32 = f" cuDNN TF32 {out['library_tf32_ms']:.4f}" if fp32 else ""
+    # 3xTF32 runs three TF32 products for each one the bound counts
+    tf32 = (f" cuDNN TF32 {out['library_tf32_ms']:.4f} 3xTF32 floor "
+            f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f}" if fp32 else "")
     print(f"  conv3x3 {fa.DTYPE_TAGS[dtype]} {h}x{w} {cin}->{cout}: kernel_ms={out['ms']:.4f} "
           f"({'masked ' if relu else ''}dx {out['dx_ms']:.4f}, bound {out['dx_bound_ms']:.4f}, "
           f"dx_library_ms {out['dx_library_ms']:.4f}) "

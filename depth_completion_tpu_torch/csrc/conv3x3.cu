@@ -279,153 +279,349 @@ int launch(const void* x, const void* w, const void* bias, const void* skip, con
 
 // ===========================================================================
 // fp32 form (conv3x3_f32_kernel): the same function on fp32 NHWC x, skip and
-// mask, fp32 HWIO weights and bias, fp32 y (and the masked x), for
+// mask, fp32 weights and bias, fp32 y (and the masked x), for
 // --precision fp32 (the JAX package sizes its tile by x.dtype.itemsize and
 // runs this kernel at fp32 too, depth_completion_tpu/ops/conv3x3.py:69-78).
+// The weights come K-major, OHWI [Co][3][3][Ci] (ops/conv3x3.py _k_major:
+// the one copy per call that the wrapper made of HWIO before makes this
+// layout now; 72·Ci·Co bytes read and written, 2-10 us a call, 4-27 us
+// with the dx's flip; scripts/kernel_ab.py).
 //
-// Arithmetic: 3xTF32 on the tensor cores (mma.sync m16n8k8: each operand
-// split into a TF32 high part and a TF32 remainder, three products per
-// k-step, each k-step's sum added to the fp32 accumulator with an fp32 add;
-// dct::mma_strip_tf32), so the result keeps ~22
-// bits of every product where one TF32 pass keeps 11. What bounds it: as the
-// bf16 form, at TF32's 495 TFLOP/s and three products a k-step (3 x the
-// operations), and twice the bytes. This is the first, simple form: the same
-// implicit GEMM and 4x32-pixel tile, a K-step of 8 channels (one k8 per tap),
-// BN = 64 output channels a block, stages through the two-stage cp.async
-// ring (fp32 needs no conversion), fragments read with scalar loads from
-// padded halo rows (12 floats a pixel: conflict-free) and padded weight rows,
-// and the epilogue (bias, skip, ReLU) written straight from the fragments.
-// 8 warps: one output row of the tile (two m16 tiles) by 32 output channels
-// each. Shared memory: 61 KB (81 KB with a mask).
+// Arithmetic: 3xTF32 on the tensor cores: each operand split into a TF32
+// high part and a TF32 remainder (dct::tf32_split, integer rounding), three
+// products a k-step (lo·hi', hi·lo', hi·hi'), ~22 bits of each product kept
+// where one TF32 pass keeps 11. The tensor cores sum one stage's products
+// (27 wgmma k8 steps: K = 72, 216 products an output) in a zeroed
+// accumulator; it joins the fp32 sum with fp32 adds after the stage's
+// wgmma.wait. Against the fp32 twin this reads at most 0.21 of FP32_REL
+// (at Ci = 512, K = 4608; PERF.md).
+//
+// What bounds it: the tensor cores at 3xTF32 (3·2·9·Ci·Co FLOP a pixel at
+// TF32's 494.7 TFLOP/s: 0.79 ms at 576x768 128->128; chip_smoke.py's bound
+// counts each product once). Before them, on this card, two budgets of the
+// SM: shared memory (128 bytes a clock: wgmma reads both operands there, and
+// each stage passes through it four times: copied, read, written as hi and
+// lo) and the L2 (each block reads every weight of its output channels once
+// per call).
+//
+// Design: the implicit GEMM of the bf16 form (M = output pixels, N = Co, K =
+// 9·Ci) on wgmma.mma_async m64n64k8 .tf32 (sm_90a), both operands from
+// shared memory through matrix descriptors in the no-swizzle K-major layout:
+// 8-row core matrices of 16 bytes a row (4 channels), 128 bytes each. A
+// block (two consumer warpgroups, 256 threads) owns TH32 = 4 output rows of
+// TW32 = 64 columns and BN32 = 64 output channels; each warpgroup owns two
+// rows, one m64 tile each. A stage is CK32 = 8 input channels and all nine
+// taps. The halo (6 x 66 pixels) is staged as planes [4-channel
+// group][pixel][4]: any 8 pixels in a row of it form one core matrix, so tap
+// (kh, kw)'s A tile is a descriptor on the same planes started kh rows and
+// kw pixels further (no im2col copy). The weights are staged [tap][4-channel
+// group][co][4] from the OHWI rows (wgmma takes .tf32 operands K-major only).
+// A stage lands raw through 16-byte cp.async (zero-filled outside the image
+// and past Ci; each thread's copies are addressed once per block) in a raw
+// ring of NR slots, and every thread splits it once into one of two split
+// slots: hi and lo planes, read by the products (with a mask the operand is
+// masked in the same pass, halo rows included, and the co-tile-0 block
+// writes the masked operand of its own pixels); no element is split twice
+// in a block, none once a tap. While the tensor cores run stage s, the
+// threads copy stage s+NR into the raw slot stage s left and split stage
+// s+1; two block barriers a stage, NR - 1 stages in flight.
+// Why this tile at every width (H100 80GB HBM3, 700 W; PERF.md): blocks of
+// 128 pixels x 128 output channels at the KL widths were L2-bound (their
+// copies alone took 1.12 ms at 576x768 128->128, as long as their
+// products); 256 x 64 blocks read 37% fewer bytes a product from the L2 and
+// ran 6-8% faster. A thread-block cluster sharing each weight stage through
+// distributed shared memory, and two stage accumulators (ptxas then
+// serialises the wgmmas, C7514), both ran slower.
+// Occupancy: 185 registers (238 with a mask), 213 KB of shared memory
+// (NR = 3; 207 KB and NR = 2 with a mask): one block (8 warps) an SM.
+// Blocks: 576x768x64 1728 (13.1 waves of 132), 576x768 128->128 3456
+// (26.2), 288x384 512->256 1728 (13.1), 352x1216x64 1672 (12.7; the native
+// decoder's widths 152, 304, 608 fill 79%, 95%, 95% of their 64-column
+// tiles), 72x96x512 288 (2.2 waves, 75% of the columns), the ragged
+// 2x13x37 256->128 16.
 // ===========================================================================
 
 namespace {
 
-constexpr int CK32 = 8;              // input channels per K-step
-constexpr int CKP32 = 12;            // halo pixel stride (floats)
-constexpr int BN32 = 64;             // output channels per block
-constexpr int LDW32 = BN32 + 8;      // weight row stride (floats)
-constexpr int HALO32 = HPIX * CKP32;  // floats of one staged halo chunk
-constexpr int WTS32 = 9 * CK32 * LDW32;  // floats of one chunk's nine taps
+constexpr int TW32 = 64;                  // output columns per block: one m64 tile a row
+constexpr int HC32 = TW32 + 2;            // halo columns
+constexpr int BN32 = 64;                  // output channels per block (wgmma N)
+constexpr int MT32 = 2;                   // m64 tiles (output rows) per warpgroup
+constexpr int TH32 = 2 * MT32;            // output rows per block
+constexpr int CK32 = 8;                   // input channels per stage: one k8 step a tap
+constexpr int NPIX32 = (TH32 + 2) * HC32;  // halo pixels
+constexpr int A32 = CK32 * NPIX32;        // floats of a stage's halo
+constexpr int B32 = 9 * CK32 * BN32;      // floats of its weights
+constexpr int XS32 = 2 * (A32 + B32);     // a split slot: A hi, A lo, B hi, B lo
+constexpr int NA32 = (A32 / 4 + NTHREADS - 1) / NTHREADS;  // a thread's 16-byte halo copies
+constexpr int NB32 = (B32 / 4 + NTHREADS - 1) / NTHREADS;  // its weight copies
 
 template <bool MASK>
-struct Cfg32 {
-  static constexpr int W_OFF = HALO32 * (MASK ? 2 : 1);
-  static constexpr int STAGE = W_OFF + WTS32;  // floats
-  static constexpr int SMEM = 2 * STAGE * 4;
-  static_assert(SMEM <= 232448, "tiles exceed shared memory");
+struct Ring32 {  // raw ring: NR slots of [x | mask | weights] as cp.async lands them
+  static constexpr int RB = (MASK ? 2 : 1) * A32;  // the weights' offset in a slot
+  static constexpr int RS = RB + B32;              // floats of a slot
+  static constexpr int NR_FIT = (232448 / 4 - 2 * XS32) / RS;
+  static constexpr int NR = NR_FIT < 3 ? NR_FIT : 3;
+  static constexpr int SMEM = (2 * XS32 + NR * RS) * 4;
+  static_assert(NR >= 2, "the raw ring needs two slots");
 };
 
+// matrix descriptor, no swizzle: start, leading (K: next 4 channels) and
+// stride (M or N: next 8 rows) byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// after the wait: the accumulator is read only past this point
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A · B, m64n64k8, tf32 operands from shared memory; scale_d = 0
+// zeroes d first. Accumulator fragment of a warpgroup thread (warp w, g =
+// lane / 4, t = lane % 4): d[4j], d[4j+1] at row 16w + g, columns 8j + 2t,
+// +1; d[4j+2], d[4j+3] at row + 8.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ float4 mask4(float4 x, float4 m) {
+  return make_float4(m.x > 0.f ? x.x : 0.f, m.y > 0.f ? x.y : 0.f, m.z > 0.f ? x.z : 0.f,
+                     m.w > 0.f ? x.w : 0.f);
+}
+
+__device__ __forceinline__ void split4(float4 v, float4& hi, float4& lo) {
+  uint32_t h, l;
+  dct::tf32_split(v.x, h, l);
+  hi.x = __uint_as_float(h), lo.x = __uint_as_float(l);
+  dct::tf32_split(v.y, h, l);
+  hi.y = __uint_as_float(h), lo.y = __uint_as_float(l);
+  dct::tf32_split(v.z, h, l);
+  hi.z = __uint_as_float(h), lo.z = __uint_as_float(l);
+  dct::tf32_split(v.w, h, l);
+  hi.w = __uint_as_float(h), lo.w = __uint_as_float(l);
+}
+
+// A thread's share of every stage's copies, fixed for the block: 16-byte
+// halo and weight items (neighbouring threads take a pixel's or a weight
+// row's two 4-channel groups: one 32-byte sector), with their offsets at
+// channel 0; stage s adds 8·s channels.
+struct Loader32 {
+  int a_off[NA32], a_so[NA32], a_ch[NA32];  // a_ch < 0: no item; past Ci: zero-filled
+  int b_off[NB32], b_so[NB32], b_ch[NB32];  // b_ch < 0: no item, or past Co
+
+  __device__ __forceinline__ Loader32(int H, int W, int Ci, int Co, int h0, int w0, int co0,
+                                      int rb) {
+#pragma unroll
+    for (int k = 0; k < NA32; ++k) {
+      const int i = threadIdx.x + k * NTHREADS;
+      const int p = i >> 1, kg = i & 1;
+      const int gh = h0 - 1 + p / HC32, gw = w0 - 1 + p % HC32;
+      const bool in = gh >= 0 && gh < H && gw >= 0 && gw < W;
+      a_off[k] = in ? (gh * W + gw) * Ci + kg * 4 : 0;
+      a_so[k] = (kg * NPIX32 + p) * 4;
+      a_ch[k] = i >= A32 / 4 ? -1 : in ? kg * 4 : 1 << 30;
+    }
+#pragma unroll
+    for (int k = 0; k < NB32; ++k) {
+      const int i = threadIdx.x + k * NTHREADS;
+      const int co = (i >> 1) % BN32, t = (i >> 1) / BN32, kg = i & 1;
+      b_off[k] = ((co0 + co) * 9 + t) * Ci + kg * 4;  // w is [Co][3][3][Ci]
+      b_so[k] = rb + ((t * 2 + kg) * BN32 + co) * 4;
+      b_ch[k] = i < B32 / 4 && co0 + co < Co ? kg * 4 : -1;
+    }
+  }
+
+  // cp.async stage s raw into a slot of the raw ring: the halo (and the
+  // mask) as planes [group][pixel][4], the taps of the block's output
+  // channels as [tap][group][co][4] (a row past Co is not copied: its
+  // output channel is not stored)
+  template <bool MASK>
+  __device__ __forceinline__ void load(float* st, const float* __restrict__ xn,
+                                       const float* __restrict__ maskn,
+                                       const float* __restrict__ w, int Ci, int s) const {
+    const int c0 = s * CK32;
+#pragma unroll
+    for (int k = 0; k < NA32; ++k) {
+      if (a_ch[k] < 0) continue;
+      const bool ok = a_ch[k] + c0 < Ci;
+      const int off = ok ? a_off[k] + c0 : 0;
+      dct::cp_async_16(dct::smem_u32(st + a_so[k]), xn + off, ok);
+      if (MASK) dct::cp_async_16(dct::smem_u32(st + A32 + a_so[k]), maskn + off, ok);
+    }
+#pragma unroll
+    for (int k = 0; k < NB32; ++k) {
+      if (b_ch[k] < 0) continue;
+      const bool ok = b_ch[k] + c0 < Ci;
+      dct::cp_async_16(dct::smem_u32(st + b_so[k]), w + (ok ? b_off[k] + c0 : 0), ok);
+    }
+  }
+};
+
+// split stage s once, from its raw slot into a split slot (with a mask: the
+// operand masked first, and the tile's own pixels written to masked_out by
+// the co-tile-0 block)
 template <bool MASK>
-__device__ __forceinline__ void load_stage32(float* st, const float* __restrict__ x,
-                                             const float* __restrict__ mask,
-                                             const float* __restrict__ w, int n, int H, int W,
-                                             int Ci, int Co, int h0, int w0, int co0, int c0) {
-  for (int i = threadIdx.x; i < HPIX * 2; i += NTHREADS) {
-    const int p = i >> 1, c = i & 1;
-    const int gh = h0 - 1 + p / HC, gw = w0 - 1 + p % HC, ch = c0 + c * 4;
-    const bool ok = gh >= 0 && gh < H && gw >= 0 && gw < W && ch < Ci;
-    const long off = ok ? (((long)n * H + gh) * W + gw) * Ci + ch : 0;
-    const int so = p * CKP32 + c * 4;
-    dct::cp_async_16(dct::smem_u32(st + so), x + off, ok);
-    if (MASK) dct::cp_async_16(dct::smem_u32(st + HALO32 + so), mask + off, ok);
+__device__ __forceinline__ void split_stage32(const float* raw, float* xs,
+                                              float* __restrict__ masked_out, int n, int H, int W,
+                                              int Ci, int h0, int w0, int co0, int s) {
+  const int c0 = s * CK32;
+  const bool emit = MASK && masked_out != nullptr && co0 == 0;
+  const float4* a = reinterpret_cast<const float4*>(raw);
+  float4* ax = reinterpret_cast<float4*>(xs);
+#pragma unroll
+  for (int k = 0; k < (A32 / 4 + NTHREADS - 1) / NTHREADS; ++k) {
+    const int j = threadIdx.x + k * NTHREADS;
+    if (j >= A32 / 4) break;
+    float4 v = a[j];
+    if (MASK) {
+      v = mask4(v, a[A32 / 4 + j]);
+      const int p = j % NPIX32, rr = p / HC32, cc = p % HC32;  // halo row, column
+      const int gh = h0 - 1 + rr, gw = w0 - 1 + cc, ch = c0 + (j / NPIX32) * 4;
+      if (emit && rr >= 1 && rr <= TH32 && cc >= 1 && cc <= TW32 && gh < H && gw < W && ch < Ci)
+        *reinterpret_cast<float4*>(masked_out + (((long)n * H + gh) * W + gw) * Ci + ch) = v;
+    }
+    float4 hi, lo;
+    split4(v, hi, lo);
+    ax[j] = hi;
+    ax[A32 / 4 + j] = lo;
   }
-  float* sw = st + Cfg32<MASK>::W_OFF;
-  constexpr int CPR = BN32 / 4;  // 16-byte chunks per weight row
-  for (int i = threadIdx.x; i < 9 * CK32 * CPR; i += NTHREADS) {
-    const int nv = i % CPR, kr = (i / CPR) % CK32, t = i / (CPR * CK32);
-    const int ci = c0 + kr;
-    const bool ok = ci < Ci && co0 + nv * 4 < Co;  // w is [3][3][Ci][Co]
-    const long off = ok ? ((long)t * Ci + ci) * Co + co0 + nv * 4 : 0;
-    dct::cp_async_16(dct::smem_u32(sw + (t * CK32 + kr) * LDW32 + nv * 4), w + off, ok);
+  const float4* b = reinterpret_cast<const float4*>(raw + Ring32<MASK>::RB);
+  float4* bx = reinterpret_cast<float4*>(xs + 2 * A32);
+#pragma unroll
+  for (int k = 0; k < (B32 / 4 + NTHREADS - 1) / NTHREADS; ++k) {
+    const int j = threadIdx.x + k * NTHREADS;
+    if (j >= B32 / 4) break;
+    float4 hi, lo;
+    split4(b[j], hi, lo);
+    bx[j] = hi;
+    bx[B32 / 4 + j] = lo;
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
 }
 
 template <bool MASK>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, 1)
 conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ skip,
                    const float* __restrict__ mask, float* __restrict__ y,
                    float* __restrict__ masked_out, int H, int W, int Ci, int Co, int relu) {
-  using C = Cfg32<MASK>;
+  using R = Ring32<MASK>;
+  constexpr int ND = BN32 / 2;  // accumulator floats a thread per m64 tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(smem_raw);  // two split slots
+  float* raw = xs + 2 * XS32;                      // the raw ring
+  const uint32_t xs_u32 = dct::smem_u32(xs);
 
   const int n_co = (Co + BN32 - 1) / BN32;
   const int n = blockIdx.z / n_co, co0 = (blockIdx.z % n_co) * BN32;
-  const int h0 = blockIdx.y * TH, w0 = blockIdx.x * TW;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;  // output row wm of the tile; channels 32·wn..
-  const int g = lane >> 2, t4 = lane & 3;
+  const int h0 = blockIdx.y * TH32, w0 = blockIdx.x * TW32;
+  const int wg = threadIdx.x >> 7;  // warpgroup: output rows 2·wg, 2·wg + 1
 
-  float acc[2][4][4];  // m16 tiles (columns 0-15, 16-31) x n8 tiles
+  float acc[MT32][ND], d[MT32][ND];  // the sum; one stage's products
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MT32; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    for (int e = 0; e < ND; ++e) acc[i][e] = d[i][e] = 0.f;
 
-  const int nk = (Ci + CK32 - 1) / CK32;
-  load_stage32<MASK>(ring, x, mask, w, n, H, W, Ci, Co, h0, w0, co0, 0);
-  dct::cp_async_commit();
-
-  for (int kc = 0; kc < nk; ++kc) {
-    float* st = ring + (kc & 1) * C::STAGE;
-    dct::cp_async_wait<0>();
-    __syncthreads();  // chunk kc landed; chunk kc-1's stage consumed by every warp
-    if (kc + 1 < nk)
-      load_stage32<MASK>(ring + ((kc + 1) & 1) * C::STAGE, x, mask, w, n, H, W, Ci, Co, h0, w0,
-                         co0, (kc + 1) * CK32);
+  const long img = (long)n * H * W * Ci;
+  const float* xn = x + img;
+  const float* maskn = MASK ? mask + img : nullptr;
+  const Loader32 ld(H, W, Ci, Co, h0, w0, co0, R::RB);
+  const int nst = (Ci + CK32 - 1) / CK32;
+#pragma unroll
+  for (int r = 0; r < R::NR; ++r) {  // stages 0 .. NR-1 in flight
+    if (r < nst) ld.load<MASK>(raw + r * R::RS, xn, maskn, w, Ci, r);
     dct::cp_async_commit();
+  }
+  dct::cp_async_wait<R::NR - 1>();
+  __syncthreads();
+  split_stage32<MASK>(raw, xs, masked_out, n, H, W, Ci, h0, w0, co0, 0);
+  __syncthreads();
 
-    if (MASK) {  // zero the operand where mask <= 0, halo rows included
-      for (int i = threadIdx.x; i < HPIX * 2; i += NTHREADS) {
-        const int p = i >> 1, c = i & 1;
-        const int rr = p / HC, cc = p % HC;
-        float4* xs = reinterpret_cast<float4*>(st + p * CKP32 + c * 4);
-        const float4 xv = *xs;
-        const float4 mv = *reinterpret_cast<const float4*>(st + HALO32 + p * CKP32 + c * 4);
-        const float4 val = make_float4(mv.x > 0.f ? xv.x : 0.f, mv.y > 0.f ? xv.y : 0.f,
-                                       mv.z > 0.f ? xv.z : 0.f, mv.w > 0.f ? xv.w : 0.f);
-        *xs = val;
-        // the masked operand: once per pixel (co tile 0), the tile's own pixels
-        const int gh = h0 - 1 + rr, gw = w0 - 1 + cc, ch = kc * CK32 + c * 4;
-        if (masked_out != nullptr && co0 == 0 && rr >= 1 && rr <= TH && cc >= 1 && cc <= TW &&
-            gh < H && gw < W && ch < Ci)
-          *reinterpret_cast<float4*>(masked_out + (((long)n * H + gh) * W + gw) * Ci + ch) = val;
-      }
-      __syncthreads();
-    }
-
-    const float* sw = st + C::W_OFF;
-#pragma unroll 3
-    for (int t = 0; t < 9; ++t) {
-      const int dh = t / 3, dw = t % 3;
+  for (int s = 0; s < nst; ++s) {
+    const uint32_t st = xs_u32 + (s & 1) * XS32 * 4;
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        dct::mma_strip_tf32<true, 4>(acc[i], st + ((wm + dh) * HC + i * 16 + dw) * CKP32, CKP32,
-                                     1, sw + t * CK32 * LDW32 + wn * 32, LDW32, 1, CK32);
+    for (int t = 0; t < 9; ++t) {
+      const uint64_t bh = gmma_desc(st + (2 * A32 + t * 2 * BN32 * 4) * 4, BN32 * 16, 128);
+      const uint64_t bl = bh + (B32 >> 2);  // the lo plane, B32·4 bytes on
+#pragma unroll
+      for (int i = 0; i < MT32; ++i) {
+        const int pix = (wg * MT32 + i + t / 3) * HC32 + t % 3;  // tap t's first pixel
+        const uint64_t ah = gmma_desc(st + pix * 16, NPIX32 * 16, 128);
+        const uint64_t al = ah + (A32 >> 2);
+        wgmma_tf32(d[i], al, bh, t > 0);  // the stage's first product zeroes d
+        wgmma_tf32(d[i], ah, bl, 1);
+        wgmma_tf32(d[i], ah, bh, 1);
+      }
     }
+    wgmma_commit();
+    if (s + R::NR < nst)  // into stage s's raw slot, split in step s-1
+      ld.load<MASK>(raw + (s % R::NR) * R::RS, xn, maskn, w, Ci, s + R::NR);
+    dct::cp_async_commit();
+    if (s + 1 < nst) {
+      dct::cp_async_wait<R::NR - 1>();
+      __syncthreads();  // stage s+1 landed
+      split_stage32<MASK>(raw + ((s + 1) % R::NR) * R::RS, xs + ((s + 1) & 1) * XS32,
+                          masked_out, n, H, W, Ci, h0, w0, co0, s + 1);
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < MT32; ++i) {
+      fence_operands(d[i]);
+#pragma unroll
+      for (int e = 0; e < ND; ++e) acc[i][e] += d[i][e];
+    }
+    __syncthreads();  // stage s+1 split; stage s's split slot read by both warpgroups
   }
 
   // epilogue from the fragments: + bias, + skip, ReLU; float2 stores
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = co0 + wn * 32 + j * 8 + 2 * t4;
+  for (int j = 0; j < BN32 / 8; ++j) {
+    const int co = co0 + j * 8 + 2 * t4;
     if (co >= Co) continue;
     const float b0 = bias != nullptr ? bias[co] : 0.f;
     const float b1 = bias != nullptr ? bias[co + 1] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MT32; ++i)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int gh = h0 + wm, gw = w0 + i * 16 + g + 8 * half;
+        const int gh = h0 + wg * MT32 + i, gw = w0 + warp * 16 + g + 8 * half;
         if (gh >= H || gw >= W) continue;
         const long off = (((long)n * H + gh) * W + gw) * Co + co;
-        float v0 = acc[i][j][2 * half] + b0, v1 = acc[i][j][2 * half + 1] + b1;
+        float v0 = acc[i][4 * j + 2 * half] + b0, v1 = acc[i][4 * j + 2 * half + 1] + b1;
         if (skip != nullptr) {
-          const float2 s = *reinterpret_cast<const float2*>(skip + off);
-          v0 += s.x;
-          v1 += s.y;
+          const float2 sv = *reinterpret_cast<const float2*>(skip + off);
+          v0 += sv.x;
+          v1 += sv.y;
         }
         if (relu) {
           v0 = fmaxf(v0, 0.f);
@@ -440,12 +636,12 @@ template <bool MASK>
 int launch32(const void* x, const void* w, const void* bias, const void* skip, const void* mask,
              void* y, void* masked_out, int N, int H, int W, int Ci, int Co, int relu,
              cudaStream_t stream) {
-  constexpr int smem = Cfg32<MASK>::SMEM;
+  constexpr int smem = Ring32<MASK>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(conv3x3_f32_kernel<MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_co = (Co + BN32 - 1) / BN32;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N * n_co);
+  dim3 grid((W + TW32 - 1) / TW32, (H + TH32 - 1) / TH32, N * n_co);
   conv3x3_f32_kernel<MASK><<<grid, NTHREADS, smem, stream>>>(
       (const float*)x, (const float*)w, (const float*)bias, (const float*)skip,
       (const float*)mask, (float*)y, (float*)masked_out, H, W, Ci, Co, relu);
@@ -472,6 +668,12 @@ extern "C" int dct_conv3x3_f32(const void* x, const void* w, const void* bias, c
                                int Ci, int Co, int relu, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return mask != nullptr
-             ? launch32<true>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu, st)
-             : launch32<false>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu, st);
+             ? launch32<true>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu,
+                              st)
+             : launch32<false>(x, w, bias, skip, mask, y, masked_out, N, H, W, Ci, Co, relu,
+                               st);
 }
+
+// dct_conv3x3_f32 takes K-major (OHWI) weights; a checkout whose fp32 form
+// reads HWIO has no such symbol (scripts/kernel_ab.py builds both)
+extern "C" int dct_conv3x3_f32_k_major(void) { return 1; }

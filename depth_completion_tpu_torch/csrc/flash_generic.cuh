@@ -56,7 +56,7 @@
 // p·v takes column t of its A fragment as key 2t and t + 4 as 2t+1, and one
 // ldmatrix.b16 on 32-bit words gives v's B fragments of two key groups (its
 // x4 layout is TF32's A fragment's, and a [n][k] B's over two k-steps). The
-// split rounds with integer ops (tf32_rna: the same rounding as
+// split rounds with integer ops (dct::tf32_rna: the same rounding as
 // cvt.rna.tf32.f32); against cvt.rna that took the d=64 forward from 1.82
 // to 1.72 ms and the backward from 5.13 to 4.12 ms (H100 80GB HBM3, 700 W;
 // PERF.md). fp32 d=256 and 512 have two plans: the
@@ -192,24 +192,11 @@ __device__ __forceinline__ void stage_stats(float* lse_dst, float* di_dst, const
   dct::cp_async_4(dct::smem_u32(dst + i), ok ? src + row0 + i : src, ok);
 }
 
-// x rounded to TF32 by integer ops: half a TF32 ulp added to the bits, the
-// 13 low bits cleared. The same rounding as cvt.rna.tf32.f32 (to nearest,
-// ties away from zero; a NaN may not stay one), at the integer pipes' rate.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo in TF32 (3xTF32's split, dct::tf32_parts<true>'s values)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
 template <int N>
 __device__ __forceinline__ void split4(const uint32_t (&x)[N], uint32_t (&hi)[N],
                                        uint32_t (&lo)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) split(__uint_as_float(x[i]), hi[i], lo[i]);
+  for (int i = 0; i < N; ++i) dct::tf32_split(__uint_as_float(x[i]), hi[i], lo[i]);
 }
 
 __device__ __forceinline__ void store2(float* dst, float x, float y) {
@@ -341,10 +328,10 @@ flash_fwd_generic(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       const float x1 = r1 < sq ? to_f(qh[(long)r1 * q_ss + c]) : 0.f;
       const float x2 = r0 < sq ? to_f(qh[(long)r0 * q_ss + c + 4]) : 0.f;
       const float x3 = r1 < sq ? to_f(qh[(long)r1 * q_ss + c + 4]) : 0.f;
-      split(x0, qhi[kk][0], qlo[kk][0]);
-      split(x1, qhi[kk][1], qlo[kk][1]);
-      split(x2, qhi[kk][2], qlo[kk][2]);
-      split(x3, qhi[kk][3], qlo[kk][3]);
+      dct::tf32_split(x0, qhi[kk][0], qlo[kk][0]);
+      dct::tf32_split(x1, qhi[kk][1], qlo[kk][1]);
+      dct::tf32_split(x2, qhi[kk][2], qlo[kk][2]);
+      dct::tf32_split(x3, qhi[kk][3], qlo[kk][3]);
     }
   }
 
@@ -390,10 +377,10 @@ flash_fwd_generic(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         const int off = (i / (D / 4)) * LD + (i % (D / 4)) * 4;
         const float4 x = *reinterpret_cast<const float4*>(s_kv + off);
         uint4 hi, lo;
-        split(x.x, hi.x, lo.x);
-        split(x.y, hi.y, lo.y);
-        split(x.z, hi.z, lo.z);
-        split(x.w, hi.w, lo.w);
+        dct::tf32_split(x.x, hi.x, lo.x);
+        dct::tf32_split(x.y, hi.y, lo.y);
+        dct::tf32_split(x.z, hi.z, lo.z);
+        dct::tf32_split(x.w, hi.w, lo.w);
         *reinterpret_cast<uint4*>(kp + off) = hi;
         *reinterpret_cast<uint4*>(kp + TILE + off) = lo;
       }
@@ -404,7 +391,7 @@ flash_fwd_generic(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         const int pos = (r & ~7) + key_pos(r & 7);  // this key's column in v's planes
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          split(xs[e], kp[2 * TILE + (c + e) * C::LDT + pos],
+          dct::tf32_split(xs[e], kp[2 * TILE + (c + e) * C::LDT + pos],
                 kp[2 * TILE + C::VT + (c + e) * C::LDT + pos]);
       }
       __syncthreads();  // the planes ready; the raw tile consumed
@@ -532,10 +519,10 @@ flash_fwd_generic(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         uint32_t ah[KP][4], al[KP][4];
 #pragma unroll
         for (int u = 0; u < KP; ++u) {
-          split(s[i + u][0], ah[u][0], al[u][0]);
-          split(s[i + u][2], ah[u][1], al[u][1]);
-          split(s[i + u][1], ah[u][2], al[u][2]);
-          split(s[i + u][3], ah[u][3], al[u][3]);
+          dct::tf32_split(s[i + u][0], ah[u][0], al[u][0]);
+          dct::tf32_split(s[i + u][2], ah[u][1], al[u][1]);
+          dct::tf32_split(s[i + u][1], ah[u][2], al[u][2]);
+          dct::tf32_split(s[i + u][3], ah[u][3], al[u][3]);
         }
 #pragma unroll
         for (int nn = 0; nn < NN; ++nn) {
@@ -820,7 +807,7 @@ flash_bwd_generic(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int x = (c + (e & 1)) * LDP + kb + ((e >> 1) << 3) + key_pos(g);
-              split(dp[i][e], s_dshi[x], s_dslo[x]);
+              dct::tf32_split(dp[i][e], s_dshi[x], s_dslo[x]);
             }
           } else {
             bf16* dst = s_dst + (kb + g) * LDP + c;
@@ -835,24 +822,24 @@ flash_bwd_generic(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
         for (int i = 0; i < 2; ++i) {  // queries 8i..: A's column t is query 2t, t + 4 is 2t + 1
           uint32_t ph[4], pl[4], dh[4], dl[4];
-          split(s[i][0], ph[0], pl[0]);
-          split(s[i][2], ph[1], pl[1]);
-          split(s[i][1], ph[2], pl[2]);
-          split(s[i][3], ph[3], pl[3]);
-          split(dp[i][0], dh[0], dl[0]);
-          split(dp[i][2], dh[1], dl[1]);
-          split(dp[i][1], dh[2], dl[2]);
-          split(dp[i][3], dh[3], dl[3]);
+          dct::tf32_split(s[i][0], ph[0], pl[0]);
+          dct::tf32_split(s[i][2], ph[1], pl[1]);
+          dct::tf32_split(s[i][1], ph[2], pl[2]);
+          dct::tf32_split(s[i][3], ph[3], pl[3]);
+          dct::tf32_split(dp[i][0], dh[0], dl[0]);
+          dct::tf32_split(dp[i][2], dh[1], dl[1]);
+          dct::tf32_split(dp[i][1], dh[2], dl[2]);
+          dct::tf32_split(dp[i][3], dh[3], dl[3]);
           const int row = (jq * 16 + i * 8 + 2 * t) * LD + cb + g;
 #pragma unroll
           for (int nn = 0; nn < 8; ++nn) {
             const int x = row + nn * 8;
             uint32_t b0h, b0l, b1h, b1l;
-            split(dos[x], b0h, b0l);
-            split(dos[x + LD], b1h, b1l);
+            dct::tf32_split(dos[x], b0h, b0l);
+            dct::tf32_split(dos[x + LD], b1h, b1l);
             dct::mma_tf32x3<true>(dv_acc[nn], ph, pl, b0h, b1h, b0l, b1l);
-            split(qs[x], b0h, b0l);
-            split(qs[x + LD], b1h, b1l);
+            dct::tf32_split(qs[x], b0h, b0l);
+            dct::tf32_split(qs[x + LD], b1h, b1l);
             dct::mma_tf32x3<true>(dk_acc[nn], dh, dl, b0h, b1h, b0l, b1l);
           }
         }
@@ -897,8 +884,8 @@ flash_bwd_generic(const T* __restrict__ q, const T* __restrict__ k, const T* __r
           for (int nn = 0; nn < DQN; ++nn) {
             const int x = row + nn * 8;
             uint32_t b0h, b0l, b1h, b1l;
-            split(s_k[x], b0h, b0l);
-            split(s_k[x + LD], b1h, b1l);
+            dct::tf32_split(s_k[x], b0h, b0l);
+            dct::tf32_split(s_k[x + LD], b1h, b1l);
             dct::mma_tf32x3<true>(acc[nn], ah, al, b0h, b1h, b0l, b1l);
           }
         }

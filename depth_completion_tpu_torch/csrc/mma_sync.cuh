@@ -119,33 +119,29 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+// x rounded to TF32 by integer ops: half a TF32 ulp added to the bits, the
+// 13 low bits cleared. The same rounding as cvt.rna.tf32.f32 (to nearest,
+// ties away from zero; a NaN may not stay one), at the integer pipes' rate.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// One operand of a tensor-core product in TF32. kSplit (3xTF32, for fp32
-// operands): x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), so that
+// 3xTF32's split of an fp32 operand (the generic flash pair's and the fp32
+// conv's): x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), so that
 // hi·hi' + hi·lo' + lo·hi' carries ~22 bits of each product, where a single
-// TF32 pass keeps 11. Without kSplit x must already be exact in TF32 (a bf16
-// value widened: its low 16 bits are 0) and lo is not used.
-template <bool kSplit>
-__device__ __forceinline__ void tf32_parts(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (kSplit) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
+// TF32 pass keeps 11.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // c += a · b over one k8 step, each operand given as its TF32 parts (hi,
-// lo). kSplit: three products (lo·hi', hi·lo', then hi·hi': the small ones
-// first), else one (operands exact in TF32, lo unused). The products go into
-// a zeroed fragment that joins c with fp32 adds (round to nearest): c itself
-// never passes through the tensor cores, whose accumulation drops low bits.
+// lo; tf32_split). kSplit: three products (lo·hi', hi·lo', then hi·hi': the
+// small ones first), else one (operands exact in TF32, lo unused). The
+// products go into a zeroed fragment that joins c with fp32 adds (round to
+// nearest): c itself never passes through the tensor cores, whose
+// accumulation drops low bits.
+// (The fp32 conv's wgmma form, conv3x3.cu, lets them sum one ring stage.)
 // Kept in the mma accumulator over S=6912 keys, o read 3.7e-6-9.0e-6 from
 // its fp32 twin (of max|o| ~0.12) where dq, which left through fp32 atomics
 // a tile at a time, read 4e-7-1.6e-6 (H100 80GB HBM3; PERF.md).
@@ -161,31 +157,6 @@ __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh0, bh1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += d[e];
-}
-
-// c[j] += A · B over kdim (a multiple of 8) for one warp's m16 strip of NN
-// n8 tiles, operands fp32 in shared memory: A(m, k) = a[m·a_m + k·a_k] (m <
-// 16), B(k, n) = b[k·b_k + n·b_n] (n < 8·NN), each k-step by mma_tf32x3
-// with the operands split as they are read.
-template <bool kSplit, int NN>
-__device__ __forceinline__ void mma_strip_tf32(float (&c)[NN][4], const float* a, int a_m, int a_k,
-                                               const float* b, int b_k, int b_n, int kdim) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int k0 = 0; k0 < kdim; k0 += 8) {
-    uint32_t ah[4], al[4];
-    tf32_parts<kSplit>(a[g * a_m + (k0 + t) * a_k], ah[0], al[0]);
-    tf32_parts<kSplit>(a[(g + 8) * a_m + (k0 + t) * a_k], ah[1], al[1]);
-    tf32_parts<kSplit>(a[g * a_m + (k0 + t + 4) * a_k], ah[2], al[2]);
-    tf32_parts<kSplit>(a[(g + 8) * a_m + (k0 + t + 4) * a_k], ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < NN; ++j) {
-      uint32_t bh0, bl0, bh1, bl1;
-      tf32_parts<kSplit>(b[(k0 + t) * b_k + (j * 8 + g) * b_n], bh0, bl0);
-      tf32_parts<kSplit>(b[(k0 + t + 4) * b_k + (j * 8 + g) * b_n], bh1, bl1);
-      mma_tf32x3<kSplit>(c[j], ah, al, bh0, bh1, bl0, bl1);
-    }
-  }
 }
 
 }  // namespace dct

@@ -17,8 +17,11 @@ the masked ``dy``. dW and db are plain PyTorch and run only when
 ``ctx.needs_input_grad`` asks for them (the port's weights are frozen, so
 the sampler never does).
 
-Weights are OIHW ``[Co, Ci, 3, 3]`` (the port's storage layout); the kernel
-reads HWIO ``[3, 3, Ci, Co]``, made by a permute of the 3x3xCixCo taps.
+Weights are OIHW ``[Co, Ci, 3, 3]`` (the port's storage layout); the
+wrappers take HWIO ``[3, 3, Ci, Co]`` taps. The bf16 kernel reads HWIO; the
+fp32 kernel reads them K-major, OHWI ``[Co, 3, 3, Ci]`` (``_k_major``:
+``wgmma`` takes tf32 operands K-major only), made by the one copy per call
+that HWIO took before (72·Ci·Co bytes read and written).
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel of
 its dtype or raises. ``LAUNCHES`` counts kernel launches (forward and dx
 alike) per form.
@@ -98,7 +101,7 @@ def conv3x3_call(x, w_hwio, bias=None, skip=None, relu=False, mask=None, emit_ma
     if w_hwio.shape != (3, 3, ci, co):
         raise ValueError(f"conv3x3 weights must be [3,3,{ci},{co}], got {tuple(w_hwio.shape)}")
     x = x.contiguous()
-    w_hwio = w_hwio.to(x.dtype).contiguous()
+    wk = (_k_major(w_hwio) if x.dtype == torch.float32 else w_hwio).to(x.dtype).contiguous()
     bias = None if bias is None else bias.to(x.dtype).contiguous()
     skip = None if skip is None else skip.to(x.dtype).contiguous()
     mask = None if mask is None else mask.to(x.dtype).contiguous()
@@ -108,7 +111,7 @@ def conv3x3_call(x, w_hwio, bias=None, skip=None, relu=False, mask=None, emit_ma
     y = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
     xm = torch.empty_like(x) if emit_masked else None
     status = getattr(_kernels(), entry)(
-        x.data_ptr(), w_hwio.data_ptr(), _ptr(bias), _ptr(skip), _ptr(mask),
+        x.data_ptr(), wk.data_ptr(), _ptr(bias), _ptr(skip), _ptr(mask),
         y.data_ptr(), _ptr(xm), n, h, w, ci, co, int(relu),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -119,6 +122,12 @@ def conv3x3_call(x, w_hwio, bias=None, skip=None, relu=False, mask=None, emit_ma
 
 def _hwio(weight_oihw):
     return weight_oihw.permute(2, 3, 1, 0)
+
+
+def _k_major(w_hwio):
+    """HWIO taps → OHWI ``[Co, 3, 3, Ci]``: row co holds K = 9·Ci taps,
+    K index (3·kh + kw)·Ci + ci (the fp32 kernel's weight layout)."""
+    return w_hwio.permute(3, 0, 1, 2)
 
 
 def _flip_transpose_hwio(weight_oihw):

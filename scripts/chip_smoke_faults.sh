@@ -8,7 +8,7 @@
 # port with each fault below planted (one sed edit each; --steps 2, or
 # --steps $FAULT_STEPS where that is set; $SMOKE_ARGS, e.g.
 # --only-distributed for F42-F45, --only-drivers for F55-F58 or --only-fp32
-# for F59-F64, is added to
+# for F59-F66, is added to
 # every run), or only with the
 # faults named (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
@@ -140,7 +140,8 @@
 #                 drivers' shared loop, which bench_scaling's rows take)
 #   F59_fp32_one_pass the fp32 kernels (flash, conv) take one TF32 pass
 #                 per product in place of 3xTF32 (csrc/mma_sync.cuh's
-#                 mma_tf32x3, which every fp32 product runs)
+#                 mma_tf32x3, which every fp32 flash product runs, and the
+#                 conv's three wgmma products a tap: hi·hi' alone)
 #   F60_fp32_as_bf16 the flash forward wrapper casts fp32 operands to bf16
 #                 and runs the bf16 kernel
 #   F61_d128_heads_as_d64 the generic flash forward at d=128 strides its
@@ -154,6 +155,11 @@
 #                 keys t and t + 4 where p's A fragment holds 2t and 2t + 1
 #   F62_fp32_conv_plain the conv wrapper computes its plain twin for an
 #                 fp32 CUDA tensor (caught by the launch counts)
+#   F65_conv_halo_lo_dropped the fp32 conv's split writes zeros for the
+#                 halo's lo plane (x's TF32 remainder: two of the three
+#                 products, x in one TF32 pass)
+#   F66_conv_tap_shift the fp32 conv's A descriptor of the right-hand taps
+#                 (kw = 2) starts one pixel short (kw = 1's pixels)
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -338,7 +344,8 @@ run_fault F57_kitti_first_as_steady scripts/bench_kitti_torch.py \
 run_fault F58_scaling_unsynced scripts/drivers_torch.py \
   '/        t0 = time.perf_counter()/,/        times.append/s|^        synchronize(dev)$|        pass|'
 run_fault F59_fp32_one_pass depth_completion_tpu_torch/csrc/mma_sync.cuh \
-  '/void mma_tf32x3/,/^}/s|if constexpr (kSplit) {|if constexpr (false) {|'
+  '/void mma_tf32x3/,/^}/s|if constexpr (kSplit) {|if constexpr (false) {|' \
+  $CONV 's|wgmma_tf32(d\[i\], al, bh, t > 0);|wgmma_tf32(d[i], ah, bh, t > 0); continue;|'
 run_fault F60_fp32_as_bf16 depth_completion_tpu_torch/ops/flash_attention.py \
   's|^    r = route(_check_cuda_operands(q, k, v, head_dim=d), d)$|    if q.dtype == torch.float32:\n        o, lse2 = flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), num_heads)\n        return o.float(), lse2\n&|'
 GENERIC=depth_completion_tpu_torch/csrc/flash_generic.cuh
@@ -350,4 +357,8 @@ run_fault F63_xch_own_slice $GENERIC \
   's|const float4 x = xb\[(w \* NS + i) \* 32 + lane\];|const float4 x = xb[(ws * NS + i) * 32 + lane];|'
 run_fault F64_pv_keys_unpermuted $GENERIC \
   's|const int pos = (r \& ~7) + key_pos(r \& 7);|const int pos = r;|'
+run_fault F65_conv_halo_lo_dropped $CONV \
+  's|ax\[A32 / 4 + j\] = lo;|ax[A32 / 4 + j] = make_float4(0.f, 0.f, 0.f, 0.f);|'
+run_fault F66_conv_tap_shift $CONV \
+  's|+ i + t / 3) \* HC32 + t % 3;|+ i + t / 3) * HC32 + (t % 3 == 2 ? 1 : t % 3);|'
 exit $status

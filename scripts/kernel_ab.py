@@ -14,7 +14,7 @@ unpacked with ``git archive`` into the git-ignored
 into ``depth_completion_tpu_torch/_build/ab/``, loaded with ctypes through
 the C entry points both trees share (``dct_flash_fwd``, ``dct_flash_bwd``,
 ``dct_flash_fwd_d512``, ``dct_flash_bwd_d512``, ``dct_flash_fwd_<f32|bf16>``,
-``dct_flash_bwd_<f32|bf16>``, ``dct_conv3x3``; the
+``dct_flash_bwd_<f32|bf16>``, ``dct_conv3x3``, ``dct_conv3x3_f32``; the
 epilogue through ``dct_guidance_epilogue_table`` or, in a tree from before
 it, ``dct_guidance_epilogue``), and timed at the guided paths' shapes: ``reps`` launches
 captured in one CUDA graph and replayed, so a time is the kernel's device
@@ -31,7 +31,12 @@ had before them. The generic pair runs at every timed shape of PERF.md's
 generic rows (``GENERIC_CASES``: whole calls, the backward with its ``di``
 pre-pass and the zeroing of dq; ``GENERIC_RING_CASES``: a middle forward
 step and a later backward step of a ``LocalRing(P)`` on carried state,
-timed on working copies of the state, compared from fresh ones). Turns:
+timed on working copies of the state, compared from fresh ones). The
+conv runs both forms at every ``CONV_CASES`` shape, forward and dx (masked
+where the case has ReLU): bf16 and fp32, each tree's fp32 form given the
+weight layout it reads (K-major OHWI where the library exports
+``dct_conv3x3_f32_k_major``, else HWIO), and this tree's wrapper-side
+relayout of the weights alone (``weight_relayout``). Turns:
 base, this tree, this tree, base; each tree's two turns are averaged. The
 two trees' outputs on the same inputs are compared (max abs difference over
 every output: both compute one function, in other summation orders).
@@ -155,8 +160,8 @@ def build(tree: Path, tag: str) -> dict:
             fwd.argtypes, bwd.argtypes = GENERIC_FWD_ARGS, GENERIC_BWD_ARGS
             fwd.restype = bwd.restype = _i
         elif name == "conv3x3":
-            lib.dct_conv3x3.argtypes = [_p] * 7 + [_i] * 6 + [_p]
-            lib.dct_conv3x3.restype = _i
+            for fn in (lib.dct_conv3x3, lib.dct_conv3x3_f32):
+                fn.argtypes, fn.restype = [_p] * 7 + [_i] * 6 + [_p], _i
         else:
             _epilogue_types(lib)
         libs[name] = lib
@@ -473,7 +478,9 @@ def generic_cases(libs: dict, rnd, reps: int) -> list:
     return results
 
 
-def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
+def conv(lib, x, w_hwio, bias=None, relu=False, mask=None, w_k=None):
+    """One conv through the tree's entry point of x's dtype; the fp32 form
+    takes ``w_k`` (K-major) where the library reads that layout."""
     n, h, w, ci = x.shape
     co = w_hwio.shape[3]
     y = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
@@ -482,10 +489,14 @@ def conv(lib, x, w_hwio, bias=None, relu=False, mask=None):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    status = lib.dct_conv3x3(x.data_ptr(), w_hwio.data_ptr(), ptr(bias), None, ptr(mask),
-                             y.data_ptr(), ptr(xm), n, h, w, ci, co, int(relu), _stream())
+    entry, wt = lib.dct_conv3x3, w_hwio
+    if x.dtype == torch.float32:
+        entry = lib.dct_conv3x3_f32
+        wt = w_k if hasattr(lib, "dct_conv3x3_f32_k_major") else w_hwio
+    status = entry(x.data_ptr(), wt.data_ptr(), ptr(bias), None, ptr(mask), y.data_ptr(),
+                   ptr(xm), n, h, w, ci, co, int(relu), _stream())
     _build.check(status, "conv3x3")
-    return y
+    return (y, xm) if mask is not None else y
 
 
 def epilogue(lib, lat, g, out, m, v, sc):
@@ -592,20 +603,34 @@ def main() -> int:
                   args.reps)
         r.update(kernel="ring_attention_bwd", shape=f"S={s} heads={heads} P={p}")
         results.append(r)
-    for h, w, ci, co, relu in CONV_CASES:
-        x, dy = rnd(1, h, w, ci), rnd(1, h, w, co)
-        wt = rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci))
-        kf = rnd(3, 3, co, ci, scale=1.0 / math.sqrt(9 * co))
-        b = rnd(co, scale=0.1)
-        mask = c3.conv3x3_plain(x, wt, b, relu=relu)[0] if relu else None
-        conv_libs = {t: lib["conv3x3"] for t, lib in libs.items()}
-        form = "TAESD" if relu else "KL"
-        r = turns(conv_libs, lambda lib: conv(lib, x, wt, b, relu), args.reps)
-        r.update(kernel="conv3x3", shape=f"{h}x{w} {ci}->{co} {form} fwd")
-        results.append(r)
-        r = turns(conv_libs, lambda lib: conv(lib, dy, kf, mask=mask), args.reps)
-        r.update(kernel="conv3x3", shape=f"{h}x{w} {co}->{ci} {form} {'masked ' if relu else ''}dx")
-        results.append(r)
+    relayout = []  # this tree's fp32 weight relayout per call (ops.conv3x3._k_major)
+    conv_libs = {t: lib["conv3x3"] for t, lib in libs.items()}
+    for dtype, name in ((torch.bfloat16, "conv3x3"), (torch.float32, "conv3x3_fp32")):
+        for h, w, ci, co, relu in CONV_CASES:
+            x, dy = rnd(1, h, w, ci, dtype=dtype), rnd(1, h, w, co, dtype=dtype)
+            wt = rnd(3, 3, ci, co, scale=1.0 / math.sqrt(9 * ci), dtype=dtype)
+            kf = rnd(3, 3, co, ci, scale=1.0 / math.sqrt(9 * co), dtype=dtype)
+            wt_k, kf_k = c3._k_major(wt).contiguous(), c3._k_major(kf).contiguous()
+            b = rnd(co, scale=0.1, dtype=dtype)
+            mask = c3.conv3x3_plain(x, wt, b, relu=relu)[0] if relu else None
+            form = "TAESD" if relu else "KL"
+            r = turns(conv_libs, lambda lib: conv(lib, x, wt, b, relu, w_k=wt_k), args.reps)
+            r.update(kernel=name, shape=f"{h}x{w} {ci}->{co} {form} fwd")
+            results.append(r)
+            r = turns(conv_libs, lambda lib: conv(lib, dy, kf, mask=mask, w_k=kf_k), args.reps)
+            r.update(kernel=name,
+                     shape=f"{h}x{w} {co}->{ci} {form} {'masked ' if relu else ''}dx")
+            results.append(r)
+            if dtype == torch.float32:
+                oihw = wt.permute(3, 2, 0, 1).contiguous()  # the port's storage layout
+                relayout.append({
+                    "shape": f"{ci}->{co}",
+                    "fwd_ms": graph_ms(lambda: c3._k_major(c3._hwio(oihw)).contiguous(),
+                                       args.reps),
+                    "dx_ms": graph_ms(
+                        lambda: c3._k_major(c3._flip_transpose_hwio(oihw)).contiguous(),
+                        args.reps),
+                })
     epi_libs = {t: lib["guidance_epilogue"] for t, lib in libs.items()}
     variant = {"base": build_epilogue_variant(EPILOGUE_VARIANT_CLUSTER), "this": epi_libs["this"]}
     sched = make_schedule()
@@ -627,7 +652,10 @@ def main() -> int:
     for r in results:
         print(f"{r['kernel']} {r['shape']}: base {r['base_ms']:.4f} ms, this {r['this_ms']:.4f} ms "
               f"(x{r['speedup']:.3f}), max|diff| {r['max_abs_diff']:.3e}")
-    print(json.dumps({"card": card(), "reps": args.reps, "cases": results}))
+    for r in relayout:
+        print(f"weight_relayout fp32 {r['shape']}: fwd {r['fwd_ms']:.4f} ms, dx {r['dx_ms']:.4f} ms")
+    print(json.dumps({"card": card(), "reps": args.reps, "cases": results,
+                      "weight_relayout": relayout}))
     return 0
 
 

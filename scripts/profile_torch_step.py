@@ -2,8 +2,10 @@
 
     python3 scripts/profile_torch_step.py [--steps 5] [--vae light|original]
                                           [--upsample subpixel|nearest] [--ring P]
+                                          [--precision bf16|fp32]
 
-Builds the full-width Marigold bundle (random bf16 weights, seed 0) with the
+Builds the full-width Marigold bundle (random weights, seed 0; bf16, or fp32
+with ``--precision fp32``, TF32 off as the CLI runs it) with the
 TAESD decoder (``--vae light``) or the KL VAE at SD widths (``original``), runs
 twice: once through the pipeline (its step captured as a CUDA graph and
 replayed) and once through its eager twin (``pipe.twin()``, every step
@@ -36,6 +38,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     # the ring step instantiations of the flash kernels' templates
     ("flash_fwd_ring (port)", ("flash_fwd_kernel<true", "flash_fwd_kernel<false, true")),
+    # the generic pair (fp32 at every head dim, bf16 at 128-384), its ring
+    # steps included, and its di pre-pass
+    ("flash_fwd_generic (port)", ("flash_fwd_generic",)),
+    ("flash_bwd_generic (port)", ("flash_bwd_generic", "flash_bwd_di_generic")),
     ("flash_bwd_ring (port)", ("flash_bwd_kernel<true",)),
     ("flash_fwd (port)", ("flash_fwd_kernel",)),
     ("flash_bwd (port)", ("flash_bwd_kernel", "flash_bwd_di_kernel")),
@@ -43,6 +49,7 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("flash_bwd_d512 (port)", ("flash_bwd_d512_kernel", "flash_bwd_dq_d512_kernel",
                                "flash_bwd_di_d512_kernel")),
     ("conv3x3 (port)", ("conv3x3_kernel",)),
+    ("conv3x3_fp32 (port)", ("conv3x3_f32_kernel",)),
     ("guidance_epilogue (port)", ("guidance_epilogue_kernel",)),
     ("cudnn conv", ("conv", "cudnn", "xmma_fprop", "xmma_dgrad", "implicit_gemm", "winograd")),
     ("gemm", ("gemm", "cutlass", "sm90_xmma", "ampere_bf16", "nvjet")),
@@ -97,6 +104,8 @@ def main() -> int:
                          "upsampled map, or the same function in subpixel form")
     ap.add_argument("--ring", type=int, default=0,
                     help="native-resolution mode over LocalRing(P) at KITTI size (0: off)")
+    ap.add_argument("--precision", choices=("bf16", "fp32"), default="bf16",
+                    help="the bundle's dtype (fp32: the fp32 kernels, TF32 off)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("profile_torch_step: needs a CUDA device\n")
@@ -116,7 +125,8 @@ def main() -> int:
                         "original": ("kl", registry.SD_VAE_CONFIG)}[args.vae]
     bundle = make_random_bundle(
         seed=0, unet_config=registry.MARIGOLD_UNET_CONFIG, vae_config=vae_config,
-        dtype=torch.bfloat16, device="cuda", vae_kind=kind, text_config=registry.SD2_TEXT_CONFIG,
+        dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32, device="cuda",
+        vae_kind=kind, text_config=registry.SD2_TEXT_CONFIG,
     )
     pipe = DepthCompletionPipeline(bundle)
     gen = torch.Generator().manual_seed(0)
@@ -137,7 +147,8 @@ def main() -> int:
     port_counts = (flash_attention.LAUNCHES, conv3x3.LAUNCHES, guidance_epilogue.LAUNCHES)
     per = args.steps
     summary = {"device": torch.cuda.get_device_name(0), "card": smi, "vae": args.vae,
-               "upsample": args.upsample, "ring": args.ring, "steps": per}
+               "upsample": args.upsample, "ring": args.ring, "precision": args.precision,
+               "steps": per}
     # the pipeline replays its captured step; its twin runs every step eagerly
     for name, target in (("graph", pipe), ("eager", pipe.twin())):
         # warm-up at the profiled signature: lazy init, cuDNN heuristics,
@@ -173,6 +184,7 @@ def main() -> int:
         port = {k: v / per for counts in port_counts for k, v in counts.items() if v}
 
         print(f"[{name}] --vae {args.vae} --upsample {args.upsample} --ring {args.ring} "
+              f"--precision {args.precision} "
               f"({h}x{w}, res {res}): request of {per} guided steps: wall {wall_ms:.1f} ms "
               f"({wall_ms / per:.2f} ms/step, incl. encode and final decode); device busy "
               f"{total:.1f} ms ({100 * total / wall_ms:.1f}% of wall); peak memory "

@@ -81,6 +81,56 @@ def test_conv_forward_and_dx_match_jax(shape, use_skip, c, relu):
         np.testing.assert_array_equal(grads[1].numpy(), np.asarray(dskip_j))
 
 
+def _k_major_gemm(x, w_k):
+    """The fp32 kernel's contraction over its K-major weights, in plain
+    PyTorch: y[p, co] = sum over K = 9·Ci of x_pad[p + tap shift, ci] ·
+    w_k[co, (3·kh + kw)·Ci + ci], the order in which the kernel reads the
+    [Co, 3, 3, Ci] rows."""
+    n, h, w, ci = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, kh:kh + h, kw:kw + w] for kh in range(3) for kw in range(3)], -1)
+    return (cols.reshape(-1, 9 * ci) @ w_k.reshape(w_k.shape[0], -1).T).reshape(n, h, w, -1)
+
+
+@pytest.mark.parametrize("ci,co", [(16, 24), (24, 8)], ids=["16to24", "24to8"])
+@pytest.mark.parametrize("direction", ["forward", "dx"])
+def test_k_major_weights_match_jax(direction, ci, co):
+    """The layout the fp32 kernel reads (``_k_major``: OHWI, the forward's
+    taps and the dx's flip-transposed ones) against ``lax`` at fp32, Ci !=
+    Co: through the kernel's K-order contraction, and fed back (as HWIO)
+    through ``conv3x3_plain``. The dx is the ReLU-masked backward of
+    ``relu(conv(x) + b)``."""
+    rng = np.random.default_rng(ci * 7 + co)
+    x = rng.normal(size=(1, 7, 9, ci)).astype(np.float32)
+    k = (rng.normal(size=(3, 3, ci, co)) * 0.1).astype(np.float32)
+    b = rng.normal(size=(co,)).astype(np.float32)
+    g = rng.normal(size=(1, 7, 9, co)).astype(np.float32)
+
+    def jfn(x):
+        y = jax.lax.conv_general_dilated(x, jnp.asarray(k), (1, 1), ((1, 1), (1, 1)),
+                                         dimension_numbers=("NHWC", "HWIO", "NHWC"))
+        return jnp.maximum(y + jnp.asarray(b), 0.0)
+
+    y_j, vjp = jax.vjp(jfn, jnp.asarray(x))
+    w = _oihw(k)
+    if direction == "forward":
+        w_k = tc3._k_major(tc3._hwio(w)).contiguous()
+        assert w_k.shape == (co, 3, 3, ci)
+        ref, inp, mask = np.asarray(y_j), torch.from_numpy(x), None
+        gemm = torch.relu(_k_major_gemm(inp, w_k) + torch.from_numpy(b))
+        plain = tc3.conv3x3_plain(inp, w_k.permute(1, 2, 3, 0), torch.from_numpy(b),
+                                  relu=True)[0]
+    else:
+        w_k = tc3._k_major(tc3._flip_transpose_hwio(w)).contiguous()
+        assert w_k.shape == (ci, 3, 3, co)
+        (dx_j,) = vjp(jnp.asarray(g))
+        ref, inp, mask = np.asarray(dx_j), torch.from_numpy(g), torch.from_numpy(np.array(y_j))
+        gemm = _k_major_gemm(torch.where(mask > 0, inp, torch.zeros_like(inp)), w_k)
+        plain = tc3.conv3x3_plain(inp, w_k.permute(1, 2, 3, 0), mask=mask)[0]
+    np.testing.assert_allclose(gemm.numpy(), ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(plain.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
 def test_masked_operand_and_halo_exact():
     """The masked dx call zeroes the operand where mask <= 0, halo rows
     included, and emits the masked operand: the emitted tensor is exactly
