@@ -16,7 +16,12 @@
    key/value block: each step kernel is held against its twin from the same
    carried state, and the ring's passes against one flash call over the
    whole sequence and against the same ring through the twins, at ring
-   sizes 2 and 4;
+   sizes 2 and 4; a KL decode at widths (64, 36) (``NARROW_VAE``: the
+   convs ``ops.conv3x3.fits`` takes launch the kernel, the others run
+   ``F.conv2d``) against the same decode through the plain twins, its
+   launches one forward and one dx per fitting conv (``check_narrow_decode``),
+   and a guided request with that VAE through the pipeline's graphs against
+   its eager twin, its launches ``expected_launches``' (``check_narrow_request``);
    2b. the probes of the flash kernel's inner loop
    (``depth_completion_tpu_torch.probes``): each probe kernel held against
    its twin at the probes' shapes, then each probe's own ``run`` with its
@@ -27,7 +32,8 @@
    (3xTF32) at the paths' shapes, the generic pair at d=128, 256 and 384 in
    bf16 and fp32, every ring step form, the ring's passes at d=64 fp32 and
    d=128, the fp32 conv at TAESD's and the KL widths, the autograd Functions
-   in fp32 and the epilogue with an fp32 ``out``; the fp32 kernels held to
+   in fp32, the narrow KL decode in fp32 and the epilogue with an fp32
+   ``out``; the fp32 kernels held to
    their fp32 twins at ``FP32_REL`` of the largest reference magnitude (the
    arithmetic beside the constant);
 3. writes the seeded full-width bundle (Marigold UNet, TAESD, the SD2 CLIP
@@ -128,7 +134,12 @@
    signature is promoted, ``max_programs=1`` over two geometries, whose
    evicted program's requests run on the eager twin, and ``--max-programs
    1`` with ``--model lcm`` and with ``--opt sgd``, each signature
-   promoted and tier 0 dropped;
+   promoted and tier 0 dropped; then ``--precision fp32``
+   (``fp32_serve_phase``, at most 4 steps): four concurrent frames in one
+   batch, each row against a direct fp32 call, a session's carry, 4
+   closed-loop clients, every batch's launches the fp32 kernels'
+   (``expected_launches(dtype=torch.float32)``) and no bf16 one, and one
+   ``--vae original --max-batch 1`` request against a direct call;
 7. runs the distributed layer (``distributed_phase``): (a) ``torchrun
    --standalone --nproc_per_node=1`` of the predict CLI with ``--multihost
    true`` on phase 4's frames at ``min(--steps, 10)`` steps, an NCCL group
@@ -168,8 +179,10 @@
    seconds per signature, the first request's latency, requests/s, p50 and
    p95 latency, s/step at batch 1 and 4, the device gap between batches,
    peak GiB, the step programs, the tiers' calls and promotion times, the
-   card), ``{"fp32": {...}}`` (phase 5b: per path seconds, peak and ms per
-   step, the checks' readings, the CLI run, the d=128 steps, the peak rows),
+   card; under ``fp32`` the fp32 server's warmup, requests/s, p50, s/step,
+   peak, checks and KL request), ``{"fp32": {...}}`` (phase 5b: per path
+   seconds, peak and ms per step, the checks' readings, the CLI run, the
+   d=128 steps, the peak rows),
    ``{"distributed": {...}}`` (phase 7's readings, the card),
    ``{"drivers": {...}}`` (phase 8: each driver's rows, (c)'s errors, the
    phase's seconds), ``{"kernels": [...]}`` (one entry per CUDA
@@ -826,6 +839,103 @@ def check_autograd(dtype: torch.dtype = torch.bfloat16) -> None:
                   rel * float(g_ref.float().abs().max()))
 
 
+# A KL decoder at widths the conv kernel does not all take: 64→64 fits
+# (``ops.conv3x3.fits``), 36→36 and 36→64 run F.conv2d; the mid attention at
+# d=36 takes the plain attention. Decoded from a 72x96 latent (res 768's) to
+# 144x192 (two stages: one upsample).
+NARROW_VAE = registry.VAEConfig(block_out_channels=(64, 36), layers_per_block=1, norm_groups=4)
+
+
+def check_narrow_decode(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """``decode_depth`` of ``NARROW_VAE`` (seeded, ``dtype``) and its latent
+    gradient (of Σ dy·out, dy seeded) through the routed convs, against the
+    same decode through the plain twins (``conv_fn=`` the plain conv,
+    ``attention_fn=`` the plain attention): the output within the conv
+    check's limit of its largest magnitude (bf16 1.6e-2, fp32 ``FP32_REL``),
+    the gradient's cosine gap within the reference step's (``REF_LIMITS``'
+    KL, ``FP32_REF_LIMITS``). The kernel launches of the routed decode and
+    its backward, counted from 0, are a forward and a dx per fitting conv
+    (``vae_kernel_convs``), and nothing else."""
+    fp32 = dtype == torch.float32
+    tag = fa.DTYPE_TAGS[dtype]
+    vae = make_random_bundle(seed=36, unet_config=registry.TINY_UNET_CONFIG,
+                             vae_config=NARROW_VAE, dtype=dtype, device=DEV, vae_kind="kl").vae
+    gen = torch.Generator(device=DEV).manual_seed(3636)
+    lat = torch.randn((1, 72, 96, 4), generator=gen, device=DEV).to(dtype)
+    f = vae.downsample_factor
+    dy = torch.randn((1, 72 * f, 96 * f, 1), generator=gen, device=DEV).to(dtype)
+
+    def decode(**fns):
+        z = lat.clone().requires_grad_(True)
+        out = vae.decode_depth(z, **fns)
+        (g,) = torch.autograd.grad(out, z, dy)
+        return out.detach(), g
+
+    torch.cuda.synchronize()
+    reset_launches()  # just before the routed decode
+    out, g = decode()
+    torch.cuda.synchronize()
+    got = {k: n for k, n in launches().items() if n}
+    reset_launches()
+    per_decode, _ = vae_kernel_convs("kl", NARROW_VAE, dtype)
+    want = {"conv3x3_fp32" if fp32 else "conv3x3": 2 * per_decode}
+    out_p, g_p = decode(conv_fn=_plain_conv3x3_fused, attention_fn=plain_attention)
+    rel = FP32_REL if fp32 else 1.6e-2
+    err, gap = max_err(out, out_p), 1.0 - cos(g, g_p)
+    print(f"narrow KL decode {tag} (widths {NARROW_VAE.block_out_channels}, latent 72x96): "
+          f"launches {got} (want {want}), output max err {err:.3e} of "
+          f"{float(out_p.float().abs().max()):.3f}, latent grad cosine gap {gap:.3e}, "
+          f"|grad| max {float(g_p.float().abs().max()):.3e}")
+    if got != want:
+        raise AssertionError(f"narrow KL decode {tag}: kernel launches {got} != {want}")
+    check(f"narrow KL decode {tag} output", err, rel * float(out_p.float().abs().max()))
+    check(f"narrow KL decode {tag} latent grad (cosine gap)", gap,
+          FP32_REF_LIMITS[2] if fp32 else REF_LIMITS["kl"][2], "1 - cos")
+    return {"launches": got, "max_abs_err": err, "grad_cosine_gap": gap}
+
+
+NARROW_STEPS = 3
+
+
+def check_narrow_request(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """A guided request of ``NARROW_STEPS`` steps through the pipeline with
+    the tiny UNet and ``NARROW_VAE`` (96x128 frames at res 128: a 48x64
+    latent), whose prepare, step and finish graphs capture kernel and
+    library convs side by side: its launches, counted from 0, equal
+    ``expected_launches`` (the fitting convs only), and its dense map lies
+    within ``FP32_DENSE_LIMITS`` (bf16: ``CLI_LIMITS``) of the same request
+    through the pipeline's eager twin."""
+    tag = fa.DTYPE_TAGS[dtype]
+    bundle = make_random_bundle(seed=36, unet_config=registry.TINY_UNET_CONFIG,
+                                vae_config=NARROW_VAE, dtype=dtype, device=DEV, vae_kind="kl")
+    pipe, frame = DepthCompletionPipeline(bundle), (96, 128)
+    images, sparses = path_inputs(frame, 200)
+    kw = dict(max_depth=120.0, steps=NARROW_STEPS, resolution=128, norm="const",
+              closed_form=False)
+    eh, ew = latent_size(frame, 128, bundle.vae.downsample_factor)
+    want = expected_launches(bundle.unet_config, "kl", NARROW_VAE, (eh, ew), NARROW_STEPS,
+                             dtype=dtype)
+    torch.cuda.synchronize()
+    reset_launches()  # just before the request
+    dense, lat = pipe(images, sparses, **kw)
+    torch.cuda.synchronize()
+    got = launches()
+    reset_launches()
+    check_request(dense, lat, (1, *frame, 1), (1, eh, ew, 4))
+    twin, _ = pipe.twin()(images, sparses, **kw)
+    reset_launches()
+    rms, mx = _range_diff(dense[0], twin[0])
+    limits = FP32_DENSE_LIMITS if dtype == torch.float32 else CLI_LIMITS
+    print(f"narrow KL request {tag} ({NARROW_STEPS} steps, {frame[0]}x{frame[1]}, graphs): "
+          f"launches {({k: n for k, n in got.items() if n})}, vs its eager twin rms {rms:.3e} "
+          f"max {mx:.3e} of 120 m")
+    if got != want:
+        raise AssertionError(f"narrow KL request {tag}: kernel launches {got} != {want}")
+    check(f"narrow KL request {tag} vs its eager twin (rms)", rms, limits[0], "rms/120 m")
+    check(f"narrow KL request {tag} vs its eager twin (max)", mx, limits[1], "max/120 m")
+    return {"rms": rms, "max": mx}
+
+
 def eager_epilogue(sched, opt, latents, g, out, t: int, num_steps: int) -> None:
     """The guided step's epilogue as the chain of eager ops the sampler ran
     before the fused kernel and the tensor-op optimizers: the ε-norm rescale
@@ -990,10 +1100,13 @@ def fp32_kernel_checks(runs: dict, ring_runs: dict) -> None:
         ((1, 72, 96, 512), {"relu": False, "timed": False}),  # mid and stage 0
         ((2, 13, 37, 256, 128), {"relu": False, "timed": False}),  # ragged, cin != cout
         ((1, 88, 304), {"timed": False}),  # the native path's decoder widths
+        ((1, 352, 1216), {}),  # its last Block, timed (PERF.md's native row)
         ((1, 352, 1216, 64, 64), {"relu": False, "timed": False}),
     ):
         runs.setdefault("conv3x3_fp32", []).append(check_conv(*args, dtype=fp32, **kw))
     check_autograd(fp32)
+    check_narrow_decode(fp32)
+    check_narrow_request(fp32)
     for n, v_pred, hw in ((1, True, (72, 96)), (8, False, (72, 96)), (1, True, (44, 152))):
         check_epilogue(n, v_pred=v_pred, timed=False, latent_hw=hw, out_dtype=fp32)
     print(f"phase 2c took {time.perf_counter() - t_phase:.1f} s")
@@ -1231,6 +1344,29 @@ MODE_PHASES = {
 EDGE_PHASES = {"prepare": (0, 0, 0, 1, 0, 0), "finish": (0, 0, 0, 0, 1, 0)}
 
 
+def vae_kernel_convs(vae_kind: str, vae_cfg, dtype: torch.dtype) -> tuple[int, int]:
+    """(per decode, per encode): the stride-1 3x3 convs of the decoder (TAESD's
+    Blocks and up convs, the KL ResNets) and of the KL encoder that take the
+    conv kernel, those whose widths ``ops.conv3x3.fits`` (the others run
+    ``F.conv2d``), read from the config's widths."""
+    if vae_kind == "tiny":
+        c, blocks = vae_cfg.channels, vae_cfg.decoder_blocks
+        return (3 * sum(blocks) + len(blocks) - 1) * c3.fits(dtype, c, c), 0
+    chans, layers = vae_cfg.block_out_channels, vae_cfg.layers_per_block
+
+    def resnets(cin, widths, per_stage):  # each ResNet: conv1 cin → c, conv2 c → c
+        n = 0
+        for c in widths:
+            for _ in range(per_stage):
+                n += c3.fits(dtype, cin, c) + c3.fits(dtype, c, c)
+                cin = c
+        return n
+
+    mid = resnets(chans[-1], chans[-1:], 2)
+    return (mid + resnets(chans[-1], chans[::-1], layers + 1),
+            resnets(chans[0], chans, layers) + mid)
+
+
 def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
                       ring_size: int | None = None, mode: str = "per-step",
                       train_steps: int = 0, remat: bool = False,
@@ -1241,7 +1377,8 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
     where the head dim is 64 or a multiple of 128 (elsewhere the step twins:
     none); other self-attention with S >= 768 and head dim 64 or a multiple
     of 128 takes a flash kernel; every stride-1 3x3 conv of a decoder, and of
-    the KL encoder, takes the conv kernel). Each kernel counts under the
+    the KL encoder, for which ``ops.conv3x3.fits`` holds takes the conv
+    kernel: ``vae_kernel_convs``). Each kernel counts under the
     name of its (``dtype``, head dim) form (``ops.flash_attention.
     launch_names``; ``conv3x3`` or ``conv3x3_fp32``). The batch does not
     count: every kernel takes it in one launch. ``mode`` (``MODE_PHASES``): "per-step" (a guided request
@@ -1292,17 +1429,13 @@ def expected_launches(unet_cfg, vae_kind: str, vae_cfg, latent_hw, steps: int,
             fwd, bwd = fa.launch_names(dtype, d)
             out[fwd] += layers * unet_fwd + (layers * unet_bwd if remat and in_stage else 0)
             out[bwd] += layers * unet_bwd
-    if vae_kind == "tiny":
-        convs_per_decode = 3 * sum(vae_cfg.decoder_blocks) + len(vae_cfg.decoder_blocks) - 1
-        convs_per_encode = 0  # TAESD: plain encoder convs, no attention
-    else:
-        stages, layers = len(vae_cfg.block_out_channels), vae_cfg.layers_per_block
-        convs_per_decode = 4 + 2 * stages * (layers + 1)  # mid: 2 ResNets; 2 convs each
-        convs_per_encode = 4 + 2 * stages * layers
-        if eh * ew >= 768:  # the mid attention: one head at d = the widest stage
-            fwd, bwd = fa.launch_names(dtype, vae_cfg.block_out_channels[-1])
-            out[fwd] += dec_bwd + encodes + decodes
-            out[bwd] += dec_bwd
+    convs_per_decode, convs_per_encode = vae_kernel_convs(vae_kind, vae_cfg, dtype)
+    d = vae_cfg.block_out_channels[-1] if vae_kind == "kl" else 0
+    if eh * ew >= 768 and d and (d == 64 or d % 128 == 0):
+        # the KL mid attention: one head at d = the widest stage
+        fwd, bwd = fa.launch_names(dtype, d)
+        out[fwd] += dec_bwd + encodes + decodes
+        out[bwd] += dec_bwd
     # forward and dx of every decoder conv per trained decode; the encode;
     # the final decode
     out["conv3x3" if dtype == torch.bfloat16 else "conv3x3_fp32"] += (
@@ -1461,7 +1594,7 @@ def reference_step_check(bundle, bundle32, images, sparses, resolution: int = 76
                           **dict(options))
     sched = S.make_schedule(cfg.ddim)
     t = int(S.make_timesteps(cfg.ddim, cfg.steps)[0])
-    kernels = (bundle, fa.flash_attention, fa.flash_attention, c3.conv3x3_fused)
+    kernels = (bundle, fa.flash_attention, fa.flash_attention, c3.conv3x3_routed)
     fp32 = (bundle32, plain_attention, plain_attention, _plain_conv3x3_fused)
     if per_input:
         path_limits = PER_INPUT_LIMITS
@@ -3470,6 +3603,90 @@ def _post_all(srv, frames, path="/v1/complete"):
     return out
 
 
+def _row_order(batch: dict, frames) -> list[int]:
+    """Which of ``frames`` each row of a recorded batch holds (by its sparse map)."""
+    order = [int(np.argmin([np.abs(batch["sparses"][j] - f[1]).max() for f in frames]))
+             for j in range(len(frames))]
+    if sorted(order) != list(range(len(frames))):
+        raise AssertionError(f"the batch's rows hold frames {order}")
+    return order
+
+
+def _closed_loop(srv, frames, requests: int) -> tuple[list[float], float]:
+    """One client thread per frame, each posting its frame until ``requests``
+    have been sent. → (latencies, seconds)."""
+    lats, left, lock = [], [requests], threading.Lock()
+
+    def client(i):
+        while True:
+            with lock:
+                if left[0] <= 0:
+                    return
+                left[0] -= 1
+            status, data, _, dt = _http(srv, "POST", "/v1/complete", _npz(*frames[i]))
+            if status != 200:
+                raise AssertionError(f"throughput request: {status} {data[:200]}")
+            with lock:
+                lats.append(dt)
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(frames))]
+    for th in clients:
+        th.start()
+    for th in clients:
+        th.join(900)
+    if len(lats) != requests:
+        raise AssertionError(f"throughput: {len(lats)} of {requests} requests answered")
+    return sorted(lats), time.perf_counter() - t0
+
+
+def serve_frames(frame, points: int, seed: int, n: int) -> list:
+    """``n`` (image, sparse) numpy frames of ``path_inputs``."""
+    imgs, sps = path_inputs(frame, points, batch=n, seed=seed)
+    return [(imgs[i].numpy(), sps[i].numpy()) for i in range(n)]
+
+
+def start_serve(model_dir: Path, taesd_dir: Path, argv: list[str]):
+    """``cli.serve.run_serve`` in process on the checkpoint directory (port
+    0, ``argv`` added), each warmup call timed, its pipe wrapped in
+    ``ServedBatches`` and its HTTP server in a thread. → (engine, httpd,
+    served, thread, warmup (batch, carry, s) per signature, run_serve's
+    seconds)."""
+    params = vars(serve_cli.build_parser().parse_args([
+        "--checkpoint-dir", str(model_dir), "--taesd-dir", str(taesd_dir), "--port", "0",
+        "--log-level", "WARNING", *argv]))
+    warm = []
+    call = DepthCompletionPipeline.__call__
+
+    def timed(self, images, sparses, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = call(self, images, sparses, *args, **kwargs)
+        torch.cuda.synchronize()
+        warm.append((np.shape(images)[0], "pred_latents_prev" in kwargs, time.perf_counter() - t0))
+        return result
+
+    DepthCompletionPipeline.__call__ = timed
+    try:
+        t0 = time.perf_counter()
+        engine, httpd = serve_cli.run_serve(**params, serve_forever=False)
+        t_start = time.perf_counter() - t0
+    finally:
+        DepthCompletionPipeline.__call__ = call
+    served = ServedBatches(engine.pipe)
+    engine.pipe = served
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return engine, httpd, served, thread, warm, t_start
+
+
+def stop_serve(engine, httpd, thread) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    engine.shutdown()
+    thread.join(10)
+
+
 class TierLog:
     """A pipe that records, per call, its tier, the batch and the seconds
     since ``t0``; other attributes are the wrapped pipeline's."""
@@ -3671,38 +3888,15 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
     h, w = frame
     print(f"serve: cli.serve on the checkpoint directory, {n_steps} steps, --max-batch 4, "
           f"--warmup {h}x{w}, port 0")
-    params = vars(serve_cli.build_parser().parse_args([
-        "--checkpoint-dir", str(model_dir), "--taesd-dir", str(taesd_dir),
-        "--steps", str(n_steps), "--max-batch", "4", "--warmup", f"{h}x{w}", "--port", "0",
-        "--log-level", "WARNING"]))
-    warm = []
-    call = DepthCompletionPipeline.__call__
-
-    def timed(self, images, sparses, *args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = call(self, images, sparses, *args, **kwargs)
-        torch.cuda.synchronize()
-        warm.append((np.shape(images)[0], "pred_latents_prev" in kwargs, time.perf_counter() - t0))
-        return result
 
     def frames(seed, n):
-        imgs, sps = path_inputs(frame, points, batch=n, seed=seed)
-        return [(imgs[i].numpy(), sps[i].numpy()) for i in range(n)]
+        return serve_frames(frame, points, seed, n)
 
     fb, fc, fd, load = frames(11, 4), frames(12, 3), frames(13, 3), frames(14, SERVE_CLIENTS)
     torch.cuda.reset_peak_memory_stats()
-    DepthCompletionPipeline.__call__ = timed
-    try:
-        t0 = time.perf_counter()
-        engine, httpd = serve_cli.run_serve(**params, serve_forever=False)
-        t_start = time.perf_counter() - t0
-    finally:
-        DepthCompletionPipeline.__call__ = call
-    served = ServedBatches(engine.pipe)
-    engine.pipe = served
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
+    engine, httpd, served, thread, warm, t_start = start_serve(
+        model_dir, taesd_dir,
+        ["--steps", str(n_steps), "--max-batch", "4", "--warmup", f"{h}x{w}"])
     try:
         print(f"  run_serve {t_start:.2f} s (load and warmup); warmup signatures "
               f"(batch, carry, s): {warm}")
@@ -3763,38 +3957,13 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
 
         # throughput: closed-loop clients
         first_traffic = len(served.batches)
-        lats, left, lock = [], [SERVE_REQUESTS], threading.Lock()
-
-        def client(i):
-            while True:
-                with lock:
-                    if left[0] <= 0:
-                        return
-                    left[0] -= 1
-                status, data, _, dt = _http(httpd, "POST", "/v1/complete", _npz(*load[i]))
-                if status != 200:
-                    raise AssertionError(f"throughput request: {status} {data[:200]}")
-                with lock:
-                    lats.append(dt)
-
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
-        for th in clients:
-            th.start()
-        for th in clients:
-            th.join(900)
-        span = time.perf_counter() - t0
-        if len(lats) != SERVE_REQUESTS:
-            raise AssertionError(f"throughput: {len(lats)} of {SERVE_REQUESTS} requests answered")
+        lats, span = _closed_loop(httpd, load, SERVE_REQUESTS)
         torch.cuda.synchronize()
         counts = launches()  # just after the served traffic
         reset_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        engine.shutdown()
-        thread.join(10)
+        stop_serve(engine, httpd, thread)
 
     # (f) every batch launched one request's kernels
     eh, ew = latent_size(frame, 768, served.bundle.vae.downsample_factor)
@@ -3825,10 +3994,7 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
     # by ~1e-4 of the range, inside the numerical limits below)
     orders = []
     for (_, _, got), fs, r, name in zip(moved, (fb, fc), ran, "bc"):
-        order = [int(np.argmin([np.abs(r["sparses"][j] - f[1]).max() for f in fs]))
-                 for j in range(len(fs))]
-        if sorted(order) != list(range(len(fs))):
-            raise AssertionError(f"({name}) the batch's rows hold frames {order}")
+        order = _row_order(r, fs)
         rows = r["dense"].cpu().numpy()
         check(f"serve ({name}) each response is its own row of the batch (exact)",
               max(float(np.abs(got[i] - rows[order.index(i)]).max()) for i in range(len(fs))),
@@ -3863,7 +4029,6 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
     del pipe
     tiers = tiered_phase(model_dir, taesd_dir, n_steps, served.bundle, kw, frame, points)
 
-    lats.sort()
     per_step = {}
     for b in served.batches:
         per_step.setdefault(b["n"], []).append(b["start"].elapsed_time(b["end"]) / 1e3 / n_steps)
@@ -3890,6 +4055,190 @@ def serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dic
           f"{line['s_per_step']}; device gap between batches {line['device_gap_ms']} ms; "
           f"peak {peak:.2f} GiB")
     return line, counts
+
+
+SERVE_FP32_MAX_STEPS, SERVE_FP32_CLIENTS, SERVE_FP32_REQUESTS = 4, 4, 8
+
+
+def fp32_serve_phase(model_dir: Path, taesd_dir: Path, steps: int) -> tuple[dict, dict]:
+    """Phase 6's fp32 part: ``cli.serve.run_serve`` with ``--precision fp32``
+    (``serve_forever=False``, port 0) on the checkpoint directory of phase
+    3a, TAESD, ``--max-batch 4``, ``--warmup 480x640``, ``min(steps,
+    SERVE_FP32_MAX_STEPS)`` steps a request, frames of 480x640 with 500
+    points over HTTP:
+
+    - (a) four concurrent frames make one batch; each response is its row of
+      that batch, bit for bit, and within ``FP32_DENSE_LIMITS`` of a direct
+      fp32 ``pipe(...)`` call on its frame;
+    - (b) a session of two frames: frame 2 against a direct call carrying
+      frame 1's latents (``FP32_DENSE_LIMITS``);
+    - (c) every batch's kernel launches equal one request's
+      ``expected_launches(dtype=torch.float32)`` (``conv3x3_fp32``, the fp32
+      flash pair at d=64, the epilogue): no bf16 kernel launches;
+    - (d) ``--vae original --max-batch 1``: one request over HTTP against a
+      direct call, its launches the fp32 KL request's (``fp32_serve_kl``).
+
+    Between (b) and (c), ``SERVE_FP32_CLIENTS`` closed-loop clients send
+    ``SERVE_FP32_REQUESTS`` requests. Readings: warmup seconds per signature
+    (the capture included), requests/s, p50 latency, s/step at batch 1 and
+    4 (CUDA events per batch), peak GiB, the card. The launches are counted
+    from 0 before the first live request and read after the last; the
+    direct calls run after that. → (the readings, the served traffic's
+    launches)."""
+    n_steps = min(steps, SERVE_FP32_MAX_STEPS)
+    frame, points = CLI_FRAME, CLI_POINTS
+    h, w = frame
+    print(f"serve fp32: cli.serve --precision fp32 on the checkpoint directory, {n_steps} steps, "
+          f"--max-batch 4, --warmup {h}x{w}, port 0")
+    batch_frames = serve_frames(frame, points, 31, 4)
+    session_frames = serve_frames(frame, points, 32, 2)
+    load = serve_frames(frame, points, 33, SERVE_FP32_CLIENTS)
+    torch.cuda.reset_peak_memory_stats()
+    engine, httpd, served, thread, warm, t_start = start_serve(
+        model_dir, taesd_dir, ["--precision", "fp32", "--steps", str(n_steps), "--max-batch", "4",
+                               "--warmup", f"{h}x{w}"])
+    try:
+        print(f"  run_serve {t_start:.2f} s (load and warmup); warmup signatures "
+              f"(batch, carry, s): {warm}")
+        if served.bundle.dtype != torch.float32:
+            raise AssertionError(f"serve --precision fp32 loaded a {served.bundle.dtype} bundle")
+        reset_launches()  # just before the served traffic
+        engine.max_delay_ms, delay = SERVE_COALESCE_S * 1e3, engine.max_delay_ms
+        served.keep = True
+        before = engine.stats()
+        answers = _post_all(httpd, batch_frames)
+        after = engine.stats()
+        served.keep = False
+        engine.max_delay_ms = delay
+        moved = {k: after[k] - before[k] for k in ("batches", "batched_rows", "padded_rows")}
+        print(f"  (a) 4 concurrent frames: {moved}")
+        if moved != {"batches": 1, "batched_rows": 4, "padded_rows": 0}:
+            raise AssertionError(f"serve fp32 (a): 4 concurrent frames made {moved}")
+        ran, got_a = served.batches[-1], [_dense(r[1]) for r in answers]
+        got_b, carried = [], []
+        for img, sp in session_frames:
+            status, data, _, _ = _http(httpd, "POST", "/v1/complete?session=fp32", _npz(img, sp))
+            if status != 200:
+                raise AssertionError(f"serve fp32 (b) session frame: {status} {data[:200]}")
+            got_b.append(_dense(data))
+            carried.append(engine._sessions["fp32"][0])
+        lats, span = _closed_loop(httpd, load, SERVE_FP32_REQUESTS)
+        torch.cuda.synchronize()
+        counts = launches()  # just after the served traffic
+        reset_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        stop_serve(engine, httpd, thread)
+
+    eh, ew = latent_size(frame, 768, served.bundle.vae.downsample_factor)
+    one = expected_launches(served.bundle.unet_config, "tiny", served.bundle.vae.config, (eh, ew),
+                            n_steps, dtype=torch.float32)
+    bad = [(i, b["n"], b["launches"]) for i, b in enumerate(served.batches)
+           if b["launches"] != one]
+    bf16 = {k: n for k, n in counts.items() if n and k not in
+            {k for k, v in one.items() if v}}
+    print(f"  (c) {len(served.batches)} batches, each against "
+          f"{({k: n for k, n in one.items() if n})}: {len(bad)} differ; kernels outside the fp32 "
+          f"forms: {bf16}")
+    if bad or bf16:
+        raise AssertionError(f"serve fp32 (c): batch launches differ {bad[:3]}, other kernels "
+                             f"{bf16}")
+    if {k: sum(b["launches"][k] for b in served.batches) for k in one} != counts:
+        raise AssertionError(f"serve fp32: launches {counts} outside the engine's batches")
+
+    pipe, kw = served.pipe, dict(engine.call_kwargs)
+
+    def direct(f, **extra):
+        return pipe(f[0][None], f[1][None], **kw, **extra)[0][0]
+
+    order = _row_order(ran, batch_frames)
+    rows = ran["dense"].cpu().numpy()
+    exact = max(float(np.abs(got_a[i] - rows[order.index(i)]).max()) for i in range(4))
+    check("serve fp32 (a) each response is its own row of the batch (exact)", exact, 0.0,
+          "max|diff|")
+    readings = {"a": [_range_diff(torch.from_numpy(got_a[i]), direct(f))
+                      for i, f in enumerate(batch_frames)],
+                "b": [_range_diff(torch.from_numpy(got_b[1]),
+                                  direct(session_frames[1], pred_latents_prev=carried[0]))]}
+    for name, what in (("a", "rows vs direct batch-1 fp32 calls"),
+                       ("b", "session frame 2 vs the direct call with frame 1's latents")):
+        rms, mx = max(r[0] for r in readings[name]), max(r[1] for r in readings[name])
+        readings[name] = (rms, mx)
+        print(f"  ({name}) {what}: rms {rms:.3e}, max {mx:.3e} of 120 m")
+        check(f"serve fp32 ({name}) {what} (rms)", rms, FP32_DENSE_LIMITS[0], "rms/120 m")
+        check(f"serve fp32 ({name}) {what} (max)", mx, FP32_DENSE_LIMITS[1], "max/120 m")
+    per_step = {}
+    for b in served.batches:
+        per_step.setdefault(b["n"], []).append(b["start"].elapsed_time(b["end"]) / 1e3 / n_steps)
+    line = {
+        "steps": n_steps, "max_batch": 4,
+        "warmup_s": [{"batch": n, "carry": c, "s": dt} for n, c, dt in warm],
+        "run_serve_s": t_start, "clients": SERVE_FP32_CLIENTS, "requests": len(lats),
+        "requests_per_s": len(lats) / span, "latency_s_p50": lats[len(lats) // 2],
+        "s_per_step": {f"batch{n}": sorted(v)[len(v) // 2] for n, v in sorted(per_step.items())},
+        "peak_gib": peak, "exact_row_err": exact,
+        "checks": {f"{k}_{m}": v for k, (r, x) in readings.items()
+                   for m, v in (("rms", r), ("max", x))},
+        "card": card(),
+    }
+    print(f"  throughput: {len(lats)} requests from {SERVE_FP32_CLIENTS} clients in {span:.2f} s: "
+          f"{line['requests_per_s']:.3f} req/s, p50 {line['latency_s_p50']:.3f} s; s/step "
+          f"{line['s_per_step']}; peak {peak:.2f} GiB")
+    del pipe, served, engine, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["kl"], kl_counts = fp32_serve_kl(model_dir, taesd_dir, n_steps)
+    for k, n in kl_counts.items():
+        counts[k] += n
+    return line, counts
+
+
+def fp32_serve_kl(model_dir: Path, taesd_dir: Path, n_steps: int) -> tuple[dict, dict]:
+    """(d): ``run_serve`` with ``--vae original --precision fp32 --max-batch 1
+    --warmup 480x640``: one request over HTTP, its launches the fp32 KL
+    request's (``expected_launches``), its dense map within
+    ``FP32_DENSE_LIMITS`` of a direct call on its frame. → (the readings, the
+    request's launches)."""
+    frame, points = CLI_FRAME, CLI_POINTS
+    h, w = frame
+    img, sp = serve_frames(frame, points, 34, 1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    engine, httpd, served, thread, warm, t_start = start_serve(
+        model_dir, taesd_dir, ["--vae", "original", "--precision", "fp32", "--steps", str(n_steps),
+                               "--max-batch", "1", "--warmup", f"{h}x{w}"])
+    try:
+        reset_launches()  # just before the request
+        status, data, _, latency = _http(httpd, "POST", "/v1/complete", _npz(img, sp))
+        torch.cuda.synchronize()
+        counts = launches()  # just after
+        reset_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        stop_serve(engine, httpd, thread)
+    if status != 200:
+        raise AssertionError(f"serve fp32 (d) KL request: {status} {data[:200]}")
+    bundle = served.bundle
+    eh, ew = latent_size(frame, 768, bundle.vae.downsample_factor)
+    one = expected_launches(bundle.unet_config, "kl", bundle.vae.config, (eh, ew), n_steps,
+                            dtype=torch.float32)
+    print(f"  (d) --vae original: run_serve {t_start:.2f} s, warmup {warm}, request "
+          f"{latency:.3f} s, launches {({k: n for k, n in counts.items() if n})}, peak "
+          f"{peak:.2f} GiB")
+    if bundle.vae.kind != "kl" or bundle.dtype != torch.float32 or counts != one:
+        raise AssertionError(f"serve fp32 (d): a {bundle.vae.kind} {bundle.dtype} bundle launched "
+                             f"{counts} != {one}")
+    kw = dict(engine.call_kwargs)
+    direct = served.pipe(img[None], sp[None], **kw)[0][0]
+    rms, mx = _range_diff(torch.from_numpy(_dense(data)), direct)
+    print(f"  (d) the served map vs a direct call: rms {rms:.3e}, max {mx:.3e} of 120 m")
+    check("serve fp32 (d) KL map vs a direct call (rms)", rms, FP32_DENSE_LIMITS[0], "rms/120 m")
+    check("serve fp32 (d) KL map vs a direct call (max)", mx, FP32_DENSE_LIMITS[1], "max/120 m")
+    del served, engine, httpd, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run_serve_s": t_start, "warmup_s": [{"batch": n, "carry": c, "s": dt}
+                                                 for n, c, dt in warm],
+            "latency_s": latency, "peak_gib": peak, "rms": rms, "max": mx}, counts
 
 
 # ---------------------------------------------------------------------------
@@ -4593,6 +4942,8 @@ def main() -> int:
         check_conv(1, 352, 1216, relu=False, timed=False),
     ]
     check_autograd()
+    check_narrow_decode()
+    check_narrow_request()
     # one sample per cluster: n = 1, 2 and 8 (bench.py's batch), both
     # prediction types; timed at n = 1 (the kernels line) and n = 8
     runs["guidance_epilogue"] = [
@@ -4635,7 +4986,8 @@ def main() -> int:
         for k, n in fp32_counts.items():
             counts[k] = counts.get(k, 0) + n
         serve, serve_counts = serve_phase(model_dir, taesd_dir, args.steps)
-        for k, n in serve_counts.items():
+        serve["fp32"], fp32_serve_counts = fp32_serve_phase(model_dir, taesd_dir, args.steps)
+        for k, n in itertools.chain(serve_counts.items(), fp32_serve_counts.items()):
             counts[k] = counts.get(k, 0) + n
         distributed, dist_counts = distributed_phase(
             model_dir, taesd_dir, Path(tmp), args.steps, graphs, Path(tmp) / "out")

@@ -30,7 +30,7 @@ from depth_completion_tpu_torch.models.registry import (
     UNetConfig,
     VAEConfig,
 )
-from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
+from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_routed
 from depth_completion_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -270,7 +270,7 @@ class VAE:
         if self.kind not in ("tiny", "kl"):
             raise ValueError(f"unknown VAE kind {self.kind!r} (expected 'tiny' or 'kl')")
 
-    def encode(self, images: torch.Tensor, conv_fn=conv3x3_fused,
+    def encode(self, images: torch.Tensor, conv_fn=conv3x3_routed,
                attention_fn=flash_attention) -> torch.Tensor:
         """[-1,1] NHWC images → scaled latent; ``conv_fn`` and
         ``attention_fn`` run the KL encoder's stride-1 3x3 convs and mid
@@ -284,7 +284,7 @@ class VAE:
             return vae_kl.decode(self.params, latents, self.config)
         return vae_tiny.decode(self.params, latents, self.config)
 
-    def decode_depth(self, latents: torch.Tensor, conv_fn=conv3x3_fused,
+    def decode_depth(self, latents: torch.Tensor, conv_fn=conv3x3_routed,
                      attention_fn=flash_attention) -> torch.Tensor:
         """Latent → [0,1] depth [N,H,W,1] with ``conv_fn`` running the
         decoder's stride-1 3x3 convs and ``attention_fn`` the KL mid

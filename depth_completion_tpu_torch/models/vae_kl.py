@@ -12,17 +12,17 @@ on the per-step guidance gradient path.
   2x upsample and conv between) → GroupNorm/SiLU → conv_out (or the Marigold
   mean-tap depth head).
 
-Every stride-1 3x3 conv inside a ResNet runs through the Hopper kernel
-``ops.conv3x3.conv3x3_fused`` at the real widths 128/256/512, the ResNet's
-residual add fused into its second conv as the kernel's skip operand;
-``conv_in``, ``conv_out``, the 1x1 shortcuts, the strided downsamplers and
-the upsample convs are plain PyTorch. The mid attention runs through
-``ops.flash_attention`` (the heads=1, d=512 kernel at S >= 768).
-``encode`` and ``decode_depth`` take both as ``conv_fn`` and
-``attention_fn``, so a caller can run the same encode or decode through the
-plain twins. The JAX package's
-``C % 128``, ``W % 8`` gate on its conv kernel is a TPU layout rule and is
-not carried over.
+Every stride-1 3x3 conv inside a ResNet runs through
+``ops.conv3x3.conv3x3_routed``: the Hopper kernel at the real widths
+128/256/512 (any Ci and Co that are multiples of 8), the ResNet's residual
+add fused into its second conv as the kernel's skip operand, and
+``F.conv2d`` at other widths (``conv3x3.fits``), as the JAX package runs
+XLA's conv where its kernel does not fit; ``conv_in``, ``conv_out``, the
+1x1 shortcuts, the strided downsamplers and the upsample convs are plain
+PyTorch. The mid attention runs through ``ops.flash_attention`` (the
+heads=1, d=512 kernel at S >= 768). ``encode`` and ``decode_depth`` take
+both as ``conv_fn`` and ``attention_fn``, so a caller can run the same
+encode or decode through the plain twins.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from depth_completion_tpu_torch.models.layers import (
     upsample_conv_2x_matmul,
 )
 from depth_completion_tpu_torch.models.registry import VAEConfig
-from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
+from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_routed
 from depth_completion_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -68,7 +68,7 @@ def _mid(mid, h, cfg, conv_fn, attention_fn):
     return _resnet(mid["resnets"][1], h, cfg, conv_fn)
 
 
-def encode(params, images: torch.Tensor, config: VAEConfig, conv_fn=conv3x3_fused,
+def encode(params, images: torch.Tensor, config: VAEConfig, conv_fn=conv3x3_routed,
            attention_fn=flash_attention) -> torch.Tensor:
     """[-1,1] NHWC images → scaled latent (posterior mean · scaling_factor)."""
     cfg = config
@@ -101,11 +101,11 @@ def _decode_backbone(params, latents, cfg: VAEConfig, conv_fn, attention_fn):
 
 def decode(params, latents: torch.Tensor, config: VAEConfig) -> torch.Tensor:
     """Scaled latent → NHWC image in [-1,1]."""
-    h = _decode_backbone(params, latents, config, conv3x3_fused, flash_attention)
+    h = _decode_backbone(params, latents, config, conv3x3_routed, flash_attention)
     return conv2d(params["decoder"]["conv_out"], h)
 
 
-def decode_depth(params, latents: torch.Tensor, config: VAEConfig, conv_fn=conv3x3_fused,
+def decode_depth(params, latents: torch.Tensor, config: VAEConfig, conv_fn=conv3x3_routed,
                  attention_fn=flash_attention) -> torch.Tensor:
     """Latent → [0,1] depth [N,H,W,1]: ``clip(mean_rgb(decode(z)), -1, 1)·0.5
     + 0.5`` with the channel mean folded into ``conv_out``."""

@@ -11,10 +11,12 @@ Counterpart of ``depth_completion_tpu.models.vae_tiny``:
 
 Every decoder conv after ``conv_in`` (the block convs with their ReLU and
 skip, and the bias-free ``up_conv``) runs through
-``ops.conv3x3.conv3x3_fused`` — the Hopper kernel on CUDA — at the real
-width C=64 (``decode_depth`` takes another ``conv_fn`` to compare against);
-the JAX package's width-packing to 128 lanes is a TPU layout trick and is
-not carried over.
+``ops.conv3x3.conv3x3_routed``: the Hopper kernel on CUDA at the real
+width C=64 (any C that is a multiple of 8), ``F.conv2d`` at other widths
+(``conv3x3.fits``), as the JAX package runs XLA's conv there
+(``decode_depth`` takes another ``conv_fn`` to compare against); the JAX
+package's width-packing to 128 lanes is a TPU layout trick and is not
+carried over.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from depth_completion_tpu_torch.models.layers import (
     upsample_nearest_2x,
 )
 from depth_completion_tpu_torch.models.registry import TaesdConfig
-from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
+from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_routed
 
 
 def _block_plain(p, x):
@@ -72,13 +74,13 @@ def _decode_backbone(params, latents: torch.Tensor, conv_fn) -> torch.Tensor:
 def decode(params, latents: torch.Tensor, config: TaesdConfig) -> torch.Tensor:
     """Latent → NHWC image in [-1,1]."""
     del config
-    h = _decode_backbone(params, latents, conv3x3_fused)
+    h = _decode_backbone(params, latents, conv3x3_routed)
     out01 = conv2d(params["decoder"]["conv_out"], h)
     return out01 * 2.0 - 1.0
 
 
 def decode_depth(params, latents: torch.Tensor, config: TaesdConfig,
-                 conv_fn=conv3x3_fused) -> torch.Tensor:
+                 conv_fn=conv3x3_routed) -> torch.Tensor:
     """Latent → [0,1] single-channel depth [N,H,W,1]: the Marigold decode
     head ``clip(mean_rgb(decode(z)), -1, 1)·0.5 + 0.5`` with the channel mean
     folded into ``conv_out`` (``layers.conv3x3_mean_tap``)."""

@@ -25,6 +25,14 @@ that HWIO took before (72·Ci·Co bytes read and written).
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel of
 its dtype or raises. ``LAUNCHES`` counts kernel launches (forward and dx
 alike) per form.
+
+The models call ``conv3x3_routed``, which routes by shape before any
+launch: where ``fits`` holds (bf16 or fp32 operands, Ci and Co multiples of
+8: the kernels' own rule) it runs ``conv3x3_fused``, elsewhere the same
+function through ``layers.conv2d`` (``F.conv2d``), as the JAX package runs
+XLA's conv where its kernel's layout rule fails (vae_kl.py:56-57,
+vae_tiny.py:134-146). The JAX package's ``C % 128``, ``W % 8`` rule is a
+TPU layout rule and is not carried over.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from depth_completion_tpu_torch import _build
+from depth_completion_tpu_torch.models.layers import conv2d
 
 # operand dtype → (C entry point, launch-count name)
 _FORMS = {torch.bfloat16: ("dct_conv3x3", "conv3x3"),
@@ -54,6 +63,12 @@ def _kernels():
             getattr(lib, entry).restype = _i
         _lib = lib
     return _lib
+
+
+def fits(x_dtype: torch.dtype, ci: int, co: int) -> bool:
+    """Whether a conv of ``x_dtype`` operands from ``ci`` to ``co`` channels
+    has a kernel: bf16 or fp32, both channel counts multiples of 8."""
+    return x_dtype in _FORMS and ci % 8 == 0 and co % 8 == 0
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -183,3 +198,16 @@ def conv3x3_fused(x, weight, bias=None, *, relu: bool = False, skip=None):
     or None, skip ``[N, H, W, Co]`` or None. Differentiable in all four.
     """
     return Conv3x3Fused.apply(x, weight, bias, skip, relu)
+
+
+def conv3x3_routed(x, weight, bias=None, *, relu: bool = False, skip=None):
+    """``conv3x3_fused``'s function, routed by shape: the kernel where
+    ``fits(x.dtype, Ci, Co)`` holds, else ``layers.conv2d`` with the bias,
+    then the skip added, then the ReLU (autograd's backward)."""
+    co, ci = weight.shape[:2]
+    if fits(x.dtype, ci, co):
+        return conv3x3_fused(x, weight, bias, relu=relu, skip=skip)
+    y = conv2d({"kernel": weight, "bias": bias}, x)
+    if skip is not None:
+        y = y + skip
+    return torch.relu(y) if relu else y

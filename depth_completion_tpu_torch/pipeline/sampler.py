@@ -82,7 +82,7 @@ from depth_completion_tpu_torch.guidance.projection import (
 from depth_completion_tpu_torch.models.bundle import ModelBundle
 from depth_completion_tpu_torch.models.layers import attention
 from depth_completion_tpu_torch.models.unet import apply_unet
-from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_fused
+from depth_completion_tpu_torch.ops.conv3x3 import conv3x3_routed
 from depth_completion_tpu_torch.ops.flash_attention import flash_attention
 from depth_completion_tpu_torch.ops.guidance_epilogue import epilogue_table, guidance_epilogue
 from depth_completion_tpu_torch.ops.guidance_epilogue import supported as epilogue_supported
@@ -286,7 +286,7 @@ def resolve_remat(cfg: SamplerConfig, n: int, latent_hw: tuple[int, int],
 
 
 def decode_prediction(bundle: ModelBundle, latents: torch.Tensor,
-                      conv_fn=conv3x3_fused, attention_fn=flash_attention) -> torch.Tensor:
+                      conv_fn=conv3x3_routed, attention_fn=flash_attention) -> torch.Tensor:
     """Latent → [0,1] affine depth at processing resolution, decoded in the
     model dtype with ``conv_fn`` running the decoder's 3x3 convs and
     ``attention_fn`` the KL decoder's mid attention."""

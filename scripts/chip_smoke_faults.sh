@@ -8,7 +8,7 @@
 # port with each fault below planted (one sed edit each; --steps 2, or
 # --steps $FAULT_STEPS where that is set; $SMOKE_ARGS, e.g.
 # --only-distributed for F42-F45, --only-drivers for F55-F58 or --only-fp32
-# for F59-F66, is added to
+# for F59-F67, is added to
 # every run), or only with the
 # faults named (e.g. F9_kl_skip), and
 # writes one log per run to OUT_DIR. Every run prints all its readings, so
@@ -160,6 +160,9 @@
 #                 products, x in one TF32 pass)
 #   F66_conv_tap_shift the fp32 conv's A descriptor of the right-hand taps
 #                 (kw = 2) starts one pixel short (kw = 1's pixels)
+#   F67_route_skip_library the routed conv sends every conv with a skip (the
+#                 KL ResNets' second, TAESD's third) to F.conv2d where the
+#                 kernel fits: the same function, other launch counts
 set -u
 check=0
 if [ "${1:-}" = "--check-anchors" ]; then
@@ -361,4 +364,6 @@ run_fault F65_conv_halo_lo_dropped $CONV \
   's|ax\[A32 / 4 + j\] = lo;|ax[A32 / 4 + j] = make_float4(0.f, 0.f, 0.f, 0.f);|'
 run_fault F66_conv_tap_shift $CONV \
   's|+ i + t / 3) \* HC32 + t % 3;|+ i + t / 3) * HC32 + (t % 3 == 2 ? 1 : t % 3);|'
+run_fault F67_route_skip_library depth_completion_tpu_torch/ops/conv3x3.py \
+  's|^    if fits(x.dtype, ci, co):$|    if fits(x.dtype, ci, co) and skip is None:|'
 exit $status

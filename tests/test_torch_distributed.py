@@ -18,8 +18,10 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
+import torch
 import torch.distributed as dist
 
 from depth_completion_tpu.models import registry as jreg
@@ -54,11 +56,20 @@ ENSEMBLES = {"e3": (2, 3, "aligned-median", True), "e2": (3, 2, "mean", False)}
 
 
 def _port_env(**extra):
-    env = dict(os.environ, **TINY_ENV, **extra)
+    env = dict(os.environ, **TINY_ENV, OMP_NUM_THREADS="2", **extra)  # tiny shapes: two threads
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(name, None)
     return env
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small CPU shapes: two threads, restored after the module."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _free_port() -> int:
@@ -104,9 +115,10 @@ def runs(tmp_path_factory):
 
     n, e, reduce, unc = ENSEMBLES["e3"]
     images, sparses = _inputs(n)
-    jax_e3 = ensemble_sample(_jax_bundle(trees, jreg.TINY_UNET_CONFIG), jnp.asarray(images),
-                             jnp.asarray(sparses), CFG, ensemble_size=e, reduce=reduce,
-                             mesh=_mesh(2, 1), return_uncertainty=unc)
+    # jit-compatible as a whole (its docstring): one program, not op by op
+    jax_e3 = jax.jit(ensemble_sample, static_argnums=(3, 4, 5, 6, 7))(
+        _jax_bundle(trees, jreg.TINY_UNET_CONFIG), jnp.asarray(images), jnp.asarray(sparses),
+        CFG, e, reduce, _mesh(2, 1), unc)
     alone = {name: tmp / f"alone_{name}" for name in ALONE_RUNS}
     saved = os.environ.get("DCT_RANDOM_MODEL_SIZE")
     os.environ.update(TINY_ENV)
@@ -141,9 +153,11 @@ def test_ensemble_over_mesh_matches_jax(runs):
 @pytest.mark.parametrize("name", sorted(ENSEMBLES))
 def test_ensemble_over_mesh_runs_the_one_card_rows(runs, name):
     """Each rank's rows draw their members' noise by global row index: the
-    mesh's members, reduce and MAD equal the one-process ensemble's."""
+    mesh's members, reduce and MAD equal the one-process ensemble's (run on
+    rank 0)."""
+    alone = runs["group"][0][name]["alone"]
     for r, res in enumerate(runs["group"]):
-        for got, ref in zip(res[name]["mesh"], res[name]["alone"]):
+        for got, ref in zip(res[name]["mesh"], alone):
             np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5, err_msg=f"rank {r}")
     a, b = (res[name]["mesh"] for res in runs["group"])
     for x, y in zip(a, b):
@@ -154,10 +168,11 @@ def test_ensemble_over_mesh_runs_the_one_card_rows(runs, name):
 
 def test_process_group_ring_through_sampler_matches_local_ring(runs):
     """The guided sampler with ``ring_mesh=ProcessGroupRing()`` over 2 gloo
-    ranks against ``LocalRing(2)`` in one process (held to JAX's ring by
-    ``tests/test_torch_ring_attention.py``): dense maps and latents."""
+    ranks against ``LocalRing(2)`` in one process (rank 0; held to JAX's
+    ring by ``tests/test_torch_ring_attention.py``): dense maps and latents."""
+    local = runs["group"][0]["ring"]["local"]
     for r, res in enumerate(runs["group"]):
-        for got, ref in zip(res["ring"]["group"], res["ring"]["local"]):
+        for got, ref in zip(res["ring"]["group"], local):
             np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4, err_msg=f"rank {r}")
 
 

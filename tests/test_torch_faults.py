@@ -9,7 +9,7 @@ import subprocess
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join("scripts", "chip_smoke_faults.sh")
-N_FAULTS = 66
+N_FAULTS = 67
 
 
 def _check_anchors(root, *faults):

@@ -33,6 +33,17 @@ def _inputs(s, sk, c=128, seed=0):
     return [rng.normal(size=(1, n, c)).astype(np.float32) for n in (s, sk, sk, s)]
 
 
+def _jax_vjp(fn, q, k, v, g):
+    """→ (fn(q, k, v), its vjp with ``g``), jitted as one program (the
+    Pallas kernels in the interpreter)."""
+    @jax.jit
+    def run(q, k, v, g):
+        out, vjp = jax.vjp(fn, q, k, v)
+        return out, vjp(g)
+
+    return run(*(jnp.asarray(x) for x in (q, k, v, g)))
+
+
 @pytest.mark.parametrize("s,c,heads", [(256, 128, 2), (200, 128, 2), (200, 256, 2),
                                         (256, 256, 1)],
                          ids=["aligned", "ragged", "d128_ragged", "d256_aligned"])
@@ -47,8 +58,7 @@ def test_flash_matches_jax_forward_and_grads(s, c, heads):
             bwd_block_k=128, min_seq_len=1,
         )
 
-    out_j, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    grads_j = vjp(jnp.asarray(g))
+    out_j, grads_j = _jax_vjp(jfn, q, k, v, g)
 
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     out_t = tfa.flash_attention(tq, tk, tv, heads, min_seq_len=1)
@@ -114,9 +124,8 @@ def test_jax_two_kernel_backward_matches_port(c, heads, monkeypatch):
     of its largest magnitude."""
     monkeypatch.setattr(fa, "FUSED_BWD", False)
     q, k, v, g = _inputs(200, 200, c=c, seed=5)
-    _, vjp = jax.vjp(lambda q, k, v: fa.flash_attention(q, k, v, heads, **FLASH_KW),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    grads_j = vjp(jnp.asarray(g))
+    _, grads_j = _jax_vjp(lambda q, k, v: fa.flash_attention(q, k, v, heads, **FLASH_KW),
+                          q, k, v, g)
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     out_t = tfa.flash_attention(tq, tk, tv, heads, min_seq_len=1)
     grads_t = torch.autograd.grad(out_t, (tq, tk, tv), torch.from_numpy(g))

@@ -14,8 +14,11 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from depth_completion_tpu.core.mesh import AXIS_DATA
 from depth_completion_tpu.models.layers import attention as j_attention
+from depth_completion_tpu.ops import flash_attention as j_fa
 from depth_completion_tpu.ops.ring_attention import ring_attention as j_ring_attention
+from depth_completion_tpu.ops.ring_attention import ring_attention_sharded
 from depth_completion_tpu.pipeline import sampler as JS
 from depth_completion_tpu_torch.ops import flash_attention as tfa
 from depth_completion_tpu_torch.ops.ring_attention import LocalRing, ring_attention
@@ -23,7 +26,7 @@ from depth_completion_tpu_torch.pipeline import sampler as TS
 from depth_completion_tpu_torch.pipeline.programs import ProgramCache
 
 from tests import torch_ring_worker
-from tests.test_ring_attention import _mesh, _run_flash_ring
+from tests.test_ring_attention import _mesh
 from tests.test_torch_sampler import _rms, bundles, inputs  # noqa: F401  (fixtures)
 
 
@@ -60,6 +63,31 @@ def _jax_vjp(fn, q, k, v, do):
     return np.asarray(o), tuple(np.asarray(g) for g in grads)
 
 
+def _jax_flash_ring(q, k, v, heads, mesh):
+    """→ (o, the gradient of sum(o²) in q, k, v) of JAX's flash-tiled ring
+    (``use_flash="on"``, Pallas bodies in the interpreter, as
+    ``tests/test_ring_attention.py:_run_flash_ring`` runs it), jitted as one
+    program: the cotangent of sum(o²) is 2·o."""
+    sharding = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(None, AXIS_DATA, None))
+    qs, ks, vs = (jax.device_put(jnp.asarray(x), sharding) for x in (q, k, v))
+
+    @jax.jit
+    def run(q, k, v):
+        o, vjp = jax.vjp(lambda q, k, v: ring_attention_sharded(q, k, v, heads, mesh,
+                                                                use_flash="on"), q, k, v)
+        return o, vjp(2.0 * o)
+
+    old, j_fa.INTERPRET = j_fa.INTERPRET, True
+    try:
+        o, grads = run(qs, ks, vs)
+    finally:
+        j_fa.INTERPRET = old
+    return np.asarray(o), tuple(np.asarray(g) for g in grads)
+
+
+_FULL_ATTENTION = {}  # case → JAX full attention's (o, grads): one compile for every ring size
+
+
 # the shapes of tests/test_ring_attention.py:25-73: (n, s, c, heads, seed,
 # forward (rtol, atol), gradient (rtol, atol))
 CASES = {
@@ -78,9 +106,11 @@ def test_local_ring_matches_jax(case, p):
     q, k, v, do = _qkvdo(n, s, c, seed)
     o, grads = _port(q, k, v, do, heads, LocalRing(p))
     mesh = _mesh(p)
+    if case not in _FULL_ATTENTION:
+        _FULL_ATTENTION[case] = _jax_vjp(lambda q, k, v: j_attention(q, k, v, heads), q, k, v, do)
     refs = {
         "jax ring": _jax_vjp(lambda q, k, v: j_ring_attention(q, k, v, heads, mesh), q, k, v, do),
-        "jax attention": _jax_vjp(lambda q, k, v: j_attention(q, k, v, heads), q, k, v, do),
+        "jax attention": _FULL_ATTENTION[case],
     }
     for ref_name, (o_ref, grads_ref) in refs.items():
         np.testing.assert_allclose(o, o_ref, rtol=fwd_tol[0], atol=fwd_tol[1], err_msg=ref_name)
@@ -99,13 +129,10 @@ def test_local_ring_matches_jax_flash_ring(c):
     q, k, v, _ = _qkvdo(1, 600, c, 6)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     o = ring_attention(tq, tk, tv, 2, LocalRing(4))
-    # the gradient of sum(o²), as _run_flash_ring takes it
+    # the gradient of sum(o²), as tests/test_ring_attention.py takes it
     grads = [g.numpy() for g in torch.autograd.grad(o.square().sum(), (tq, tk, tv))]
-    mesh = _mesh(4)
-    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
-    np.testing.assert_allclose(o.detach().numpy(), np.asarray(_run_flash_ring(jq, jk, jv, 2, mesh)),
-                               rtol=2e-4, atol=2e-4)
-    grads_ref = _run_flash_ring(jq, jk, jv, 2, mesh, grad=True)
+    o_ref, grads_ref = _jax_flash_ring(q, k, v, 2, _mesh(4))
+    np.testing.assert_allclose(o.detach().numpy(), o_ref, rtol=2e-4, atol=2e-4)
     for g, g_ref, name in zip(grads, grads_ref, "qkv"):
         np.testing.assert_allclose(g, np.asarray(g_ref), rtol=2e-3, atol=2e-3, err_msg=f"d{name}")
 
@@ -117,7 +144,10 @@ def test_process_group_ring_matches_local_ring(world, tmp_path):
     q, k, v, do = _qkvdo(2, 128, 64, 7)
     heads = 4
     torch.save(tuple(torch.from_numpy(x) for x in (q, k, v, do)) + (heads,), tmp_path / "in.pt")
-    ctx = multiprocessing.get_context("spawn")
+    # ranks fork from one server that has imported torch and the port once
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "tests.torch_ring_worker",
+                                "depth_completion_tpu_torch.ops.ring_attention"])
     procs = [ctx.Process(target=torch_ring_worker.run,
                          args=(r, world, str(tmp_path / "store"), str(tmp_path / "in.pt"),
                                str(tmp_path / f"out{r}.pt")))

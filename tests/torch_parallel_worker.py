@@ -1,4 +1,4 @@
-"""One rank of the port's distributed tests, started in a spawned process by
+"""One rank of the port's distributed tests, started in a forked process by
 ``tests/test_torch_parallel.py`` and ``tests/test_torch_distributed.py``:
 joins the gloo group through ``core.distributed.initialize`` (file-store
 rendezvous), runs the jobs the test wrote, in order, and saves what the
@@ -64,27 +64,30 @@ def pipeline_run(trees, unet_config, images, sparses, data, model, overrides):
 
 
 def ensemble_run(trees, unet_config, images, sparses, ensemble_size, overrides):
-    """An ensemble over the data axis of every rank, and the same ensemble
-    on this rank alone → (mesh outputs, one-process outputs)."""
+    """An ensemble over the data axis of every rank, and on rank 0 the same
+    ensemble in that process alone → (mesh outputs, one-process outputs or
+    None)."""
     from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 
     mesh = _mesh(dist.get_world_size(), 1)
     pipe = DepthCompletionPipeline(_bundle(trees, unet_config))
     kw = dict(overrides, ensemble_size=ensemble_size)
     return {"mesh": _numpy(pipe(images, sparses, ensemble_mesh=mesh, **kw)),
-            "alone": _numpy(pipe(images, sparses, **kw))}
+            "alone": _numpy(pipe(images, sparses, **kw)) if dist.get_rank() == 0 else None}
 
 
 def ring_run(trees, unet_config, images, sparses, overrides):
     """Native-resolution mode through the sampler: a ``ProcessGroupRing``
-    over every rank, and ``LocalRing(world)`` on this rank alone."""
+    over every rank, and on rank 0 ``LocalRing(world)`` in that process
+    alone (or None)."""
     from depth_completion_tpu_torch.ops.ring_attention import LocalRing, ProcessGroupRing
     from depth_completion_tpu_torch.pipeline.pipeline import DepthCompletionPipeline
 
     pipe = DepthCompletionPipeline(_bundle(trees, unet_config))
-    return {name: _numpy(pipe(images, sparses, ring_mesh=ring, **overrides))
-            for name, ring in (("group", ProcessGroupRing()),
-                               ("local", LocalRing(dist.get_world_size())))}
+    out = {"group": _numpy(pipe(images, sparses, ring_mesh=ProcessGroupRing(), **overrides))}
+    out["local"] = _numpy(pipe(images, sparses, ring_mesh=LocalRing(dist.get_world_size()),
+                               **overrides)) if dist.get_rank() == 0 else None
+    return out
 
 
 def predict_runs(argvs, env):
@@ -120,7 +123,11 @@ def spawn(world: int, jobs: dict, tmp, timeout: float = 240.0):
     import multiprocessing
 
     torch.save(jobs, tmp / "jobs.pt")
-    ctx = multiprocessing.get_context("spawn")
+    # ranks fork from one server that has imported torch and the port once
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "tests.torch_parallel_worker",
+                                "depth_completion_tpu_torch.pipeline.pipeline",
+                                "depth_completion_tpu_torch.cli.predict"])
     procs = [ctx.Process(target=run, args=(r, world, str(tmp / "store"), str(tmp / "jobs.pt"),
                                            str(tmp / f"out{r}.pt")))
              for r in range(world)]

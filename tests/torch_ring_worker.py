@@ -1,5 +1,5 @@
 """One rank of the port's ``ProcessGroupRing`` under gloo, started by
-``tests/test_torch_ring_attention.py`` in a spawned process: joins the group
+``tests/test_torch_ring_attention.py`` in a forked process: joins the group
 through ``core.distributed.initialize`` (file-store rendezvous), runs ring
 attention forward and backward on the replicated inputs, and saves what the
 rank holds. Imports torch and the port only."""
